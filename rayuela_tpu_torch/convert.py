@@ -1,0 +1,49 @@
+"""Carry a model or an index across from the JAX package.
+
+Both functions take the arrays that `rayuela_tpu.api.MCQModel` and
+`MCQIndex` hold, as numpy arrays (``np.asarray`` of each field), so a
+model trained or a base encoded by the JAX package serves from this
+port unchanged: the codes pack into the same words and the search
+scores them the same way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rayuela_tpu_torch.api import MCQIndex, MCQModel
+from rayuela_tpu_torch.search.scan_codes import build_codes_index
+
+
+def _tensor(a, dtype, device):
+    # a copy: the arrays may be read-only views of JAX buffers
+    return torch.tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _opt(a, dtype, device):
+    return None if a is None else _tensor(a, dtype, device)
+
+
+def model_from_arrays(method: str, codebooks, R=None, h: int = 256,
+                      train_codes=None, device="cpu") -> MCQModel:
+    """`MCQModel` from the JAX model's codebooks ``(m, h, d*)``,
+    rotation and training codes."""
+    return MCQModel(method.lower(),
+                    _tensor(codebooks, torch.float32, device),
+                    R=_opt(R, torch.float32, device), h=h,
+                    train_codes=_opt(train_codes, torch.int32, device))
+
+
+def index_from_arrays(model: MCQModel, codes, norms_codebook, norm_codes,
+                      d: int) -> MCQIndex:
+    """Code-resident `MCQIndex` from the JAX index's base codes
+    ``(n, m)``, norms codebook ``(h',)`` and norms codes ``(n,)``
+    (both None for PQ), on the model's device."""
+    dev = model.codebooks.device
+    B = _tensor(codes, torch.int32, dev)
+    ncb = _opt(norms_codebook, torch.float32, dev)
+    nco = _opt(norm_codes, torch.int32, dev)
+    idx = build_codes_index(model.codebooks, B, pq=model.pq_layout, d=d,
+                            norms_cbook=ncb, norms_codes=nco)
+    return MCQIndex(model, B, idx, ncb, nco, mode="codes")

@@ -1,0 +1,109 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``rayuela_tpu_torch/csrc/`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+`ctypes`. The build runs at first use, into ``rayuela_tpu_torch/_build/``
+(listed in ``.gitignore``), and again whenever a source's hash changes:
+the library's file name carries the hash of the sources and flags.
+Nothing is imported or built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "codes_scan.cu", _PKG / "csrc" / "topk_tail.cu")
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: argument types, the trailing pointer is the stream
+_SIGNATURES = {
+    "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
+    "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
+    "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless a library for the current sources
+    exists. Returns ``(library path, nvcc's output)``; the output is
+    empty when nothing was compiled. A failed build raises with nvcc's
+    standard error."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"librayuela_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stderr + proc.stdout
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rq_error_string.argtypes = [ctypes.c_int]
+            lib.rq_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C entry point ``name`` on the current stream of ``device``.
+    Tensors pass as their data pointers (the caller keeps them alive);
+    a nonzero CUDA error code raises."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        conv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+                for a in args]
+        err = getattr(lib, name)(*conv, stream)
+    if err:
+        msg = lib.rq_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
