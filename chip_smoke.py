@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the CUDA kernels from ``rayuela_tpu_torch/csrc`` and runs three
-phases; any failure exits non-zero.
+Builds the CUDA kernels from ``rayuela_tpu_torch/csrc`` and runs the
+phases below; any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at
    n = 1,000,000 codes, d = 128, nq = 1024, for the RVQ layout (7
@@ -18,18 +18,38 @@ phases; any failure exits non-zero.
    are held against each other in the same way, and K4 in bf16 at the
    1, 2 and 8 flagged queries the main path's rescue gives it, where the
    base is split over the most CTAs and K2 merges the splits.
+1b. The encode kernels against their plain versions on the card, at
+   n = 65,536, d = 128, h = 256, m = 7 and 8: K11 `icm_sweeps` at
+   icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`.
+   On {-1, 0, 1} data every value is exact and codes (and K11's
+   energies) must be identical; on Gaussian data >= 99% of codes equal,
+   K11's mean energy within 1e-4 relative, K13's chain energies within
+   1e-5 relative (+ 1e-3 absolute). Then both kernels' times beside
+   their plain versions' at the main path's shapes (1e5 vectors, m=7,
+   K11 at icmiter=4), held against each other in the same way.
 2. Rescue: an index with many exact ties of one query in one lane,
    served through the facade; the rescue kernel must run and the result
    must equal the plain LUT oracle.
-3. The main path through the facade: synthetic-corr data (d = 128,
+3. The search path through the facade: synthetic-corr data (d = 128,
    1e5 train, 1e6 base, 1e4 queries), `api.train` → `api.index_base(
    mode="codes")` → `api.search(k=100)` and `(k=1000)` → `eval_recall`,
    for RVQ (m=7) and PQ (m=8), with queries/s.
+4. The LSQ++ main path through the facade on phase 3's data:
+   `api.train(method="sr_d", m=7, h=256, niter=10)` (OPQ → ChainQ →
+   SR-D, ilsiter 8, icmiter 4, npert 4) → `api.index_base(mode="codes")`
+   (greedy init, then ILS at ilsiter=32 over the 1e6 base, + the norms
+   byte) → `api.search(k=100)` and `(k=1000)` → `eval_recall`, with the
+   seconds of each step, the base encode rate (over the whole
+   index_base call) and queries/s; recall@1 must reach 0.99.
 
 The launch counters are set to 0 just before phase 3 and read right
-after its facade searches: every kernel of the search path must have
-launched there. The flag counts and the profiler pass run after that
-read. The line before the last is a JSON summary of the kernels; the
+after its facade searches, and again for phase 4: every kernel of the
+search path must have launched in each, and K11 and K13 in phase 4.
+After that read, K11 is held against its plain version once more at the
+base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
+codes, icmiter 4), as in phase 1b on Gaussian data. The
+flag counts and the profiler pass run after those reads. The line before
+the last is a JSON summary of the kernels (launches from phase 4); the
 last line is the device record.
 """
 
@@ -46,20 +66,25 @@ N, D, NQ1, NQ, NTRAIN = 1_000_000, 128, 1024, 10_000, 100_000
 DEV = "cuda"
 # recall@1 on synthetic-corr at 64 bits from BASELINE.md (JAX package):
 # quality references, not speed figures
-JAX_RECALL1 = {"rvq": 0.9985, "pq": 0.1669}
+JAX_RECALL1 = {"rvq": 0.9985, "pq": 0.1669, "sr_d": 0.9984}
 REPLACES = {
     "codes_decode_candidates":
         "rayuela_tpu/search/scan_codes_pallas.py:384",
     "cand_merge": "rayuela_tpu/search/scan_codes_pallas.py:424",
     "tail_merge": "rayuela_tpu/search/scan_pallas.py:796",
     "codes_decode_topk": "rayuela_tpu/search/scan_codes_pallas.py:318",
+    "icm_sweeps": "rayuela_tpu/ops/icm_pallas.py:62",
+    "viterbi_encode": "rayuela_tpu/ops/viterbi_pallas.py:49",
 }
 SOURCES = {
     "codes_decode_candidates": "rayuela_tpu_torch/csrc/codes_scan.cu",
     "cand_merge": "rayuela_tpu_torch/csrc/codes_scan.cu",
     "tail_merge": "rayuela_tpu_torch/csrc/topk_tail.cu",
     "codes_decode_topk": "rayuela_tpu_torch/csrc/codes_scan.cu",
+    "icm_sweeps": "rayuela_tpu_torch/csrc/icm.cu",
+    "viterbi_encode": "rayuela_tpu_torch/csrc/viterbi.cu",
 }
+N1B, NT = 65_536, 100_000     # phase 1b vectors; the timed encode batch
 
 
 class Failed(Exception):
@@ -305,6 +330,125 @@ def kernel_times(rng, errs):
     return times
 
 
+def _encode_case(rng, kind, n, m, h=256):
+    """X (n, D), C (m, h, D) as f32 tensors on the card."""
+    import torch
+    if kind == "int":
+        X = rng.integers(-1, 2, (n, D)).astype("float32")
+        C = rng.integers(-1, 2, (m, h, D)).astype("float32")
+    else:
+        X = rng.standard_normal((n, D)).astype("float32")
+        C = (rng.standard_normal((m, h, D)) * 0.3).astype("float32")
+    return torch.as_tensor(X, device=DEV), torch.as_tensor(C, device=DEV)
+
+
+def compare_icm(tag, got, ref, exact):
+    """K11 against its plain version → max |dE| over the vectors whose
+    codes agree; raises on disagreement."""
+    import torch
+    (gb, ge), (rb, re_) = got, ref
+    same_rows = (gb == rb).all(1)
+    err = float((ge - re_)[same_rows].abs().max()) if bool(
+        same_rows.any()) else float("inf")
+    if exact:
+        check(torch.equal(gb, rb) and torch.equal(ge, re_),
+              f"{tag}: kernel != plain")
+        print(f"  {tag}: identical (codes, energies)")
+        return err
+    same = float((gb == rb).float().mean())
+    me, mr = float(ge.double().mean()), float(re_.double().mean())
+    rel = abs(me - mr) / abs(mr)
+    print(f"  {tag}: codes equal {same:.6f}, mean energy {me:.6f} vs "
+          f"{mr:.6f} (rel {rel:.2e}), max |dE| on equal rows {err:.3g}")
+    check(same >= 0.99, f"{tag}: only {same:.6f} of codes equal")
+    check(rel <= 1e-4, f"{tag}: mean energy off by {rel:.2e}")
+    return err
+
+
+def compare_viterbi(tag, X, C, got, ref, exact):
+    """K13 against its plain version → max |d chain energy|."""
+    import torch
+
+    from rayuela_tpu_torch.ops.viterbi import chain_energy
+    eg, er = chain_energy(X, C, got), chain_energy(X, C, ref)
+    err = float((eg - er).abs().max())
+    if exact:
+        check(torch.equal(got, ref), f"{tag}: kernel != plain")
+        print(f"  {tag}: identical codes")
+        return err
+    same = float((got == ref).float().mean())
+    ok = bool(((eg - er).abs() <= 1e-5 * er.abs() + 1e-3).all())
+    print(f"  {tag}: codes equal {same:.6f}, max |d chain energy| "
+          f"{err:.3g}, all within 1e-5 rel + 1e-3: {ok}")
+    check(same >= 0.99, f"{tag}: only {same:.6f} of codes equal")
+    check(ok, f"{tag}: a chain energy moved beyond 1e-5 rel + 1e-3")
+    return err
+
+
+def phase1b(rng, errs):
+    import torch
+
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.ops import viterbi as tvit
+
+    print(f"== phase 1b: encode kernels vs plain, n={N1B}, d={D}, h=256")
+    for m in (7, 8):
+        for kind in ("int", "gauss"):
+            exact = kind == "int"
+            X, C = _encode_case(rng, kind, N1B, m)
+            B = torch.as_tensor(rng.integers(0, 256, (N1B, m)),
+                                dtype=torch.int32, device=DEV)
+            order = torch.as_tensor(rng.permutation(m), dtype=torch.int32,
+                                    device=DEV)
+            for icmiter in (0, 1, 4):
+                got = ticm.icm_sweeps(X, C, B, order, icmiter)
+                ref = ticm.icm_sweeps_plain(X, C, B, order, icmiter,
+                                            op_dtype=torch.bfloat16)
+                note(errs, "icm_sweeps", compare_icm(
+                    f"K11 m={m} {kind} icmiter={icmiter}", got, ref, exact))
+            got = tvit.viterbi_encode(X, C)
+            ref = tvit.viterbi_encode_plain(X, C)
+            note(errs, "viterbi_encode", compare_viterbi(
+                f"K13 m={m} {kind}", X, C, got, ref, exact))
+            del X, C, B
+    torch.cuda.empty_cache()
+
+
+def encode_kernel_times(rng, errs):
+    """K11 (icmiter=4) and K13 beside their plain versions at the main
+    path's encode batch (1e5 vectors, m=7, Gaussian data), the timed
+    runs' results held against each other as in phase 1b. Returns
+    {name: (kernel ms, plain ms)}."""
+    import torch
+
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.ops import viterbi as tvit
+
+    print(f"== encode kernel times (ms; CUDA events), n={NT}, m=7, d={D}")
+    m = 7
+    X, C = _encode_case(rng, "gauss", NT, m)
+    B = torch.as_tensor(rng.integers(0, 256, (NT, m)), dtype=torch.int32,
+                        device=DEV)
+    order = torch.as_tensor(rng.permutation(m), dtype=torch.int32,
+                            device=DEV)
+    ms, got = timed(lambda: ticm.icm_sweeps(X, C, B, order, 4), 5)
+    pms, ref = timed(lambda: ticm.icm_sweeps_plain(
+        X, C, B, order, 4, op_dtype=torch.bfloat16), 1)
+    note(errs, "icm_sweeps", compare_icm("K11 timed, icmiter=4", got, ref,
+                                         exact=False))
+    print(f"  icm_sweeps: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    times = {"icm_sweeps": (ms, pms)}
+    ms, got = timed(lambda: tvit.viterbi_encode(X, C), 5)
+    pms, ref = timed(lambda: tvit.viterbi_encode_plain(X, C), 1)
+    note(errs, "viterbi_encode", compare_viterbi("K13 timed", X, C, got,
+                                                 ref, exact=False))
+    print(f"  viterbi_encode: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    times["viterbi_encode"] = (ms, pms)
+    del X, C, B
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase2(rng):
     """Exact ties of query 0 piled into one lane of one tile, served
     through the facade in f32 on {-1, 0, 1} data, where every score is
@@ -441,18 +585,112 @@ def phase3(seed, card):
         del model
     check(out[("rvq", 100)][0] >= 0.98,
           f"RVQ recall@1 {out[('rvq', 100)][0]:.4f} < 0.98")
-    return served, Xq
+    return served, Xq, ds
+
+
+def check_search(dists, ids, k):
+    import torch
+    check(dists.shape == (NQ, k) and ids.shape == (NQ, k),
+          "search returned the wrong shape")
+    check(bool(torch.isfinite(dists).all()), "non-finite dists")
+    check(bool(((ids >= 0) & (ids < N)).all()), "ids out of range")
+
+
+def phase4(seed, card, ds, Xq):
+    """The LSQ++ main path: train SR-D, encode the base, search."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import qerror, veccost_chunked
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print(f"== phase 4: LSQ++ (SR-D) main path, synthetic-corr d={D}, "
+          f"{NTRAIN} train, {N} base, {NQ} queries, m=7+1, h=256, "
+          f"niter=10 ({card})")
+    t0 = time.perf_counter()
+    model = rq.train(ds.Xt, method="sr_d", m=7, h=256, niter=10,
+                     seed=seed, device=DEV)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    Xt = torch.as_tensor(ds.Xt, device=DEV)
+    qe = float(qerror(Xt, model.codebooks, model.train_codes))
+    print(f"  train (OPQ -> ChainQ -> SR-D): {t1 - t0:.1f} s; train "
+          f"qerror {qe:.4f} (|x|^2 mean "
+          f"{float((Xt * Xt).sum(1).mean()):.4f})")
+    check(np.isfinite(qe), "non-finite train qerror")
+    Xb = torch.as_tensor(ds.Xb, device=DEV)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    index = rq.index_base(model, Xb, mode="codes")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bqe = float(veccost_chunked(Xb, model.codebooks, index.codes).mean())
+    print(f"  index_base (greedy + ILS 32 rounds, norms byte, pack): "
+          f"{t2 - t1:.1f} s, {N / (t2 - t1):,.0f} base vectors/s; base "
+          f"qerror {bqe:.4f}")
+    # the base gets fewer ILS rounds than the training codes, but a
+    # broken encode lands far above the training error
+    check(bqe < 1.25 * qe, f"base qerror {bqe:.4f} vs train {qe:.4f}")
+    out = {}
+    for k in (100, 1000):
+        k4 = tsc.codes_decode_topk.launches
+        dists, ids = rq.search(index, Xq, k=k)
+        torch.cuda.synchronize()
+        rescues = tsc.codes_decode_topk.launches - k4
+        check_search(dists, ids, k)
+        curve = eval_recall(ids, ds.gt, verbose=False)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rq.search(index, Xq, k=k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall = float(np.median(walls))
+        print(f"  sr_d k={k}: recall@1 {curve[0]:.4f} @10 {curve[9]:.4f} "
+              f"@100 {curve[99]:.4f}; search {NQ / wall:,.0f} queries/s "
+              f"(median of {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
+              f"ms); rescue launches {rescues}")
+        out[k] = float(curve[0])
+    print(f"  sr_d: recall@1 {out[100]:.4f} (JAX package, BASELINE.md: "
+          f"{JAX_RECALL1['sr_d']})")
+    check(out[100] >= 0.99, f"SR-D recall@1 {out[100]:.4f} < 0.99")
+    return index, Xb
+
+
+def base_encode_check(rng, errs, model, Xb):
+    """K11 against its plain version at the base-encode shape the main
+    path launches it at: one icmiter=4 sweep over the whole base from the
+    greedy codes, with the SR-D model's codebooks."""
+    import torch
+
+    from rayuela_tpu_torch.models.rvq import quantize_rvq
+    from rayuela_tpu_torch.ops import icm as ticm
+
+    m = model.codebooks.shape[0]
+    print(f"== K11 vs plain at the base encode: n={Xb.shape[0]}, m={m}, "
+          f"SR-D codebooks, greedy codes")
+    B0 = quantize_rvq(model.codebooks, Xb)[0].to(torch.int32).contiguous()
+    order = torch.as_tensor(rng.permutation(m), dtype=torch.int32,
+                            device=DEV)
+    got = ticm.icm_sweeps(Xb, model.codebooks, B0, order, 4)
+    ref = ticm.icm_sweeps_plain(Xb, model.codebooks, B0, order, 4,
+                                op_dtype=torch.bfloat16)
+    note(errs, "icm_sweeps", compare_icm("K11 base icmiter=4", got, ref,
+                                         exact=False))
 
 
 def diagnostics(served, Xq):
-    """After the main path's launch counts were read: the queries the
+    """After the main paths' launch counts were read: the queries the
     two-pass certificate flags, and one search's device time by kernel."""
     import torch
 
     import rayuela_tpu_torch.api as rq
     from rayuela_tpu_torch.search import scan_codes as tsc
 
-    print("== diagnostics of the phase-3 indexes")
+    print("== diagnostics of the phase-3 and phase-4 indexes")
     for method, index in served.items():
         si = index.scan_index
         Cf, nrm = si.decode_operands(D, torch.bfloat16)
@@ -493,6 +731,8 @@ def main() -> int:
     import numpy as np
 
     from rayuela_tpu_torch.kernels import build
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.ops import viterbi as tvit
     from rayuela_tpu_torch.search import scan as tsp
     from rayuela_tpu_torch.search import scan_codes as tsc
 
@@ -511,22 +751,48 @@ def main() -> int:
         print("  " + line)
 
     rng = np.random.default_rng(args.seed)
-    wrappers = {"codes_decode_candidates": tsc.codes_decode_candidates,
-                "cand_merge": tsc.cand_merge, "tail_merge": tsp.tail_merge,
-                "codes_decode_topk": tsc.codes_decode_topk}
+    search_wrappers = {
+        "codes_decode_candidates": tsc.codes_decode_candidates,
+        "cand_merge": tsc.cand_merge, "tail_merge": tsp.tail_merge,
+        "codes_decode_topk": tsc.codes_decode_topk}
+    wrappers = dict(search_wrappers, icm_sweeps=ticm.icm_sweeps,
+                    viterbi_encode=tvit.viterbi_encode)
     errs = {}
+    phase_t = {}
+
+    def run(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        phase_t[name] = time.perf_counter() - t
+        print(f"-- {name}: {phase_t[name]:.1f} s")
+        return r
+
     try:
-        phase1(rng, errs)
-        times = kernel_times(rng, errs)
-        phase2(rng)
+        run("phase 1", phase1, rng, errs)
+        times = run("kernel times", kernel_times, rng, errs)
+        run("phase 1b", phase1b, rng, errs)
+        times.update(run("encode kernel times", encode_kernel_times, rng,
+                         errs))
+        run("phase 2", phase2, rng)
         for w in wrappers.values():
             w.launches = 0
-        served, Xq = phase3(args.seed, smi)
+        served, Xq, ds = run("phase 3", phase3, args.seed, smi)
+        launches = {n: w.launches for n, w in search_wrappers.items()}
+        print(f"phase-3 launches: {launches}")
+        check(all(launches.values()), "a kernel of the search path never "
+              "launched in phase 3")
+        for w in wrappers.values():
+            w.launches = 0
+        served["sr_d"], Xb = run("phase 4", phase4, args.seed, smi, ds, Xq)
         launches = {n: w.launches for n, w in wrappers.items()}
-        print(f"main-path launches: {launches}")
+        print(f"main-path (phase-4) launches: {launches}")
         check(all(launches.values()), "a kernel of the path never launched "
               "on the main path")
-        diagnostics(served, Xq)
+        del ds
+        run("base encode check", base_encode_check, rng, errs,
+            served["sr_d"].model, Xb)
+        del Xb
+        run("diagnostics", diagnostics, served, Xq)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``rayuela_tpu_torch/csrc/`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
-`ctypes`. The build runs at first use, into ``rayuela_tpu_torch/_build/``
+``sm_90a``, one ``nvcc`` per source, all started together, and link into
+one shared library with a plain C interface, loaded with `ctypes`. The build runs at first use, into ``rayuela_tpu_torch/_build/``
 (listed in ``.gitignore``), and again whenever a source's hash changes:
 the library's file name carries the hash of the sources and flags.
 Nothing is imported or built when this module is imported.
@@ -21,10 +21,11 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "codes_scan.cu", _PKG / "csrc" / "topk_tail.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "codes_scan.cu", "topk_tail.cu", "icm.cu", "viterbi.cu"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, the trailing pointer is the stream
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
+    "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -66,15 +69,38 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+    nvcc = _nvcc()
+    procs = []
+    try:
+        procs += [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o",
+                                    str(obj), str(src)],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+                  for src, obj in zip(SOURCES, objs)]
+        log = ""
+        for src, p in zip(SOURCES, procs):
+            stdout, stderr = p.communicate()
+            log += stderr + stdout
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                                   f"{p.returncode}):\n{stderr}")
+        proc = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):"
+                               f"\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for p in procs:          # after a failure, stop the others
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr + proc.stdout
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, log
 
 
 def library() -> ctypes.CDLL:

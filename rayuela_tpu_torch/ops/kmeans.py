@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from rayuela_tpu_torch.utils import exact_f32, sqdist
+from rayuela_tpu_torch.utils import exact_f32, segment_sum, sqdist
 
 # rows per distance block in `assign`: bounds the (chunk, k) transient
 _ASSIGN_CHUNK = 1 << 16
@@ -65,8 +65,7 @@ def update_centers(X: torch.Tensor, a: torch.Tensor, k: int,
     cluster a distinct one, ranked by cost)."""
     al = a.long()
     counts = torch.bincount(al, minlength=k).to(X.dtype)
-    sums = torch.zeros(k, X.shape[1], dtype=X.dtype, device=X.device)
-    sums.index_add_(0, al, X)
+    sums = segment_sum(X, al, k)
     new = torch.where((counts > 0)[:, None],
                       sums / counts.clamp_min(1.0)[:, None], old_centers)
     if not repick:

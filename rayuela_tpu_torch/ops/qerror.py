@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from rayuela_tpu_torch.utils import gather_rows, splitarray
+from rayuela_tpu_torch.utils import exact_f32, gather_rows, splitarray
 
 
 def reconstruct(C: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -40,7 +40,30 @@ def veccost(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *,
     return (e * e).sum(-1)
 
 
+def veccost_chunked(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+                    chunk: int = 16384) -> torch.Tensor:
+    """`veccost` of an additive model with n streamed in chunks, so the
+    decode transient stays bounded for base-sized n."""
+    return torch.cat([veccost(X[s:s + chunk], C, B[s:s + chunk])
+                      for s in range(0, X.shape[0], chunk)])
+
+
 def qerror(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *,
            pq: bool = False) -> torch.Tensor:
     """Mean squared reconstruction error — the training objective."""
     return veccost(X, C, B, pq=pq).mean()
+
+
+def get_unaries(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """MRF unary terms ``(n, m, h)``: ``|c|^2 - 2 c.x`` per codebook
+    entry, in full f32."""
+    exact_f32()
+    c2 = (C * C).sum(-1)
+    return c2[None] - 2.0 * torch.einsum("nd,mhd->nmh", X, C)
+
+
+def get_binaries(C: torch.Tensor) -> torch.Tensor:
+    """All-pairs MRF binary terms ``(m, m, h, h)``,
+    ``binaries[i, j] = 2 C_i C_j^T`` (diagonal unused)."""
+    exact_f32()
+    return 2.0 * torch.einsum("ihd,jgd->ijhg", C, C)

@@ -1,0 +1,149 @@
+"""Viterbi (min-sum) encoding for chain-structured MCQ (counterpart of
+`rayuela_tpu/ops/viterbi.py` and of the kernel in
+`rayuela_tpu/ops/viterbi_pallas.py`).
+
+The chain MRF of ChainQ: unaries ``u_i(b) = |C_i[b]|^2 - 2 C_i[b].x``
+and adjacent-pair terms ``bin_i(a, b) = 2 C_i[a].C_{i+1}[b]``. The
+forward pass ``f_{i+1}(b) = u_{i+1}(b) + min_a [f_i(a) + bin_i(a, b)]``
+and a backtrace from the lowest-index argmin of ``f_{m-1}``, taking at
+each stage the lowest ``a`` that attains the minimum, give the exact
+chain-optimal codes.
+
+`viterbi_encode` launches kernel K13 (``csrc/viterbi.cu``) for CUDA
+tensors and runs the plain version `viterbi_encode_plain` for CPU
+tensors. The kernel computes the unaries in its body, as the TPU kernel
+does; the plain version takes them from a full-f32 matmul
+(`_unaries_flat`), so the two sum each dot product in another order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rayuela_tpu_torch.kernels.build import launch
+from rayuela_tpu_torch.utils import exact_f32
+
+# vectors per K13 CTA, and the bytes of its tile of bin_i rows (both as
+# in csrc/viterbi.cu); the kernel's shared memory limit
+_VB, _TILE_BYTES, _MAX_SMEM = 8, 32768, 232448
+
+
+def chain_binaries(C: torch.Tensor) -> torch.Tensor:
+    """Adjacent-pair MRF terms ``(m-1, h, h)``: ``2 C_i C_{i+1}^T``."""
+    exact_f32()
+    return 2.0 * torch.einsum("ihd,igd->ihg", C[:-1], C[1:])
+
+
+def chain_unaries(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Unary terms ``(m, n, h)``: ``|c|^2 - 2 c.x``."""
+    m, h, _ = C.shape
+    return _unaries_flat(X, C).reshape(-1, m, h).permute(1, 0, 2)
+
+
+def _unaries_flat(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Unaries as ``(n, m*h)`` f32 (TF32 off)."""
+    exact_f32()
+    Cf = C.reshape(-1, C.shape[2])
+    return (Cf * Cf).sum(-1)[None, :] - 2.0 * (X @ Cf.T)
+
+
+def chain_energy(X: torch.Tensor, C: torch.Tensor,
+                 B: torch.Tensor) -> torch.Tensor:
+    """Chain MRF energy of codes ``B (n, m)`` per vector (n,):
+    ``sum_i u_i(B_i) + sum_i bin_i(B_i, B_{i+1})``, the objective
+    Viterbi minimises (``|x - x_hat|^2 - |x|^2`` for chain-supported
+    codebooks)."""
+    m = C.shape[0]
+    Bl = B.long()
+    u = chain_unaries(X, C)
+    e = sum(u[i].gather(1, Bl[:, i:i + 1])[:, 0] for i in range(m))
+    if m > 1:
+        bins = chain_binaries(C)
+        e = e + sum(bins[i][Bl[:, i], Bl[:, i + 1]] for i in range(m - 1))
+    return e
+
+
+def _viterbi_chunk(u: torch.Tensor, binaries: torch.Tensor) -> torch.Tensor:
+    """Viterbi over one chunk: ``u (m, c, h)`` → codes ``(c, m)`` int32,
+    with the per-stage argmin tables kept for the backtrace."""
+    m = u.shape[0]
+    f, tables = u[0], []
+    for i in range(m - 1):
+        tot = f[:, :, None] + binaries[i][None]         # (c, a, b)
+        mn, am = tot.min(dim=1)
+        tables.append(am)
+        f = u[i + 1] + mn
+    b = f.argmin(-1)
+    out = [b]
+    for am in reversed(tables):
+        b = am.gather(1, b[:, None])[:, 0]
+        out.append(b)
+    return torch.stack(out[::-1], dim=1).to(torch.int32)
+
+
+def viterbi_encode_plain(X: torch.Tensor, C: torch.Tensor,
+                         chunk: int = 2048) -> torch.Tensor:
+    """Plain version of `viterbi_encode` (same contract), chunked over n
+    so the (chunk, h, h) min-plus transient stays bounded."""
+    m, h, _ = C.shape
+    binaries = chain_binaries(C)
+    outs = []
+    for s in range(0, X.shape[0], chunk):
+        u = _unaries_flat(X[s:s + chunk], C).reshape(-1, m, h)
+        outs.append(_viterbi_chunk(u.permute(1, 0, 2), binaries))
+    if not outs:
+        return torch.empty(0, m, dtype=torch.int32, device=X.device)
+    return torch.cat(outs)
+
+
+def _smem_bytes(m: int, h: int, d: int) -> int:
+    """K13's dynamic shared memory, as ``rq_viterbi_encode`` computes
+    it: the forward costs, one tile of bin_i and the CTA's vectors."""
+    ta = max(1, _TILE_BYTES // (4 * h))
+    return 4 * (_VB * m * h + ta * h + _VB * d)
+
+
+def viterbi_encode(X: torch.Tensor, C: torch.Tensor,
+                   chunk: int = 2048) -> torch.Tensor:
+    """Kernel K13: exact chain-optimal codes ``(n, m) int32`` of
+    ``X (n, d)`` f32 under ``C (m, h, d)`` f32. The plain version for
+    CPU tensors (chunked by ``chunk``); on the card the kernel, any h up
+    to 1024 (the JAX wrapper's ``h % 8 == 0`` is not needed here) while
+    its forward-cost stack, bin tile and vectors fit shared memory.
+    Source: ``rayuela_tpu_torch/csrc/viterbi.cu``."""
+    if X.dim() != 2 or C.dim() != 3 or X.shape[1] != C.shape[2]:
+        raise ValueError(f"X {tuple(X.shape)} and C {tuple(C.shape)} must "
+                         "be (n, d) and (m, h, d)")
+    if X.dtype != torch.float32 or C.dtype != torch.float32:
+        raise ValueError("X and C must be float32")
+    if X.device != C.device:
+        raise ValueError("X and C must share one device")
+    if X.device.type == "cpu":
+        return viterbi_encode_plain(X, C, chunk)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    m, h, d = C.shape
+    smem = _smem_bytes(m, h, d)
+    if h > 1024 or smem > _MAX_SMEM:
+        raise ValueError(f"m={m}, h={h}, d={d}: the kernel needs h <= 1024 "
+                         f"and its {smem} bytes of forward costs, bin tile "
+                         f"and vectors within {_MAX_SMEM}")
+    n = X.shape[0]
+    out = torch.empty(n, m, dtype=torch.int32, device=X.device)
+    if n == 0:
+        return out
+    Xc = X.contiguous()
+    Ct = C.transpose(1, 2).contiguous()                     # (m, d, h)
+    c2 = (C * C).sum(-1).reshape(-1).contiguous()
+    if m > 1:
+        bins = chain_binaries(C).contiguous()
+        binsT = bins.transpose(1, 2).contiguous()
+    else:                        # no pair terms; the kernel reads none
+        bins = binsT = torch.zeros(1, dtype=torch.float32, device=X.device)
+    launch("rq_viterbi_encode", Xc, Ct, c2, bins, binsT, out, n, m, h, d,
+           device=X.device)
+    viterbi_encode.launches += 1
+    return out
+
+
+viterbi_encode.launches = 0

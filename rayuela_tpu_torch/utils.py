@@ -42,6 +42,28 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx.long())
 
 
+def segment_sum(X: torch.Tensor, idx: torch.Tensor, nseg: int,
+                chunk: int = 1 << 14) -> torch.Tensor:
+    """Deterministic segment sum ``out[idx[v]] += X[v]`` → ``(nseg, d)``.
+
+    ``idx`` is ``(n,)`` or ``(n, j)``: a row adds to every segment it
+    names, and one row's segments must be distinct (the ``U^T X`` of a
+    one-hot indicator with j ones per row). Each chunk of rows is one
+    full-f32 matmul of the exact 0/1 indicator, and the chunk sums add
+    in a fixed order, so the result is the same on every run. Float
+    ``index_add_``/``scatter_add_`` would sum through atomics, in an
+    order that changes from run to run on the card."""
+    exact_f32()
+    idx = idx.long().reshape(idx.shape[0], -1)
+    out = torch.zeros(nseg, X.shape[1], dtype=X.dtype, device=X.device)
+    for s in range(0, X.shape[0], chunk):
+        ic = idx[s:s + chunk]
+        U = torch.zeros(ic.shape[0], nseg, dtype=X.dtype, device=X.device)
+        U.scatter_(1, ic, 1.0)
+        out += U.T @ X[s:s + chunk]
+    return out
+
+
 def sqdist(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distances ``(n, k)`` between the rows of
     ``X (n, d)`` and ``C (k, d)``, as ``|x|^2 - 2 x.c + |c|^2``."""

@@ -17,6 +17,8 @@ from rayuela_tpu.experiments.datasets import make_synthetic
 from rayuela_tpu.search.linscan import eval_recall as j_eval_recall
 import rayuela_tpu_torch.api as tapi
 from rayuela_tpu_torch import convert
+from rayuela_tpu_torch.ops import icm as ticm
+from rayuela_tpu_torch.ops import viterbi as tvit
 from rayuela_tpu_torch.search import scan as tsp
 from rayuela_tpu_torch.search import scan_codes as tsc
 from rayuela_tpu_torch.search.linscan import eval_recall
@@ -96,21 +98,24 @@ def test_pq_pipeline_runs_and_recalls(small_corr):
 def test_cpu_takes_plain_paths_with_no_launch(small_corr):
     ds = small_corr
     wrappers = (tsc.codes_decode_candidates, tsc.cand_merge,
-                tsc.codes_decode_topk, tsp.tail_merge)
+                tsc.codes_decode_topk, tsp.tail_merge, ticm.icm_sweeps,
+                tvit.viterbi_encode)
     before = [w.launches for w in wrappers]
     tm = tapi.train(ds.Xt[:1000], method="rvq", m=2, h=16, niter=2)
     tidx = tapi.index_base(tm, ds.Xb[:5000], mode="codes")
     tapi.search(tidx, ds.Xq[:8], k=600)          # the one-pass plan too
     tapi.search(tidx, ds.Xq[:8], k=5000)
-    assert [w.launches for w in wrappers] == before == [0, 0, 0, 0]
+    tm = tapi.train(ds.Xt[:1000], method="sr_d", m=2, h=16, niter=1)
+    tapi.index_base(tm, ds.Xb[:1000], mode="codes", ilsiter=2)
+    assert [w.launches for w in wrappers] == before == [0] * 6
 
 
 def test_unported_facade_routes_raise(small_corr):
     ds = small_corr
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tapi.train(ds.Xt, method="sr_d")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tapi.train(ds.Xt)                        # the JAX default, sr_d
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tapi.train(ds.Xt, method="ervq")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tapi.train(ds.Xt, method="compq")
     with pytest.raises(ValueError, match="unknown method"):
         tapi.train(ds.Xt, method="nope")
     tm = tapi.train(ds.Xt[:500], method="pq", m=2, h=8, niter=1)
@@ -124,11 +129,14 @@ def test_unported_facade_routes_raise(small_corr):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """`import rayuela_tpu_torch` and a whole CPU search leave jax out
-    of sys.modules (run in a fresh interpreter)."""
+    """Importing every module of `rayuela_tpu_torch` and a whole CPU
+    search leave jax out of sys.modules (run in a fresh interpreter)."""
     code = (
-        "import sys, numpy as np\n"
-        "import rayuela_tpu_torch.api as rq\n"
+        "import importlib, pkgutil, sys, numpy as np\n"
+        "import rayuela_tpu_torch, rayuela_tpu_torch.api as rq\n"
+        "for mod in pkgutil.walk_packages(rayuela_tpu_torch.__path__, "
+        "'rayuela_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
         "from rayuela_tpu_torch.experiments.datasets import "
         "make_synthetic\n"
         "from rayuela_tpu_torch.search.linscan import eval_recall\n"

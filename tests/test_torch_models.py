@@ -85,3 +85,60 @@ def test_train_rvq_and_pq_qerror_match_jax(rng):
                                 16, iters=8)
     _within(et, ej)
     assert B.shape == (3000, 4) and model.codebooks.shape == (4, 16, 4)
+
+
+def _add_at(X, idx, k):
+    """float64 reference of ``out[idx[v]] += X[v]`` and the sum of the
+    magnitudes in each segment (the scale of a float sum's rounding)."""
+    ref = np.zeros((k, X.shape[1]))
+    mag = np.zeros((k, X.shape[1]))
+    np.add.at(ref, idx, X.astype(np.float64))
+    np.add.at(mag, idx, np.abs(X).astype(np.float64))
+    return ref, mag
+
+
+def test_segment_sum_and_update_centers_match_float64(rng):
+    """The deterministic segment sum, alone, with several segments per
+    row (the `codebook_stats` form) and inside `update_centers`, equals
+    a float64 `numpy.add.at` within 1e-6 relative to each segment's sum
+    of magnitudes."""
+    from rayuela_tpu_torch.utils import segment_sum
+    n, d, k = 3000, 8, 32
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    a = rng.integers(0, k, n)
+    a[:5] = 7                                   # leave segment 31 empty
+    a[a == 31] = 30
+    ref, mag = _add_at(X, a, k)
+    got = segment_sum(_t(X), _t(a), k, chunk=1000).numpy()
+    assert (np.abs(got - ref) <= 1e-6 * mag).all()
+    assert (got[31] == 0).all()
+    B = np.stack([a, rng.integers(0, k, n)], 1)
+    got2 = segment_sum(_t(X), _t(B + np.array([0, k])), 2 * k).numpy()
+    ref2, mag2 = _add_at(X, B[:, 1], k)
+    assert (np.abs(got2[:k] - ref) <= 1e-6 * mag).all()
+    assert (np.abs(got2[k:] - ref2) <= 1e-6 * mag2).all()
+    old = rng.standard_normal((k, d)).astype(np.float32)
+    cnt = np.bincount(a, minlength=k)
+    mean = ref / np.maximum(cnt, 1)[:, None]
+    cen = tkm.update_centers(_t(X), _t(a.astype(np.int32)), k, _t(old),
+                             repick=False).numpy()
+    filled = cnt > 0
+    assert (np.abs(cen[filled] - mean[filled])
+            <= 1e-6 * (mag / np.maximum(cnt, 1)[:, None])[filled]).all()
+    np.testing.assert_array_equal(cen[~filled], old[~filled])
+
+
+def test_port_has_no_float_atomic_sums():
+    """No module of the port sums floats through `index_add_`,
+    `scatter_add_` or an accumulating `index_put_`: on the card those
+    sum in an order that changes from run to run."""
+    import pathlib
+    import re
+    root = pathlib.Path(tkm.__file__).resolve().parents[1]
+    pat = re.compile(r"\b(index_add|scatter_add|scatter_reduce)_?\s*\(|"
+                     r"accumulate\s*=\s*True")
+    hits = [f"{p.relative_to(root)}:{i}" for p in sorted(root.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert len(list(root.rglob("*.py"))) > 10
+    assert not hits, hits
