@@ -18,6 +18,14 @@ phases below; any failure exits non-zero.
    are held against each other in the same way, and K4 in bf16 at the
    1, 2 and 8 flagged queries the main path's rescue gives it, where the
    base is split over the most CTAs and K2 merges the splits.
+1c. K8 (`scan_candidates`, and `scan_onepass`, its keep=0 form) and K5
+   (`codes_lut_candidates`) against their plain versions at n = 1e6,
+   d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
+   data for every (r, keep, tile) the plan uses and keep=0; in bf16 on
+   Gaussian data K8 within the bounds of phase 1 and K5 (which adds its
+   table values in the plain version's order) identical again. Then
+   their times at nq = 1e4 beside the plain versions', and whether K8
+   gives K1's keys on the same codes.
 1b. The encode kernels against their plain versions on the card, at
    n = 65,536, d = 128, h = 256, m = 7 and 8: K11 `icm_sweeps` at
    icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`.
@@ -42,15 +50,37 @@ phases below; any failure exits non-zero.
    seconds of each step, the base encode rate (over the whole
    index_base call) and queries/s; recall@1 must reach 0.99.
 
+5. The decoded-index and LUT-mode main path on phase 4's model:
+   `api.index_base(model, Xb)` with the default mode (decoded, bf16) →
+   `api.search(k=100)` and `(k=1000)` with recall and queries/s;
+   `linscan_lsq` on the same codes must equal the facade's result;
+   `api.search(index_codes, mode="lut")` at both k. After the launch
+   counts of these calls were read, the results are held against phase
+   4's decode-mode search and the LUT oracle on 64 queries; then an
+   explicit one-pass configuration (keep=0) on 128 queries runs with
+   counts of its own; then the plan sweep: flagged queries and time of
+   the decoded and the LUT scan at k = 2048 .. 12288 for the buffer
+   depths and tiles the plan chooses among, beside the exact scans that
+   serve a k beyond the plan.
+
+Every kernel's time stands beside its bound (the larger of its
+operations over the card's published peak for the operand type and its
+bytes, each input read and each output written once, over 3.35 TB/s)
+and, where one PyTorch call computes the same function, that call's
+time (`matmul` + `topk` over the decoded base for the scans, `topk`
+for K3).
+
 The launch counters are set to 0 just before phase 3 and read right
-after its facade searches, and again for phase 4: every kernel of the
-search path must have launched in each, and K11 and K13 in phase 4.
+after its facade searches, and again for phase 4, for phase 5's default
+calls and for its one-pass call: every kernel of the search path must
+have launched in each, K11 and K13 in phase 4, K8, K5, K2 and K3 in
+phase 5, K8's keep=0 form in the one-pass call.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data. The
 flag counts and the profiler pass run after those reads. The line before
-the last is a JSON summary of the kernels (launches from phase 4); the
-last line is the device record.
+the last is a JSON summary of the kernels (launches from the phase
+named beside them); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -75,6 +105,9 @@ REPLACES = {
     "codes_decode_topk": "rayuela_tpu/search/scan_codes_pallas.py:318",
     "icm_sweeps": "rayuela_tpu/ops/icm_pallas.py:62",
     "viterbi_encode": "rayuela_tpu/ops/viterbi_pallas.py:49",
+    "scan_candidates": "rayuela_tpu/search/scan_pallas.py:701",
+    "scan_onepass": "rayuela_tpu/search/scan_pallas.py:679",
+    "codes_lut_candidates": "rayuela_tpu/search/scan_codes_pallas.py:220",
 }
 SOURCES = {
     "codes_decode_candidates": "rayuela_tpu_torch/csrc/codes_scan.cu",
@@ -83,7 +116,12 @@ SOURCES = {
     "codes_decode_topk": "rayuela_tpu_torch/csrc/codes_scan.cu",
     "icm_sweeps": "rayuela_tpu_torch/csrc/icm.cu",
     "viterbi_encode": "rayuela_tpu_torch/csrc/viterbi.cu",
+    "scan_candidates": "rayuela_tpu_torch/csrc/decoded_scan.cu",
+    "scan_onepass": "rayuela_tpu_torch/csrc/decoded_scan.cu",
+    "codes_lut_candidates": "rayuela_tpu_torch/csrc/lut_scan.cu",
 }
+# published peaks of one H100 SXM at its full power limit (per second)
+PEAK = {"bf16 tensor-core": 989e12, "f32 CUDA-core": 67e12, "HBM": 3.35e12}
 N1B, NT = 65_536, 100_000     # phase 1b vectors; the timed encode batch
 
 
@@ -119,6 +157,38 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def record(times, name, ms, plain_ms, flop, peak, moved, library_ms=None):
+    """Keep kernel ``name``'s times beside its bound: the larger of
+    ``flop`` over the published peak ``peak`` and ``moved`` bytes over
+    the HBM rate."""
+    ops_ms = flop / PEAK[peak] * 1e3
+    bytes_ms = moved / PEAK["HBM"] * 1e3
+    times[name] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms}
+    lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+    print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}; "
+          f"bound {max(ops_ms, bytes_ms):.3f} ms by "
+          f"{times[name]['bound_by']} ({flop:.3g} flop at the {peak} peak "
+          f"{ops_ms:.3f} ms, {moved:.3g} bytes {bytes_ms:.3f} ms)")
+
+
+def library_scan(Qm, XdT, x2, k, qblock=1024):
+    """The library's way to the same top-k: per query block one
+    `addmm` (scores ``Qm Xd^T + x2`` in f32) and one `topk`."""
+    import torch
+    out = []
+    for q0 in range(0, Qm.shape[0], qblock):
+        sc = torch.addmm(x2[None, :], Qm[q0:q0 + qblock], XdT)
+        out.append(torch.topk(sc, k, dim=1, largest=False))
+    return out
 
 
 class Phase1:
@@ -203,7 +273,7 @@ def phase1(rng, errs):
             exact = kind == "int"
             print(f" {c.name}")
             for k in (100, 1000):
-                _, r, keep = tsc._codes_config(k)
+                _, r, keep, _ = tsc._codes_config(k)
                 idbits = tsp._pack_idbits(-(-N // 8192) * 8192)
                 kw = dict(tile=8192, keep=keep, idbits=idbits,
                           has_norms=not pq)
@@ -257,9 +327,10 @@ def phase1(rng, errs):
 
 
 def kernel_times(rng, errs):
-    """Each kernel beside its plain version at the main path's search
-    batch (bf16 RVQ-7+1 layout, nq=1e4; K4 at 128 rescued queries), the
-    results of the timed runs held against each other as in phase 1."""
+    """Each search kernel beside its plain version, its bound and the
+    library's call at the main path's search batch (bf16 RVQ-7+1 layout,
+    nq=1e4; the one-pass kernels at 128 rescued queries), the results of
+    the timed runs held against each other as in phase 1."""
     import torch
 
     from rayuela_tpu_torch.search import scan as tsp
@@ -271,50 +342,82 @@ def kernel_times(rng, errs):
     times = {}
     idbits = tsp._pack_idbits(-(-N // 8192) * 8192)
     args = (c.Qm, c.Cf, c.nrm, c.idx.packed)
+    # the same base decoded, for the library's call and for K8
+    codes = tsc.unpack_codes(c.idx.packed, c.idx.mprime)
+    ncb = c.idx.norms_cbook
+    Xf, x2 = tsp.decode_base(c.idx.C, codes[:, :-1],
+                             norm_term=ncb[codes[:, -1].long()])
+    XfT, Qmf = Xf.T.contiguous(), c.Qm.float()
+    flop = 2.0 * N * NQ * D
     for k in (100, 1000):
-        _, r, keep = tsc._codes_config(k)
+        _, r, keep, _ = tsc._codes_config(k)
         kw = dict(tile=8192, keep=keep, idbits=idbits, has_norms=True)
-        t = {}
+        print(f" k={k} plan (r={r}, keep={keep})")
+        scan_lib_ms, _ = timed(lambda: library_scan(Qmf, XfT, x2, k), 1)
         ms, (cand, disc) = timed(
             lambda: tsc.codes_decode_candidates(*args, **kw), 3)
         pms, (cand0, disc0) = timed(
             lambda: tsc.codes_decode_candidates_plain(*args, **kw), 1)
-        t["codes_decode_candidates"] = (ms, pms)
+        t = {}
+        record(t, "codes_decode_candidates", ms, pms, flop,
+               "bf16 tensor-core", nbytes(*args, cand, disc), scan_lib_ms)
         ms, out = timed(lambda: tsc.cand_merge(cand, disc, r), 5)
         pms, out0 = timed(lambda: tsc.cand_merge_plain(cand, disc, r), 2)
         check(torch.equal(out, out0), f"K2 nq={NQ} k={k}: kernel != plain")
         note(errs, "cand_merge", int_err((out, out0)))
-        t["cand_merge"] = (ms, pms)
+        # one compare per candidate at the least, at the CUDA cores'
+        # issue rate (half the FMA flop rate)
+        record(t, "cand_merge", ms, pms, 2.0 * cand.numel(),
+               "f32 CUDA-core", nbytes(cand, disc, out))
         rows, cap = out[:r].contiguous(), 1 << (k - 1).bit_length()
+        flat = rows.permute(2, 0, 1).reshape(NQ, -1).contiguous()
+        lib_ms, _ = timed(lambda: torch.topk(flat, k, dim=1, largest=False),
+                          5)
         ms, (kk, ln) = timed(lambda: tsp.tail_merge(rows, cap), 5)
         pms, (kk0, ln0) = timed(lambda: tsp.tail_merge_plain(rows, cap), 2)
         check(torch.equal(kk, kk0) and torch.equal(ln, ln0),
               f"K3 nq={NQ} k={k}: kernel != plain")
         note(errs, "tail_merge", int_err((kk, kk0), (ln, ln0)))
-        t["tail_merge"] = (ms, pms)
+        record(t, "tail_merge", ms, pms, 2.0 * rows.numel(),
+               "f32 CUDA-core", nbytes(rows, kk, ln), lib_ms)
         note(errs, "codes_decode_candidates", compare_topk(
             f"k={k} K1+K2+K3", plain_topk(out, r, k, idbits),
             plain_topk(tsc.cand_merge_plain(cand0, disc0, r), r, k, idbits),
             idbits, exact=False))
-        del cand, disc, cand0, disc0
-        for name, (ms, pms) in t.items():
-            print(f"  k={k} {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
-                  f"(r={r}, keep={keep})")
+        del cand0, disc0
+        decoded_lut_times(c, Xf, x2, k, cand, disc, scan_lib_ms, errs, t)
+        del cand, disc
         if k == 1000:
             times.update(t)
+    del XfT, Qmf
     Qr = c.Qm[:128].contiguous()
     r4 = tsc._RESCUE_R
     idb4 = tsp._pack_idbits(-(-N // tsc._RESCUE_TILE) * tsc._RESCUE_TILE)
     kw4 = dict(tile=tsc._RESCUE_TILE, r=r4, idbits=idb4, has_norms=True)
+    print(" one-pass kernels, 128 queries, r=48, tile=2048")
+    XfT = Xf.T.contiguous()
+    lib_ms, _ = timed(lambda: library_scan(Qr.float(), XfT, x2, 1000), 2)
+    del XfT
     ms, o4 = timed(lambda: tsc.codes_decode_topk(Qr, *args[1:], **kw4), 2)
     pms, o40 = timed(lambda: tsc.codes_decode_topk_plain(Qr, *args[1:],
                                                          **kw4), 1)
     note(errs, "codes_decode_topk", compare_topk(
         "128 queries, k=1000 K4+K3", plain_topk(o4, r4, 1000, idb4),
         plain_topk(o40, r4, 1000, idb4), idb4, exact=False))
-    times["codes_decode_topk"] = (ms, pms)
-    print(f"  codes_decode_topk (128 queries, r=48): kernel {ms:.3f} ms, "
-          f"plain {pms:.3f} ms")
+    record(times, "codes_decode_topk", ms, pms, 2.0 * N * 128 * D,
+           "bf16 tensor-core", nbytes(Qr, *args[1:], o4), lib_ms)
+    Xd = Xf.to(torch.bfloat16)
+    kw8 = dict(tile=tsc._RESCUE_TILE, r=r4, premin=0, idbits=idb4)
+    ms, o8 = timed(lambda: tsp.scan_onepass(Qr, Xd, x2, **kw8), 2)
+    pms, o80 = timed(lambda: tsp.scan_onepass_plain(Qr, Xd, x2, **kw8), 1)
+    note(errs, "scan_onepass", compare_topk(
+        "128 queries, k=1000 K8(keep=0)+K3", plain_topk(o8, r4, 1000, idb4),
+        plain_topk(o80, r4, 1000, idb4), idb4, exact=False))
+    record(times, "scan_onepass", ms, pms, 2.0 * N * 128 * D,
+           "bf16 tensor-core", nbytes(Qr, Xd, x2, o8), lib_ms)
+    same = float((o8 == o4).float().mean())
+    print(f"  K8 (keep=0) keys equal to K4's on the same codes: {same:.6f}")
+    del Xd, Xf, o8, o80
     # the rescue's own batch: a few flagged queries, the base split over
     # the most CTAs and the splits merged by K2
     for nq in (1, 2, 8):
@@ -328,6 +431,143 @@ def kernel_times(rng, errs):
     del c
     torch.cuda.empty_cache()
     return times
+
+
+def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
+    """K8 and K5 at the k-class plan on the codes of ``c`` (whose K1
+    output is ``cand1, disc1``; ``lib_ms`` is the library's call on the
+    same decoded base): times beside the plain versions', and K8's keys
+    against K1's."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    r, keep, _ = tsp._scan_config(k)
+    idbits = tsp._pack_idbits(-(-N // 8192) * 8192)
+    Xd = Xf.to(torch.bfloat16)
+    kw = dict(tile=8192, keep=keep, idbits=idbits)
+    ms, (cand, disc) = timed(
+        lambda: tsp.scan_candidates(c.Qm, Xd, x2, premin=0, **kw), 3)
+    pms, (cand0, disc0) = timed(
+        lambda: tsp.scan_candidates_plain(c.Qm, Xd, x2, premin=0, **kw), 1)
+    record(t, "scan_candidates", ms, pms, 2.0 * N * NQ * D,
+           "bf16 tensor-core", nbytes(c.Qm, Xd, x2, cand, disc), lib_ms)
+    note(errs, "scan_candidates", compare_topk(
+        f"k={k} K8+K2+K3", plain_topk(tsp.cand_merge(cand, disc, r), r, k,
+                                      idbits),
+        plain_topk(tsp.cand_merge_plain(cand0, disc0, r), r, k, idbits),
+        idbits, exact=False))
+    same = float(((cand == cand1).float().mean()
+                  + (disc == disc1).float().mean()) / 2)
+    print(f"  K8 keys equal to K1's on the same codes and norms byte: "
+          f"{same:.6f}")
+    del cand0, disc0, cand, disc, Xd
+    T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
+    Tb = T.to(torch.bfloat16).contiguous()
+    for name, Tq, reps in (("bf16", Tb, 3), ("f32", T.contiguous(), 1)):
+        ms, (cand, disc) = timed(
+            lambda: tsc.codes_lut_candidates(Tq, c.idx.packed, **kw), reps)
+        pms, (cand0, disc0) = timed(
+            lambda: tsc.codes_lut_candidates_plain(Tq, c.idx.packed, **kw), 1)
+        check(torch.equal(cand, cand0) and torch.equal(disc, disc0),
+              f"K5 {name} tables nq={NQ} k={k}: kernel != plain")
+        note(errs, "codes_lut_candidates", int_err((cand, cand0),
+                                                   (disc, disc0)))
+        if name == "bf16":
+            record(t, "codes_lut_candidates", ms, pms,
+                   1.0 * N * NQ * c.idx.mprime, "f32 CUDA-core",
+                   nbytes(Tq, c.idx.packed, cand, disc))
+        else:
+            print(f"  codes_lut_candidates with f32 tables: kernel "
+                  f"{ms:.3f} ms, plain {pms:.3f} ms")
+        del cand, disc, cand0, disc0
+    torch.cuda.empty_cache()
+
+
+def phase1c(rng, errs):
+    """K8 (both forms) and K5 against their plain versions."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print(f"== phase 1c: K8 and K5 vs plain, n={N}, d={D}, nq={NQ1}")
+    idb1 = tsp._pack_idbits(-(-N // 2048) * 2048)
+    plans = sorted({tsp._scan_config(k)
+                    for k in (100, 1000, 2049, tsp._MAX_K)})
+    for kind, dtype in (("int", torch.float32), ("gauss", torch.bfloat16)):
+        exact = kind == "int"
+        if exact:
+            X = rng.integers(-3, 4, (N, D)).astype("float32")
+            Q = rng.integers(-3, 4, (NQ1, D)).astype("float32")
+        else:
+            X = rng.standard_normal((N, D)).astype("float32")
+            Q = rng.standard_normal((NQ1, D)).astype("float32")
+        X, Q = torch.as_tensor(X, device=DEV), torch.as_tensor(Q, device=DEV)
+        idx = tsp.LinscanIndex(X.to(dtype), (X * X).sum(-1))
+        del X
+        Qm = tsp._query_operand(Q, D, dtype)
+        name = f"K8 {kind} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+        print(f" {name}")
+        for r, keep, tile in plans:
+            idbits = tsp._pack_idbits(-(-N // tile) * tile)
+            kw = dict(tile=tile, keep=keep, premin=0, idbits=idbits)
+            tag = f"r={r} keep={keep} tile={tile}"
+            cand, disc = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+            cand0, disc0 = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2,
+                                                     **kw)
+            if exact:
+                check(torch.equal(cand, cand0)
+                      and torch.equal(disc, disc0),
+                      f"{name} {tag}: kernel != plain")
+            out = tsp.cand_merge(cand, disc, r)
+            out0 = tsp.cand_merge_plain(cand, disc, r)
+            check(torch.equal(out, out0), f"K2 {name} {tag}: kernel != plain")
+            note(errs, "cand_merge", int_err((out, out0)))
+            del cand, disc, out
+            # a k in the plan's class: K3 then merges its deepest lists
+            k = min(r * 64, tsp._MAX_K)
+            got = tsp.scan_topk_packed(Q, idx.Xd, idx.x2, k=k, r=r,
+                                       tile=tile, keep=keep)
+            ref = plain_topk(tsp.cand_merge_plain(cand0, disc0, r), r, k,
+                             idbits)
+            note(errs, "scan_candidates", compare_topk(
+                f"{tag} k={k} K8+K2+K3", got, ref, idbits, exact))
+            del cand0, disc0, out0
+        kw = dict(tile=2048, r=tsp._ONEPASS_R, premin=0, idbits=idb1)
+        o8 = tsp.scan_onepass(Qm, idx.Xd, idx.x2, **kw)
+        o80 = tsp.scan_onepass_plain(Qm, idx.Xd, idx.x2, **kw)
+        if exact:
+            check(torch.equal(o8, o80), f"{name} keep=0: kernel != plain")
+        got = tsp.scan_topk_packed(Q, idx.Xd, idx.x2, k=1000, tile=2048,
+                                   r=tsp._ONEPASS_R, keep=0)
+        note(errs, "scan_onepass", compare_topk(
+            "keep=0 r=48 tile=2048 k=1000 K8+K3", got,
+            plain_topk(o80, tsp._ONEPASS_R, 1000, idb1), idb1, exact))
+        del idx, o8, o80
+        torch.cuda.empty_cache()
+    for kind, dtype in (("int", torch.float32), ("gauss", torch.float32),
+                        ("gauss", torch.bfloat16)):
+        c = Phase1(rng, False, kind, torch.float32, NQ1)
+        T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
+        T = T.to(dtype).contiguous()
+        for keep, tile in ((2, 8192), (4, 8192), (4, 2048)):
+            kw = dict(tile=tile, keep=keep,
+                      idbits=tsp._pack_idbits(-(-N // tile) * tile))
+            cand, disc = tsc.codes_lut_candidates(T, c.idx.packed, **kw)
+            cand0, disc0 = tsc.codes_lut_candidates_plain(T, c.idx.packed,
+                                                          **kw)
+            check(torch.equal(cand, cand0) and torch.equal(disc, disc0),
+                  f"K5 {kind} {dtype} keep={keep}: kernel != plain")
+            note(errs, "codes_lut_candidates", int_err((cand, cand0),
+                                                       (disc, disc0)))
+            del cand, disc, cand0, disc0
+        print(f" K5 RVQ-7+1 {kind} "
+              f"{'bf16' if dtype == torch.bfloat16 else 'f32'} tables: "
+              f"identical (keep 2 and 4, tiles 8192 and 2048)")
+        del c, T
+        torch.cuda.empty_cache()
 
 
 def _encode_case(rng, kind, n, m, h=256):
@@ -417,8 +657,12 @@ def phase1b(rng, errs):
 def encode_kernel_times(rng, errs):
     """K11 (icmiter=4) and K13 beside their plain versions at the main
     path's encode batch (1e5 vectors, m=7, Gaussian data), the timed
-    runs' results held against each other as in phase 1b. Returns
-    {name: (kernel ms, plain ms)}."""
+    runs' results held against each other as in phase 1b, with their
+    bounds (K11: icmiter * m visits of h * d multiply-adds per vector,
+    on bf16 operands with f32 accumulation, so held to the bf16
+    tensor-core peak; K13: m * h * d multiply-adds for the unaries and
+    (m - 1) * h * h add-min pairs per vector on f32 inputs, held to the
+    f32 CUDA-core peak)."""
     import torch
 
     from rayuela_tpu_torch.ops import icm as ticm
@@ -436,14 +680,16 @@ def encode_kernel_times(rng, errs):
         X, C, B, order, 4, op_dtype=torch.bfloat16), 1)
     note(errs, "icm_sweeps", compare_icm("K11 timed, icmiter=4", got, ref,
                                          exact=False))
-    print(f"  icm_sweeps: kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    times = {"icm_sweeps": (ms, pms)}
+    times = {}
+    record(times, "icm_sweeps", ms, pms, 2.0 * 4 * m * 256 * D * NT,
+           "bf16 tensor-core", nbytes(X, C, B, order, *got))
     ms, got = timed(lambda: tvit.viterbi_encode(X, C), 5)
     pms, ref = timed(lambda: tvit.viterbi_encode_plain(X, C), 1)
     note(errs, "viterbi_encode", compare_viterbi("K13 timed", X, C, got,
                                                  ref, exact=False))
-    print(f"  viterbi_encode: kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    times["viterbi_encode"] = (ms, pms)
+    record(times, "viterbi_encode", ms, pms,
+           NT * (2.0 * m * 256 * D + 2.0 * (m - 1) * 256 * 256),
+           "f32 CUDA-core", nbytes(X, C, got))
     del X, C, B
     torch.cuda.empty_cache()
     return times
@@ -660,6 +906,186 @@ def phase4(seed, card, ds, Xq):
     return index, Xb
 
 
+def shared_ids(a, b):
+    """Mean share of each row's ids that the two results have in common
+    (as sets)."""
+    return sum(len(set(x.tolist()) & set(y.tolist()))
+               for x, y in zip(a.cpu(), b.cpu())) / a.numel()
+
+
+def warm_walls(fn, reps=3):
+    """Host-clock seconds of ``reps`` calls of ``fn``, each to a
+    synchronize."""
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def phase5(card, ds, Xq, Xb, index4):
+    """The decoded-index and LUT-mode main path on phase 4's model: the
+    default calls only, so that the launch counts read after it are this
+    path's own. Returns the index and the results for `phase5_checks`."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search.linscan import eval_recall, linscan_lsq
+
+    print(f"== phase 5: decoded-index and LUT-mode main path, SR-D-7+1, "
+          f"{N} base, {NQ} queries ({card})")
+    model = index4.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = rq.index_base(model, Xb)             # the default: decoded
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    si = index.scan_index
+    check(index.mode == "decoded" and isinstance(si, tsp.LinscanIndex)
+          and si.Xd.dtype == torch.bfloat16 and si.Xd.shape == (N, D),
+          "index_base's default is not the bf16 decoded index")
+    same_codes = bool(torch.equal(index.codes, index4.codes))
+    print(f"  index_base (default mode): {t1 - t0:.1f} s, "
+          f"{N / (t1 - t0):,.0f} base vectors/s; decoded base "
+          f"{nbytes(si.Xd, si.x2) / 1e6:.0f} MB; codes equal to phase 4's: "
+          f"{same_codes}")
+    res = {}
+    for k in (100, 1000):
+        for name, idx, kw in (("decoded", index, {}),
+                              ("lut", index4, {"mode": "lut"})):
+            dists, ids = rq.search(idx, Xq, k=k, **kw)
+            torch.cuda.synchronize()
+            check_search(dists, ids, k)
+            curve = eval_recall(ids, ds.gt, verbose=False)
+            walls = warm_walls(lambda: rq.search(idx, Xq, k=k, **kw))
+            wall = float(np.median(walls))
+            print(f"  {name} k={k}: recall@1 {curve[0]:.4f} @10 "
+                  f"{curve[9]:.4f} @100 {curve[99]:.4f}; search "
+                  f"{NQ / wall:,.0f} queries/s (median of "
+                  f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
+            check(curve[0] >= 0.99,
+                  f"{name} SR-D recall@1 {curve[0]:.4f} < 0.99")
+            res[(name, k)] = (dists, ids)
+    # the reference's front end on the same codes: the facade's result
+    dists, ids = res[("decoded", 100)]
+    dls, ils = linscan_lsq(model.codebooks, Xq, index.codes,
+                           index.norms_codebook, index.norm_codes, k=100)
+    check(torch.equal(ils, ids) and torch.equal(dls, dists),
+          "linscan_lsq != api.search on the same codes")
+    print("  linscan_lsq(k=100) on the same codes: identical to api.search")
+    return index, res
+
+
+def phase5_checks(Xq, index4, res):
+    """Phase 5's results against phase 4's decode-mode search and the
+    LUT oracle; runs after phase 5's launch counts were read."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print("== phase 5 results against decode mode and the LUT oracle")
+    step = 2.0 ** (tsp._pack_idbits(-(-N // 8192) * 8192) - 23)
+    q2 = (Xq * Xq).sum(-1, keepdim=True)
+    for k in (100, 1000):
+        d4, i4 = rq.search(index4, Xq, k=k)
+        for name in ("decoded", "lut"):
+            dists, ids = res[(name, k)]
+            hits = shared_ids(ids[:512], i4[:512])
+            print(f"  {name} k={k} against decode mode: ids equal by "
+                  f"position {float((ids == i4).float().mean()):.4f}, "
+                  f"shared ids (first 512 queries) {hits:.4f}, max |ddist| "
+                  f"{float((dists - d4).abs().max()):.3g}")
+            # decode mode reads the norm term from a bf16 table, the
+            # decoded index keeps it in f32, LUT mode rounds each table
+            # entry: the same neighbourhoods, not the same keys
+            check(hits >= 0.8, f"{name} k={k} shares only {hits:.4f} of "
+                  "decode mode's ids")
+        # the LUT oracle on the same tables (bf16 on the card): one
+        # truncation step of the raw score
+        dl, il = res[("lut", k)]
+        so, io = tsc._lut_scan_tiled(
+            index4.scan_index, Xq[:64], k, D,
+            torch.bfloat16 if Xq.device.type == "cuda" else torch.float32)
+        raw = dl[:64] - q2[:64]
+        same = shared_ids(il[:64], io)
+        # + the f32 rounding of adding and taking away |q|^2
+        tol = step * so.abs() + 1e-6 * (q2[:64] + so.abs())
+        within = bool(((raw - so).abs() <= tol).all())
+        print(f"  lut k={k} vs the LUT oracle (64 queries): shared ids "
+              f"{same:.6f}, scores within one truncation step: {within}")
+        check(same >= 0.98 and within, f"LUT mode k={k} != the LUT oracle")
+
+
+def phase5_onepass(index, Xq, res):
+    """An explicit one-pass configuration through the facade: K8 at
+    keep=0 (with K2 over its splits and K3), with launch counts of its
+    own."""
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+
+    print("== phase 5, explicit one-pass configuration")
+    d1, i1 = rq.search(index, Xq[:128], k=100, keep=0, r=tsp._ONEPASS_R,
+                       tile=2048)
+    agree = float((i1 == res[("decoded", 100)][1][:128]).float().mean())
+    print(f"  search(keep=0, r=48, tile=2048) on 128 queries: ids equal to "
+          f"the plan's by position {agree:.6f}")
+    # a flagged query's exact re-run orders within a truncation step anew
+    check(agree >= 0.98, "the one-pass configuration disagrees")
+
+
+SWEEP_NQ = 2500
+SWEEP_K = (2048, 3072, 4096, 6144, 8192, 10240, 12288)
+SWEEP_PLANS = ((32, 4, 8192), (48, 4, 8192), (96, 4, 8192), (96, 4, 2048),
+               (96, 4, 1024))
+
+
+def plan_sweep(index, index4, Xq):
+    """What the plan's deep classes rest on: for each k, the queries
+    each (r, keep, tile) flags and the time of the scan (pass 1 → K2 →
+    K3, CUDA events) over `SWEEP_NQ` queries of the main path, for the
+    decoded and the LUT scan, beside the exact scans that serve a k
+    beyond the plan (`exact_rescan`, `_lut_scan_tiled`)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    print(f"== plan sweep: flagged of {SWEEP_NQ} queries and scan ms, "
+          f"SR-D-7+1, n={N}")
+    si, sc = index.scan_index, index4.scan_index
+    Q = Xq[:SWEEP_NQ].contiguous()
+    T = tsc.build_luts(sc.C, Q, norms_cbook=sc.norms_cbook)
+    for k in SWEEP_K:
+        ems, _ = timed(lambda: exact_rescan(Q, si.Xd, si.x2, k), 1)
+        lms, _ = timed(lambda: tsc._lut_scan_tiled(sc, Q, k, D,
+                                                   torch.bfloat16), 1)
+        print(f"  k={k}: exact_rescan {ems:.1f} ms, LUT oracle {lms:.1f} ms; "
+              f"the plan takes {tsp._scan_config(min(k, tsp._MAX_K))}"
+              f"{'' if k <= tsp._MAX_K else ' up to k=' + str(tsp._MAX_K)}")
+        for r, keep, tile in SWEEP_PLANS:
+            if k > r * 128:
+                continue
+            ms, out = timed(lambda: tsp.scan_topk_packed(
+                Q, si.Xd, si.x2, k=k, r=r, tile=tile, keep=keep), 1)
+            lm, lout = timed(lambda: tsc.scan_codes_topk(
+                T, sc.packed, k=k, r=r, tile=tile, keep=keep,
+                lut_dtype=torch.bfloat16), 1)
+            print(f"    r={r} keep={keep} tile={tile}: decoded "
+                  f"{int(out[2].sum())} flagged, {ms:.1f} ms; lut "
+                  f"{int(lout[2].sum())} flagged, {lm:.1f} ms")
+            del out, lout
+        torch.cuda.empty_cache()
+
+
 def base_encode_check(rng, errs, model, Xb):
     """K11 against its plain version at the base-encode shape the main
     path launches it at: one icmiter=4 sweep over the whole base from the
@@ -695,12 +1121,39 @@ def diagnostics(served, Xq):
         si = index.scan_index
         Cf, nrm = si.decode_operands(D, torch.bfloat16)
         for k in (100, 1000):
-            _, r, keep = tsc._codes_config(k)
+            _, r, keep, _ = tsc._codes_config(k)
             fl = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, si.packed, k=k,
                                                pq=si.pq, r=r, keep=keep)[2]
             print(f"  {method} k={k}: {int(fl.sum())} of {NQ} queries "
                   f"flagged by the two-pass certificate")
             profile(lambda: rq.search(index, Xq, k=k))
+
+
+def diagnostics5(index, index4, Xq):
+    """After phase 5's launch counts were read: the queries each scan's
+    certificate flags, and one search's device time by kernel."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print("== diagnostics of the phase-5 searches (k=4096: the plan's "
+          "deepest class)")
+    si, sc = index.scan_index, index4.scan_index
+    for k in (100, 1000, 4096):
+        r, keep, tile = tsp._scan_config(k)
+        fl = tsp.scan_topk_packed(Xq, si.Xd, si.x2, k=k, r=r, tile=tile,
+                                  keep=keep)[2]
+        print(f"  decoded k={k}: {int(fl.sum())} of {NQ} queries flagged "
+              f"(r={r}, keep={keep}, tile={tile})")
+        profile(lambda: rq.search(index, Xq, k=k))
+        T = tsc.build_luts(sc.C, Xq, norms_cbook=sc.norms_cbook)
+        fl = tsc.scan_codes_topk(T, sc.packed, k=k, r=r, tile=tile,
+                                 keep=keep, lut_dtype=torch.bfloat16)[2]
+        del T
+        print(f"  lut k={k}: {int(fl.sum())} of {NQ} queries flagged")
+        profile(lambda: rq.search(index4, Xq, k=k, mode="lut"))
 
 
 def ptxas_summary(log):
@@ -755,8 +1208,14 @@ def main() -> int:
         "codes_decode_candidates": tsc.codes_decode_candidates,
         "cand_merge": tsc.cand_merge, "tail_merge": tsp.tail_merge,
         "codes_decode_topk": tsc.codes_decode_topk}
-    wrappers = dict(search_wrappers, icm_sweeps=ticm.icm_sweeps,
-                    viterbi_encode=tvit.viterbi_encode)
+    path4 = dict(search_wrappers, icm_sweeps=ticm.icm_sweeps,
+                 viterbi_encode=tvit.viterbi_encode)
+    path5 = {"scan_candidates": tsp.scan_candidates,
+             "codes_lut_candidates": tsc.codes_lut_candidates,
+             "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
+    path5b = {"scan_onepass": tsp.scan_onepass,
+              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
+    wrappers = {**path4, **path5, **path5b}
     errs = {}
     phase_t = {}
 
@@ -767,40 +1226,67 @@ def main() -> int:
         print(f"-- {name}: {phase_t[name]:.1f} s")
         return r
 
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
     try:
         run("phase 1", phase1, rng, errs)
+        run("phase 1c", phase1c, rng, errs)
         times = run("kernel times", kernel_times, rng, errs)
         run("phase 1b", phase1b, rng, errs)
         times.update(run("encode kernel times", encode_kernel_times, rng,
                          errs))
         run("phase 2", phase2, rng)
-        for w in wrappers.values():
-            w.launches = 0
+        zero()
         served, Xq, ds = run("phase 3", phase3, args.seed, smi)
         launches = {n: w.launches for n, w in search_wrappers.items()}
         print(f"phase-3 launches: {launches}")
         check(all(launches.values()), "a kernel of the search path never "
               "launched in phase 3")
-        for w in wrappers.values():
-            w.launches = 0
+        zero()
         served["sr_d"], Xb = run("phase 4", phase4, args.seed, smi, ds, Xq)
-        launches = {n: w.launches for n, w in wrappers.items()}
-        print(f"main-path (phase-4) launches: {launches}")
-        check(all(launches.values()), "a kernel of the path never launched "
-              "on the main path")
-        del ds
+        launches4 = {n: w.launches for n, w in path4.items()}
+        print(f"phase-4 launches: {launches4}")
+        check(all(launches4.values()), "a kernel of the path never launched "
+              "in phase 4")
         run("base encode check", base_encode_check, rng, errs,
             served["sr_d"].model, Xb)
-        del Xb
+        zero()
+        index5, res5 = run("phase 5", phase5, smi, ds, Xq, Xb,
+                           served["sr_d"])
+        launches5 = {n: w.launches for n, w in path5.items()}
+        print(f"phase-5 launches: {launches5}")
+        check(all(launches5.values()), "a kernel of the path never launched "
+              "in phase 5")
+        check(tsp.scan_onepass.launches == 0
+              and tsc.codes_decode_candidates.launches == 0,
+              "phase 5's counts hold launches of another path")
+        del ds, Xb
+        zero()
+        run("phase 5 one-pass", phase5_onepass, index5, Xq, res5)
+        launches5b = {n: w.launches for n, w in path5b.items()}
+        print(f"phase-5 one-pass launches: {launches5b}")
+        check(all(launches5b.values()), "a kernel of the one-pass "
+              "configuration never launched")
+        run("phase 5 checks", phase5_checks, Xq, served["sr_d"], res5)
+        del res5
         run("diagnostics", diagnostics, served, Xq)
+        run("diagnostics 5", diagnostics5, index5, served["sr_d"], Xq)
+        run("plan sweep", plan_sweep, index5, served["sr_d"], Xq)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # a kernel's launches are those of the latest main path that runs it
+    on_path = {n: ("phase 5", launches5[n]) if n in launches5
+               else ("phase 5, explicit one-pass configuration",
+                     launches5b[n]) if n in launches5b
+               else ("phase 4", launches4[n]) for n in wrappers}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n],
-         "replaces": REPLACES[n], "launches": launches[n],
-         "max_abs_err": errs[n], "ms": times[n][0],
-         "plain_ms": times[n][1]} for n in wrappers]}))
+         "replaces": REPLACES[n], "launches": on_path[n][1],
+         "launches_in": on_path[n][0], "max_abs_err": errs[n], **times[n]}
+        for n in wrappers]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

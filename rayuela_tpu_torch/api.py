@@ -2,17 +2,24 @@
 `rayuela_tpu/api.py`):
 
     import rayuela_tpu_torch.api as rq
-    model = rq.train(Xt, method="rvq", m=7, h=256, device="cuda")
-    index = rq.index_base(model, Xb, mode="codes")
+    model = rq.train(Xt, method="sr_d", m=7, h=256)
+    index = rq.index_base(model, Xb)            # or mode="codes"
     dists, ids = rq.search(index, Q, k=100)
 
+Every entry point runs on the card unless the caller asks for the CPU:
+a tensor stays on its device, a numpy array goes to ``"cuda"`` (and
+where there is no card that raises), and ``device="cpu"`` asks for the
+CPU, where the kernels' plain versions run.
+
 Ported: PQ, RVQ, OPQ, ChainQ and the LSQ family (LSQ, SR-C, SR-D), the
-last four through the staged OPQ → ChainQ init, served through the
-code-resident scan. ERVQ, CompQ, the decoded index and multi-device
+last four through the staged OPQ → ChainQ init, served from the decoded
+index (``mode="decoded"``, the default: the base decoded once, bfloat16
+on the card) or the code-resident one (``mode="codes"``: ~m bytes per
+vector, scanned by decoding or, with ``search(..., mode="lut")``,
+through per-query tables). ERVQ, CompQ and multi-device training and
 search raise `NotImplementedError` naming the ROADMAP item that brings
 them. The defaults are the JAX facade's (``method="sr_d"``,
-``mode="decoded"``), so a default `index_base` call raises until the
-decoded index is ported.
+``mode="decoded"``).
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Any
 
 import torch
 
-from rayuela_tpu_torch.utils import exact_f32
+from rayuela_tpu_torch.utils import as_tensor, exact_f32
 
 METHODS = ("pq", "opq", "rvq", "ervq", "chainq", "lsq", "sr_c", "sr_d",
            "compq")
@@ -49,11 +56,12 @@ class MCQModel:
 
 @dataclass
 class MCQIndex:
-    """A searchable base set: codes + scan index + norms. Only
-    ``mode="codes"`` (packed codes, ~m bytes per vector) is ported."""
+    """A searchable base set: codes + scan index + norms. ``mode`` is
+    ``"decoded"`` (scan_index a `scan.LinscanIndex`) or ``"codes"``
+    (a `scan_codes.CodesIndex`, ~m bytes per vector)."""
     model: MCQModel
     codes: torch.Tensor              # (n, m) int32
-    scan_index: Any                  # CodesIndex
+    scan_index: Any                  # LinscanIndex | CodesIndex
     norms_codebook: torch.Tensor | None = None
     norm_codes: torch.Tensor | None = None
     mode: str = "decoded"
@@ -70,17 +78,12 @@ def _check_method(method: str) -> str:
     return method
 
 
-def _tensor(X, device) -> torch.Tensor:
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else "cpu"
-    return torch.as_tensor(X, dtype=torch.float32, device=device)
-
-
 def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
           niter: int = 25, seed: int = 0, device=None,
           mesh=None, **kw) -> MCQModel:
     """Train a quantizer on ``Xt (n, d)``. ``device`` defaults to
-    ``Xt``'s (CPU for numpy input). ChainQ and the LSQ family follow the
+    ``Xt``'s when it is a tensor and to the card otherwise
+    (``device="cpu"`` asks for the CPU). ChainQ and the LSQ family follow the
     reference pipeline: OPQ → ChainQ → {chainq | lsq | sr_c | sr_d};
     ``kw`` goes to the last stage's trainer."""
     from rayuela_tpu_torch.models.chainq import train_chainq
@@ -94,7 +97,7 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
         raise NotImplementedError("multi-device training is not ported "
                                   "yet (ROADMAP A9)")
     method = _check_method(method)
-    Xt = _tensor(Xt, device)
+    Xt = as_tensor(Xt, device)
     gen = torch.Generator(device=Xt.device).manual_seed(seed)
     if method == "pq":
         model, B, _ = train_pq(gen, Xt, m, h, iters=niter, **kw)
@@ -132,7 +135,7 @@ def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:
     from rayuela_tpu_torch.ops.icm import encoding_icm
 
     method = _check_method(model.method)
-    X = _tensor(X, model.codebooks.device)
+    X = as_tensor(X, model.codebooks.device)
     if method == "pq":
         return quantize_pq(PQModel(model.codebooks), X)
     if method == "opq":
@@ -150,22 +153,21 @@ def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:
 
 def index_base(model: MCQModel, Xb, mode: str = "decoded",
                seed: int = 2, **kw) -> MCQIndex:
-    """Encode the base set (``kw`` goes to `encode`) and build the
-    code-resident index, with the norms byte for every non-orthogonal
-    model (its codebook capped at h entries so it stacks with the
-    per-codebook tables). One generator seeded with ``seed`` serves the
-    encode and the norms codebook."""
+    """Encode the base set on the model's device (``kw`` goes to
+    `encode`) and build the scan index: ``mode="decoded"`` the base
+    decoded once (bfloat16 on the card), ``mode="codes"`` the packed
+    codes. Every non-orthogonal model gets the norms byte (its codebook
+    has 256 entries, capped at h for ``mode="codes"`` so that it stacks
+    with the per-codebook tables). One generator seeded with ``seed``
+    serves the encode and the norms codebook."""
     from rayuela_tpu_torch.search.norms import (get_norms_codebook,
                                                 quantize_norms)
+    from rayuela_tpu_torch.search.scan import build_index
     from rayuela_tpu_torch.search.scan_codes import build_codes_index
 
-    if mode == "decoded":
-        raise NotImplementedError("the decoded index is not ported yet "
-                                  "(ROADMAP A5); use mode='codes'")
-    if mode != "codes":
-        raise ValueError(f"mode {mode!r}: 'codes' (or 'decoded', not "
-                         "ported yet)")
-    Xb = _tensor(Xb, model.codebooks.device)
+    if mode not in ("decoded", "codes"):
+        raise ValueError(f"mode {mode!r}: 'decoded' or 'codes'")
+    Xb = as_tensor(Xb, model.codebooks.device)
     gen = torch.Generator(device=Xb.device).manual_seed(seed)
     B = encode(model, Xb, gen=gen, **kw)
     norms_cb = norm_codes = None
@@ -173,33 +175,40 @@ def index_base(model: MCQModel, Xb, mode: str = "decoded",
         if model.train_codes is None:
             raise ValueError("an additive model needs its train_codes to "
                              "train the norms codebook")
+        nh = min(256, model.h) if mode == "codes" else 256
         _, norms_cb = get_norms_codebook(gen, model.codebooks,
-                                         model.train_codes,
-                                         h=min(256, model.h))
+                                         model.train_codes, h=nh)
         norm_codes, _ = quantize_norms(model.codebooks, B, norms_cb)
-    idx = build_codes_index(model.codebooks, B, pq=model.pq_layout,
-                            d=Xb.shape[1], norms_cbook=norms_cb,
-                            norms_codes=norm_codes)
-    return MCQIndex(model, B, idx, norms_cb, norm_codes, mode="codes")
+    if mode == "codes":
+        idx = build_codes_index(model.codebooks, B, pq=model.pq_layout,
+                                d=Xb.shape[1], norms_cbook=norms_cb,
+                                norms_codes=norm_codes)
+    else:
+        nt = None if norms_cb is None else norms_cb[norm_codes.long()]
+        idx = build_index(model.codebooks, B, pq=model.pq_layout,
+                          d=Xb.shape[1], norm_term=nt)
+    return MCQIndex(model, B, idx, norms_cb, norm_codes, mode=mode)
 
 
 def search(index: MCQIndex, Q, k: int = 100, mesh=None,
            **kw) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k search → ``(dists (nq, k) f32 with +|q|^2, ids (nq, k)
-    int32)``: the exact top-k of the scan's truncated scores (bfloat16
-    operands on the card, float32 on the CPU). OPQ and ChainQ queries
-    are rotated by the model's R first."""
-    from rayuela_tpu_torch.search.scan_codes import search_codes
+    """Top-k search on the index's device → ``(dists (nq, k) f32 with
+    +|q|^2, ids (nq, k) int32)``: the exact top-k of the scan's
+    truncated scores (bfloat16 operands on the card, float32 on the
+    CPU). OPQ and ChainQ queries are rotated by the model's R first.
+    ``kw`` goes to `scan.search` (decoded) or `scan_codes.search_codes`
+    (codes; ``mode="lut"`` picks the table scan)."""
+    from rayuela_tpu_torch.search import scan, scan_codes
 
     if mesh is not None:
         raise NotImplementedError("multi-device search is not ported yet "
                                   "(ROADMAP A9)")
-    if index.mode != "codes":
-        raise NotImplementedError("the decoded index is not ported yet "
-                                  "(ROADMAP A5)")
     model = index.model
     _check_method(model.method)
+    Q = as_tensor(Q, model.codebooks.device)
     if model.method in _ROTATED:
         exact_f32()
-        Q = _tensor(Q, model.R.device) @ model.R
-    return search_codes(index.scan_index, Q, k, **kw)
+        Q = Q @ model.R
+    if index.mode == "codes":
+        return scan_codes.search_codes(index.scan_index, Q, k, **kw)
+    return scan.search(index.scan_index, Q, k, **kw)

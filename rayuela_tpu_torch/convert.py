@@ -1,10 +1,12 @@
 """Carry a model or an index across from the JAX package.
 
-Both functions take the arrays that `rayuela_tpu.api.MCQModel` and
-`MCQIndex` hold, as numpy arrays (``np.asarray`` of each field), so a
-model trained or a base encoded by the JAX package serves from this
-port unchanged: the codes pack into the same words and the search
-scores them the same way.
+The functions take the arrays that `rayuela_tpu.api.MCQModel`,
+`MCQIndex` and `rayuela_tpu.search.scan_pallas.LinscanIndex` hold, as
+numpy arrays (``np.asarray`` of each field), so a model trained or a
+base encoded or decoded by the JAX package serves from this port
+unchanged: the codes pack into the same words and the search scores
+them the same way. They copy to the device they are given: like the
+facade, the card unless the caller names the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from rayuela_tpu_torch.api import MCQIndex, MCQModel
+from rayuela_tpu_torch.search.scan import LinscanIndex
 from rayuela_tpu_torch.search.scan_codes import build_codes_index
 
 
@@ -26,7 +29,7 @@ def _opt(a, dtype, device):
 
 
 def model_from_arrays(method: str, codebooks, R=None, h: int = 256,
-                      train_codes=None, device="cpu") -> MCQModel:
+                      train_codes=None, device="cuda") -> MCQModel:
     """`MCQModel` from the JAX model's codebooks ``(m, h, d*)``,
     rotation and training codes."""
     return MCQModel(method.lower(),
@@ -47,3 +50,12 @@ def index_from_arrays(model: MCQModel, codes, norms_codebook, norm_codes,
     idx = build_codes_index(model.codebooks, B, pq=model.pq_layout, d=d,
                             norms_cbook=ncb, norms_codes=nco)
     return MCQIndex(model, B, idx, ncb, nco, mode="codes")
+
+
+def decoded_index_from_arrays(Xd, x2, device="cuda") -> LinscanIndex:
+    """`LinscanIndex` from a JAX `LinscanIndex`'s decoded base ``Xd (n,
+    d)`` (float32, or bfloat16 widened to float32 by ``np.asarray``) and
+    norm terms ``x2 (n,)``. The base stays float32: values that were
+    bfloat16 are exact in it."""
+    return LinscanIndex(_tensor(Xd, torch.float32, device),
+                        _tensor(x2, torch.float32, device))

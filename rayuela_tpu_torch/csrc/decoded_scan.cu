@@ -1,0 +1,146 @@
+// Decoded-index scan kernel for Hopper (sm_90a): K8.
+//
+// Replaces rayuela_tpu/search/scan_pallas.py::_scan_kernel_packed and
+// ::_scan_kernel_packed_staged (both behind pallas_scan_topk(pack=True)):
+//   scan_candidates  <- the two bodies with keep > 0
+//   scan_onepass     <- _scan_kernel_packed with keep = 0
+// The TPU's staged body gives the same output as its per-tile body: it
+// pre-reduces every tile to the same per-lane top-keep and only merges
+// its running buffer less often. The output here is defined as a
+// function of the scores and (tile, keep, r) alone (see
+// scan_common.cuh), so one kernel stands for both bodies and there is
+// no `stage` argument. The TPU bodies' optional pre-min (a window
+// minimum in front of the selection, which saves selection arithmetic
+// there) has no instance here: register insertion rejects most keys
+// with one compare, and a window minimum in front of it was measured
+// to save no time on this card (its plain version stays, for CPU
+// tensors). The TPU keeps one running buffer per query block across a
+// sequential tile axis; here every (tile, query block) CTA writes its
+// tile's per-lane top-keep and discard minimum, and K2 (cand_merge,
+// codes_scan.cu) reduces them to the (r + 1, 128, nq) buffer the TPU
+// kernel emits.
+//
+// The kernels are the scan bodies of scan_common.cuh over the row source
+// of this file: the 128 rows of a row id are a contiguous block of the
+// decoded base Xd (n, dp), dp a multiple of 8, already at the operand
+// type, and their norms come from x2 (n,) f32. The scores are those of
+// K1: the same f32 dot in dimension order plus x2.
+//
+// What bounds it on the card. n*nq*dp multiply-adds on the CUDA cores
+// (1.3e12 at n=1e6, nq=1e4, dp=128), as K1, without K1's decode. Every
+// CTA reads its whole tile (2 MB in bf16) from device memory or L2; the
+// grid runs the query blocks of one tile together, so a tile comes from
+// device memory once or twice and from L2 for the other query blocks.
+// A warp reads 64- or 128-byte runs of a row (whole sectors) and writes
+// them transposed into shared memory at distinct banks, four loads in
+// flight per thread.
+
+#include "scan_common.cuh"
+
+namespace {
+
+constexpr int LOAD_BATCH = 4;  // 16-byte loads a thread keeps in flight
+
+// Row source of K8: rows of the decoded base.
+template <typename T> struct RowsSrc {
+  using Op = T;
+  static constexpr bool kQueryFastest = true;
+  const T* Xd;
+  const float* x2;
+  __host__ __device__ int words() const { return 0; }
+  // A warp pass takes V lanes x 32/V chunks of 16 bytes: thread t reads
+  // chunk c0 + t % (32/V) of lane l0 + t / (32/V), so 32/V neighbours
+  // read one contiguous run, and element e of the chunk goes to bank
+  // (V * (t % (32/V)) + t / (32/V) + e) % 32, distinct over the warp.
+  __device__ __forceinline__ void load(int n, int rid, int dp, float* XsT,
+                                       float* x2s, int*) const {
+    constexpr int V = Vec16<T>::N;
+    constexpr int CW = 32 / V;
+    const int cpr = dp / V;                     // 16-byte chunks per row
+    const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const int lgroups = LANES / V;
+    const int items = lgroups * ((cpr + CW - 1) / CW);
+    const long long g0 = (long long)rid * LANES;
+    for (int it0 = warp; it0 < items; it0 += nwarps * LOAD_BATCH) {
+      uint4 u[LOAD_BATCH];
+#pragma unroll
+      for (int b = 0; b < LOAD_BATCH; ++b) {
+        const int it = it0 + b * nwarps;
+        const int lane = (it % lgroups) * V + t / CW;
+        const int c = (it / lgroups) * CW + t % CW;
+        const long long gid = g0 + lane;
+        u[b] = make_uint4(0u, 0u, 0u, 0u);
+        if (it < items && c < cpr && gid < n)
+          u[b] = __ldg(reinterpret_cast<const uint4*>(Xd + (size_t)gid * dp) +
+                       c);
+      }
+#pragma unroll
+      for (int b = 0; b < LOAD_BATCH; ++b) {
+        const int it = it0 + b * nwarps;
+        const int lane = (it % lgroups) * V + t / CW;
+        const int c = (it / lgroups) * CW + t % CW;
+        if (it < items && c < cpr) {
+          float v[V];
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[e] = 0.f;
+          Vec16<T>::add(u[b], v);
+#pragma unroll
+          for (int e = 0; e < V; ++e) XsT[(c * V + e) * LP + lane] = v[e];
+        }
+      }
+    }
+    if (threadIdx.x < LANES) {
+      const long long gid = g0 + threadIdx.x;
+      x2s[threadIdx.x] = gid < n ? x2[gid] : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+int rq_scan_candidates(const void* Qm, const void* Xd, const void* x2,
+                       void* cand, void* disc, int n, int nq, int dp,
+                       int ntiles, int rows, int keep, int idbits, int bf16,
+                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RQ_K8(T, K)                                                       \
+  return (int)launch_candidates<RowsSrc<T>, K>(                           \
+      RowsSrc<T>{(const T*)Xd, (const float*)x2}, Qm, cand, disc, n, nq,  \
+      dp, ntiles, rows, idbits, st)
+  if (bf16) {
+    switch (keep) {
+      case 2: RQ_K8(__nv_bfloat16, 2);
+      case 4: RQ_K8(__nv_bfloat16, 4);
+    }
+  } else {
+    switch (keep) {
+      case 2: RQ_K8(float, 2);
+      case 4: RQ_K8(float, 4);
+    }
+  }
+#undef RQ_K8
+  return (int)cudaErrorInvalidValue;
+}
+
+int rq_scan_onepass(const void* Qm, const void* Xd, const void* x2,
+                    void* cand, void* disc, int n, int nq, int dp, int nrows,
+                    int rows_per, int r, int idbits, int bf16,
+                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RQ_K8_1P(T, R)                                                     \
+  return (int)launch_topk<RowsSrc<T>, R>(                                  \
+      RowsSrc<T>{(const T*)Xd, (const float*)x2}, Qm, cand, disc, n, nq,   \
+      dp, nrows, rows_per, idbits, st)
+  if (r == 48) {
+    if (bf16) RQ_K8_1P(__nv_bfloat16, 48);
+    RQ_K8_1P(float, 48);
+  }
+#undef RQ_K8_1P
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

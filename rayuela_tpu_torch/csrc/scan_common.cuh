@@ -1,0 +1,309 @@
+// Shared device code of the packed-key scans for Hopper (sm_90a): the
+// key format, the register selection, and the two scan bodies that K1,
+// K4 (codes_scan.cu) and K8 (decoded_scan.cu) instantiate with their own
+// row source. K5 (lut_scan.cu) scores differently and shares only the
+// key and the selection.
+//
+// Logical contract (shared with the plain PyTorch versions in
+// rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
+// per-lane row id rid = gid >> 7. Its score against query q is
+// dot(x, Qm[q]) + x2, with x the row at the operand type, Qm = -2q at
+// the operand type and an f32 dot taken in dimension order, and +inf
+// for pad rows gid >= n. The selection key is
+// (sortable(score) & -(1 << idbits)) | rid: unique per (lane, query),
+// so per-lane selections have no ties. Per (lane, query), over the
+// lane's row ids in order: a tile keeps its KEEP smallest keys, and
+// every key that is dropped on the way goes into one running minimum,
+// the certificate.
+//
+// A row source `Src` provides
+//   using Op = float | __nv_bfloat16     the operand type
+//   static constexpr bool kQueryFastest  block index order (see below)
+//   int words() const                    ints of scratch per CTA
+//   void load(n, rid, dp, XsT, x2s, words)
+// where load() brings the 128 rows of row id `rid` into shared memory,
+// transposed as XsT[kk * LP + lane] (f32 holding values of Op; the
+// padded stride keeps the score reads free of bank conflicts), and
+// their norms into x2s[lane], and ends with a barrier.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int LP = LANES + 1;  // padded stride of the transposed tile
+constexpr int K1_QB = 32;      // queries per candidates CTA (8 warps x 4)
+constexpr int K4_QB = 2;       // queries per one-pass CTA (2 x 128 lanes)
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// round an f32 value to the operand type T and back (round to nearest
+// even, as torch's .to(torch.bfloat16) does)
+template <typename T> __device__ __forceinline__ float round_op(float x);
+template <> __device__ __forceinline__ float round_op<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_op<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ int row_key(float s, int rid, int vmask) {
+  int b = __float_as_int(s);
+  b = b >= 0 ? b : (b ^ 0x7FFFFFFF);
+  return (b & vmask) | rid;
+}
+
+__device__ __forceinline__ int code_of(const int* words, int j) {
+  return (int)(((unsigned)words[j >> 2] >> (8 * (j & 3))) & 0xFFu);
+}
+
+// Insert key x into the ascending array buf; `rest` keeps the minimum
+// of every key that is not (or no longer) in buf.
+template <int K>
+__device__ __forceinline__ void insert_sorted(int (&buf)[K], int& rest,
+                                              int x) {
+  if (x < buf[K - 1]) {
+    rest = min(rest, buf[K - 1]);
+    buf[K - 1] = x;
+#pragma unroll
+    for (int i = K - 1; i > 0; --i) {
+      const int a = buf[i - 1], b = buf[i];
+      buf[i - 1] = min(a, b);
+      buf[i] = max(a, b);
+    }
+  } else {
+    rest = min(rest, x);
+  }
+}
+
+// Sixteen bytes of T, widened to f32 and added to acc[0..N) in order.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void add(const uint4& u, float* acc) {
+    acc[0] += __uint_as_float(u.x);
+    acc[1] += __uint_as_float(u.y);
+    acc[2] += __uint_as_float(u.z);
+    acc[3] += __uint_as_float(u.w);
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // little-endian: the element at the lower address is the low half;
+  // a bf16 is the top half of the f32 with the same value
+  static __device__ __forceinline__ void add(const uint4& u, float* acc) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[2 * i] += __uint_as_float(w[i] << 16);
+      acc[2 * i + 1] += __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <typename T>
+__device__ void load_queries(const T* __restrict__ Qm, int q0, int nq,
+                             int dp, int nqb, float* Qs) {
+  for (int i = threadIdx.x; i < nqb * dp; i += blockDim.x) {
+    const int q = q0 + i / dp;
+    Qs[i] = q < nq ? to_f32(Qm[(size_t)q * dp + i % dp]) : 0.f;
+  }
+}
+
+// The candidates body (K1, K8): CTA (t, qb) scans tile t (rows row ids)
+// for 32 queries and writes, per (lane, query), the KEEP smallest keys
+// ascending to cand[t*KEEP + c] and the smallest other key to disc[t]
+// (INT_MAX when nothing was dropped). Each thread scores a 4-lane x
+// 4-query register block (one 16-byte shared load brings four
+// dimensions of a query) and keeps the selection state of its 16
+// (lane, query) pairs in registers; two CTAs share an SM, so one loads
+// rows while the other scores. The grid is (ntiles, query blocks), or
+// the transpose when Src::kQueryFastest: the blocks that run together
+// then share one tile, which they find in L2.
+template <class Src, int KEEP>
+__global__ void __launch_bounds__(THREADS, 2)
+    scan_candidates_kernel(const Src src,
+                           const typename Src::Op* __restrict__ Qm,
+                           int* __restrict__ cand, int* __restrict__ disc,
+                           int n, int nq, int dp, int rows, int idbits) {
+  using T = typename Src::Op;
+  extern __shared__ __align__(16) float smem[];
+  float* XsT = smem;                  // dp * LP
+  float* Qs = XsT + dp * LP;          // K1_QB * dp
+  float* x2s = Qs + K1_QB * dp;       // LANES
+  int* words = (int*)(x2s + LANES);   // src.words()
+  const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
+  const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
+  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
+  const int vmask = -(1 << idbits);
+  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+
+  int best[4][4][KEEP];
+  int rest[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rest[i][j] = INT_MAX;
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c) best[i][j][c] = INT_MAX;
+    }
+
+  for (int step = 0; step < rows; ++step) {
+    const int rid = t * rows + step;
+    __syncthreads();  // the previous step's readers are done with XsT
+    src.load(n, rid, dp, XsT, x2s, words);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    // dot products in dimension order; one 16-byte shared load brings
+    // four dimensions of a query (dp is a multiple of 4)
+    const float* qrow = Qs + (qg * 4) * dp;
+    for (int kk0 = 0; kk0 < dp; kk0 += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        qv[j] = *reinterpret_cast<const float4*>(qrow + j * dp + kk0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[i] = XsT[(kk0 + e) * LP + lg + 32 * i];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(xv[i], comp(qv[j], e), acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lane = lg + 32 * i;
+      const bool pad = (long long)rid * LANES + lane >= n;
+      const float x2 = x2s[lane];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s = pad ? __int_as_float(0x7F800000) : acc[i][j] + x2;
+        insert_sorted<KEEP>(best[i][j], rest[i][j], row_key(s, rid, vmask));
+      }
+    }
+  }
+
+  const size_t plane = (size_t)LANES * nq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = q0 + qg * 4 + j;
+      if (q >= nq) continue;
+      const size_t off = (size_t)(lg + 32 * i) * nq + q;
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c)
+        cand[(size_t)(t * KEEP + c) * plane + off] = best[i][j][c];
+      disc[(size_t)t * plane + off] = rest[i][j];
+    }
+}
+
+// The one-pass body (K4, and K8 at keep = 0): grid (cdiv(nq, 2),
+// splits). Thread (lane, query) of CTA (qb, s) scans row ids
+// [s * rows_per, (s + 1) * rows_per) and writes its R smallest keys
+// ascending to cand[s*R .. s*R + R) and the smallest other key to
+// disc[s]. With one split that is the final (R+1)-row buffer; with
+// more, K2 merges the splits into it (the certificate stays exact:
+// every key not kept is some split's rejected key or a merge loser).
+// It loads its rows anew for every 2 queries; it serves only the few
+// queries a certificate flagged, so it is bound by latency, and the
+// wrapper splits the row range over enough CTAs to fill the card.
+template <class Src, int R>
+__global__ void __launch_bounds__(THREADS)
+    scan_topk_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
+                     int* __restrict__ cand, int* __restrict__ disc, int n,
+                     int nq, int dp, int nrows, int rows_per, int idbits) {
+  using T = typename Src::Op;
+  extern __shared__ __align__(16) float smem[];
+  float* XsT = smem;                  // dp * LP
+  float* Qs = XsT + dp * LP;          // K4_QB * dp
+  float* x2s = Qs + K4_QB * dp;       // LANES
+  int* words = (int*)(x2s + LANES);   // src.words()
+  const int lane = threadIdx.x & (LANES - 1), qi = threadIdx.x >> 7;
+  const int q0 = blockIdx.x * K4_QB, q = q0 + qi, s = blockIdx.y;
+  const int vmask = -(1 << idbits);
+  load_queries<T>(Qm, q0, nq, dp, K4_QB, Qs);
+
+  int buf[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) buf[c] = INT_MAX;
+  int rest = INT_MAX;
+  const float* qrow = Qs + qi * dp;
+  const int rid1 = min(nrows, (s + 1) * rows_per);
+  for (int rid = s * rows_per; rid < rid1; ++rid) {
+    __syncthreads();
+    src.load(n, rid, dp, XsT, x2s, words);
+    float acc = 0.f;
+    for (int kk = 0; kk < dp; ++kk)
+      acc = fmaf(XsT[kk * LP + lane], qrow[kk], acc);
+    const bool pad = (long long)rid * LANES + lane >= n;
+    const float sc = pad ? __int_as_float(0x7F800000) : acc + x2s[lane];
+    insert_sorted<R>(buf, rest, row_key(sc, rid, vmask));
+  }
+  if (q >= nq) return;
+  const size_t plane = (size_t)LANES * nq, off = (size_t)lane * nq + q;
+#pragma unroll
+  for (int c = 0; c < R; ++c) cand[((size_t)s * R + c) * plane + off] = buf[c];
+  disc[(size_t)s * plane + off] = rest;
+}
+
+inline size_t scan_smem(int dp, int qb, int words) {
+  return sizeof(float) * ((size_t)dp * LP + (size_t)qb * dp + LANES) +
+         sizeof(int) * (size_t)words;
+}
+
+template <class Src, int KEEP>
+cudaError_t launch_candidates(const Src& src, const void* Qm, void* cand,
+                              void* disc, int n, int nq, int dp, int ntiles,
+                              int rows, int idbits, cudaStream_t st) {
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = scan_candidates_kernel<Src, KEEP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int nqb = (nq + K1_QB - 1) / K1_QB;
+  const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
+  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
+                                    (int*)cand, (int*)disc, n, nq, dp, rows,
+                                    idbits);
+  return cudaGetLastError();
+}
+
+template <class Src, int R>
+cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
+                        void* disc, int n, int nq, int dp, int nrows,
+                        int rows_per, int idbits, cudaStream_t st) {
+  const size_t smem = scan_smem(dp, K4_QB, src.words());
+  auto kern = scan_topk_kernel<Src, R>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((nq + K4_QB - 1) / K4_QB, (nrows + rows_per - 1) / rows_per);
+  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
+                                    (int*)cand, (int*)disc, n, nq, dp, nrows,
+                                    rows_per, idbits);
+  return cudaGetLastError();
+}
+
+}  // namespace

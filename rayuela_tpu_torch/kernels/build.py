@@ -2,8 +2,9 @@
 
 The sources under ``rayuela_tpu_torch/csrc/`` compile with ``nvcc`` for
 ``sm_90a``, one ``nvcc`` per source, all started together, and link into
-one shared library with a plain C interface, loaded with `ctypes`. The build runs at first use, into ``rayuela_tpu_torch/_build/``
-(listed in ``.gitignore``), and again whenever a source's hash changes:
+one shared library with a plain C interface, loaded with `ctypes`. The
+build runs at first use, into ``rayuela_tpu_torch/_build/`` (listed in
+``.gitignore``), and again whenever a source's hash changes:
 the library's file name carries the hash of the sources and flags.
 Nothing is imported or built when this module is imported.
 """
@@ -22,7 +23,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "codes_scan.cu", "topk_tail.cu", "icm.cu", "viterbi.cu"))
+    "codes_scan.cu", "decoded_scan.cu", "lut_scan.cu", "topk_tail.cu",
+    "icm.cu", "viterbi.cu"))
+HEADERS = (_PKG / "csrc" / "scan_common.cuh",)   # included by the scans
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -33,6 +36,9 @@ _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
+    "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
+    "rq_scan_onepass": [_P] * 5 + [_I] * 8 + [_P],
+    "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
@@ -61,7 +67,7 @@ def build() -> tuple[Path, str]:
     empty when nothing was compiled. A failed build raises with nvcc's
     standard error."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"librayuela_kernels_{h.hexdigest()[:16]}.so"

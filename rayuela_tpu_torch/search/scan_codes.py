@@ -4,9 +4,11 @@
 The index on the card is the packed codes (m bytes per vector, plus one
 norms byte for additive models). A search runs in two passes:
 
-* K1 `codes_decode_candidates`: each 8192-row tile is decoded once from
+* K1 `codes_decode_candidates`: each tile of rows is decoded once from
   its codes and scored against every query; per (lane, query) the tile
   keeps its ``keep`` smallest packed keys and the minimum of the rest.
+  In LUT mode K5 `codes_lut_candidates` takes its place: a row's score
+  is the sum of its codes' entries in per-query tables (`build_luts`).
 * K2 `cand_merge`: per (lane, query) the r smallest candidates, plus a
   certificate row, the smallest key the scan threw away.
 * K3 `scan.tail_merge`: the 128 per-lane lists merge into the query's
@@ -14,8 +16,9 @@ norms byte for additive models). A search runs in two passes:
 
 A query whose certificate beats its k-th key may have lost a true
 top-k member; it re-runs through K4 `codes_decode_topk`, a one-pass
-scan with a deep per-lane buffer, and when K4 flags it again, through
-the plain LUT oracle `lut_scan`. The result is the exact top-k of the
+scan with a deep per-lane buffer (where that is deeper than the
+plan's), and when K4 flags it again, through the plain LUT oracle
+`lut_scan`. The result is the exact top-k of the
 truncated kernel scores, certified per query.
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors
@@ -27,26 +30,27 @@ from __future__ import annotations
 import torch
 
 from rayuela_tpu_torch.kernels.build import launch
-from rayuela_tpu_torch.search.scan import (IMAX, LANES, _pack_idbits,
-                                           _packed_candidates, _row_key)
+from rayuela_tpu_torch.search import scan
+from rayuela_tpu_torch.search.scan import (  # noqa: F401 (re-exported)
+    _KEEPS, _MAX_DP, LANES, _alloc_candidates, _alloc_onepass,
+    _candidates_plain, _finish, _merge_onepass, _onepass_plain,
+    _pack_idbits, _query_operand, _row_key, cand_merge, cand_merge_plain)
 from rayuela_tpu_torch.utils import cdiv, exact_f32, splitarray
 
-# row ids are 16 bits wide, so one single-segment scan covers this many
-# rows; larger bases are not ported yet (ROADMAP A2)
+# row ids are 16 bits wide, so one scan call covers this many rows;
+# larger bases run in segments with an exact merge
 _DECODE_SEG = (1 << 16) * LANES
 
 # rescue kernel shape: one-pass scan, keep=0, a 48-deep per-lane buffer
-_RESCUE_R, _RESCUE_TILE = 48, 2048
+# (K4 is compiled for this depth alone)
+_RESCUE_R, _RESCUE_TILE = scan._ONEPASS_R, 2048
 
-# the kernels' compile-time variants (those `_codes_config` plans) and
-# shared-memory limit; K4 runs only at the rescue depth _RESCUE_R
-_KEEPS = (2, 4)
-_RS = (16, 32, _RESCUE_R)
-_MAX_DP = 256
-_MAX_SPLITS = 4096
+# tile of the two-pass scans (K1 and K5)
+_TILE = 8192
 
-# query block of the plain versions: bounds their transient memory
-_QBLOCK = 1024
+# K5 keeps the tables of 16 queries in shared memory
+_LUT_QB = 16
+_MAX_SMEM = 232_448
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +149,7 @@ class CodesIndex:
         self.pq, self.d, self.norms_cbook = pq, d, norms_cbook
         self.n = packed.shape[0]
         self._decode_ops: dict = {}
+        self._segments: dict = {}      # sub-indexes of a segmented base
 
     def decode_operands(self, d: int, op_dtype):
         """Cached `build_decode_operands` (they depend only on C, d and
@@ -281,19 +286,25 @@ def _decode_x2(Cflat, nrm, packed_rows, m: int, has_norms: bool):
     return acc.to(Cflat.dtype).float(), x2
 
 
-def _tile_keys(Cflat, nrm, packed, Qf, g0: int, tile: int, m: int,
-               has_norms: bool, idbits: int) -> torch.Tensor:
-    """Keys of rows [g0, g0 + tile) against ``Qf`` → (tile/128, 128, nq);
-    rows at or past n score +inf."""
+def _decode_keys_fn(Qm, Cflat, nrm, packed, tile: int, has_norms: bool,
+                    idbits: int):
+    """`keys_fn` of the plain selections (`scan._candidates_plain`) for
+    rows decoded from their codes: scores ``X Qm^T + x2`` in f32, +inf at
+    and past row n."""
     exact_f32()
-    n = packed.shape[0]
-    X, x2 = _decode_x2(Cflat, nrm, packed[g0:g0 + tile], m, has_norms)
-    S = torch.full((tile, Qf.shape[0]), float("inf"), dtype=torch.float32,
-                   device=Qf.device)
-    nv = max(0, min(tile, n - g0))
-    S[:nv] = X @ Qf.T + x2[:, None]
-    rows = tile // LANES
-    return _row_key(S, g0 // tile, rows=rows, idbits=idbits)
+    n, rows = packed.shape[0], tile // LANES
+    m = Cflat.shape[0] // nrm.shape[0]
+    Qf = Qm.float()
+
+    def keys(t, q0, q1):
+        g0 = t * tile
+        X, x2 = _decode_x2(Cflat, nrm, packed[g0:g0 + tile], m, has_norms)
+        S = torch.full((tile, q1 - q0), float("inf"), dtype=torch.float32,
+                       device=Qm.device)
+        nv = max(0, min(tile, n - g0))
+        S[:nv] = X @ Qf[q0:q1].T + x2[:, None]
+        return _row_key(S, t, rows=rows, idbits=idbits)
+    return keys
 
 
 def codes_decode_candidates_plain(Qm, Cflat, nrm, packed, *, tile: int,
@@ -301,23 +312,9 @@ def codes_decode_candidates_plain(Qm, Cflat, nrm, packed, *, tile: int,
                                   has_norms: bool):
     """Plain version of `codes_decode_candidates` (same signature and
     outputs)."""
-    n, nq = packed.shape[0], Qm.shape[0]
-    m = Cflat.shape[0] // nrm.shape[0]
-    ntiles, rows = cdiv(n, tile), tile // LANES
-    cand = torch.empty((ntiles * keep, LANES, nq), dtype=torch.int32,
-                       device=Qm.device)
-    disc = torch.empty((ntiles, LANES, nq), dtype=torch.int32,
-                       device=Qm.device)
-    Qf = Qm.float()
-    for t in range(ntiles):
-        for q0 in range(0, nq, _QBLOCK):
-            kv = _tile_keys(Cflat, nrm, packed, Qf[q0:q0 + _QBLOCK],
-                            t * tile, tile, m, has_norms, idbits)
-            top = torch.topk(kv, min(keep + 1, rows), dim=0, largest=False,
-                             sorted=True).values
-            cand[t * keep:(t + 1) * keep, :, q0:q0 + _QBLOCK] = top[:keep]
-            disc[t, :, q0:q0 + _QBLOCK] = top[keep] if rows > keep else IMAX
-    return cand, disc
+    return _candidates_plain(
+        _decode_keys_fn(Qm, Cflat, nrm, packed, tile, has_norms, idbits),
+        packed.shape[0], Qm.shape[0], Qm.device, tile=tile, keep=keep)
 
 
 def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
@@ -342,11 +339,7 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
         raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
     n, nw = packed.shape
     (nq, dp), h = Qm.shape, nrm.shape[0]
-    ntiles = cdiv(n, tile)
-    cand = torch.empty((ntiles * keep, LANES, nq), dtype=torch.int32,
-                       device=Qm.device)
-    disc = torch.empty((ntiles, LANES, nq), dtype=torch.int32,
-                       device=Qm.device)
+    ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
     if nq and n:
         launch("rq_codes_decode_candidates", Qm, Cflat, nrm, packed, cand,
                disc, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
@@ -359,79 +352,13 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
 codes_decode_candidates.launches = 0
 
 
-def cand_merge_plain(cand, disc, r: int):
-    """Plain version of `cand_merge` (same signature and outputs)."""
-    ncand, _, nq = cand.shape
-    out = torch.empty((r + 1, LANES, nq), dtype=torch.int32,
-                      device=cand.device)
-    for q0 in range(0, nq, _QBLOCK):
-        c = cand[:, :, q0:q0 + _QBLOCK]
-        if ncand < r + 1:
-            c = torch.cat([c, torch.full((r + 1 - ncand,) + c.shape[1:],
-                                         IMAX, dtype=torch.int32,
-                                         device=c.device)])
-        top = torch.topk(c, r + 1, dim=0, largest=False, sorted=True).values
-        cert = top[r]
-        if disc.shape[0]:
-            cert = torch.minimum(cert, disc[:, :, q0:q0 + _QBLOCK].amin(0))
-        out[:r, :, q0:q0 + _QBLOCK] = top[:r]
-        out[r, :, q0:q0 + _QBLOCK] = cert
-    return out
-
-
-def cand_merge(cand, disc, r: int):
-    """Kernel K2, pass 2 of the scan. Per (lane, query): the ``r``
-    smallest keys of ``cand (ncand, 128, nq)``, ascending, then one
-    certificate row, ``min(every discard minimum in disc (ndisc, 128,
-    nq), every candidate not kept)`` → ``(r + 1, 128, nq)`` int32.
-    Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
-    for t in (cand, disc):
-        if t.dtype != torch.int32 or t.dim() != 3 \
-                or t.shape[1] != LANES or not t.is_contiguous():
-            raise ValueError("cand and disc must be contiguous "
-                             "(rows, 128, nq) int32")
-    if cand.device != disc.device or cand.shape[2] != disc.shape[2]:
-        raise ValueError("cand and disc disagree in device or nq")
-    if cand.device.type == "cpu":
-        return cand_merge_plain(cand, disc, r)
-    if cand.device.type != "cuda":
-        raise ValueError(f"unsupported device {cand.device}")
-    if r not in _RS:
-        raise ValueError(f"r={r}: the kernel takes {_RS}")
-    nq = cand.shape[2]
-    out = torch.empty((r + 1, LANES, nq), dtype=torch.int32,
-                      device=cand.device)
-    if nq:
-        launch("rq_cand_merge", cand, disc, out, cand.shape[0],
-               disc.shape[0], nq, r, device=cand.device)
-        cand_merge.launches += 1
-    return out
-
-
-cand_merge.launches = 0
-
-
 def codes_decode_topk_plain(Qm, Cflat, nrm, packed, *, tile: int, r: int,
                             idbits: int, has_norms: bool):
     """Plain version of `codes_decode_topk` (same signature and
     outputs)."""
-    n, nq = packed.shape[0], Qm.shape[0]
-    m = Cflat.shape[0] // nrm.shape[0]
-    npad = cdiv(n, tile) * tile
-    out = torch.empty((r + 1, LANES, nq), dtype=torch.int32,
-                      device=Qm.device)
-    Qf = Qm.float()
-    for q0 in range(0, nq, _QBLOCK):
-        Qb = Qf[q0:q0 + _QBLOCK]
-        buf = torch.full((r + 1, LANES, Qb.shape[0]), IMAX,
-                         dtype=torch.int32, device=Qm.device)
-        for g0 in range(0, npad, tile):
-            kv = _tile_keys(Cflat, nrm, packed, Qb, g0, tile, m, has_norms,
-                            idbits)
-            buf = torch.topk(torch.cat([buf, kv]), r + 1, dim=0,
-                             largest=False, sorted=True).values
-        out[:, :, q0:q0 + _QBLOCK] = buf
-    return out
+    return _onepass_plain(
+        _decode_keys_fn(Qm, Cflat, nrm, packed, tile, has_norms, idbits),
+        packed.shape[0], Qm.shape[0], Qm.device, tile=tile, r=r)
 
 
 def codes_decode_topk(Qm, Cflat, nrm, packed, *, tile: int, r: int,
@@ -453,43 +380,106 @@ def codes_decode_topk(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     n, nw = packed.shape
     (nq, dp), h = Qm.shape, nrm.shape[0]
     dev = Qm.device
-    out = torch.empty((r + 1, LANES, nq), dtype=torch.int32, device=dev)
     if not nq:
-        return out
-    # split the row range until the card holds ~4 CTAs per SM: the rescue
-    # serves a few queries, and one CTA per query pair walking the whole
-    # base would leave most SMs idle
-    nrows = cdiv(n, tile) * tile // LANES
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(nrows, _MAX_SPLITS, max(1, cdiv(4 * sms, cdiv(nq, 2))))
-    rows_per = cdiv(nrows, splits)
-    splits = cdiv(nrows, rows_per)
-    if splits == 1:
-        cand, disc = out[:r], out[r:]
-    else:
-        cand = torch.empty((splits * r, LANES, nq), dtype=torch.int32,
-                           device=dev)
-        disc = torch.empty((splits, LANES, nq), dtype=torch.int32,
-                           device=dev)
+        return torch.empty((r + 1, LANES, 0), dtype=torch.int32, device=dev)
+    out, cand, disc, nrows, rows_per = _alloc_onepass(n, nq, tile, r, dev)
     launch("rq_codes_decode_topk", Qm, Cflat, nrm, packed, cand, disc, n,
            nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms), nrows,
            rows_per, r, idbits, int(Qm.dtype == torch.bfloat16), device=dev)
     codes_decode_topk.launches += 1
-    return out if splits == 1 else cand_merge(cand, disc, r)
+    return _merge_onepass(out, cand, disc, r)
 
 
 codes_decode_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Scan entry points and the search front end
+# Kernel K5: the LUT scan
 # ---------------------------------------------------------------------------
 
-def _query_operand(Q: torch.Tensor, dp: int, dtype) -> torch.Tensor:
-    """``-2 Q`` zero-padded to dp columns, at the operand dtype."""
-    Qm = torch.nn.functional.pad(-2.0 * Q, (0, dp - Q.shape[1]))
-    return Qm.to(dtype).contiguous()
+def codes_lut_candidates_plain(T, packed, *, tile: int, keep: int,
+                               idbits: int):
+    """Plain version of `codes_lut_candidates` (same signature and
+    outputs)."""
+    mprime, h, nq = T.shape
+    n, rows = packed.shape[0], tile // LANES
+    flat = T.reshape(mprime * h, nq)
 
+    def keys(t, q0, q1):
+        g0 = t * tile
+        codes = unpack_codes(packed[g0:g0 + tile], mprime).long()
+        Tb = flat[:, q0:q1].float()
+        S = torch.full((tile, q1 - q0), float("inf"), dtype=torch.float32,
+                       device=T.device)
+        nv = codes.shape[0]
+        acc = torch.zeros((nv, q1 - q0), dtype=torch.float32,
+                          device=T.device)
+        for j in range(mprime):          # codebook order, the norms last
+            acc = acc + Tb.index_select(0, codes[:, j] + j * h)
+        S[:nv] = acc
+        return _row_key(S, t, rows=rows, idbits=idbits)
+
+    return _candidates_plain(keys, n, nq, T.device, tile=tile, keep=keep)
+
+
+def codes_lut_candidates(T, packed, *, tile: int, keep: int, idbits: int):
+    """Kernel K5, pass 1 of the LUT scan. Row ``g`` scores ``sum_j
+    T[j, code_j(g), q]`` against query q: the table values at ``T``'s
+    dtype (bfloat16 or float32), summed in f32 in codebook order, the
+    norms table last; +inf at and past row n. For each tile of ``tile``
+    rows and each (lane, query): the ``keep`` smallest packed keys,
+    ascending, and the smallest of the tile's other keys.
+
+    ``T (m', h, nq)`` is `build_luts`' stack at the table dtype,
+    ``packed (n, ceil(m'/4))`` from `pack_codes`. Returns ``cand
+    (ntiles*keep, 128, nq)`` and ``disc (ntiles, 128, nq)`` int32.
+    Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
+    if T.dim() != 3 or packed.dim() != 2 \
+            or packed.shape[1] != cdiv(T.shape[0], 4):
+        raise ValueError(f"T {tuple(T.shape)} must be (m', h, nq) and "
+                         f"packed {tuple(packed.shape)} (n, ceil(m'/4))")
+    if T.dtype not in (torch.float32, torch.bfloat16) \
+            or packed.dtype != torch.int32:
+        raise ValueError("T must be float32 or bfloat16 and packed int32")
+    if T.device != packed.device:
+        raise ValueError("operands must share one device")
+    if not (T.is_contiguous() and packed.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    rows = tile // LANES
+    if tile % LANES or rows & (rows - 1) or keep < 1 or keep > rows:
+        raise ValueError(f"tile/128={tile / LANES} must be a power of two "
+                         f"and 1 <= keep={keep} <= tile/128")
+    if T.device.type == "cpu":
+        return codes_lut_candidates_plain(T, packed, tile=tile, keep=keep,
+                                          idbits=idbits)
+    if T.device.type != "cuda":
+        raise ValueError(f"unsupported device {T.device}")
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
+    mprime, h, nq = T.shape
+    smem = 2 * T.element_size() * (_LUT_QB // 2) * mprime * h
+    if h > 256 or smem > _MAX_SMEM:
+        raise ValueError(f"m'*h={mprime * h} tables of {_LUT_QB} queries "
+                         f"({smem} bytes) exceed the kernel's shared memory "
+                         f"({_MAX_SMEM}), or h={h} > 256")
+    if nq >= 1 << 20:
+        raise ValueError("at most 2**20 queries per call")
+    n, nw = packed.shape
+    ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, T.device)
+    if nq and n:
+        launch("rq_codes_lut_candidates", T, packed, cand, disc, n, nq,
+               mprime, h, nw, ntiles, rows, keep, idbits,
+               int(T.dtype == torch.bfloat16), device=T.device)
+        codes_lut_candidates.launches += 1
+    return cand, disc
+
+
+codes_lut_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Scan entry points and the search front end
+# ---------------------------------------------------------------------------
 
 def _scan_setup(Q, Cflat, packed, k: int, r: int, tile: int):
     n = packed.shape[0]
@@ -497,18 +487,13 @@ def _scan_setup(Q, Cflat, packed, k: int, r: int, tile: int):
         raise ValueError(f"k={k} > r*128={r * LANES}")
     idbits = _pack_idbits(cdiv(n, tile) * tile)
     if not idbits:
-        raise ValueError(f"n={n} too large for packed row ids")
+        raise ValueError(f"n={n} exceeds the packed row-id range "
+                         f"({_DECODE_SEG} rows per call); segment the base")
     return _query_operand(Q, Cflat.shape[1], Cflat.dtype), idbits
 
 
-def _finish(outp, nq: int, r: int, k: int, idbits: int):
-    vals, ids, tau = _packed_candidates(outp, nq, r, k, idbits)
-    flagged = (outp[r] < tau[None, :]).any(0)
-    return vals, ids, flagged
-
-
 def scan_codes_decode_topk_2p(Q, Cflat, nrm, packed, *, k: int, pq: bool,
-                              r: int = 32, tile: int = 8192,
+                              r: int = 32, tile: int = _TILE,
                               keep: int = 4):
     """Two-pass decode scan (K1 → K2 → K3) → ``(truncated scores
     (nq, k) f32 without +|q|^2, ids (nq, k) int32, flagged (nq,) bool)``:
@@ -531,30 +516,55 @@ def scan_codes_decode_topk(Q, Cflat, nrm, packed, *, k: int, pq: bool,
     return _finish(outp, Q.shape[0], r, min(k, packed.shape[0]), idbits)
 
 
-def _codes_config(k: int) -> tuple[str, int, int]:
-    """Scan plan for a top-k of size ``k`` → (kind, r, keep).
+def scan_codes_topk(T, packed, *, k: int, r: int = 32, tile: int = _TILE,
+                    keep: int = 4, lut_dtype=torch.bfloat16):
+    """Two-pass LUT scan (K5 → K2 → K3) over per-query tables ``T (m',
+    h, nq)`` from `build_luts` → ``(truncated scores (nq, k) f32 without
+    +|q|^2, ids (nq, k) int32, flagged (nq,) bool)``. The table values
+    are rounded to ``lut_dtype`` before the sums; the sums are f32."""
+    mprime, h, nq = T.shape
+    n = packed.shape[0]
+    if k > r * LANES:
+        raise ValueError(f"k={k} > r*128={r * LANES}")
+    if keep < 1 or keep & (keep - 1):
+        raise ValueError(f"keep={keep} must be a power of two >= 1 (the "
+                         "LUT scan has no one-pass kernel)")
+    idbits = _pack_idbits(cdiv(n, tile) * tile)
+    if not idbits:
+        raise ValueError(f"n={n} exceeds the packed row-id range "
+                         f"({_DECODE_SEG} rows per call); segment the base")
+    cand, disc = codes_lut_candidates(T.to(lut_dtype).contiguous(), packed,
+                                      tile=tile, keep=keep, idbits=idbits)
+    outp = cand_merge(cand, disc, r)
+    return _finish(outp, nq, r, min(k, n), idbits)
 
-    K2's per-lane buffer ``r`` must hold k across 128 lanes with room
-    for the uneven spread of the top-k over lanes, and K1's per-tile
-    ``keep`` must hold a lane's share of the top-k within one tile. Both
-    set how much K2 reads, so they stay as small as the flag rate
-    allows: r=16, keep=2 up to k=512; r=32, keep=4 up to k=4096. Larger
-    k runs the one-pass K4 scan at its deepest buffer, and beyond
-    48*128 keys per lane the plain LUT scan."""
-    if k <= 512:
-        return "2p", 16, 2
-    if k <= 4096:
-        return "2p", 32, 4
-    if k <= _RESCUE_R * LANES:
-        return "1p", _RESCUE_R, 0
-    return "lut", 0, 0
+
+def _codes_config(k: int, mode: str = "decode", n: int | None = None
+                  ) -> tuple[str, int, int, int]:
+    """Scan plan for a top-k of size ``k`` → (kind, r, keep, tile): the
+    two-pass scan at the plan every packed scan shares
+    (`scan._scan_config`: the flag statistics depend on ``(k, r, keep,
+    tile)``, not on where a score comes from), and beyond its deepest
+    buffer the plain LUT scan. A base of ``n`` rows whose tiles keep
+    fewer than k candidates (k most of a small base) cannot be served in
+    two passes: decode mode takes the one-pass K4 scan where its buffer
+    holds k, and the plain LUT scan serves the rest."""
+    if k > scan._MAX_K:
+        return "lut", 0, 0, 0
+    r, keep, tile = scan._scan_config(k)
+    if n is not None and k > cdiv(n, tile) * keep * LANES:
+        if mode == "decode" and k <= _RESCUE_R * LANES:
+            return "1p", _RESCUE_R, 0, _RESCUE_TILE
+        return "lut", 0, 0, 0
+    return "2p", r, keep, tile
 
 
 def _rescue(Q, Cf, nrm, index: CodesIndex, s, i, flagged, k: int, d: int,
             op_dtype, deep: bool):
-    """Re-run certificate-flagged queries exactly: through K4's deep
-    buffer when ``deep``, then the queries K4 flags (again) through the
-    LUT oracle: a K4 pass with the same buffer would flag them again."""
+    """Re-run certificate-flagged queries exactly: through K4 when
+    ``deep`` (its buffer is deeper than the plan's), then the queries K4
+    flags (again) through the LUT oracle: a K4 pass with the same buffer
+    would flag them again."""
     still = torch.nonzero(flagged).flatten()
     if deep:
         s2, i2, f2 = scan_codes_decode_topk(Q[still], Cf, nrm,
@@ -567,48 +577,91 @@ def _rescue(Q, Cf, nrm, index: CodesIndex, s, i, flagged, k: int, d: int,
     return s, i
 
 
+def _search_segments(index: CodesIndex, Q, k: int, **kw):
+    """A base beyond the packed row-id range: `search_codes` per
+    `_DECODE_SEG`-row segment (each certified and rescued on its own)
+    with an exact merge on the device."""
+    best_s = best_i = None
+    for st in range(0, index.n, _DECODE_SEG):
+        sub = index._segments.get(st)
+        if sub is None:
+            sub = CodesIndex(index.packed[st:st + _DECODE_SEG],
+                             index.mprime, index.C, pq=index.pq, d=index.d,
+                             norms_cbook=index.norms_cbook)
+            sub._decode_ops = index._decode_ops     # one operand cache
+            index._segments[st] = sub
+        s, i = search_codes(sub, Q, min(k, sub.n), **kw)
+        i = i + st
+        if best_s is None:
+            best_s, best_i = s, i
+            continue
+        cs, ci = torch.cat([best_s, s], 1), torch.cat([best_i, i], 1)
+        top = torch.topk(cs, k, dim=1, largest=False, sorted=True)
+        best_s, best_i = top.values, torch.gather(ci, 1, top.indices)
+    return best_s, best_i
+
+
 def search_codes(index: CodesIndex, Q, k: int, *,
                  op_dtype=None, mode: str = "decode", qsuper: int = 1,
                  stage: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k (for the kernel scores) over a packed-code index →
     ``(dists (nq, k) f32 with +|q|^2, ids (nq, k) int32)``.
 
-    ``op_dtype`` is the kernels' operand dtype: bfloat16 on the card,
-    float32 on the CPU by default. The JAX package's ``qsuper`` and
-    ``stage`` variants and its LUT mode are not ported."""
+    ``mode="decode"`` scores a row by decoding it (K1/K4), ``mode="lut"``
+    by summing per-query table entries (K5); flagged queries re-run
+    exactly. ``op_dtype`` is the dtype of the kernels' operands (decode)
+    or tables (lut): bfloat16 on the card, float32 on the CPU by
+    default. A base beyond `_DECODE_SEG` rows runs in segments, and a
+    query batch whose candidate array would pass `scan._CAND_CAP` bytes
+    in chunks. The JAX package's ``qsuper`` and ``stage`` variants of
+    the one-pass decode scan are not ported."""
     if qsuper != 1 or stage:
         raise NotImplementedError(
             "the qsuper/stage variants of the one-pass scan are not "
             "ported yet (ROADMAP B11)")
-    if mode != "decode":
-        raise NotImplementedError(
-            f"mode={mode!r}: the LUT-mode scan (kernel K5) is not ported "
-            "yet (ROADMAP B8)")
-    if index.n > _DECODE_SEG:
-        raise NotImplementedError(
-            f"n={index.n} > {_DECODE_SEG}: segmented bases are not ported "
-            "yet (ROADMAP A2)")
+    if mode not in ("decode", "lut"):
+        raise ValueError(f"mode {mode!r}: 'decode' or 'lut'")
     dev = index.packed.device
     Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
     if op_dtype is None:
         op_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     k = min(k, index.n)
+    if index.n > _DECODE_SEG:
+        return _search_segments(index, Q, k, op_dtype=op_dtype, mode=mode)
     d = Q.shape[1] if index.d in (-1, None) else index.d
     q2 = (Q * Q).sum(-1, keepdim=True)
-    kind, r, keep = _codes_config(k)
+    kind, r, keep, tile = _codes_config(k, mode, index.n)
     if kind == "lut":
         s, i = _lut_scan_tiled(index, Q, k, d, op_dtype)
         return s + q2, i
-    Cf, nrm = index.decode_operands(d, op_dtype)
-    if kind == "2p":
-        s, i, fl = scan_codes_decode_topk_2p(Q, Cf, nrm, index.packed, k=k,
-                                             pq=index.pq, r=r, keep=keep)
-    else:
-        s, i, fl = scan_codes_decode_topk(Q, Cf, nrm, index.packed, k=k,
-                                          pq=index.pq)
+    if mode == "decode":
+        Cf, nrm = index.decode_operands(d, op_dtype)
+    parts = []
+    per_query = cdiv(index.n, tile) * max(keep, 1) * LANES * 4
+    for a, b in scan._query_chunks(Q.shape[0], per_query):
+        Qc = Q[a:b]
+        if mode == "lut":
+            T = build_luts(index.C, Qc, pq=index.pq, d=d,
+                           norms_cbook=index.norms_cbook)
+            parts.append(scan_codes_topk(T, index.packed, k=k, r=r,
+                                         tile=tile, keep=keep,
+                                         lut_dtype=op_dtype))
+        elif kind == "2p":
+            parts.append(scan_codes_decode_topk_2p(
+                Qc, Cf, nrm, index.packed, k=k, pq=index.pq, r=r,
+                tile=tile, keep=keep))
+        else:
+            parts.append(scan_codes_decode_topk(Qc, Cf, nrm, index.packed,
+                                                k=k, pq=index.pq))
+    s, i, fl = (torch.cat(p) for p in zip(*parts))
     if bool(fl.any()):
-        s, i = _rescue(Q, Cf, nrm, index, s, i, fl, k, d, op_dtype,
-                       deep=kind == "2p")
+        if mode == "lut":
+            still = torch.nonzero(fl).flatten()
+            s[still], i[still] = _lut_scan_tiled(index, Q[still], k, d,
+                                                 op_dtype)
+        else:
+            s, i = _rescue(Q, Cf, nrm, index, s, i, fl, k, d, op_dtype,
+                           deep=r < _RESCUE_R)
     return s + q2, i
 
 

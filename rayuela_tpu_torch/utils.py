@@ -19,6 +19,17 @@ def exact_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def as_tensor(X, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``X`` as a tensor of ``dtype`` on ``device``. With ``device=None``
+    a tensor stays where its caller put it, and anything else (a numpy
+    array, a list) goes to the card: entry points run on the card unless
+    the caller asks for the CPU, and where there is no card the
+    transfer raises."""
+    if device is None:
+        device = X.device if isinstance(X, torch.Tensor) else "cuda"
+    return torch.as_tensor(X, dtype=dtype, device=device)
+
+
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
     return -(-a // b)

@@ -26,6 +26,14 @@ from rayuela_tpu_torch.ops.qerror import veccost
 torch.set_num_threads(2)
 
 
+@pytest.fixture
+def rng():
+    """A generator of each test's own. The suite's shared one is
+    advanced by every test that draws from it, which would make the data
+    of the tests that run later in the same process depend on these."""
+    return np.random.default_rng(0)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 

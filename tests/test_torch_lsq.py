@@ -34,6 +34,14 @@ from tests.torch_parity import assert_tie_rule
 torch.set_num_threads(2)
 
 
+@pytest.fixture
+def rng():
+    """A generator of each test's own. The suite's shared one is
+    advanced by every test that draws from it, which would make the data
+    of the tests that run later in the same process depend on these."""
+    return np.random.default_rng(0)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a))
 
@@ -128,7 +136,8 @@ def test_facade_sr_d_pipeline_matches_jax(corr):
     _, ji = japi.search(japi.index_base(jm, ds.Xb, mode="codes"), ds.Xq,
                         k=10)
     rj = j_eval_recall(ji, ds.gt, verbose=False)[9]
-    tm = tapi.train(ds.Xt, method="sr_d", m=4, h=16, niter=3, seed=0)
+    tm = tapi.train(ds.Xt, method="sr_d", m=4, h=16, niter=3, seed=0,
+                    device="cpu")
     assert tm.R is None and tm.codebooks.shape == (4, 16, 16)
     et = float(qerror(_t(ds.Xt), tm.codebooks, tm.train_codes))
     _within(et, ej)
@@ -165,7 +174,8 @@ def test_jax_models_serve_identically_from_the_port(serve_data, rng,
     Q = np.round(ds.Xq * 16) / 16
     jd, ji = japi.search(jidx, Q, k=20)
     tm = convert.model_from_arrays(method, C, R=R, h=16,
-                                   train_codes=np.asarray(jm.train_codes))
+                                   train_codes=np.asarray(jm.train_codes),
+                                   device="cpu")
     nc = None if jidx.norms_codebook is None \
         else np.asarray(jidx.norms_codebook)
     nco = None if jidx.norm_codes is None else np.asarray(jidx.norm_codes)

@@ -8,6 +8,7 @@ quantization error on the same data, within 5%."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rayuela_tpu.models import pq as jpq
@@ -20,6 +21,14 @@ from rayuela_tpu_torch.ops import kmeans as tkm
 from rayuela_tpu_torch.search import norms as tnorms
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def rng():
+    """A generator of each test's own. The suite's shared one is
+    advanced by every test that draws from it, which would make the data
+    of the tests that run later in the same process depend on these."""
+    return np.random.default_rng(0)
 
 
 def _clustered(rng, n, d, ncenters=24):

@@ -21,6 +21,15 @@ from tests.torch_parity import (assert_close_topk, assert_tie_rule,
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture
+def rng():
+    """A generator of each test's own. The suite's shared one is
+    advanced by every test that draws from it, which would make the data
+    of the tests that run later in the same process depend on these."""
+    return np.random.default_rng(0)
+
+
 D, M, H = 32, 4, 16
 
 
@@ -238,9 +247,11 @@ def test_unported_routes_raise(rng):
     C, B = int_dataset(rng, d=D, n=300, m=M, h=H, pq=True)
     idx = tsc.build_codes_index(_t(C), _t(B), pq=True, d=D)
     Q = _t(_queries(rng, 2, "int"))
-    for kw in (dict(mode="lut"), dict(qsuper=2), dict(stage=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(qsuper=2), dict(stage=4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
             tsc.search_codes(idx, Q, 5, **kw)
+    with pytest.raises(ValueError, match="'decode' or 'lut'"):
+        tsc.search_codes(idx, Q, 5, mode="tables")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tsc.search_codes_streamed(C, B, Q, 5)
     with pytest.raises(ValueError, match="norms"):

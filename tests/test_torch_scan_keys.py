@@ -13,6 +13,16 @@ from rayuela_tpu_torch.search import scan as tsp
 from tests.torch_parity import assert_tie_rule
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture
+def rng():
+    """A generator of each test's own. The suite's shared one is
+    advanced by every test that draws from it, which would make the data
+    of the tests that run later in the same process depend on these."""
+    return np.random.default_rng(0)
+
+
 IMAX = np.iinfo(np.int32).max
 
 
