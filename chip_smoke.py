@@ -26,6 +26,17 @@ phases below; any failure exits non-zero.
    table values in the plain version's order) identical again. Then
    their times at nq = 1e4 beside the plain versions', and whether K8
    gives K1's keys on the same codes.
+1d. The exact-float kernels against their plain versions at n = 1e6,
+   d = 128, nq = 1024, f32 and bf16 operands: K9 (`scan_f32_candidates`
+   and `pair_merge`) and K10 (`verify_counts`) for the classes of the
+   card's f32 plan, K6 (`codes_lut_f32_candidates`) and K7
+   (`codes_verify_counts`) for both keeps. On small-integer data the
+   pairs, the counts, the top-k and the flags must be identical; on
+   Gaussian data K9's scores lie within 1e-5 relative (+ 1e-4: the
+   terms reach ~1e2) with >= 99.9% of ids equal by position and equal
+   flags, and K6/K7, which add in the plain versions' order, are
+   identical again. Their times at nq = 1e4 stand with the other
+   kernels' (f32 index and f32 tables: the operands of phase 6).
 1b. The encode kernels against their plain versions on the card, at
    n = 65,536, d = 128, h = 256, m = 7 and 8: K11 `icm_sweeps` at
    icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`.
@@ -59,9 +70,27 @@ phases below; any failure exits non-zero.
    4's decode-mode search and the LUT oracle on 64 queries; then an
    explicit one-pass configuration (keep=0) on 128 queries runs with
    counts of its own; then the plan sweep: flagged queries and time of
-   the decoded and the LUT scan at k = 2048 .. 12288 for the buffer
+   the decoded and the LUT scan at k = 2048, 4096 and 8192 for the buffer
    depths and tiles the plan chooses among, beside the exact scans that
    serve a k beyond the plan.
+
+6. The exact-float main path on phase 4's model and codes: an f32
+   decoded index (`build_index(dtype=float32)` on phase 5's codes) →
+   `api.search(..., pack=False)` at k = 100 and 1000 with recall and
+   queries/s; `api.search(index_codes, mode="lut", pack=False)` with
+   f32 tables at both k; `linscan_lsq(..., pack=False)`, which must
+   equal the facade's result; `api.search_streamed` over the packed
+   base held in host memory, 4 shards, in LUT mode with ``pack=False``
+   (dists within 1e-5 relative of the resident search's, >= 99.9% of ids
+   equal by position: flagged queries re-run on tables built for another
+   batch) and in decode mode
+   (packed keys: within one truncation step of the resident search),
+   each beside the resident search's wall time. No packed scan kernel
+   may launch in the ``pack=False`` calls. After the counts were read:
+   the f32 results against `exact_rescan` and the LUT oracle on 64
+   queries, the flag counts of the f32 plan at k = 100, 1000 and 3072
+   (the deepest k it serves on the card), and one search's device time
+   by kernel.
 
 Every kernel's time stands beside its bound (the larger of its
 operations over the card's published peak for the operand type and its
@@ -74,7 +103,8 @@ The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 5's default
 calls and for its one-pass call: every kernel of the search path must
 have launched in each, K11 and K13 in phase 4, K8, K5, K2 and K3 in
-phase 5, K8's keep=0 form in the one-pass call.
+phase 5, K8's keep=0 form in the one-pass call, K9, K10, K6, K7 and the
+pair merge in phase 6.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data. The
@@ -108,6 +138,12 @@ REPLACES = {
     "scan_candidates": "rayuela_tpu/search/scan_pallas.py:701",
     "scan_onepass": "rayuela_tpu/search/scan_pallas.py:679",
     "codes_lut_candidates": "rayuela_tpu/search/scan_codes_pallas.py:220",
+    "scan_f32_candidates": "rayuela_tpu/search/scan_pallas.py:629",
+    "pair_merge": "rayuela_tpu/search/scan_pallas.py:657",
+    "verify_counts": "rayuela_tpu/search/scan_pallas.py:734",
+    "codes_lut_f32_candidates":
+        "rayuela_tpu/search/scan_codes_pallas.py:179",
+    "codes_verify_counts": "rayuela_tpu/search/scan_codes_pallas.py:232",
 }
 SOURCES = {
     "codes_decode_candidates": "rayuela_tpu_torch/csrc/codes_scan.cu",
@@ -119,6 +155,11 @@ SOURCES = {
     "scan_candidates": "rayuela_tpu_torch/csrc/decoded_scan.cu",
     "scan_onepass": "rayuela_tpu_torch/csrc/decoded_scan.cu",
     "codes_lut_candidates": "rayuela_tpu_torch/csrc/lut_scan.cu",
+    "scan_f32_candidates": "rayuela_tpu_torch/csrc/decoded_scan.cu",
+    "pair_merge": "rayuela_tpu_torch/csrc/codes_scan.cu",
+    "verify_counts": "rayuela_tpu_torch/csrc/decoded_scan.cu",
+    "codes_lut_f32_candidates": "rayuela_tpu_torch/csrc/lut_scan.cu",
+    "codes_verify_counts": "rayuela_tpu_torch/csrc/lut_scan.cu",
 }
 # published peaks of one H100 SXM at its full power limit (per second)
 PEAK = {"bf16 tensor-core": 989e12, "f32 CUDA-core": 67e12, "HBM": 3.35e12}
@@ -144,11 +185,14 @@ def int_err(*pairs):
     return max(float((a.long() - b.long()).abs().max()) for a, b in pairs)
 
 
-def timed(fn, reps):
+def timed(fn, reps, warm=True):
     """``(mean milliseconds of fn() over reps runs after one warm run,
-    by CUDA events; the last run's result)``."""
+    by CUDA events; the last run's result)``. ``warm=False`` skips the
+    warm run: for a plain version that takes seconds and whose time is
+    no yardstick."""
     import torch
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -387,6 +431,7 @@ def kernel_times(rng, errs):
         del cand0, disc0
         decoded_lut_times(c, Xf, x2, k, cand, disc, scan_lib_ms, errs, t)
         del cand, disc
+        f32_times(c, Xf, x2, k, scan_lib_ms, errs, t)
         if k == 1000:
             times.update(t)
     del XfT, Qmf
@@ -482,6 +527,253 @@ def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
             print(f"  codes_lut_candidates with f32 tables: kernel "
                   f"{ms:.3f} ms, plain {pms:.3f} ms")
         del cand, disc, cand0, disc0
+    torch.cuda.empty_cache()
+
+
+def compare_f32(tag, got, ref, exact):
+    """Two exact-float top-k results ``(scores, ids, flagged)`` → the
+    max abs score difference; raises on disagreement. Exact data: all
+    identical. Else scores within 1e-5 relative + 1e-4 (the terms of a
+    score reach ~1e2 and round at that size), >= 99.9% of ids equal by
+    position, flags equal."""
+    import torch
+    (gv, gi, gf), (rv, ri, rf) = got, ref
+    err = float((gv - rv).abs().max())
+    if exact:
+        check(torch.equal(gv, rv) and torch.equal(gi, ri)
+              and torch.equal(gf, rf), f"{tag}: kernel != plain")
+        print(f"  {tag}: identical (scores, ids, flags)")
+        return err
+    same = float((gi == ri).float().mean())
+    within = bool(((gv - rv).abs()
+                   <= 1e-5 * torch.maximum(gv.abs(), rv.abs()) + 1e-4).all())
+    print(f"  {tag}: ids equal by position {same:.6f}, max |dscore| "
+          f"{err:.3g}, within 1e-5 relative: {within}, flags equal: "
+          f"{bool(torch.equal(gf, rf))} ({int(gf.sum())} flagged)")
+    check(same >= 0.999, f"{tag}: only {same:.6f} of ids equal")
+    check(within, f"{tag}: a score moved by more than 1e-5 relative")
+    check(torch.equal(gf, rf), f"{tag}: flags differ")
+    return err
+
+
+def finish_f32(ov, oi, counts, k, r, keep):
+    """`scan._finish_f32` that also hands back the boundary pairs it
+    counted at → ``((scores, ids, flagged), (taus, taui))``."""
+    from rayuela_tpu_torch.search import scan as tsp
+    kept = {}
+
+    def count(ts, ti):
+        kept["tau"] = (ts, ti)
+        return counts(ts, ti)
+    return tsp._finish_f32(ov, oi, k, r, keep, count), kept["tau"]
+
+
+def f32_pipeline(cands, merge, counts, k, r, keep):
+    """K9 or K6 from ``cands() -> (candv, candi)`` through ``merge`` and
+    the top-k to the flags of ``counts(taus, taui)`` → ``((scores, ids,
+    flagged), (candv, candi), (taus, taui))``."""
+    cv, ci = cands()
+    res, tau = finish_f32(*merge(cv, ci, r), counts, k, r, keep)
+    return res, (cv, ci), tau
+
+
+def check_f32_kernels(tag, kernel, plain, k, r, keep, exact, errs, names):
+    """The kernel pipeline against the plain one (``kernel``, ``plain``:
+    ``(cands, merge, counts)``), and each kernel on the other's inputs
+    where those must give identical outputs."""
+    import torch
+    got, (cv, ci), tau = f32_pipeline(*kernel, k, r, keep)
+    ref, (cv0, ci0), _ = f32_pipeline(*plain, k, r, keep)
+    if exact:
+        check(torch.equal(cv, cv0) and torch.equal(ci, ci0),
+              f"{tag}: candidates kernel != plain")
+    # the merge and, on exact data, the counts: same inputs, same outputs
+    mv, mi = kernel[1](cv, ci, r)
+    mv0, mi0 = plain[1](cv, ci, r)
+    check(torch.equal(mv, mv0) and torch.equal(mi, mi0),
+          f"{tag}: pair merge kernel != plain")
+    note(errs, "pair_merge", int_err((mi, mi0)))
+    cnt, cnt0 = kernel[2](*tau), plain[2](*tau)
+    dc = int((cnt.long() - cnt0.long()).abs().max())
+    if exact:
+        check(dc == 0, f"{tag}: counts kernel != plain")
+    else:
+        off = float((cnt != cnt0).float().mean())
+        check(off <= 1e-3, f"{tag}: {off:.2e} of the counts differ")
+    err = compare_f32(tag, got, ref, exact)
+    note(errs, names[0], err)
+    note(errs, names[1], float(dc))
+    del cv, ci, cv0, ci0
+    return err
+
+
+def decoded_f32_fns(Qm, Xd, x2, tile, keep):
+    """``(cands, merge, counts)`` of K9/K10 and of their plain versions
+    on a decoded base."""
+    from rayuela_tpu_torch.search import scan as tsp
+    kw = dict(tile=tile, keep=keep)
+    kernel = (lambda: tsp.scan_f32_candidates(Qm, Xd, x2, **kw),
+              tsp.pair_merge,
+              lambda ts, ti: tsp.verify_counts(Qm, Xd, x2, ts, ti,
+                                               tile=tile))
+    plain = (lambda: tsp.scan_f32_candidates_plain(Qm, Xd, x2, **kw),
+             tsp.pair_merge_plain,
+             lambda ts, ti: tsp.verify_counts_plain(Qm, Xd, x2, ts, ti,
+                                                    tile=tile))
+    return kernel, plain
+
+
+def lut_f32_fns(T, packed, tile, keep):
+    """``(cands, merge, counts)`` of K6/K7 and of their plain versions
+    on tables ``T`` (at the table dtype, contiguous)."""
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    kw = dict(tile=tile, keep=keep)
+    kernel = (lambda: tsc.codes_lut_f32_candidates(T, packed, **kw),
+              tsp.pair_merge,
+              lambda ts, ti: tsc.codes_verify_counts(T, packed, ts, ti,
+                                                     tile=tile))
+    plain = (lambda: tsc.codes_lut_f32_candidates_plain(T, packed, **kw),
+             tsp.pair_merge_plain,
+             lambda ts, ti: tsc.codes_verify_counts_plain(T, packed, ts, ti,
+                                                          tile=tile))
+    return kernel, plain
+
+
+F32_PLANS = ((16, 2, 8192, 100), (32, 4, 8192, 1000), (48, 4, 8192, 3072))
+
+
+def phase1d(rng, errs):
+    """K9, K10, K6, K7 and the pair merge against their plain versions."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print(f"== phase 1d: exact-float kernels vs plain, n={N}, d={D}, "
+          f"nq={NQ1}")
+    for kind, dtype in (("int", torch.float32), ("int", torch.bfloat16),
+                        ("gauss", torch.float32), ("gauss", torch.bfloat16)):
+        exact = kind == "int"
+        if exact:
+            X = rng.integers(-3, 4, (N, D)).astype("float32")
+            Q = rng.integers(-3, 4, (NQ1, D)).astype("float32")
+        else:
+            X = rng.standard_normal((N, D)).astype("float32")
+            Q = rng.standard_normal((NQ1, D)).astype("float32")
+        X, Q = torch.as_tensor(X, device=DEV), torch.as_tensor(Q, device=DEV)
+        idx = tsp.LinscanIndex(X.to(dtype), (X * X).sum(-1))
+        del X
+        Qm = tsp._query_operand(Q, D, dtype)
+        name = f"K9/K10 {kind} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+        print(f" {name}")
+        for r, keep, tile, k in F32_PLANS[:3 if exact else 2]:
+            kernel, plain = decoded_f32_fns(Qm, idx.Xd, idx.x2, tile, keep)
+            check_f32_kernels(
+                f"r={r} keep={keep} tile={tile} k={k}", kernel, plain, k, r,
+                keep, exact, errs, ("scan_f32_candidates", "verify_counts"))
+        del idx
+        torch.cuda.empty_cache()
+    for kind, dtype in (("int", torch.float32), ("gauss", torch.float32),
+                        ("gauss", torch.bfloat16)):
+        c = Phase1(rng, False, kind, torch.float32, NQ1)
+        T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
+        T = T.to(dtype).contiguous()
+        print(f" K6/K7 RVQ-7+1 {kind} "
+              f"{'bf16' if dtype == torch.bfloat16 else 'f32'} tables")
+        for r, keep, tile, k in F32_PLANS[:2]:
+            kernel, plain = lut_f32_fns(T, c.idx.packed, tile, keep)
+            check_f32_kernels(
+                f"r={r} keep={keep} tile={tile} k={k}", kernel, plain, k, r,
+                keep, True, errs,
+                ("codes_lut_f32_candidates", "codes_verify_counts"))
+        del c, T
+        torch.cuda.empty_cache()
+
+
+def f32_times(c, Xf, x2, k, lib_ms, errs, t):
+    """K9 (both passes), K10, K6 and K7 at the f32 plan's class for
+    ``k`` on the codes of ``c``: times beside the plain versions', the
+    timed runs' results held against each other. The f32 index and the
+    f32 tables are recorded (phase 6's operands); the bf16 ones print."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    r, keep, tile, _ = tsp._f32_config(k, DEV)
+    flop = 2.0 * N * NQ * D
+
+    def finish(ov, oi, counts):
+        return finish_f32(ov, oi, counts, k, r, keep)
+
+    kernel, plain = decoded_f32_fns(
+        tsp._query_operand(c.Q, D, torch.float32), Xf, x2, tile, keep)
+    ms, (cv, ci) = timed(kernel[0], 2)
+    pms, (cv0, ci0) = timed(plain[0], 1, warm=False)
+    mms, (ov, oi) = timed(lambda: tsp.pair_merge(cv, ci, r), 3)
+    mpms, (ov0, oi0) = timed(lambda: tsp.pair_merge_plain(cv, ci, r), 1,
+                             warm=False)
+    check(torch.equal(ov, ov0) and torch.equal(oi, oi0),
+          f"pair merge nq={NQ} k={k}: kernel != plain")
+    got, tau = finish(ov, oi, kernel[2])
+    ov0, oi0 = tsp.pair_merge_plain(cv0, ci0, r)
+    del cv0, ci0
+    ref, _ = finish(ov0, oi0, plain[2])
+    note(errs, "scan_f32_candidates", compare_f32(
+        f"k={k} K9+top-k+K10, f32 index", got, ref, exact=False))
+    vms, cnt = timed(lambda: kernel[2](*tau), 2)
+    vpms, cnt0 = timed(lambda: plain[2](*tau), 1, warm=False)
+    off = float((cnt != cnt0).float().mean())
+    check(off <= 1e-3, f"K10 nq={NQ} k={k}: {off:.2e} of the counts differ")
+    note(errs, "verify_counts", float((cnt.long() - cnt0.long()).abs().max()))
+    Qm = tsp._query_operand(c.Q, D, torch.float32)
+    record(t, "scan_f32_candidates", ms, pms, flop, "f32 CUDA-core",
+           nbytes(Qm, Xf, x2, cv, ci), lib_ms)
+    record(t, "pair_merge", mms, mpms, 2.0 * cv.numel(), "f32 CUDA-core",
+           nbytes(cv, ci, ov, oi))
+    record(t, "verify_counts", vms, vpms, flop, "f32 CUDA-core",
+           nbytes(Qm, Xf, x2, *tau, cnt))
+    del cv, ci, ov, oi, ov0, oi0, cnt, cnt0, got, ref
+    # the bf16 index: the kernels' times alone (phase 1d holds them
+    # against their plain versions)
+    Xb = Xf.to(torch.bfloat16)
+    kernel, _ = decoded_f32_fns(c.Qm, Xb, x2, tile, keep)
+    ms, _ = timed(kernel[0], 2)
+    vms, _ = timed(lambda: kernel[2](*tau), 2)
+    print(f"  on the bf16 index: scan_f32_candidates {ms:.3f} ms, "
+          f"verify_counts {vms:.3f} ms; their bound at the bf16 tensor-core "
+          f"peak {flop / PEAK['bf16 tensor-core'] * 1e3:.3f} ms")
+    del Xb
+    torch.cuda.empty_cache()
+    T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
+    T = T.contiguous()
+    adds = 1.0 * N * NQ * c.idx.mprime
+    kernel, plain = lut_f32_fns(T, c.idx.packed, tile, keep)
+    ms, (cv, ci) = timed(kernel[0], 2)
+    pms, (cv0, ci0) = timed(plain[0], 1, warm=False)
+    check(torch.equal(cv, cv0) and torch.equal(ci, ci0),
+          f"K6 f32 tables nq={NQ} k={k}: kernel != plain")
+    del cv0, ci0
+    _, tau = finish(*tsp.pair_merge(cv, ci, r), kernel[2])
+    vms, cnt = timed(lambda: kernel[2](*tau), 2)
+    vpms, cnt0 = timed(lambda: plain[2](*tau), 1, warm=False)
+    check(torch.equal(cnt, cnt0),
+          f"K7 f32 tables nq={NQ} k={k}: kernel != plain")
+    note(errs, "codes_lut_f32_candidates", 0.0)
+    note(errs, "codes_verify_counts", 0.0)
+    record(t, "codes_lut_f32_candidates", ms, pms, adds, "f32 CUDA-core",
+           nbytes(T, c.idx.packed, cv, ci))
+    record(t, "codes_verify_counts", vms, vpms, adds, "f32 CUDA-core",
+           nbytes(T, c.idx.packed, *tau, cnt))
+    del cv, ci, cnt, cnt0
+    Tb = T.to(torch.bfloat16).contiguous()
+    kernel, _ = lut_f32_fns(Tb, c.idx.packed, tile, keep)
+    ms, _ = timed(kernel[0], 2)
+    vms, _ = timed(lambda: kernel[2](*tau), 2)
+    print(f"  with bf16 tables: codes_lut_f32_candidates {ms:.3f} ms, "
+          f"codes_verify_counts {vms:.3f} ms")
+    del T, Tb
     torch.cuda.empty_cache()
 
 
@@ -1041,8 +1333,199 @@ def phase5_onepass(index, Xq, res):
     check(agree >= 0.98, "the one-pass configuration disagrees")
 
 
+def close_to_resident(tag, got, ref):
+    """A streamed exact-float search against the resident one → ``(share
+    of ids equal by position, share of queries identical in dists and
+    ids)``. The two run the same kernels on the same tables, but a
+    flagged query re-runs through the LUT oracle, which builds its
+    tables for another batch of queries (cuBLAS then sums in another
+    order), and the flags of four shards are not those of the whole
+    base; and the shard merge orders by the dist, which rounding can
+    make equal where the raw scores were not. So: dists within 1e-5
+    relative + 1e-4, >= 99.9% of ids equal by position."""
+    import torch
+    (gd, gi), (rd, ri) = got, ref
+    within = bool(((gd - rd).abs() <= 1e-5 * rd.abs() + 1e-4).all())
+    same = float((gi == ri).float().mean())
+    whole = float(((gi == ri).all(1) & (gd == rd).all(1)).float().mean())
+    check(within, f"{tag}: a dist is more than 1e-5 relative from the "
+          f"resident search's (max {float((gd - rd).abs().max()):.3g})")
+    check(same >= 0.999, f"{tag}: only {same:.6f} of ids equal the resident "
+          "search's by position")
+    return same, whole
+
+
+def phase6(card, ds, Xq, index4, index5):
+    """The exact-float main path (``pack=False``) and the streamed
+    searches on phase 4's model and codes: the default calls only, so
+    that the launch counts read after it are this path's own. Returns
+    the f32 index and the results for `phase6_checks`."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search.linscan import eval_recall, linscan_lsq
+
+    print(f"== phase 6: exact-float (pack=False) and streamed main path, "
+          f"SR-D-7+1, {N} base, {NQ} queries ({card})")
+    model = index4.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nt = index5.norms_codebook[index5.norm_codes.long()]
+    si = tsp.build_index(model.codebooks, index5.codes, d=D, norm_term=nt,
+                         dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"  build_index(dtype=float32) on phase 5's codes: "
+          f"{time.perf_counter() - t0:.2f} s, decoded base "
+          f"{nbytes(si.Xd, si.x2) / 1e6:.0f} MB")
+    check(si.Xd.dtype == torch.float32 and si.Xd.shape == (N, D),
+          "not an f32 decoded index")
+    index = rq.MCQIndex(model, index5.codes, si, index5.norms_codebook,
+                        index5.norm_codes, mode="decoded")
+    lut = {"mode": "lut", "pack": False, "op_dtype": torch.float32}
+    res, walls6 = {}, {}
+    for k in (100, 1000):
+        for name, idx, kw in (("decoded", index, {"pack": False}),
+                              ("lut", index4, lut)):
+            dists, ids = rq.search(idx, Xq, k=k, **kw)
+            torch.cuda.synchronize()
+            check_search(dists, ids, k)
+            curve = eval_recall(ids, ds.gt, verbose=False)
+            walls = warm_walls(lambda: rq.search(idx, Xq, k=k, **kw))
+            wall = float(np.median(walls))
+            print(f"  {name} pack=False k={k}: recall@1 {curve[0]:.4f} @10 "
+                  f"{curve[9]:.4f} @100 {curve[99]:.4f}; search "
+                  f"{NQ / wall:,.0f} queries/s (median of "
+                  f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
+            check(curve[0] >= 0.99,
+                  f"{name} pack=False SR-D recall@1 {curve[0]:.4f} < 0.99")
+            res[(name, k)] = (dists, ids)
+            walls6[(name, k)] = wall
+    dists, ids = res[("decoded", 100)]
+    dls, ils = linscan_lsq(model.codebooks, Xq, index.codes,
+                           index.norms_codebook, index.norm_codes, k=100,
+                           pack=False)
+    check(torch.equal(ils, ids) and torch.equal(dls, dists),
+          "linscan_lsq(pack=False) != api.search(pack=False)")
+    print("  linscan_lsq(k=100, pack=False) on the same codes: identical to "
+          "api.search")
+    # the packed base in host memory, streamed in 4 shards
+    host = index4.scan_index.packed.cpu().numpy()
+    skw = dict(norms_cbook=index4.norms_codebook, mprime=8,
+               shard_n=N // 4, **lut)
+    sd, si_ = rq.search_streamed(model, host, Xq, k=100, **skw)
+    torch.cuda.synchronize()
+    rd, ri = res[("lut", 100)]
+    same, whole = close_to_resident("search_streamed(mode='lut', pack=False)",
+                                    (sd, si_), (rd, ri))
+    walls = warm_walls(lambda: rq.search_streamed(model, host, Xq, k=100,
+                                                  **skw))
+    print(f"  search_streamed, 4 shards, lut pack=False k=100: dists within "
+          f"1e-5 relative of the resident search's, ids equal by position "
+          f"{same:.6f}, queries identical in both {whole:.4f}; wall "
+          f"{float(np.median(walls)) * 1e3:.1f} ms (median of "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}) against "
+          f"{walls6[('lut', 100)] * 1e3:.1f} ms resident")
+    return index, res, host
+
+
+def phase6_streamed_decode(index4, Xq, host):
+    """`api.search_streamed` in decode mode (packed keys): counts of its
+    own. A shard's keys keep more score bits than the whole base's, so
+    the result is held to the resident search within one truncation
+    step."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+
+    print("== phase 6, streamed search in decode mode")
+    skw = dict(norms_cbook=index4.norms_codebook, mprime=8, shard_n=N // 4)
+    sd, si = rq.search_streamed(index4.model, host, Xq, k=100, **skw)
+    torch.cuda.synchronize()
+    check_search(sd, si, 100)
+    rwalls = warm_walls(lambda: rq.search(index4, Xq, k=100))
+    rd, ri = rq.search(index4, Xq, k=100)
+    walls = warm_walls(lambda: rq.search_streamed(index4.model, host, Xq,
+                                                  k=100, **skw))
+    step = 2.0 ** (tsp._pack_idbits(-(-N // 8192) * 8192) - 23)
+    raw = rd - (Xq * Xq).sum(-1, keepdim=True)
+    within = bool(((sd - rd).abs() <= step * raw.abs() + 1e-6 * rd.abs())
+                  .all())
+    same = float((si == ri).float().mean())
+    hits = shared_ids(si[:512], ri[:512])
+    print(f"  search_streamed, 4 shards, decode mode k=100: ids equal to the "
+          f"resident search by position {same:.4f}, shared ids (first 512 "
+          f"queries) {hits:.4f}, dists within one truncation step: "
+          f"{within}; wall "
+          f"{float(np.median(walls)) * 1e3:.1f} ms (median of "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}) against "
+          f"{float(np.median(rwalls)) * 1e3:.1f} ms resident")
+    # rows within one step of each other order by row id, and a shard's
+    # step is finer than the whole base's: the same neighbourhoods
+    check(within and hits >= 0.9, "streamed decode mode disagrees with the "
+          "resident search")
+
+
+def phase6_checks(Xq, index4, index, res):
+    """Phase 6's results against the exact scans on 64 queries; the flag
+    counts of the f32 plan; one search's device time by kernel. Runs
+    after phase 6's launch counts were read."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    print("== phase 6 results against exact_rescan and the LUT oracle, "
+          "flags, profiles")
+    si, sc = index.scan_index, index4.scan_index
+    q2 = (Xq * Xq).sum(-1, keepdim=True)
+    # the tables of the whole batch, as the search builds them: an
+    # oracle on tables built for 64 queries alone would sum in another
+    # order
+    T = tsc.build_luts(sc.C, Xq, norms_cbook=sc.norms_cbook)
+    codes = tsc.unpack_codes(sc.packed, sc.mprime)
+    for k in (100, 1000, 3072):
+        r, keep, tile, _ = tsp._f32_config(k, DEV)
+        fl = tsp.scan_topk_f32(Xq, si.Xd, si.x2, k=k, r=r, tile=tile,
+                               keep=keep)[2]
+        fll = tsc.scan_codes_topk(T, sc.packed, k=k, r=r, tile=tile,
+                                  keep=keep, lut_dtype=torch.float32,
+                                  pack=False)[2]
+        print(f"  f32 plan k={k} (r={r}, keep={keep}, tile={tile}): "
+              f"{int(fl.sum())} of {NQ} queries flagged (decoded), "
+              f"{int(fll.sum())} (lut)")
+        if k > 1000:
+            continue
+        dd, di = res[("decoded", k)]
+        ed, ei = exact_rescan(Xq[:64], si.Xd, si.x2, k)
+        same = float((di[:64] == ei).float().mean())
+        within = bool(((dd[:64] - ed).abs() <= 1e-5 * ed.abs() + 1e-4).all())
+        print(f"  decoded pack=False k={k} vs exact_rescan (64 queries; "
+              f"cuBLAS sums in another order): ids equal by position "
+              f"{same:.6f}, dists within 1e-5 relative: {within}")
+        check(same >= 0.999 and within,
+              f"decoded pack=False k={k} != exact_rescan")
+        ld, li = res[("lut", k)]
+        so, io = tsc.lut_scan(T[:, :, :64], codes, k)
+        ok = ~fll[:64]      # a flagged query re-ran on tables of its own
+        check(torch.equal(li[:64][ok], io[ok])
+              and torch.equal(ld[:64][ok], (so + q2[:64])[ok]),
+              f"lut pack=False k={k} != the LUT oracle by position")
+        print(f"  lut pack=False k={k} vs the LUT oracle on the same tables "
+              f"({int(ok.sum())} unflagged of 64 queries): identical by "
+              f"position")
+        profile(lambda: rq.search(index, Xq, k=k, pack=False))
+        profile(lambda: rq.search(index4, Xq, k=k, mode="lut", pack=False,
+                                  op_dtype=torch.float32))
+
+
 SWEEP_NQ = 2500
-SWEEP_K = (2048, 3072, 4096, 6144, 8192, 10240, 12288)
+SWEEP_K = (2048, 4096, 8192)
 SWEEP_PLANS = ((32, 4, 8192), (48, 4, 8192), (96, 4, 8192), (96, 4, 2048),
                (96, 4, 1024))
 
@@ -1196,7 +1679,7 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(smi)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _, log = build.build()
     build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -1215,7 +1698,12 @@ def main() -> int:
              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
     path5b = {"scan_onepass": tsp.scan_onepass,
               "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
-    wrappers = {**path4, **path5, **path5b}
+    path6 = {"scan_f32_candidates": tsp.scan_f32_candidates,
+             "pair_merge": tsp.pair_merge,
+             "verify_counts": tsp.verify_counts,
+             "codes_lut_f32_candidates": tsc.codes_lut_f32_candidates,
+             "codes_verify_counts": tsc.codes_verify_counts}
+    wrappers = {**path4, **path5, **path5b, **path6}
     errs = {}
     phase_t = {}
 
@@ -1233,6 +1721,7 @@ def main() -> int:
     try:
         run("phase 1", phase1, rng, errs)
         run("phase 1c", phase1c, rng, errs)
+        run("phase 1d", phase1d, rng, errs)
         times = run("kernel times", kernel_times, rng, errs)
         run("phase 1b", phase1b, rng, errs)
         times.update(run("encode kernel times", encode_kernel_times, rng,
@@ -1262,7 +1751,27 @@ def main() -> int:
         check(tsp.scan_onepass.launches == 0
               and tsc.codes_decode_candidates.launches == 0,
               "phase 5's counts hold launches of another path")
-        del ds, Xb
+        del Xb
+        zero()
+        index6, res6, host = run("phase 6", phase6, smi, ds, Xq,
+                                 served["sr_d"], index5)
+        launches6 = {n: w.launches for n, w in path6.items()}
+        print(f"phase-6 launches: {launches6}")
+        check(all(launches6.values()), "a kernel of the path never launched "
+              "in phase 6")
+        packed6 = {n: w.launches for n, w in wrappers.items()
+                   if n not in path6 and w.launches}
+        check(not packed6, f"a pack=False call launched {packed6}")
+        del ds
+        zero()
+        run("phase 6 streamed decode", phase6_streamed_decode,
+            served["sr_d"], Xq, host)
+        print("phase-6 streamed decode-mode launches: "
+              f"{ {n: w.launches for n, w in search_wrappers.items()} }")
+        check(tsc.codes_decode_candidates.launches >= 4
+              and tsp.cand_merge.launches >= 4,
+              "the streamed search did not scan its 4 shards")
+        del host
         zero()
         run("phase 5 one-pass", phase5_onepass, index5, Xq, res5)
         launches5b = {n: w.launches for n, w in path5b.items()}
@@ -1273,12 +1782,17 @@ def main() -> int:
         del res5
         run("diagnostics", diagnostics, served, Xq)
         run("diagnostics 5", diagnostics5, index5, served["sr_d"], Xq)
+        run("phase 6 checks", phase6_checks, Xq, served["sr_d"], index6, res6)
+        del res6, index6
         run("plan sweep", plan_sweep, index5, served["sr_d"], Xq)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the build included")
     # a kernel's launches are those of the latest main path that runs it
-    on_path = {n: ("phase 5", launches5[n]) if n in launches5
+    on_path = {n: ("phase 6", launches6[n]) if n in launches6
+               else ("phase 5", launches5[n]) if n in launches5
                else ("phase 5, explicit one-pass configuration",
                      launches5b[n]) if n in launches5b
                else ("phase 4", launches4[n]) for n in wrappers}

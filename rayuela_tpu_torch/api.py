@@ -16,7 +16,8 @@ last four through the staged OPQ → ChainQ init, served from the decoded
 index (``mode="decoded"``, the default: the base decoded once, bfloat16
 on the card) or the code-resident one (``mode="codes"``: ~m bytes per
 vector, scanned by decoding or, with ``search(..., mode="lut")``,
-through per-query tables). ERVQ, CompQ and multi-device training and
+through per-query tables); `search_streamed` serves packed codes that
+stay in host memory. ERVQ, CompQ and multi-device training and
 search raise `NotImplementedError` naming the ROADMAP item that brings
 them. The defaults are the JAX facade's (``method="sr_d"``,
 ``mode="decoded"``).
@@ -197,7 +198,10 @@ def search(index: MCQIndex, Q, k: int = 100, mesh=None,
     truncated scores (bfloat16 operands on the card, float32 on the
     CPU). OPQ and ChainQ queries are rotated by the model's R first.
     ``kw`` goes to `scan.search` (decoded) or `scan_codes.search_codes`
-    (codes; ``mode="lut"`` picks the table scan)."""
+    (codes; ``mode="lut"`` picks the table scan). ``pack=False`` asks
+    for the exact-float scan: the exact top-k of the untruncated f32
+    scores, the lowest id among equal ones (decoded index, or codes with
+    ``mode="lut"``)."""
     from rayuela_tpu_torch.search import scan, scan_codes
 
     if mesh is not None:
@@ -212,3 +216,27 @@ def search(index: MCQIndex, Q, k: int = 100, mesh=None,
     if index.mode == "codes":
         return scan_codes.search_codes(index.scan_index, Q, k, **kw)
     return scan.search(index.scan_index, Q, k, **kw)
+
+
+def search_streamed(model: MCQModel, B_packed, Q, k: int = 100,
+                    norms_cbook=None, mprime: int | None = None,
+                    shard_n: int = 100_000_000,
+                    **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k search over a base too large for the device: the packed
+    codes ``B_packed`` (`scan_codes.pack_codes` layout, the norms byte
+    included for additive models) stay in host memory, a numpy array or
+    an ``np.memmap`` over a code file, and stream through the model's
+    device ``shard_n`` rows at a time with an exact merge; the next
+    shard's copy runs behind the current shard's scan
+    (`scan_codes.search_codes_streamed`, where ``kw`` goes). OPQ and
+    ChainQ queries are rotated by the model's R first, as in `search`."""
+    from rayuela_tpu_torch.search import scan_codes
+
+    _check_method(model.method)
+    Q = as_tensor(Q, model.codebooks.device)
+    if model.method in _ROTATED:
+        exact_f32()
+        Q = Q @ model.R
+    return scan_codes.search_codes_streamed(
+        model.codebooks, B_packed, Q, k, pq=model.pq_layout,
+        norms_cbook=norms_cbook, mprime=mprime, shard_n=shard_n, **kw)

@@ -19,9 +19,13 @@ from rayuela_tpu_torch.search.scan import LinscanIndex
 from rayuela_tpu_torch.search.scan_codes import build_codes_index
 
 
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+
+
 def _tensor(a, dtype, device):
-    # a copy: the arrays may be read-only views of JAX buffers
-    return torch.tensor(np.array(a), dtype=dtype, device=device)
+    # a copy: the arrays may be read-only views of JAX buffers; the
+    # numpy cast widens a bfloat16 array, which torch does not take
+    return torch.tensor(np.array(a, dtype=_NUMPY[dtype]), device=device)
 
 
 def _opt(a, dtype, device):
@@ -54,8 +58,10 @@ def index_from_arrays(model: MCQModel, codes, norms_codebook, norm_codes,
 
 def decoded_index_from_arrays(Xd, x2, device="cuda") -> LinscanIndex:
     """`LinscanIndex` from a JAX `LinscanIndex`'s decoded base ``Xd (n,
-    d)`` (float32, or bfloat16 widened to float32 by ``np.asarray``) and
-    norm terms ``x2 (n,)``. The base stays float32: values that were
-    bfloat16 are exact in it."""
+    d)`` (float32, or bfloat16, which is widened to float32) and
+    norm terms ``x2 (n,)``. The base stays float32, with no round trip
+    through bfloat16: an index the JAX package built in f32 serves the
+    exact-float search (``pack=False``) from the same values, and values
+    that were bfloat16 are exact in it."""
     return LinscanIndex(_tensor(Xd, torch.float32, device),
                         _tensor(x2, torch.float32, device))

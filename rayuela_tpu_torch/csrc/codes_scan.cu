@@ -1,9 +1,14 @@
-// Code-resident scan kernels for Hopper (sm_90a): K1, K2 and K4.
+// Code-resident scan kernels for Hopper (sm_90a): K1, K2 and K4, and the
+// pair merge of the exact-float scans (K9, K6).
 //
 // Replaces (rayuela_tpu/search/scan_codes_pallas.py):
 //   K1 codes_decode_candidates  <- _codes_decode_kernel_candidates
 //   K2 cand_merge               <- _cand_merge_kernel
 //   K4 codes_decode_topk        <- _codes_decode_kernel_packed (keep=0)
+//   pair_merge                  <- the running (r, 128, bq) buffer of
+//                                  _scan_kernel (scan_pallas.py) and
+//                                  _codes_scan_kernel: its merge across
+//                                  the sequential tile axis
 //
 // K1 and K4 are the two scan bodies of scan_common.cuh (which states the
 // key and selection contract) over the row source of this file: a row
@@ -141,6 +146,66 @@ cudaError_t launch_merge(const void* cand, const void* disc, void* out,
   return cudaGetLastError();
 }
 
+// The pair merge: one thread per (lane, query). The R smallest of the
+// candidate (score, gid) pairs, ascending, to outv / outi[0..R). The
+// candidates arrive in ascending gid among equal scores (tile after
+// tile, and ascending within a tile), so a strict `<` on the scores
+// keeps the order (score, gid); a +inf candidate never enters, and an
+// empty slot stays (+inf, NOID). Bound by reading its candidates (8
+// bytes each, coalesced: consecutive threads take consecutive queries);
+// after the first tiles nearly every candidate is rejected by one
+// compare before its id is read.
+template <int R>
+__global__ void __launch_bounds__(THREADS)
+    pair_merge_kernel(const float* __restrict__ candv,
+                      const int* __restrict__ candi, float* __restrict__ outv,
+                      int* __restrict__ outi, int ncand, int nq) {
+  const size_t plane = (size_t)LANES * nq;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= plane) return;
+  float bv[R];
+  int bi[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    bv[c] = pos_inf();
+    bi[c] = NOID;
+  }
+  for (int row = 0; row < ncand; ++row) {
+    const float s = candv[row * plane + idx];
+    if (s < bv[R - 1]) {
+      bv[R - 1] = s;
+      bi[R - 1] = candi[row * plane + idx];
+#pragma unroll
+      for (int i = R - 1; i > 0; --i) {
+        const bool sw = bv[i] < bv[i - 1];
+        const float va = bv[i - 1], vb = bv[i];
+        const int ia = bi[i - 1], ib = bi[i];
+        bv[i - 1] = sw ? vb : va;
+        bv[i] = sw ? va : vb;
+        bi[i - 1] = sw ? ib : ia;
+        bi[i] = sw ? ia : ib;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    outv[c * plane + idx] = bv[c];
+    outi[c * plane + idx] = bi[c];
+  }
+}
+
+template <int R>
+cudaError_t launch_pair_merge(const void* candv, const void* candi,
+                              void* outv, void* outi, int ncand, int nq,
+                              cudaStream_t st) {
+  const size_t plane = (size_t)LANES * nq;
+  pair_merge_kernel<R><<<(unsigned)((plane + THREADS - 1) / THREADS),
+                         THREADS, 0, st>>>(
+      (const float*)candv, (const int*)candi, (float*)outv, (int*)outi,
+      ncand, nq);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +268,17 @@ int rq_cand_merge(const void* cand, const void* disc, void* out, int ncand,
     case 32: return (int)launch_merge<32>(cand, disc, out, ncand, ndisc, nq, st);
     case 48: return (int)launch_merge<48>(cand, disc, out, ncand, ndisc, nq, st);
     case 96: return (int)launch_merge<96>(cand, disc, out, ncand, ndisc, nq, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int rq_pair_merge(const void* candv, const void* candi, void* outv,
+                  void* outi, int ncand, int nq, int r, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (r) {
+    case 16: return (int)launch_pair_merge<16>(candv, candi, outv, outi, ncand, nq, st);
+    case 32: return (int)launch_pair_merge<32>(candv, candi, outv, outi, ncand, nq, st);
+    case 48: return (int)launch_pair_merge<48>(candv, candi, outv, outi, ncand, nq, st);
   }
   return (int)cudaErrorInvalidValue;
 }

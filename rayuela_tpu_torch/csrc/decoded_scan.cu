@@ -1,4 +1,4 @@
-// Decoded-index scan kernel for Hopper (sm_90a): K8.
+// Decoded-index scan kernels for Hopper (sm_90a): K8, K9 and K10.
 //
 // Replaces rayuela_tpu/search/scan_pallas.py::_scan_kernel_packed and
 // ::_scan_kernel_packed_staged (both behind pallas_scan_topk(pack=True)):
@@ -25,6 +25,22 @@
 // decoded base Xd (n, dp), dp a multiple of 8, already at the operand
 // type, and their norms come from x2 (n,) f32. The scores are those of
 // K1: the same f32 dot in dimension order plus x2.
+//
+// K9 and K10 replace scan_pallas.py::_scan_kernel and ::_verify_kernel
+// (pallas_scan_topk(pack=False), the idbits = 0 form of the counting
+// pass: the packed branch of the JAX host code returns before it):
+//   scan_f32_candidates  <- _scan_kernel's distance block and per-tile
+//                           selection; pair_merge (codes_scan.cu) stands
+//                           for its running (r, 128, bq) buffer
+//   scan_verify_counts   <- _verify_kernel
+// Both are the exact scan body of scan_common.cuh over the same row
+// source, with the selecting and the counting sink: one scoring code, so
+// the counts are taken on the very scores the selection saw. Each does
+// K8's n*nq*dp multiply-adds on the CUDA cores, which bound it (the f32
+// CUDA-core rate is the peak for an f32 base); the selecting sink adds
+// one compare per score and, rarely, an insertion; the counting sink a
+// compare and an add, and one pair of integer atomics per (lane, query,
+// tile).
 //
 // What bounds it on the card. n*nq*dp multiply-adds on the CUDA cores
 // (1.3e12 at n=1e6, nq=1e4, dp=128), as K1, without K1's decode. Every
@@ -141,6 +157,49 @@ int rq_scan_onepass(const void* Qm, const void* Xd, const void* x2,
   }
 #undef RQ_K8_1P
   return (int)cudaErrorInvalidValue;
+}
+
+// K9, pass 1: per tile and (lane, query) the `keep` smallest (f32
+// score, gid) pairs → candv, candi (ntiles * keep, 128, nq).
+int rq_scan_f32_candidates(const void* Qm, const void* Xd, const void* x2,
+                           void* candv, void* candi, int n, int nq, int dp,
+                           int ntiles, int rows, int keep, int bf16,
+                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RQ_K9(T, K)                                                        \
+  return (int)launch_exact(RowsSrc<T>{(const T*)Xd, (const float*)x2}, Qm, \
+                           SelectSink<K>{(float*)candv, (int*)candi}, n,   \
+                           nq, dp, ntiles, rows, st)
+  if (bf16) {
+    switch (keep) {
+      case 2: RQ_K9(__nv_bfloat16, 2);
+      case 4: RQ_K9(__nv_bfloat16, 4);
+    }
+  } else {
+    switch (keep) {
+      case 2: RQ_K9(float, 2);
+      case 4: RQ_K9(float, 4);
+    }
+  }
+#undef RQ_K9
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10: per (lane, query) the rows before (taus[q], taui[q]) in the order
+// (score, gid), summed over the tiles into cnt[0] and their largest
+// per-tile count into cnt[1]; cnt (2, 128, nq) arrives zeroed.
+int rq_scan_verify_counts(const void* Qm, const void* Xd, const void* x2,
+                          const void* taus, const void* taui, void* cnt,
+                          int n, int nq, int dp, int ntiles, int rows,
+                          int bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const CountSink sink{(const float*)taus, (const int*)taui, (int*)cnt};
+  if (bf16)
+    return (int)launch_exact(
+        RowsSrc<__nv_bfloat16>{(const __nv_bfloat16*)Xd, (const float*)x2},
+        Qm, sink, n, nq, dp, ntiles, rows, st);
+  return (int)launch_exact(RowsSrc<float>{(const float*)Xd, (const float*)x2},
+                           Qm, sink, n, nq, dp, ntiles, rows, st);
 }
 
 }  // extern "C"

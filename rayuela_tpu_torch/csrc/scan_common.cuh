@@ -2,7 +2,9 @@
 // key format, the register selection, and the two scan bodies that K1,
 // K4 (codes_scan.cu) and K8 (decoded_scan.cu) instantiate with their own
 // row source. K5 (lut_scan.cu) scores differently and shares only the
-// key and the selection.
+// key and the selection. The exact-float scans (K9, K10 here over a row
+// source; K6, K7 in lut_scan.cu) share the sinks at the end of this
+// file.
 //
 // Logical contract (shared with the plain PyTorch versions in
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
@@ -123,6 +125,37 @@ __device__ void load_queries(const T* __restrict__ Qm, int q0, int nq,
   }
 }
 
+// The 4-lane x 4-query block of dot products of a candidates thread:
+// lanes lg + 32 i of the transposed tile XsT against the four queries
+// at qrow, each an f32 fmaf chain in dimension order. One 16-byte
+// shared load brings four dimensions of a query (dp is a multiple of
+// 4).
+__device__ __forceinline__ void block_scores(const float* XsT,
+                                             const float* qrow, int dp,
+                                             int lg, float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int kk0 = 0; kk0 < dp; kk0 += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      qv[j] = *reinterpret_cast<const float4*>(qrow + j * dp + kk0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xv[i] = XsT[(kk0 + e) * LP + lg + 32 * i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(xv[i], comp(qv[j], e), acc[i][j]);
+    }
+  }
+}
+
 // The candidates body (K1, K8): CTA (t, qb) scans tile t (rows row ids)
 // for 32 queries and writes, per (lane, query), the KEEP smallest keys
 // ascending to cand[t*KEEP + c] and the smallest other key to disc[t]
@@ -167,30 +200,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     __syncthreads();  // the previous step's readers are done with XsT
     src.load(n, rid, dp, XsT, x2s, words);
     float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    // dot products in dimension order; one 16-byte shared load brings
-    // four dimensions of a query (dp is a multiple of 4)
-    const float* qrow = Qs + (qg * 4) * dp;
-    for (int kk0 = 0; kk0 < dp; kk0 += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        qv[j] = *reinterpret_cast<const float4*>(qrow + j * dp + kk0);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = XsT[(kk0 + e) * LP + lg + 32 * i];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(xv[i], comp(qv[j], e), acc[i][j]);
-      }
-    }
+    block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lane = lg + 32 * i;
@@ -303,6 +313,173 @@ cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
   kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
                                     (int*)cand, (int*)disc, n, nq, dp, nrows,
                                     rows_per, idbits);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The exact-float scans: K9 and K10 (decoded_scan.cu), K6 and K7
+// (lut_scan.cu)
+// ---------------------------------------------------------------------------
+// They order rows by (untruncated f32 score, global row id), a total
+// order. A thread meets the rows of a (lane, query) pair in ascending
+// gid, so a strict `<` on the scores alone keeps that order: of two
+// equal scores the later one loses. The scan body hands every score to
+// a sink, and the two sinks below make the selecting kernel (K9, K6)
+// and the counting kernel (K10, K7) of one body, so that both see the
+// same scores bit for bit.
+//
+// A sink provides
+//   struct State                         per (lane, query), in registers
+//   void init(State&, q, nq) const
+//   void push(State&, s, step, gid) const     row `gid`, the tile's
+//                                             step-th row id, scores s
+//   void finish(const State&, t, rows, lane, q, nq) const
+
+constexpr int NOID = INT_MAX;  // the id of an empty slot (score +inf)
+
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7F800000);
+}
+
+// Selecting sink. Per (lane, query): the tile's KEEP smallest scores
+// ascending in v, and in byte c of `steps` the tile step (< 256) that
+// slot c came from: four ids in one register. finish() writes them as
+// candv / candi[(t * KEEP + c), lane, q], the id of a +inf slot as NOID.
+template <int KEEP> struct SelectSink {
+  float* candv;
+  int* candi;
+  struct State {
+    float v[KEEP];
+    unsigned steps;
+  };
+  __device__ __forceinline__ void init(State& st, int, int) const {
+#pragma unroll
+    for (int c = 0; c < KEEP; ++c) st.v[c] = pos_inf();
+    st.steps = 0u;
+  }
+  __device__ __forceinline__ void push(State& st, float s, int step,
+                                       int) const {
+    if (s < st.v[KEEP - 1]) {
+      int p = 0;  // slots that stay in front: those not above s
+#pragma unroll
+      for (int c = 0; c < KEEP - 1; ++c) p += st.v[c] <= s;
+#pragma unroll
+      for (int c = KEEP - 1; c > 0; --c) st.v[c] = c > p ? st.v[c - 1] : st.v[c];
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c) st.v[c] = c == p ? s : st.v[c];
+      const unsigned sh = 8u * p;
+      const unsigned low = st.steps & ((1u << sh) - 1u);
+      const unsigned high = ((st.steps >> sh) << sh) << 8;
+      st.steps = low | ((unsigned)step << sh) | high;
+    }
+  }
+  __device__ __forceinline__ void finish(const State& st, int t, int rows,
+                                         int lane, int q, int nq) const {
+    const size_t plane = (size_t)LANES * nq, off = (size_t)lane * nq + q;
+#pragma unroll
+    for (int c = 0; c < KEEP; ++c) {
+      const int rid = t * rows + (int)((st.steps >> (8 * c)) & 0xFFu);
+      candv[(size_t)(t * KEEP + c) * plane + off] = st.v[c];
+      candi[(size_t)(t * KEEP + c) * plane + off] =
+          st.v[c] == pos_inf() ? NOID : rid * LANES + lane;
+    }
+  }
+};
+
+// Counting sink. Per (lane, query): how many of the tile's rows come
+// strictly before the query's boundary (taus[q], taui[q]) in the order
+// (score, gid). finish() adds the count to cnt[0, lane, q] and raises
+// cnt[1, lane, q] to it: the total over tiles and the largest count of
+// one tile (integer atomics: the result does not depend on their
+// order). The wrapper zeroes cnt.
+struct CountSink {
+  const float* taus;
+  const int* taui;
+  int* cnt;
+  struct State {
+    float ts;
+    int ti, c;
+  };
+  __device__ __forceinline__ void init(State& st, int q, int nq) const {
+    st.ts = q < nq ? taus[q] : -pos_inf();
+    st.ti = q < nq ? taui[q] : 0;
+    st.c = 0;
+  }
+  __device__ __forceinline__ void push(State& st, float s, int,
+                                       int gid) const {
+    st.c += (s < st.ts) || (s == st.ts && gid < st.ti);
+  }
+  __device__ __forceinline__ void finish(const State& st, int, int, int lane,
+                                         int q, int nq) const {
+    if (st.c == 0) return;
+    const size_t off = (size_t)lane * nq + q;
+    atomicAdd(cnt + off, st.c);
+    atomicMax(cnt + (size_t)LANES * nq + off, st.c);
+  }
+};
+
+// The exact scan body over a row source (K9 with a SelectSink, K10 with
+// the CountSink): the blocking, loads and dot products of the
+// candidates body above, the scores handed to the sink.
+template <class Src, class Sink>
+__global__ void __launch_bounds__(THREADS, 2)
+    exact_scan_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
+                      const Sink sink, int n, int nq, int dp, int rows) {
+  using T = typename Src::Op;
+  extern __shared__ __align__(16) float smem[];
+  float* XsT = smem;                  // dp * LP
+  float* Qs = XsT + dp * LP;          // K1_QB * dp
+  float* x2s = Qs + K1_QB * dp;       // LANES
+  int* words = (int*)(x2s + LANES);   // src.words()
+  const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
+  const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
+  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
+  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+
+  typename Sink::State st[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sink.init(st[i][j], q0 + qg * 4 + j, nq);
+
+  for (int step = 0; step < rows; ++step) {
+    const int rid = t * rows + step;
+    __syncthreads();  // the previous step's readers are done with XsT
+    src.load(n, rid, dp, XsT, x2s, words);
+    float acc[4][4];
+    block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lane = lg + 32 * i, gid = rid * LANES + lane;
+      const float x2 = x2s[lane];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sink.push(st[i][j], gid >= n ? pos_inf() : acc[i][j] + x2, step, gid);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = q0 + qg * 4 + j;
+      if (q < nq) sink.finish(st[i][j], t, rows, lg + 32 * i, q, nq);
+    }
+}
+
+template <class Src, class Sink>
+cudaError_t launch_exact(const Src& src, const void* Qm, const Sink& sink,
+                         int n, int nq, int dp, int ntiles, int rows,
+                         cudaStream_t st) {
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = exact_scan_kernel<Src, Sink>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int nqb = (nq + K1_QB - 1) / K1_QB;
+  const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
+  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm, sink, n,
+                                    nq, dp, rows);
   return cudaGetLastError();
 }
 

@@ -19,32 +19,10 @@ import numpy as np
 import torch
 
 from rayuela_tpu_torch.ops.qerror import reconstruct, reconstruct_pq
-from rayuela_tpu_torch.utils import as_tensor, exact_f32
+from rayuela_tpu_torch.utils import as_tensor, exact_f32, tiled_topk
 
 # query block of the tiled scans: bounds the (block, tile) score matrix
 _QBLOCK = 2048
-
-
-def _tiled_topk(nq: int, n: int, tile: int, k: int, score_tile):
-    """Exact top-k of ``score_tile(q0, q1, start, stop) -> (q1 - q0,
-    stop - start)`` f32 over base tiles and query blocks, ascending: the
-    global top-k is contained in the union of the per-tile top-k."""
-    out_v, out_i = [], []
-    for q0 in range(0, max(nq, 1), _QBLOCK):
-        q1 = min(q0 + _QBLOCK, nq)
-        vals, ids = [], []
-        for st in range(0, n, tile):
-            s = score_tile(q0, q1, st, min(st + tile, n))
-            top = torch.topk(s, min(k, s.shape[1]), dim=1, largest=False,
-                             sorted=True)
-            vals.append(top.values)
-            ids.append(top.indices + st)
-        cv, ci = torch.cat(vals, dim=1), torch.cat(ids, dim=1)
-        top = torch.topk(cv, min(k, cv.shape[1]), dim=1, largest=False,
-                         sorted=True)
-        out_v.append(top.values)
-        out_i.append(torch.gather(ci, 1, top.indices).to(torch.int32))
-    return torch.cat(out_v), torch.cat(out_i)
 
 
 def scan_topk(Q: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *, k: int,
@@ -72,7 +50,7 @@ def scan_topk(Q: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *, k: int,
         s = -2.0 * (Q[q0:q1] @ Xh.T) + x2[None, :]
         return q2[q0:q1] + s if include_q2 else s
 
-    return _tiled_topk(Q.shape[0], n, tile, k, score_tile)
+    return tiled_topk(Q.shape[0], n, tile, k, score_tile, _QBLOCK)
 
 
 def exact_rescan(Q: torch.Tensor, Xd: torch.Tensor, x2: torch.Tensor,
@@ -90,23 +68,28 @@ def exact_rescan(Q: torch.Tensor, Xd: torch.Tensor, x2: torch.Tensor,
         return (q2[q0:q1] - 2.0 * (Q[q0:q1] @ Xd[st:stop].float().T)
                 + x2[None, st:stop])
 
-    return _tiled_topk(Q.shape[0], n, tile, min(k, n), score_tile)
+    return tiled_topk(Q.shape[0], n, tile, min(k, n), score_tile, _QBLOCK)
 
 
 def _route(Q, C, B, *, k: int, pq: bool, norm_term=None,
            backend: str = "auto", **kw):
     """Pick the scan backend: the kernel scan over a decoded index for a
     batch on the card that can fill it, the tiled plain scan otherwise.
-    An explicit ``backend`` is obeyed."""
+    An explicit ``backend`` is obeyed. ``pack=False`` (in ``kw``) asks
+    the kernel backend for the exact-float scan over an f32 index; the
+    tiled plain scan is exact in f32 as it is."""
     from rayuela_tpu_torch.search import scan
+    pack = kw.pop("pack", None)
     if backend == "auto":
         big = Q.shape[0] >= 32 and B.shape[0] >= 1 << 14
         backend = ("kernel" if Q.device.type == "cuda" and big
                    and k <= scan._MAX_K else "torch")
     if backend == "kernel":
+        f32 = pack is not None and not pack
         idx = scan.build_index(C, B, pq=pq, d=Q.shape[1],
-                               norm_term=norm_term)
-        return scan.search(idx, Q, min(k, B.shape[0]), **kw)
+                               norm_term=norm_term,
+                               dtype=torch.float32 if f32 else None)
+        return scan.search(idx, Q, min(k, B.shape[0]), pack=pack, **kw)
     if backend != "torch":
         raise ValueError(f"backend {backend!r}: 'auto', 'kernel' or 'torch'")
     return scan_topk(Q, C, B, k=k, pq=pq, norm_term=norm_term, **kw)

@@ -28,6 +28,17 @@ keys) → K2 `cand_merge` → K3 `tail_merge`, and flagged queries re-run
 through `linscan.exact_rescan`. Every kernel wrapper takes its plain
 PyTorch version for CPU tensors only; for CUDA tensors it launches the
 kernel or raises.
+
+``search(..., pack=False)`` is the exact-float scan: it selects by the
+untruncated f32 score and the global row id, a total order (score,
+gid), so its result is the exact top-k of the f32 scores with the
+lowest id among equal ones. K9 (`scan_f32_candidates`, then
+`pair_merge`) gives per (lane, query) the ``r`` smallest pairs, the
+final top-k over the ``r * 128`` candidates is a `torch.topk`, and K10
+`verify_counts` counts, per (lane, query), the rows that come before
+the k-th pair: more than ``r`` of them in a lane (or more than ``keep``
+in one tile of a lane) and the query is flagged and re-runs through
+`linscan.exact_rescan`.
 """
 
 from __future__ import annotations
@@ -35,7 +46,9 @@ from __future__ import annotations
 import torch
 
 from rayuela_tpu_torch.kernels.build import launch
-from rayuela_tpu_torch.utils import cdiv, exact_f32
+from rayuela_tpu_torch.utils import (as_tensor, cdiv, exact_f32,
+                                     topk_lowest_id)
+from rayuela_tpu_torch.utils import sortable_key as _sortable_key
 
 LANES = 128
 IMAX = torch.iinfo(torch.int32).max
@@ -71,14 +84,6 @@ def _pack_idbits(npad: int) -> int:
     rowmax = npad // LANES
     idbits = max(1, (rowmax - 1).bit_length())
     return idbits if idbits <= 16 else 0
-
-
-def _sortable_key(s: torch.Tensor) -> torch.Tensor:
-    """f32 → int32 whose signed order is the float order: the lower 31
-    bits of negatives are flipped. Monotone, so truncating low bits
-    (floor in key space) stays monotone."""
-    bits = s.contiguous().view(torch.int32)
-    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
 
 
 def _unsortable_key(k: torch.Tensor) -> torch.Tensor:
@@ -398,21 +403,34 @@ def _check_decoded(Qm, Xd, x2, tile: int, premin: int) -> bool:
     return True
 
 
-def _decoded_keys_fn(Qm, Xd, x2, tile: int, idbits: int):
-    """`keys_fn` of the plain selections for a decoded base: scores
-    ``Xd Qm^T + x2`` in f32, +inf at and past row n."""
+def _decoded_scores_fn(Qm, Xd, x2, tile: int):
+    """Scores of a decoded base by tile: ``scores(t, q0, q1)`` is ``Xd
+    Qm^T + x2`` in f32 for tile t and the queries [q0, q1), ``(tile,
+    q1 - q0)``, +inf at and past row n."""
     exact_f32()
-    n, rows = Xd.shape[0], tile // LANES
+    n = Xd.shape[0]
     Qf = Qm.float()
 
-    def keys(t, q0, q1):
+    def scores(t, q0, q1):
         g0 = t * tile
         S = torch.full((tile, q1 - q0), float("inf"), dtype=torch.float32,
                        device=Qm.device)
         nv = max(0, min(tile, n - g0))
         S[:nv] = Xd[g0:g0 + nv].float() @ Qf[q0:q1].T + x2[g0:g0 + nv, None]
-        return _row_key(S, t, rows=rows, idbits=idbits)
-    return keys
+        return S
+    return scores
+
+
+def _keys_fn(scores, tile: int, idbits: int):
+    """`keys_fn` of the plain packed selections from a tile score
+    function."""
+    rows = tile // LANES
+    return lambda t, q0, q1: _row_key(scores(t, q0, q1), t, rows=rows,
+                                      idbits=idbits)
+
+
+def _decoded_keys_fn(Qm, Xd, x2, tile: int, idbits: int):
+    return _keys_fn(_decoded_scores_fn(Qm, Xd, x2, tile), tile, idbits)
 
 
 def scan_candidates_plain(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
@@ -539,6 +557,341 @@ def scan_topk_packed(Q, Xd, x2, *, k: int, r: int = 32, tile: int = _TILE,
 
 
 # ---------------------------------------------------------------------------
+# Kernels K9 and K10: the exact-float scan and its counting certificate
+# ---------------------------------------------------------------------------
+
+# the id an empty slot carries (its score is +inf)
+NOID = IMAX
+# buffer depths the pair merge kernel is compiled for
+_F32_RS = (16, 32, 48)
+# a (score, gid) pair as one int64 whose order is (score, gid): the
+# plain versions select on it; this one pads
+_PAIR_PAD = (0x7F800000 << 32) | NOID
+
+
+def _pair_key(v: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``(sortable(v) << 32) | id``; -0.0 counts as 0.0, as a float
+    compare does."""
+    return (_sortable_key(v + 0.0).long() << 32) | (ids.long() & 0xFFFFFFFF)
+
+
+def _unpair(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of `_pair_key`; a +inf score carries `NOID`."""
+    v = _unsortable_key((key >> 32).to(torch.int32))
+    ids = (key & 0xFFFFFFFF).to(torch.int32)
+    return v, torch.where(v == float("inf"), NOID, ids)
+
+
+def _tile_pairs(scores, t: int, q0: int, q1: int, tile: int):
+    """Tile t's pair keys ``(tile / 128, 128, q1 - q0)`` int64."""
+    S = scores(t, q0, q1)
+    gid = torch.arange(t * tile, (t + 1) * tile, device=S.device)
+    return _pair_key(S, gid[:, None]).reshape(tile // LANES, LANES, -1)
+
+
+def _f32_candidates_plain(scores, n: int, nq: int, device, *, tile: int,
+                          keep: int):
+    """Per tile and (lane, query): the ``keep`` smallest (score, gid)
+    pairs, ascending → ``candv`` f32, ``candi`` int32, each ``(ntiles *
+    keep, 128, nq)``. ``scores`` as `_decoded_scores_fn` gives it."""
+    ntiles, candv, candi = _alloc_pairs(n, nq, tile, keep, device)
+    for t in range(ntiles):
+        for q0 in range(0, nq, _QBLOCK):
+            q1 = min(q0 + _QBLOCK, nq)
+            top = torch.topk(_tile_pairs(scores, t, q0, q1, tile), keep,
+                             dim=0, largest=False, sorted=True).values
+            sl = slice(t * keep, (t + 1) * keep)
+            candv[sl, :, q0:q1], candi[sl, :, q0:q1] = _unpair(top)
+    return candv, candi
+
+
+def _f32_onepass_plain(scores, n: int, nq: int, device, *, tile: int,
+                       r: int):
+    """Per (lane, query) over all tiles: the ``r`` smallest (score, gid)
+    pairs, ascending → ``outv`` f32, ``outi`` int32, each ``(r, 128,
+    nq)``: what the JAX package's f32 kernels emit (no per-tile
+    pre-reduction)."""
+    outv = torch.empty((r, LANES, nq), dtype=torch.float32, device=device)
+    outi = torch.empty_like(outv, dtype=torch.int32)
+    for q0 in range(0, nq, _QBLOCK):
+        q1 = min(q0 + _QBLOCK, nq)
+        buf = torch.full((r, LANES, q1 - q0), _PAIR_PAD, dtype=torch.int64,
+                         device=device)
+        for t in range(cdiv(n, tile)):
+            buf = torch.topk(
+                torch.cat([buf, _tile_pairs(scores, t, q0, q1, tile)]), r,
+                dim=0, largest=False, sorted=True).values
+        outv[:, :, q0:q1], outi[:, :, q0:q1] = _unpair(buf)
+    return outv, outi
+
+
+def _verify_counts_plain(scores, n: int, taus, taui, *, tile: int):
+    """Per (lane, query): the rows that come before ``(taus[q],
+    taui[q])`` in the order (score, gid), summed over the tiles (row 0)
+    and the largest count of one tile (row 1) → ``(2, 128, nq)`` int32."""
+    nq = taus.shape[0]
+    cnt = torch.zeros((2, LANES, nq), dtype=torch.int32, device=taus.device)
+    for t in range(cdiv(n, tile)):
+        gid = torch.arange(t * tile, (t + 1) * tile,
+                           device=taus.device)[:, None]
+        for q0 in range(0, nq, _QBLOCK):
+            q1 = min(q0 + _QBLOCK, nq)
+            S, ts, ti = scores(t, q0, q1), taus[q0:q1], taui[q0:q1]
+            below = (S < ts) | ((S == ts) & (gid < ti))
+            c = below.reshape(tile // LANES, LANES, -1).sum(0).int()
+            cnt[0, :, q0:q1] += c
+            cnt[1, :, q0:q1] = torch.maximum(cnt[1, :, q0:q1], c)
+    return cnt
+
+
+def _alloc_pairs(n: int, nq: int, tile: int, keep: int, device):
+    """Outputs of an exact-float candidates kernel → ``(ntiles, candv,
+    candi)``."""
+    ntiles = cdiv(n, tile)
+    candv = torch.empty((ntiles * keep, LANES, nq), dtype=torch.float32,
+                        device=device)
+    return ntiles, candv, torch.empty_like(candv, dtype=torch.int32)
+
+
+def _check_f32_plan(n: int, tile: int, keep: int) -> None:
+    rows = tile // LANES
+    if tile % LANES or rows & (rows - 1) or rows > 256:
+        raise ValueError(f"tile/128={tile / LANES} must be a power of two "
+                         "<= 256 (a slot remembers its tile step in a byte)")
+    if keep < 0 or keep > rows:
+        raise ValueError(f"0 <= keep={keep} <= tile/128={rows}")
+    if cdiv(n, tile) * tile > IMAX:
+        raise ValueError(f"n={n}: global row ids are int32")
+
+
+def _check_pairs(candv, candi) -> None:
+    if candv.dtype != torch.float32 or candi.dtype != torch.int32 \
+            or candv.dim() != 3 or candv.shape != candi.shape \
+            or candv.shape[1] != LANES or candv.device != candi.device \
+            or not (candv.is_contiguous() and candi.is_contiguous()):
+        raise ValueError("candv (f32) and candi (int32) must be contiguous "
+                         "(rows, 128, nq) tensors of one shape and device")
+
+
+def _check_tau(taus, taui, nq: int, device) -> None:
+    if taus.dtype != torch.float32 or taui.dtype != torch.int32 \
+            or taus.shape != (nq,) or taui.shape != (nq,) \
+            or taus.device != device or taui.device != device \
+            or not (taus.is_contiguous() and taui.is_contiguous()):
+        raise ValueError("taus (f32) and taui (int32) must be contiguous "
+                         f"({nq},) tensors on {device}")
+
+
+def scan_f32_candidates_plain(Qm, Xd, x2, *, tile: int, keep: int):
+    """Plain version of `scan_f32_candidates` (same signature and
+    outputs)."""
+    return _f32_candidates_plain(
+        _decoded_scores_fn(Qm, Xd, x2, tile), Xd.shape[0], Qm.shape[0],
+        Qm.device, tile=tile, keep=keep)
+
+
+def scan_f32_candidates(Qm, Xd, x2, *, tile: int, keep: int):
+    """Kernel K9, pass 1 of the exact-float scan. For each tile of
+    ``tile`` rows and each (lane, query): the ``keep`` smallest (score,
+    gid) pairs, ascending, where the score is ``Xd Qm^T + x2`` in f32
+    exactly as `scan_candidates` takes it (+inf at and past row n; such
+    a slot carries the id `NOID`) → ``candv`` f32 and ``candi`` int32,
+    each ``(ntiles * keep, 128, nq)``. Operands as `scan_candidates`.
+    Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
+    on_card = _check_decoded(Qm, Xd, x2, tile, 0)
+    _check_f32_plan(Xd.shape[0], tile, keep)
+    if keep < 1:
+        raise ValueError("keep=0 has no candidates pass: `scan_f32_topk`")
+    if not on_card:
+        return scan_f32_candidates_plain(Qm, Xd, x2, tile=tile, keep=keep)
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
+    (n, dp), nq = Xd.shape, Qm.shape[0]
+    ntiles, candv, candi = _alloc_pairs(n, nq, tile, keep, Qm.device)
+    if nq and n:
+        launch("rq_scan_f32_candidates", Qm, Xd, x2, candv, candi, n, nq, dp,
+               ntiles, tile // LANES, keep,
+               int(Xd.dtype == torch.bfloat16), device=Qm.device)
+        scan_f32_candidates.launches += 1
+    return candv, candi
+
+
+scan_f32_candidates.launches = 0
+
+
+def pair_merge_plain(candv, candi, r: int):
+    """Plain version of `pair_merge` (same signature and outputs)."""
+    ncand, _, nq = candv.shape
+    outv = torch.empty((r, LANES, nq), dtype=torch.float32,
+                       device=candv.device)
+    outi = torch.empty_like(outv, dtype=torch.int32)
+    for q0 in range(0, nq, _QBLOCK):
+        key = _pair_key(candv[:, :, q0:q0 + _QBLOCK],
+                        candi[:, :, q0:q0 + _QBLOCK])
+        if ncand < r:
+            key = torch.cat([key, torch.full(
+                (r - ncand,) + key.shape[1:], _PAIR_PAD, dtype=torch.int64,
+                device=key.device)])
+        top = torch.topk(key, r, dim=0, largest=False, sorted=True).values
+        outv[:, :, q0:q0 + _QBLOCK], outi[:, :, q0:q0 + _QBLOCK] = _unpair(top)
+    return outv, outi
+
+
+def pair_merge(candv, candi, r: int):
+    """Pass 2 of the exact-float scans (K9 and K6). Per (lane, query):
+    the ``r`` smallest (score, gid) pairs of ``candv``/``candi (ncand,
+    128, nq)``, ascending → ``outv`` f32, ``outi`` int32, each ``(r, 128,
+    nq)``, the buffers the TPU kernels carry across their tile axis. A
+    +inf score carries `NOID`. Source:
+    ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+    _check_pairs(candv, candi)
+    if candv.device.type == "cpu":
+        return pair_merge_plain(candv, candi, r)
+    if candv.device.type != "cuda":
+        raise ValueError(f"unsupported device {candv.device}")
+    if r not in _F32_RS:
+        raise ValueError(f"r={r}: the kernel takes {_F32_RS}")
+    nq = candv.shape[2]
+    outv = torch.empty((r, LANES, nq), dtype=torch.float32,
+                       device=candv.device)
+    outi = torch.empty_like(outv, dtype=torch.int32)
+    if nq:
+        launch("rq_pair_merge", candv, candi, outv, outi, candv.shape[0], nq,
+               r, device=candv.device)
+        pair_merge.launches += 1
+    return outv, outi
+
+
+pair_merge.launches = 0
+
+
+def _f32_topk_plain(scores, n: int, nq: int, device, *, r: int, tile: int,
+                    keep: int):
+    """Per (lane, query) the ``r`` smallest (score, gid) pairs → ``(outv,
+    outi)``: the one-pass form without ``keep`` (or when it cuts
+    nothing), else the per-tile cut and the merge."""
+    if not keep or keep >= tile // LANES:
+        return _f32_onepass_plain(scores, n, nq, device, tile=tile, r=r)
+    return pair_merge_plain(*_f32_candidates_plain(
+        scores, n, nq, device, tile=tile, keep=keep), r)
+
+
+def scan_f32_topk_plain(Qm, Xd, x2, *, r: int, tile: int, keep: int):
+    """Plain version of `scan_f32_topk` (same signature and outputs)."""
+    return _f32_topk_plain(_decoded_scores_fn(Qm, Xd, x2, tile), Xd.shape[0],
+                           Qm.shape[0], Qm.device, r=r, tile=tile, keep=keep)
+
+
+def scan_f32_topk(Qm, Xd, x2, *, r: int, tile: int, keep: int):
+    """Kernel K9 whole: per (lane, query) the ``r`` smallest (score,
+    gid) pairs over the base, ascending → ``outv (r, 128, nq)`` f32,
+    ``outi (r, 128, nq)`` int32 global ids. With ``keep`` each tile is
+    first cut to its ``keep`` smallest per lane (`scan_f32_candidates`,
+    then `pair_merge`); ``keep=0`` is the JAX package's form without
+    that cut, which has a plain version only: on the card the running
+    buffer of the TPU kernel has no counterpart, and a CUDA tensor with
+    ``keep=0`` raises."""
+    on_card = _check_decoded(Qm, Xd, x2, tile, 0)
+    _check_f32_plan(Xd.shape[0], tile, keep)
+    if not on_card:
+        return scan_f32_topk_plain(Qm, Xd, x2, r=r, tile=tile, keep=keep)
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernels take keep in {_KEEPS}")
+    return pair_merge(*scan_f32_candidates(Qm, Xd, x2, tile=tile, keep=keep),
+                      r)
+
+
+def verify_counts_plain(Qm, Xd, x2, taus, taui, *, tile: int):
+    """Plain version of `verify_counts` (same signature and outputs)."""
+    return _verify_counts_plain(_decoded_scores_fn(Qm, Xd, x2, tile),
+                                Xd.shape[0], taus, taui, tile=tile)
+
+
+def verify_counts(Qm, Xd, x2, taus, taui, *, tile: int):
+    """Kernel K10, the counting certificate of the exact-float scan. Per
+    (lane, query): how many rows come strictly before the query's
+    boundary pair ``(taus[q], taui[q])`` in the order (score, gid),
+    summed over the tiles (row 0) and the largest count of one tile
+    (row 1) → ``(2, 128, nq)`` int32. The scores are K9's, bit for bit.
+
+    The JAX package counts the scores strictly below the k-th score;
+    counting in the total order also counts the rows that tie with the
+    k-th score at a lower id, which are top-k members themselves, so an
+    unflagged result is the exact top-k by (score, id) and not only by
+    score. A boundary score of -inf counts nothing. Source:
+    ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
+    on_card = _check_decoded(Qm, Xd, x2, tile, 0)
+    _check_f32_plan(Xd.shape[0], tile, 0)
+    _check_tau(taus, taui, Qm.shape[0], Qm.device)
+    if not on_card:
+        return verify_counts_plain(Qm, Xd, x2, taus, taui, tile=tile)
+    (n, dp), nq = Xd.shape, Qm.shape[0]
+    cnt = torch.zeros((2, LANES, nq), dtype=torch.int32, device=Qm.device)
+    if nq and n:
+        launch("rq_scan_verify_counts", Qm, Xd, x2, taus, taui, cnt, n, nq,
+               dp, cdiv(n, tile), tile // LANES,
+               int(Xd.dtype == torch.bfloat16), device=Qm.device)
+        verify_counts.launches += 1
+    return cnt
+
+
+verify_counts.launches = 0
+
+
+def candidate_ids(outi: torch.Tensor, nq: int, r: int) -> torch.Tensor:
+    """The id buffer ``(r, 128, nq)`` of global ids → the ``(nq, r *
+    128)`` candidate matrix."""
+    return outi[:, :, :nq].reshape(r * LANES, nq).T
+
+
+def _finish_f32(outv, outi, k: int, r: int, keep: int, count):
+    """Per-lane pair buffers → ``(scores (nq, k), ids (nq, k) int32,
+    flagged (nq,))``: the top-k of the ``r * 128`` candidates by (score,
+    id), then ``count(taus, taui)`` (K10 or K7) at the k-th pair. A
+    query is flagged when a lane holds more than ``r`` rows before its
+    boundary, or, with ``keep``, one tile of a lane more than ``keep``."""
+    nq = outv.shape[2]
+    s, i = topk_lowest_id(outv.reshape(r * LANES, nq).T, k,
+                          candidate_ids(outi, nq, r))
+    i = i.to(torch.int32)
+    cnt = count(s[:, k - 1].contiguous(), i[:, k - 1].contiguous())
+    flagged = (cnt[0] > r).any(0)
+    if keep:
+        flagged |= (cnt[1] > keep).any(0)
+    return s, i, flagged
+
+
+def _check_f32_topk(k: int, r: int, keep: int) -> None:
+    if k > r * LANES:
+        raise ValueError(f"k={k} > r*128={r * LANES}")
+    if keep and keep & (keep - 1):
+        raise ValueError(f"keep={keep} must be 0 or a power of two")
+
+
+def scan_topk_f32(Q, Xd, x2, *, k: int, r: int = 48, tile: int = 2048,
+                  keep: int = 0):
+    """Exact-unless-flagged top-k of the untruncated f32 scores over a
+    decoded base (K9 → `torch.topk` over the candidates → K10): the
+    counterpart of the JAX package's ``pallas_scan_topk(pack=False)`` →
+    ``(scores (nq, k) f32 without +|q|^2, ids (nq, k) int32, flagged
+    (nq,) bool)``, ascending by (score, id).
+
+    ``r`` and ``tile`` default as in the JAX package. ``keep`` cuts each
+    tile to its ``keep`` smallest pairs per lane first (the card's
+    kernels need it: 2 or 4); the certificate then also holds a lane's
+    per-tile count against ``keep``. ``keep=0`` is the JAX form, on CPU
+    tensors only."""
+    n = Xd.shape[0]
+    _check_f32_topk(k, r, keep)
+    Qm = _query_operand(Q.to(torch.float32), Xd.shape[1], Xd.dtype)
+    x2 = x2.to(torch.float32).contiguous()
+    outv, outi = scan_f32_topk(Qm, Xd, x2, r=r, tile=tile, keep=keep)
+    return _finish_f32(
+        outv, outi, min(k, n), r, keep,
+        lambda ts, ti: verify_counts(Qm, Xd, x2, ts, ti, tile=tile))
+
+
+# ---------------------------------------------------------------------------
 # The decoded index and its search front end
 # ---------------------------------------------------------------------------
 
@@ -612,36 +965,69 @@ def _scan_config(k: int) -> tuple[int, int, int]:
     return _RS[-1], 4, 2048
 
 
+def _f32_config(k: int, device) -> tuple[int, int, int, int]:
+    """Plan of the exact-float scans → ``(r, keep, tile, deepest k)``.
+    CPU tensors take the JAX package's f32 plan (no per-tile cut, tile
+    2048). The card's kernels need the cut, and the flag statistics of
+    ``(k, r, keep, tile)`` do not depend on the key, so they take the
+    packed plan's classes (`_scan_config`) as far as the pair merge
+    kernel's deepest buffer."""
+    if torch.device(device).type == "cuda":
+        kmax = 3072
+        return (*_scan_config(min(k, kmax)), kmax)
+    return (16 if k <= 512 else 48), 0, 2048, 48 * LANES
+
+
+def _f32_bytes_per_query(n: int, r: int, tile: int, keep: int) -> int:
+    """Bytes of one query's largest array in an exact-float scan: a
+    (score, id) pair per candidate, or with ``keep=0`` the per-lane
+    buffers and the tile being merged into them."""
+    return (cdiv(n, tile) * keep or r + tile // LANES) * LANES * 8
+
+
+def merge_topk(best, new, k: int):
+    """Merge two top-k results ``(scores, ids)`` of disjoint row ranges
+    → the ``k`` smallest by (score, id)."""
+    if best is None:
+        return new
+    cs, ci = torch.cat([best[0], new[0]], 1), torch.cat([best[1], new[1]], 1)
+    v, i = topk_lowest_id(cs, min(k, cs.shape[1]), ci)
+    return v, i.to(torch.int32)
+
+
 def _scan_segments(Q, Xd, x2, *, k: int, r: int, tile: int, keep: int):
     """A base beyond the packed row-id range: the scan per
     `_SEG_DECODED`-row segment with an exact merge on the device; the
     segments' flags are OR-ed."""
-    best_d = best_i = flagged = None
+    best = flagged = None
     for st in range(0, Xd.shape[0], _SEG_DECODED):
         Xs, x2s = Xd[st:st + _SEG_DECODED], x2[st:st + _SEG_DECODED]
         dv, iv, fl = scan_topk_packed(Q, Xs, x2s, k=min(k, Xs.shape[0]),
                                       r=r, tile=tile, keep=keep)
-        iv = iv + st
-        if best_d is None:
-            best_d, best_i, flagged = dv, iv, fl
-            continue
-        cd, ci = torch.cat([best_d, dv], 1), torch.cat([best_i, iv], 1)
-        top = torch.topk(cd, k, dim=1, largest=False, sorted=True)
-        best_d, best_i = top.values, torch.gather(ci, 1, top.indices)
-        flagged = flagged | fl
-    return best_d, best_i, flagged
+        best = merge_topk(best, (dv, iv + st), k)
+        flagged = fl if flagged is None else flagged | fl
+    return (*best, flagged)
 
 
 def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
-           tile: int | None = None, keep: int | None = None
+           tile: int | None = None, keep: int | None = None,
+           pack: bool | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k search over a decoded index → ``(dists (nq, k) f32
     with +|q|^2, ids (nq, k) int32)``: the kernel scan, then
     `exact_rescan` for every query its certificate flags.
 
+    ``pack=None`` (or True) is the packed scan: the exact top-k of the
+    truncated scores. ``pack=False`` is the exact-float scan
+    (`scan_topk_f32`): the exact top-k of the f32 scores, the lowest id
+    among equal ones; it wants no segments (its ids are 32 bits wide),
+    and an index built with ``dtype=torch.float32`` is what it is meant
+    for (a bfloat16 one is allowed: the scores accumulate in f32 either
+    way).
+
     ``r``/``tile``/``keep`` default to the plan of the k class
-    (`_scan_config`). Beyond `_MAX_K` the search is `exact_rescan`
-    alone. A query batch whose candidate array
+    (`_scan_config`, `_f32_config`). Beyond the plan's deepest k the
+    search is `exact_rescan` alone. A query batch whose candidate array
     would pass `_CAND_CAP` bytes runs in chunks."""
     from rayuela_tpu_torch.search.linscan import exact_rescan
 
@@ -649,30 +1035,65 @@ def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
     Q = torch.as_tensor(Q, dtype=torch.float32, device=Xd.device)
     Q = torch.nn.functional.pad(Q, (0, Xd.shape[1] - Q.shape[1]))
     k = min(k, index.n)       # never return padded (inf, fake-id) rows
-    if r is None and k > _MAX_K:
+    f32 = pack is not None and not pack
+    if f32:
+        ar, akeep, atile, kmax = _f32_config(k, Xd.device)
+    else:
+        ar, akeep, atile = _scan_config(min(k, _MAX_K))
+        kmax = _MAX_K
+    if r is None and k > kmax:
         return exact_rescan(Q, Xd, x2, k)
-    ar, akeep, atile = _scan_config(min(k, _MAX_K))
-    if r is None and keep is None and tile is None \
+    if r is None and keep is None and tile is None and akeep \
             and k > cdiv(index.n, atile) * akeep * LANES:
         # the tiles keep fewer than k candidates (k most of a small base)
         return exact_rescan(Q, Xd, x2, k)
     r = ar if r is None else r
     keep = akeep if keep is None else keep
     tile = atile if tile is None else tile
-    segmented = cdiv(index.n, tile) * tile > _SEG_DECODED
     q2 = (Q * Q).sum(-1, keepdim=True)
-    ntiles = cdiv(min(index.n, _SEG_DECODED), tile)
-    parts = []
-    for a, b in _query_chunks(Q.shape[0], ntiles * max(keep, 1) * LANES * 4):
-        if segmented:
-            parts.append(_scan_segments(Q[a:b], Xd, x2, k=k, r=r, tile=tile,
-                                        keep=keep))
-        else:
-            parts.append(scan_topk_packed(Q[a:b], Xd, x2, k=k, r=r,
-                                          tile=tile, keep=keep))
+    if f32:
+        scan = scan_topk_f32
+        per_query = _f32_bytes_per_query(index.n, r, tile, keep)
+    else:
+        segmented = cdiv(index.n, tile) * tile > _SEG_DECODED
+        scan = _scan_segments if segmented else scan_topk_packed
+        per_query = (cdiv(min(index.n, _SEG_DECODED), tile) * max(keep, 1)
+                     * LANES * 4)
+    parts = [scan(Q[a:b], Xd, x2, k=k, r=r, tile=tile, keep=keep)
+             for a, b in _query_chunks(Q.shape[0], per_query)]
     s, i, flagged = (torch.cat(p) for p in zip(*parts))
     s = s + q2
     if bool(flagged.any()):
         qidx = torch.nonzero(flagged).flatten()
         s[qidx], i[qidx] = exact_rescan(Q[qidx], Xd, x2, k)
     return s, i
+
+
+def search_streamed(C, B, Q, k: int, *, pq: bool = False,
+                    d: int | None = None, norm_term=None,
+                    shard_size: int = 1 << 20, **kw
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Search a base too large to keep decoded on the device: the codes
+    ``B (n, m)`` (and ``norm_term (n,)``) stay in host memory, a numpy
+    array or a CPU tensor, and go through the device shard by shard,
+    ``shard_size`` rows at a time: each shard is decoded
+    (`build_index`), searched (`search`; ``kw`` goes there, so
+    ``pack=False`` works) and released, and the shards' top-k lists
+    merge exactly on the device, by (score, id). ``C`` and ``Q`` stay
+    on their device when they are tensors and go to the card otherwise."""
+    C = as_tensor(C)
+    dev = C.device
+    Q = as_tensor(Q, dev)
+    n = B.shape[0]
+    d = Q.shape[1] if d is None else d
+    best = None
+    for start in range(0, n, shard_size):
+        stop = min(start + shard_size, n)
+        nt = None if norm_term is None else as_tensor(norm_term[start:stop],
+                                                      dev)
+        idx = build_index(C, as_tensor(B[start:stop], dev, torch.int32),
+                          pq=pq, d=d, norm_term=nt)
+        dv, di = search(idx, Q, min(k, stop - start), **kw)
+        best = merge_topk(best, (dv, di + start), k)
+        del idx
+    return best

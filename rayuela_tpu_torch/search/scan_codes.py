@@ -21,12 +21,20 @@ plan's), and when K4 flags it again, through the plain LUT oracle
 `lut_scan`. The result is the exact top-k of the
 truncated kernel scores, certified per query.
 
+``search_codes(mode="lut", pack=False)`` is the exact-float LUT scan
+(see `scan`): K6 `codes_lut_f32_candidates` → `scan.pair_merge` →
+`torch.topk` over the candidates → K7 `codes_verify_counts`; its result
+is the exact top-k of the f32 table sums, the lowest id among equal
+ones. `search_codes_streamed` serves a base whose packed codes stay in
+host memory.
+
 Every kernel wrapper takes its plain PyTorch version for CPU tensors
 only; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rayuela_tpu_torch.kernels.build import launch
@@ -35,7 +43,8 @@ from rayuela_tpu_torch.search.scan import (  # noqa: F401 (re-exported)
     _KEEPS, _MAX_DP, LANES, _alloc_candidates, _alloc_onepass,
     _candidates_plain, _finish, _merge_onepass, _onepass_plain,
     _pack_idbits, _query_operand, _row_key, cand_merge, cand_merge_plain)
-from rayuela_tpu_torch.utils import cdiv, exact_f32, splitarray
+from rayuela_tpu_torch.utils import (as_tensor, cdiv, exact_f32, splitarray,
+                                     tiled_topk, topk_lowest_id)
 
 # row ids are 16 bits wide, so one scan call covers this many rows;
 # larger bases run in segments with an exact merge
@@ -151,6 +160,12 @@ class CodesIndex:
         self._decode_ops: dict = {}
         self._segments: dict = {}      # sub-indexes of a segmented base
 
+    def swap_packed(self, packed: torch.Tensor) -> None:
+        """Serve another shard of codes from this index (the streamed
+        search): the operand cache stays, the old buffer is released."""
+        self.packed, self.n = packed, packed.shape[0]
+        self._segments.clear()      # they hold slices of the old buffer
+
     def decode_operands(self, d: int, op_dtype):
         """Cached `build_decode_operands` (they depend only on C, d and
         the dtype)."""
@@ -183,49 +198,48 @@ def build_codes_index(C: torch.Tensor, B: torch.Tensor, *,
 # Plain LUT oracle
 # ---------------------------------------------------------------------------
 
-def lut_scan(T: torch.Tensor, B: torch.Tensor, k: int,
-             lut_dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gather-accumulate LUT scan ``sum_j T_j[code_j]`` with exact top-k:
-    the fallback for queries the rescue kernel flags, and the oracle of
-    the tests. Scores exclude ``+|q|^2``."""
+def _lut_sums(T: torch.Tensor, B: torch.Tensor, lut_dtype) -> torch.Tensor:
+    """``sum_j T_j[code_j]`` → ``(nq, n)`` f32: the table values rounded
+    to ``lut_dtype``, added in f32 in codebook order, the norms table
+    last, as the kernels take them."""
     mprime, h, nq = T.shape
-    n = B.shape[0]
     flat = T.to(lut_dtype).float().permute(2, 0, 1).reshape(nq, mprime * h)
     idx = (B.long() + torch.arange(mprime, device=B.device)[None, :] * h)
-    s = flat[:, idx].sum(2)
-    top = torch.topk(s, min(k, n), dim=1, largest=False, sorted=True)
-    return top.values, top.indices.to(torch.int32)
+    s = flat.index_select(1, idx[:, 0])
+    for j in range(1, mprime):
+        s = s + flat.index_select(1, idx[:, j])
+    return s
+
+
+def lut_scan(T: torch.Tensor, B: torch.Tensor, k: int,
+             lut_dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather-accumulate LUT scan (`_lut_sums`) with exact top-k, the
+    lowest id among equal scores: the oracle of the tests. Scores
+    exclude ``+|q|^2``."""
+    v, i = topk_lowest_id(_lut_sums(T, B, lut_dtype), min(k, B.shape[0]))
+    return v, i.to(torch.int32)
 
 
 def _lut_scan_tiled(index: CodesIndex, Q: torch.Tensor, k: int, d: int,
                     lut_dtype, qblock: int = 128,
                     seg: int = 1 << 19) -> tuple[torch.Tensor, torch.Tensor]:
-    """`lut_scan` over the whole base, tiled over base segments (outer,
-    each unpacked once) and query blocks, with an exact top-k merge, so
-    the (qblock, seg, m') gather stays bounded. Scores exclude
-    ``+|q|^2``."""
-    nq = Q.shape[0]
-    blocks = [(q0, min(q0 + qblock, nq)) for q0 in range(0, nq, qblock)]
-    Ts = [build_luts(index.C, Q[a:b], pq=index.pq, d=d,
-                     norms_cbook=index.norms_cbook) for a, b in blocks]
-    bs: list = [None] * len(blocks)
-    bi: list = [None] * len(blocks)
-    for st in range(0, index.n, seg):
-        stop = min(st + seg, index.n)
-        Bseg = unpack_codes(index.packed[st:stop], index.mprime)
-        for j in range(len(blocks)):
-            s2, i2 = lut_scan(Ts[j], Bseg, min(k, stop - st), lut_dtype)
-            i2 = i2 + st
-            if bs[j] is None:
-                bs[j], bi[j] = s2, i2
-            else:
-                cs = torch.cat([bs[j], s2], dim=1)
-                ci = torch.cat([bi[j], i2], dim=1)
-                top = torch.topk(cs, min(k, cs.shape[1]), dim=1,
-                                 largest=False, sorted=True)
-                bs[j] = top.values
-                bi[j] = torch.gather(ci, 1, top.indices)
-    return torch.cat(bs, 0), torch.cat(bi, 0)
+    """`lut_scan` over the whole base, tiled over query blocks and base
+    segments with an exact merge (`utils.tiled_topk`), so the (qblock,
+    seg) score block stays bounded: the fallback for queries a
+    certificate flags and for a k beyond the kernels' plan. Scores
+    exclude ``+|q|^2``."""
+    block: dict = {}
+
+    def score_tile(q0, q1, st, stop):
+        if block.get("q") != (q0, q1):      # one table build per block
+            block.update(q=(q0, q1), T=build_luts(
+                index.C, Q[q0:q1], pq=index.pq, d=d,
+                norms_cbook=index.norms_cbook))
+        return _lut_sums(block["T"], unpack_codes(index.packed[st:stop],
+                                                  index.mprime), lut_dtype)
+
+    return tiled_topk(Q.shape[0], index.n, seg, min(k, index.n), score_tile,
+                      qblock)
 
 
 # ---------------------------------------------------------------------------
@@ -397,15 +411,14 @@ codes_decode_topk.launches = 0
 # Kernel K5: the LUT scan
 # ---------------------------------------------------------------------------
 
-def codes_lut_candidates_plain(T, packed, *, tile: int, keep: int,
-                               idbits: int):
-    """Plain version of `codes_lut_candidates` (same signature and
-    outputs)."""
+def _lut_scores_fn(T, packed, tile: int):
+    """Scores of a LUT scan by tile: ``scores(t, q0, q1)`` is ``sum_j
+    T[j, code_j(g), q]`` in f32, codebook order, for tile t and the
+    queries [q0, q1), ``(tile, q1 - q0)``, +inf at and past row n."""
     mprime, h, nq = T.shape
-    n, rows = packed.shape[0], tile // LANES
     flat = T.reshape(mprime * h, nq)
 
-    def keys(t, q0, q1):
+    def scores(t, q0, q1):
         g0 = t * tile
         codes = unpack_codes(packed[g0:g0 + tile], mprime).long()
         Tb = flat[:, q0:q1].float()
@@ -417,9 +430,49 @@ def codes_lut_candidates_plain(T, packed, *, tile: int, keep: int,
         for j in range(mprime):          # codebook order, the norms last
             acc = acc + Tb.index_select(0, codes[:, j] + j * h)
         S[:nv] = acc
-        return _row_key(S, t, rows=rows, idbits=idbits)
+        return S
+    return scores
 
-    return _candidates_plain(keys, n, nq, T.device, tile=tile, keep=keep)
+
+def _check_lut(T, packed, tile: int) -> bool:
+    """Validate the LUT-scan operands; True when they lie on a CUDA
+    device (launch the kernel), False on the CPU (plain version)."""
+    if T.dim() != 3 or packed.dim() != 2 \
+            or packed.shape[1] != cdiv(T.shape[0], 4):
+        raise ValueError(f"T {tuple(T.shape)} must be (m', h, nq) and "
+                         f"packed {tuple(packed.shape)} (n, ceil(m'/4))")
+    if T.dtype not in (torch.float32, torch.bfloat16) \
+            or packed.dtype != torch.int32:
+        raise ValueError("T must be float32 or bfloat16 and packed int32")
+    if T.device != packed.device:
+        raise ValueError("operands must share one device")
+    if not (T.is_contiguous() and packed.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    rows = tile // LANES
+    if tile % LANES or rows & (rows - 1):
+        raise ValueError(f"tile/128={tile / LANES} must be a power of two")
+    if T.device.type == "cpu":
+        return False
+    if T.device.type != "cuda":
+        raise ValueError(f"unsupported device {T.device}")
+    mprime, h, nq = T.shape
+    smem = 2 * T.element_size() * (_LUT_QB // 2) * mprime * h
+    if h > 256 or smem > _MAX_SMEM:
+        raise ValueError(f"m'*h={mprime * h} tables of {_LUT_QB} queries "
+                         f"({smem} bytes) exceed the kernel's shared memory "
+                         f"({_MAX_SMEM}), or h={h} > 256")
+    if nq >= 1 << 20:
+        raise ValueError("at most 2**20 queries per call")
+    return True
+
+
+def codes_lut_candidates_plain(T, packed, *, tile: int, keep: int,
+                               idbits: int):
+    """Plain version of `codes_lut_candidates` (same signature and
+    outputs)."""
+    return _candidates_plain(
+        scan._keys_fn(_lut_scores_fn(T, packed, tile), tile, idbits),
+        packed.shape[0], T.shape[2], T.device, tile=tile, keep=keep)
 
 
 def codes_lut_candidates(T, packed, *, tile: int, keep: int, idbits: int):
@@ -434,36 +487,16 @@ def codes_lut_candidates(T, packed, *, tile: int, keep: int, idbits: int):
     ``packed (n, ceil(m'/4))`` from `pack_codes`. Returns ``cand
     (ntiles*keep, 128, nq)`` and ``disc (ntiles, 128, nq)`` int32.
     Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
-    if T.dim() != 3 or packed.dim() != 2 \
-            or packed.shape[1] != cdiv(T.shape[0], 4):
-        raise ValueError(f"T {tuple(T.shape)} must be (m', h, nq) and "
-                         f"packed {tuple(packed.shape)} (n, ceil(m'/4))")
-    if T.dtype not in (torch.float32, torch.bfloat16) \
-            or packed.dtype != torch.int32:
-        raise ValueError("T must be float32 or bfloat16 and packed int32")
-    if T.device != packed.device:
-        raise ValueError("operands must share one device")
-    if not (T.is_contiguous() and packed.is_contiguous()):
-        raise ValueError("operands must be contiguous")
-    rows = tile // LANES
-    if tile % LANES or rows & (rows - 1) or keep < 1 or keep > rows:
-        raise ValueError(f"tile/128={tile / LANES} must be a power of two "
-                         f"and 1 <= keep={keep} <= tile/128")
-    if T.device.type == "cpu":
+    on_card = _check_lut(T, packed, tile)
+    if keep < 1 or keep > tile // LANES:
+        raise ValueError(f"1 <= keep={keep} <= tile/128")
+    if not on_card:
         return codes_lut_candidates_plain(T, packed, tile=tile, keep=keep,
                                           idbits=idbits)
-    if T.device.type != "cuda":
-        raise ValueError(f"unsupported device {T.device}")
     if keep not in _KEEPS:
         raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
     mprime, h, nq = T.shape
-    smem = 2 * T.element_size() * (_LUT_QB // 2) * mprime * h
-    if h > 256 or smem > _MAX_SMEM:
-        raise ValueError(f"m'*h={mprime * h} tables of {_LUT_QB} queries "
-                         f"({smem} bytes) exceed the kernel's shared memory "
-                         f"({_MAX_SMEM}), or h={h} > 256")
-    if nq >= 1 << 20:
-        raise ValueError("at most 2**20 queries per call")
+    rows = tile // LANES
     n, nw = packed.shape
     ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, T.device)
     if nq and n:
@@ -475,6 +508,104 @@ def codes_lut_candidates(T, packed, *, tile: int, keep: int, idbits: int):
 
 
 codes_lut_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels K6 and K7: the exact-float LUT scan and its counting certificate
+# ---------------------------------------------------------------------------
+
+def codes_lut_f32_candidates_plain(T, packed, *, tile: int, keep: int):
+    """Plain version of `codes_lut_f32_candidates` (same signature and
+    outputs)."""
+    return scan._f32_candidates_plain(
+        _lut_scores_fn(T, packed, tile), packed.shape[0], T.shape[2],
+        T.device, tile=tile, keep=keep)
+
+
+def codes_lut_f32_candidates(T, packed, *, tile: int, keep: int):
+    """Kernel K6, pass 1 of the exact-float LUT scan. For each tile of
+    ``tile`` rows and each (lane, query): the ``keep`` smallest (score,
+    gid) pairs, ascending, the scores exactly K5's f32 sums (+inf at and
+    past row n; such a slot carries the id `scan.NOID`) → ``candv`` f32
+    and ``candi`` int32, each ``(ntiles * keep, 128, nq)``;
+    `scan.pair_merge` is pass 2. Operands as `codes_lut_candidates`.
+    Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
+    on_card = _check_lut(T, packed, tile)
+    scan._check_f32_plan(packed.shape[0], tile, keep)
+    if keep < 1:
+        raise ValueError("keep=0 has no candidates pass: "
+                         "`codes_lut_topk_f32`")
+    if not on_card:
+        return codes_lut_f32_candidates_plain(T, packed, tile=tile,
+                                              keep=keep)
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
+    mprime, h, nq = T.shape
+    n, nw = packed.shape
+    ntiles, candv, candi = scan._alloc_pairs(n, nq, tile, keep, T.device)
+    if nq and n:
+        launch("rq_codes_lut_f32_candidates", T, packed, candv, candi, n, nq,
+               mprime, h, nw, ntiles, tile // LANES, keep,
+               int(T.dtype == torch.bfloat16), device=T.device)
+        codes_lut_f32_candidates.launches += 1
+    return candv, candi
+
+
+codes_lut_f32_candidates.launches = 0
+
+
+def codes_lut_topk_f32_plain(T, packed, *, r: int, tile: int, keep: int):
+    """Plain version of `codes_lut_topk_f32` (same signature and
+    outputs)."""
+    return scan._f32_topk_plain(
+        _lut_scores_fn(T, packed, tile), packed.shape[0], T.shape[2],
+        T.device, r=r, tile=tile, keep=keep)
+
+
+def codes_lut_topk_f32(T, packed, *, r: int, tile: int, keep: int):
+    """Kernel K6 whole: per (lane, query) the ``r`` smallest (score,
+    gid) pairs of the LUT scan, ascending → ``outv (r, 128, nq)`` f32,
+    ``outi (r, 128, nq)`` int32 global ids. ``keep`` as in
+    `scan.scan_f32_topk`: the card's kernels need 2 or 4, ``keep=0`` (the
+    JAX package's form) has a plain version only."""
+    on_card = _check_lut(T, packed, tile)
+    scan._check_f32_plan(packed.shape[0], tile, keep)
+    if not on_card:
+        return codes_lut_topk_f32_plain(T, packed, r=r, tile=tile, keep=keep)
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernels take keep in {_KEEPS}")
+    return scan.pair_merge(
+        *codes_lut_f32_candidates(T, packed, tile=tile, keep=keep), r)
+
+
+def codes_verify_counts_plain(T, packed, taus, taui, *, tile: int):
+    """Plain version of `codes_verify_counts` (same signature and
+    outputs)."""
+    return scan._verify_counts_plain(_lut_scores_fn(T, packed, tile),
+                                     packed.shape[0], taus, taui, tile=tile)
+
+
+def codes_verify_counts(T, packed, taus, taui, *, tile: int):
+    """Kernel K7, the counting certificate of the exact-float LUT scan:
+    `scan.verify_counts` on K6's scores, bit for bit → ``(2, 128, nq)``
+    int32. Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
+    on_card = _check_lut(T, packed, tile)
+    scan._check_f32_plan(packed.shape[0], tile, 0)
+    scan._check_tau(taus, taui, T.shape[2], T.device)
+    if not on_card:
+        return codes_verify_counts_plain(T, packed, taus, taui, tile=tile)
+    mprime, h, nq = T.shape
+    n, nw = packed.shape
+    cnt = torch.zeros((2, LANES, nq), dtype=torch.int32, device=T.device)
+    if nq and n:
+        launch("rq_codes_lut_verify_counts", T, packed, taus, taui, cnt, n,
+               nq, mprime, h, nw, cdiv(n, tile), tile // LANES,
+               int(T.dtype == torch.bfloat16), device=T.device)
+        codes_verify_counts.launches += 1
+    return cnt
+
+
+codes_verify_counts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -517,13 +648,31 @@ def scan_codes_decode_topk(Q, Cflat, nrm, packed, *, k: int, pq: bool,
 
 
 def scan_codes_topk(T, packed, *, k: int, r: int = 32, tile: int = _TILE,
-                    keep: int = 4, lut_dtype=torch.bfloat16):
-    """Two-pass LUT scan (K5 → K2 → K3) over per-query tables ``T (m',
-    h, nq)`` from `build_luts` → ``(truncated scores (nq, k) f32 without
-    +|q|^2, ids (nq, k) int32, flagged (nq,) bool)``. The table values
-    are rounded to ``lut_dtype`` before the sums; the sums are f32."""
+                    keep: int = 4, lut_dtype=torch.bfloat16,
+                    pack: bool = True):
+    """LUT scan over per-query tables ``T (m', h, nq)`` from
+    `build_luts` → ``(scores (nq, k) f32 without +|q|^2, ids (nq, k)
+    int32, flagged (nq,) bool)``. The table values are rounded to
+    ``lut_dtype`` before the sums; the sums are f32.
+
+    ``pack=True``: the two-pass packed scan (K5 → K2 → K3), the exact
+    top-k of the truncated scores unless flagged. ``pack=False``: the
+    exact-float scan (K6 → `torch.topk` over the candidates → K7), the
+    counterpart of the JAX package's
+    ``pallas_scan_codes_topk(pack=False)``: the exact top-k of the f32
+    sums by (score, id) unless flagged; ``keep=0`` there is the JAX
+    form without the per-tile cut (CPU tensors only)."""
     mprime, h, nq = T.shape
     n = packed.shape[0]
+    Tq = T.to(lut_dtype).contiguous()
+    if not pack:
+        scan._check_f32_topk(k, r, keep)
+        outv, outi = codes_lut_topk_f32(Tq, packed, r=r, tile=tile,
+                                        keep=keep)
+        return scan._finish_f32(
+            outv, outi, min(k, n), r, keep,
+            lambda ts, ti: codes_verify_counts(Tq, packed, ts, ti,
+                                               tile=tile))
     if k > r * LANES:
         raise ValueError(f"k={k} > r*128={r * LANES}")
     if keep < 1 or keep & (keep - 1):
@@ -533,14 +682,14 @@ def scan_codes_topk(T, packed, *, k: int, r: int = 32, tile: int = _TILE,
     if not idbits:
         raise ValueError(f"n={n} exceeds the packed row-id range "
                          f"({_DECODE_SEG} rows per call); segment the base")
-    cand, disc = codes_lut_candidates(T.to(lut_dtype).contiguous(), packed,
-                                      tile=tile, keep=keep, idbits=idbits)
+    cand, disc = codes_lut_candidates(Tq, packed, tile=tile, keep=keep,
+                                      idbits=idbits)
     outp = cand_merge(cand, disc, r)
     return _finish(outp, nq, r, min(k, n), idbits)
 
 
-def _codes_config(k: int, mode: str = "decode", n: int | None = None
-                  ) -> tuple[str, int, int, int]:
+def _codes_config(k: int, mode: str = "decode", n: int | None = None,
+                  f32_on=None) -> tuple[str, int, int, int]:
     """Scan plan for a top-k of size ``k`` → (kind, r, keep, tile): the
     two-pass scan at the plan every packed scan shares
     (`scan._scan_config`: the flag statistics depend on ``(k, r, keep,
@@ -548,7 +697,15 @@ def _codes_config(k: int, mode: str = "decode", n: int | None = None
     buffer the plain LUT scan. A base of ``n`` rows whose tiles keep
     fewer than k candidates (k most of a small base) cannot be served in
     two passes: decode mode takes the one-pass K4 scan where its buffer
-    holds k, and the plain LUT scan serves the rest."""
+    holds k, and the plain LUT scan serves the rest. ``f32_on`` names
+    the device of an exact-float LUT scan, which takes its own plan
+    (`scan._f32_config`, kind "f32")."""
+    if f32_on is not None:
+        r, keep, tile, kmax = scan._f32_config(k, f32_on)
+        if k > kmax or (keep and n is not None
+                        and k > cdiv(n, tile) * keep * LANES):
+            return "lut", 0, 0, 0
+        return "f32", r, keep, tile
     if k > scan._MAX_K:
         return "lut", 0, 0, 0
     r, keep, tile = scan._scan_config(k)
@@ -581,7 +738,7 @@ def _search_segments(index: CodesIndex, Q, k: int, **kw):
     """A base beyond the packed row-id range: `search_codes` per
     `_DECODE_SEG`-row segment (each certified and rescued on its own)
     with an exact merge on the device."""
-    best_s = best_i = None
+    best = None
     for st in range(0, index.n, _DECODE_SEG):
         sub = index._segments.get(st)
         if sub is None:
@@ -591,19 +748,14 @@ def _search_segments(index: CodesIndex, Q, k: int, **kw):
             sub._decode_ops = index._decode_ops     # one operand cache
             index._segments[st] = sub
         s, i = search_codes(sub, Q, min(k, sub.n), **kw)
-        i = i + st
-        if best_s is None:
-            best_s, best_i = s, i
-            continue
-        cs, ci = torch.cat([best_s, s], 1), torch.cat([best_i, i], 1)
-        top = torch.topk(cs, k, dim=1, largest=False, sorted=True)
-        best_s, best_i = top.values, torch.gather(ci, 1, top.indices)
-    return best_s, best_i
+        best = scan.merge_topk(best, (s, i + st), k)
+    return best
 
 
 def search_codes(index: CodesIndex, Q, k: int, *,
                  op_dtype=None, mode: str = "decode", qsuper: int = 1,
-                 stage: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                 stage: int = 0, pack: bool | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k (for the kernel scores) over a packed-code index →
     ``(dists (nq, k) f32 with +|q|^2, ids (nq, k) int32)``.
 
@@ -611,10 +763,16 @@ def search_codes(index: CodesIndex, Q, k: int, *,
     by summing per-query table entries (K5); flagged queries re-run
     exactly. ``op_dtype`` is the dtype of the kernels' operands (decode)
     or tables (lut): bfloat16 on the card, float32 on the CPU by
-    default. A base beyond `_DECODE_SEG` rows runs in segments, and a
-    query batch whose candidate array would pass `scan._CAND_CAP` bytes
-    in chunks. The JAX package's ``qsuper`` and ``stage`` variants of
-    the one-pass decode scan are not ported."""
+    default. ``pack=None`` (or True) selects by packed keys, the exact
+    top-k of the truncated scores; ``mode="lut", pack=False`` is the
+    exact-float scan (K6, K7): the exact top-k of the f32 table sums by
+    (score, id), with no segments (its ids are 32 bits wide). In
+    ``mode="decode"`` the JAX package always packs and ``pack`` only
+    picks its plan; here the argument is accepted and the plan stays.
+    A base beyond `_DECODE_SEG` rows runs in segments, and a query batch
+    whose candidate array would pass `scan._CAND_CAP` bytes in chunks.
+    The JAX package's ``qsuper`` and ``stage`` variants of the one-pass
+    decode scan are not ported."""
     if qsuper != 1 or stage:
         raise NotImplementedError(
             "the qsuper/stage variants of the one-pass scan are not "
@@ -626,11 +784,13 @@ def search_codes(index: CodesIndex, Q, k: int, *,
     if op_dtype is None:
         op_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     k = min(k, index.n)
-    if index.n > _DECODE_SEG:
+    f32 = mode == "lut" and pack is not None and not pack
+    if index.n > _DECODE_SEG and not f32:
         return _search_segments(index, Q, k, op_dtype=op_dtype, mode=mode)
     d = Q.shape[1] if index.d in (-1, None) else index.d
     q2 = (Q * Q).sum(-1, keepdim=True)
-    kind, r, keep, tile = _codes_config(k, mode, index.n)
+    kind, r, keep, tile = _codes_config(k, mode, index.n,
+                                        dev if f32 else None)
     if kind == "lut":
         s, i = _lut_scan_tiled(index, Q, k, d, op_dtype)
         return s + q2, i
@@ -638,6 +798,8 @@ def search_codes(index: CodesIndex, Q, k: int, *,
         Cf, nrm = index.decode_operands(d, op_dtype)
     parts = []
     per_query = cdiv(index.n, tile) * max(keep, 1) * LANES * 4
+    if f32:
+        per_query = scan._f32_bytes_per_query(index.n, r, tile, keep)
     for a, b in scan._query_chunks(Q.shape[0], per_query):
         Qc = Q[a:b]
         if mode == "lut":
@@ -645,7 +807,7 @@ def search_codes(index: CodesIndex, Q, k: int, *,
                            norms_cbook=index.norms_cbook)
             parts.append(scan_codes_topk(T, index.packed, k=k, r=r,
                                          tile=tile, keep=keep,
-                                         lut_dtype=op_dtype))
+                                         lut_dtype=op_dtype, pack=not f32))
         elif kind == "2p":
             parts.append(scan_codes_decode_topk_2p(
                 Qc, Cf, nrm, index.packed, k=k, pq=index.pq, r=r,
@@ -665,8 +827,96 @@ def search_codes(index: CodesIndex, Q, k: int, *,
     return s + q2, i
 
 
-def search_codes_streamed(*args, **kwargs):
-    """Search over packed codes held in host memory: not ported yet."""
-    raise NotImplementedError(
-        "streamed search over host-resident codes is not ported yet "
-        "(ROADMAP A7)")
+class _ShardFeed:
+    """Packed-code shards from host memory to ``device``, one ahead.
+
+    On the card a shard is staged in one of two pinned host buffers and
+    copied with ``non_blocking=True`` on a side stream, so the copy of
+    shard j + 1 runs behind the scan of shard j. Two events keep it
+    right: the scan's stream waits for the copy's event before it reads
+    the shard, and a staging buffer is written again only after the copy
+    that last read it has finished. At most two shards are on the
+    device, the one being scanned and the one in flight. On the CPU the
+    same calls hand out host slices."""
+
+    def __init__(self, B_packed, bounds, device):
+        self.B, self.bounds, self.dev = B_packed, bounds, device
+        self.on_card = device.type == "cuda"
+        if self.on_card:
+            rows = max(b - a for a, b in bounds)
+            self.side = torch.cuda.Stream(device)
+            self.stage = [torch.empty((rows, B_packed.shape[1]),
+                                      dtype=torch.int32, pin_memory=True)
+                          for _ in range(2)]
+            self.copied = [None, None]
+
+    def start(self, j: int):
+        """Begin bringing shard j → a handle for `wait`."""
+        a, b = self.bounds[j]
+        if not self.on_card:      # a read-only memmap slice is copied
+            return torch.from_numpy(np.require(
+                self.B[a:b], requirements=("C", "W"))), None
+        slot = j % 2
+        if self.copied[slot] is not None:
+            self.copied[slot].synchronize()
+        stage = self.stage[slot][:b - a]
+        np.copyto(stage.numpy(), self.B[a:b])
+        with torch.cuda.stream(self.side):
+            pk = torch.empty_like(stage, device=self.dev)
+            pk.copy_(stage, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.side)
+        self.copied[slot] = ev
+        return pk, ev
+
+    def wait(self, handle) -> torch.Tensor:
+        """The shard, safe to read on the current stream."""
+        pk, ev = handle
+        if ev is not None:
+            cur = torch.cuda.current_stream(self.dev)
+            cur.wait_event(ev)
+            pk.record_stream(cur)   # it was allocated on the side stream
+        return pk
+
+
+def search_codes_streamed(C, B_packed, Q, k: int, *, pq: bool = False,
+                          d: int | None = None, norms_cbook=None,
+                          mprime: int | None = None,
+                          shard_n: int = 100_000_000, **kw
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Code-resident search over a base too large for the device: the
+    packed codes ``B_packed (n, ceil(m'/4)) int32`` (`pack_codes`
+    layout, the norms byte included for additive models: pass
+    ``mprime``) stay in host memory, a numpy array or an ``np.memmap``
+    over a code file, and stream to the device ``shard_n`` rows at a
+    time. Each shard runs the whole `search_codes` pipeline (``kw`` goes
+    there: ``mode="lut"``, ``pack=False``) on one `CodesIndex` whose
+    codes are swapped per shard; the next shard's copy is started before
+    the current shard's scan (`_ShardFeed`); the shards' top-k lists
+    merge exactly on the device, by (score, id). ``C`` and ``Q`` stay
+    on their device when they are tensors and go to the card otherwise."""
+    if not isinstance(B_packed, np.memmap):
+        B_packed = np.asarray(B_packed)
+    n, nw = B_packed.shape
+    C = as_tensor(C)
+    dev = C.device
+    Q = as_tensor(Q, dev)
+    ncb = None if norms_cbook is None else as_tensor(norms_cbook, dev)
+    d = Q.shape[1] if d is None else d
+    bounds = [(st, min(st + shard_n, n)) for st in range(0, n, shard_n)]
+    feed = _ShardFeed(B_packed, bounds, dev)
+    index = best = None
+    nxt = feed.start(0)
+    for j, (start, stop) in enumerate(bounds):
+        pk = feed.wait(nxt)
+        if index is None:
+            index = CodesIndex(pk, nw * 4 if mprime is None else mprime, C,
+                               pq=pq, d=d, norms_cbook=ncb)
+        else:
+            index.swap_packed(pk)       # releases the shard before
+        del pk
+        if j + 1 < len(bounds):
+            nxt = feed.start(j + 1)     # behind this shard's scan
+        s, i = search_codes(index, Q, min(k, stop - start), **kw)
+        best = scan.merge_topk(best, (s, i + start), k)
+    return best

@@ -30,6 +30,156 @@ def as_tensor(X, device=None, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(X, dtype=dtype, device=device)
 
 
+def sortable_key(s: torch.Tensor) -> torch.Tensor:
+    """f32 → int32 whose signed order is the float order: the lower 31
+    bits of negatives are flipped. Monotone, so truncating low bits
+    (floor in key space) stays monotone."""
+    bits = s.contiguous().view(torch.int32)
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def topk_straddle(s: torch.Tensor, k: int):
+    """`torch.topk` of the ``k`` smallest per row of ``s (nq, w)`` →
+    ``(values (nq, k) ascending, columns (nq, k), straddle (nq,) bool)``.
+    ``straddle`` marks the rows whose k-th score also occurs outside the
+    selection (the (k+1)-th smallest equals the k-th): there, and only
+    there, `torch.topk`'s choice of the columns that hold the k-th score
+    is arbitrary. No pass over ``s`` beyond the `topk`, no host sync."""
+    w = s.shape[1]
+    top = torch.topk(s, min(k + 1, w), dim=1, largest=False, sorted=True)
+    v, cols = top.values[:, :k], top.indices[:, :k]
+    if w > k and k:
+        return v, cols, top.values[:, k] == v[:, k - 1]
+    return v, cols, torch.zeros(s.shape[0], dtype=torch.bool,
+                                device=s.device)
+
+
+def lowest_at_tau(s: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+                  ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Repair straddling rows: ``idx (nr, k)`` with the members of each
+    row's last group of equal scores (those at ``tau = v[:, -1]``)
+    replaced by the lowest ids among all columns of ``s (nr, w)`` that
+    hold tau. Column j carries ``ids[:, j]``, or j when ``ids`` is
+    None."""
+    k = v.shape[1]
+    tau = v[:, -1:]
+    need = (v == tau).sum(1)
+    cols = (torch.arange(s.shape[1], device=s.device)[None, :]
+            if ids is None else ids.long())
+    cand = torch.where(s == tau, cols, 1 << 31)
+    low = torch.topk(cand, int(need.max()), dim=1, largest=False,
+                     sorted=True).values
+    j = torch.arange(k, device=s.device)[None, :] - (k - need[:, None])
+    return torch.where(j >= 0, low.gather(1, j.clamp(min=0)), idx)
+
+
+def order_by_score_then_id(v: torch.Tensor, idx: torch.Tensor
+                           ) -> torch.Tensor:
+    """``idx (nq, k)`` reordered so that ids ascend within each group of
+    equal scores of the ascending ``v (nq, k)``: one k-wide sort of
+    (score, id) keys."""
+    # + 0.0: -0.0 and 0.0 are one score
+    key = (sortable_key(v + 0.0).long() << 32) | (idx.long() & 0xFFFFFFFF)
+    return key.sort(dim=1).values & 0xFFFFFFFF
+
+
+def _any(*conds: torch.Tensor) -> list[bool]:
+    """The truth of several 0-d conditions in one host sync."""
+    return torch.stack([c.any() for c in conds]).tolist()
+
+
+def _has_ties(v: torch.Tensor) -> torch.Tensor:
+    return v[:, 1:] == v[:, :-1]
+
+
+def _resolve_ids(s, ids, v, cols, straddle, any_straddle: bool,
+                 any_tie: bool) -> torch.Tensor:
+    """The ids of `topk_straddle`'s selection under the lowest-id rule:
+    straddling rows repaired, winners ordered by (score, id) where any
+    two tie."""
+    idx = cols if ids is None else ids.gather(1, cols).long()
+    if any_straddle:
+        rows = torch.nonzero(straddle).flatten()
+        idx[rows] = lowest_at_tau(s[rows], v[rows], idx[rows],
+                                  None if ids is None else ids[rows])
+    return order_by_score_then_id(v, idx) if any_tie else idx
+
+
+def topk_lowest_id(s: torch.Tensor, k: int, ids: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of ``s (nq, w)`` f32 →
+    ``(values (nq, k) ascending, ids (nq, k) int64)``, where among equal
+    scores the lowest id wins, also in the group that straddles position
+    k. Column j carries ``ids[:, j]`` (``ids (nq, w)``, distinct within a
+    row, in [0, 2**31)), or j itself when ``ids`` is None.
+
+    `torch.topk` settles the values; its choice among equal scores is
+    arbitrary and moves with the thread count. Only the rows whose k-th
+    score also occurs outside the selection (`topk_straddle`) are looked
+    at again, for the lowest ids that hold that score, and where two
+    winners tie the k winners are ordered by (score, id), a k-wide
+    sort. One host sync."""
+    v, cols, straddle = topk_straddle(s, k)
+    if not k or not s.shape[0]:
+        return v, cols if ids is None else ids.gather(1, cols).long()
+    return v, _resolve_ids(s, ids, v, cols, straddle,
+                           *_any(straddle, _has_ties(v)))
+
+
+def tiled_topk(nq: int, n: int, tile: int, k: int, score_tile,
+               qblock: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of ``score_tile(q0, q1, start, stop) -> (q1 - q0,
+    stop - start)`` f32 over base tiles of ``tile`` rows and query
+    blocks of ``qblock`` → ``(values (nq, k) ascending, ids (nq, k)
+    int32)``, among equal scores the lowest id: the global top-k is
+    contained in the union of the per-tile top-k.
+
+    A tile's `torch.topk` picks arbitrarily among the rows that hold its
+    k-th score when more of them exist than it returns. That matters
+    only where the tile's k-th score is the global one, which on a base
+    of several tiles takes exact ties: such tiles are scored once more
+    and give the lowest ids at that score (`lowest_at_tau`). The tile
+    loop itself is the plain `topk` per tile, with no further pass over
+    the scores, and a query block costs one host sync."""
+    out_v, out_i = [], []
+    tiles = [(st, min(st + tile, n)) for st in range(0, n, tile)]
+    # tiles that hold more rows than the k they return
+    full = [stop - st > k for st, stop in tiles]
+    for q0 in range(0, max(nq, 1), qblock):
+        q1 = min(q0 + qblock, nq)
+        if len(tiles) == 1:
+            v, i = topk_lowest_id(score_tile(q0, q1, 0, n), k)
+            out_v.append(v)
+            out_i.append(i.to(torch.int32))
+            continue
+        vals, ids = [], []
+        for st, stop in tiles:
+            top = torch.topk(score_tile(q0, q1, st, stop), min(k, stop - st),
+                             dim=1, largest=False, sorted=True)
+            vals.append(top.values)
+            ids.append(top.indices + st)
+        cv, ci = torch.cat(vals, dim=1), torch.cat(ids, dim=1)
+        v, cols, straddle = topk_straddle(cv, k)
+        taus = torch.stack([t[:, -1] for t in vals], 1)
+        suspect = (taus == v[:, -1:]) & torch.tensor(full, device=cv.device)
+        any_straddle, any_tie, any_suspect = _any(straddle, _has_ties(v),
+                                                  suspect)
+        if any_suspect:
+            for t in torch.nonzero(suspect.any(0)).flatten().tolist():
+                rows = torch.nonzero(suspect[:, t]).flatten()
+                st, stop = tiles[t]
+                ids[t][rows] = st + lowest_at_tau(
+                    score_tile(q0, q1, st, stop)[rows], vals[t][rows],
+                    ids[t][rows] - st)
+            ci = torch.cat(ids, dim=1)
+            v, cols, straddle = topk_straddle(cv, k)
+            any_straddle, any_tie = _any(straddle, _has_ties(v))
+        out_v.append(v)
+        out_i.append(_resolve_ids(cv, ci, v, cols, straddle, any_straddle,
+                                  any_tie).to(torch.int32))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
     return -(-a // b)

@@ -16,7 +16,11 @@ codes (and K11's energies) on {-1, 0, 1} data; on Gaussian data at least
 99% of codes equal, K11's mean energy within 1e-4 relative and K13's
 chain energies within 1e-5 relative (+ 1e-3 absolute). K5 (the LUT
 scan) adds table values in the plain version's order, so it is identical
-on any data. Training on the card is reproducible: two runs from one
+on any data. The exact-float kernels (K9, K10 on a decoded base; K6,
+K7 on tables; the pair merge) give identical pairs and counts on integer
+data, and K6/K7 on any data; on Gaussian data K9's scores are within
+1e-5 relative (+ 5e-5) of the plain version's with at least 99.9% of ids
+equal by position. Training on the card is reproducible: two runs from one
 seed give bitwise-equal codebooks. A CUDA tensor never takes a plain
 version: where the kernels cannot build, the call raises."""
 
@@ -167,14 +171,11 @@ def test_cuda_tensors_never_fall_back(dev):
 
 
 def _same_up_to_ties(a, b):
-    """Two exact searches of integer data agree: equal dists, and equal
-    ids as sets within every group of equal dist but the last (a
-    flagged query's exact re-run orders equal scores in its own way)."""
+    """Two exact searches of integer data agree by position: the kernels
+    equal their plain versions, and a flagged query's exact re-run takes
+    the lowest id among equal scores on either device."""
     (da, ia), (db, ib) = [(d.cpu(), i.cpu()) for d, i in (a, b)]
-    assert torch.equal(da, db)
-    for q in range(da.shape[0]):
-        inner = da[q] != da[q, -1]
-        assert sorted(ia[q, inner].tolist()) == sorted(ib[q, inner].tolist())
+    assert torch.equal(da, db) and torch.equal(ia, ib)
 
 
 def _decoded_case(dev, kind, dtype, n, d, nq, seed=0):
@@ -443,3 +444,188 @@ def test_sr_d_training_is_reproducible_on_the_card(dev):
             for _ in range(2)]
     assert torch.equal(runs[0].codebooks, runs[1].codebooks)
     assert torch.equal(runs[0].train_codes, runs[1].train_codes)
+
+
+# ---------------------------------------------------------------------------
+# The exact-float scans: K9, K10, K6, K7 and the pair merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 33)])
+@pytest.mark.parametrize("keep,tile,r", [(2, 8192, 16), (4, 8192, 32),
+                                         (4, 2048, 48), (2, 1024, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_scan_kernels_equal_plain_on_integer_data(dev, d, nq, keep, tile,
+                                                      r, dtype):
+    """K9's two passes and K10 against their plain versions: identical
+    pairs and counts (small integers are exact in bf16 too), odd n."""
+    n = 20_001
+    idx, Q, Qm = _decoded_case(dev, "int", dtype, n, d, nq)
+    n9, nm, n10 = (tsp.scan_f32_candidates.launches, tsp.pair_merge.launches,
+                   tsp.verify_counts.launches)
+    cv, ci = tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=tile, keep=keep)
+    ov, oi = tsp.pair_merge(cv, ci, r)
+    cv0, ci0 = tsp.scan_f32_candidates_plain(Qm, idx.Xd, idx.x2, tile=tile,
+                                             keep=keep)
+    assert torch.equal(cv, cv0) and torch.equal(ci, ci0)
+    ov0, oi0 = tsp.pair_merge_plain(cv, ci, r)
+    assert torch.equal(ov, ov0) and torch.equal(oi, oi0)
+    s, i, fl = tsp.scan_topk_f32(Q, idx.Xd, idx.x2, k=100, r=r, tile=tile,
+                                 keep=keep)
+    taus, taui = s[:, -1].contiguous(), i[:, -1].contiguous()
+    cnt = tsp.verify_counts(Qm, idx.Xd, idx.x2, taus, taui, tile=tile)
+    cnt0 = tsp.verify_counts_plain(Qm, idx.Xd, idx.x2, taus, taui, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt0) and int(cnt[0].sum()) >= 99 * nq
+    assert tsp.scan_f32_candidates.launches == n9 + 2
+    assert tsp.pair_merge.launches == nm + 2
+    assert tsp.verify_counts.launches == n10 + 2
+
+
+@pytest.mark.parametrize("d", [24, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_scan_on_gaussian_data(dev, d, dtype):
+    """The kernel sums in dimension order, cuBLAS in its own: scores
+    within 1e-5 relative + 5e-5, at least 99.9% of ids equal by position,
+    flags equal."""
+    n, nq, k, r, tile, keep = 50_001, 33, 100, 16, 8192, 2
+    idx, Q, Qm = _decoded_case(dev, "gauss", dtype, n, d, nq)
+    s, i, fl = tsp.scan_topk_f32(Q, idx.Xd, idx.x2, k=k, r=r, tile=tile,
+                                 keep=keep)
+    ov, oi = tsp.scan_f32_topk_plain(Qm, idx.Xd, idx.x2, r=r, tile=tile,
+                                     keep=keep)
+    s0, i0, fl0 = tsp._finish_f32(
+        ov, oi, k, r, keep, lambda ts, ti: tsp.verify_counts_plain(
+            Qm, idx.Xd, idx.x2, ts, ti, tile=tile))
+    assert bool(((s - s0).abs() <= 1e-5 * s0.abs() + 5e-5).all())
+    assert float((i == i0).float().mean()) >= 0.999
+    assert torch.equal(fl, fl0)
+
+
+@pytest.mark.parametrize("h,pq,nq", [(16, False, 33), (256, False, 1),
+                                     (256, True, 33), (16, True, 1)])
+@pytest.mark.parametrize("kind,dtype", [("int", torch.float32),
+                                        ("gauss", torch.float32),
+                                        ("gauss", torch.bfloat16)])
+@pytest.mark.parametrize("keep", [2, 4])
+def test_lut_f32_kernels_equal_plain(dev, h, pq, nq, kind, dtype, keep):
+    """K6 and K7 sum the table values in the plain versions' order:
+    identical pairs and counts on integer and on Gaussian data, f32 and
+    bf16 tables, one and two code words, odd n."""
+    rng = np.random.default_rng(4)
+    n, m, tile, r = 20_001, 8 if pq else 7, 8192, 16
+    ds = D // m if pq else D
+    mk = (lambda *sh: rng.integers(-2, 3, sh)) if kind == "int" \
+        else (lambda *sh: rng.standard_normal(sh))
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt,
+                                                    device=dev)
+    C, Q = t(mk(m, h, ds)), t(mk(nq, D))
+    B = t(rng.integers(0, h, (n, m)), torch.int32)
+    ncb = None if pq else t(rng.random(h) * 100)
+    nco = None if pq else t(rng.integers(0, h, n), torch.int32)
+    T = tsc.build_luts(C, Q, pq=pq, d=D, norms_cbook=ncb).to(dtype)
+    T, packed = T.contiguous(), tsc.pack_codes(B, nco)
+    n6, n7 = (tsc.codes_lut_f32_candidates.launches,
+              tsc.codes_verify_counts.launches)
+    cv, ci = tsc.codes_lut_f32_candidates(T, packed, tile=tile, keep=keep)
+    cv0, ci0 = tsc.codes_lut_f32_candidates_plain(T, packed, tile=tile,
+                                                  keep=keep)
+    assert torch.equal(cv, cv0) and torch.equal(ci, ci0)
+    s, i, fl = tsc.scan_codes_topk(T, packed, k=50, r=r, tile=tile,
+                                   keep=keep, lut_dtype=dtype, pack=False)
+    ov, oi = tsc.codes_lut_topk_f32_plain(T, packed, r=r, tile=tile,
+                                          keep=keep)
+    s0, i0, fl0 = tsp._finish_f32(
+        ov, oi, 50, r, keep, lambda ts, ti: tsc.codes_verify_counts_plain(
+            T, packed, ts, ti, tile=tile))
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0) and torch.equal(i, i0) and torch.equal(fl, fl0)
+    assert tsc.codes_lut_f32_candidates.launches == n6 + 2
+    assert tsc.codes_verify_counts.launches == n7 + 1
+
+
+def test_f32_searches_on_the_card_equal_the_cpu_searches(dev):
+    """`search(pack=False)` and `search_codes(mode="lut", pack=False)` on
+    the card (f32 index and tables, integer data with a lane pile-up
+    that the counts flag) return the CPU searches' results by position,
+    in both classes of the card's plan; and the streamed searches on the
+    card equal the resident ones on the card."""
+    rng = np.random.default_rng(6)
+    n, m, h, k = 30_000, 7, 64, 50
+    C = rng.integers(-1, 2, (m, h, 32)).astype(np.float32)
+    B = rng.integers(0, h, (n, m)).astype(np.int32)
+    B[np.arange(20) * 128] = B[0]          # 20 exact ties in lane 0
+    ncb = rng.integers(0, 300, h).astype(np.float32)
+    nco = rng.integers(0, h, n).astype(np.int32)
+    Q = rng.integers(-1, 2, (9, 32)).astype(np.float32)
+    Q[0] = C[np.arange(m), B[0]].sum(0)
+    for k in (k, 700):
+        dec, lut = [], []
+        for device in ("cpu", dev):
+            t = lambda a: torch.as_tensor(a, device=device)
+            nt = t(ncb)[t(nco).long()]
+            idx = tsp.build_index(t(C), t(B), norm_term=nt,
+                                  dtype=torch.float32)
+            dec.append(tsp.search(idx, t(Q), k, pack=False))
+            cidx = tsc.build_codes_index(t(C), t(B), norms_cbook=t(ncb),
+                                         norms_codes=t(nco))
+            lut.append(tsc.search_codes(cidx, t(Q), k, mode="lut",
+                                        pack=False, op_dtype=torch.float32))
+        _same_up_to_ties(dec[0], dec[1])
+        _same_up_to_ties(lut[0], lut[1])
+        _same_up_to_ties(dec[1], lut[1])
+    t = lambda a: torch.as_tensor(a, device=dev)
+    sd = tsp.search_streamed(t(C), B, t(Q), k, norm_term=ncb[nco],
+                             shard_size=11_000, pack=False)
+    _same_up_to_ties(sd, dec[1])
+    packed = tsc.pack_codes(torch.as_tensor(B), torch.as_tensor(nco)).numpy()
+    for kw in (dict(mode="lut", pack=False, op_dtype=torch.float32),
+               dict(mode="decode", op_dtype=torch.float32)):
+        ss = tsc.search_codes_streamed(t(C), packed, t(Q), k,
+                                       norms_cbook=t(ncb), mprime=m + 1,
+                                       shard_n=11_000, **kw)
+        if kw["mode"] == "lut":
+            _same_up_to_ties(ss, lut[1])
+        else:
+            rd, _ = tsc.search_codes(cidx, t(Q), k, **kw)
+            # packed keys: each shard cuts the raw score to its own step
+            step = 2.0 ** (tsp._pack_idbits(32768) - 23)
+            raw = rd - (t(Q) ** 2).sum(-1, keepdim=True)
+            assert bool(((ss[0] - rd).abs() <= step * raw.abs() + 1e-6).all())
+
+
+def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
+    """What the exact-float kernels do not take raises on CUDA tensors
+    (keep=0, the JAX form, is a plain version only; the pair merge is
+    compiled to r = 48); and where the kernels cannot be built, the calls
+    raise instead of taking the plain versions."""
+    from rayuela_tpu_torch.kernels import build
+    idx, Q, Qm = _decoded_case(dev, "int", torch.float32, 3000, 24, 4)
+    with pytest.raises(ValueError, match="keep=0"):
+        tsp.scan_f32_topk(Qm, idx.Xd, idx.x2, r=16, tile=2048, keep=0)
+    with pytest.raises(ValueError, match="keep=8"):
+        tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=8)
+    cv, ci = tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=2048, keep=2)
+    with pytest.raises(ValueError, match="r=96"):
+        tsp.pair_merge(cv, ci, 96)
+    T = torch.zeros((8, 256, 4), device=dev)
+    packed = torch.zeros((3000, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="keep=0"):
+        tsc.codes_lut_topk_f32(T, packed, r=16, tile=2048, keep=0)
+    taus = torch.zeros(4, device=dev)
+    taui = torch.zeros(4, dtype=torch.int32, device=dev)
+    blocker = tmp_path / "not_a_directory"
+    blocker.write_text("")
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", blocker / "_build")
+    for call in (
+            lambda: tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=2048,
+                                            keep=2),
+            lambda: tsp.pair_merge(cv, ci, 16),
+            lambda: tsp.verify_counts(Qm, idx.Xd, idx.x2, taus, taui,
+                                      tile=2048),
+            lambda: tsc.codes_lut_f32_candidates(T, packed, tile=2048,
+                                                 keep=2),
+            lambda: tsc.codes_verify_counts(T, packed, taus, taui,
+                                            tile=2048)):
+        with pytest.raises(OSError):
+            call()

@@ -252,7 +252,10 @@ def test_unported_routes_raise(rng):
             tsc.search_codes(idx, Q, 5, **kw)
     with pytest.raises(ValueError, match="'decode' or 'lut'"):
         tsc.search_codes(idx, Q, 5, mode="tables")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tsc.search_codes_streamed(C, B, Q, 5)
+    # the streamed search is ported: it serves the same result
+    sd, si = tsc.search_codes_streamed(_t(C), tsc.pack_codes(_t(B)).numpy(),
+                                       Q, 5, pq=True, shard_n=128)
+    rd, ri = tsc.search_codes(idx, Q, 5)
+    assert torch.equal(sd, rd) and sd.shape == (2, 5)
     with pytest.raises(ValueError, match="norms"):
         tsc.build_codes_index(_t(C), _t(B), pq=False)
