@@ -46,6 +46,17 @@ phases below; any failure exits non-zero.
    1e-5 relative (+ 1e-3 absolute). Then both kernels' times beside
    their plain versions' at the main path's shapes (1e5 vectors, m=7,
    K11 at icmiter=4), held against each other in the same way.
+1e. K12 (`encoding_ils`, the whole ILS loop in one launch) against its
+   plain version at n = 65,536, d = 128, m = 7, h = 256, ilsiter 8,
+   icmiter 4, npert 4: codes and energies identical on {-1, 0, 1} data,
+   the K11 bound on Gaussian data; K11 once more at h = 512 and at d =
+   960 (both kinds of data); K14 (`codes_decode_onepass`, the one-pass
+   scan with a per-tile cut) against K1 → K2's plain versions at n =
+   1e6, nq = 1024, both layouts, both one-pass plans (`_onepass_config`:
+   (14, 2, 2048) at k = 100, (28, 4, 8192) at k = 1000): identical int32
+   outputs on integer data, the phase-1 bounds on Gaussian data. Then
+   K14's time at nq = 1e4 and K12's at 1e5 vectors beside their plain
+   versions', held against each other in the same way.
 2. Rescue: an index with many exact ties of one query in one lane,
    served through the facade; the rescue kernel must run and the result
    must equal the plain LUT oracle.
@@ -99,12 +110,25 @@ and, where one PyTorch call computes the same function, that call's
 time (`matmul` + `topk` over the decoded base for the scans, `topk`
 for K3).
 
+7. The whole-ILS encode and the one-pass decode scan on phase 4's model
+   and data: `api.index_base(mode="codes", impl="pallas-ils")` over the
+   1e6 base at ilsiter 32 (one K12 launch, no K11), its wall beside
+   phase 4's relaunch encode, its base quantization error within 1% of
+   the relaunch codes', recall@1 >= 0.99 through the default codes
+   search; then `api.search(index4, twopass=False)` at k = 100 and 1000,
+   `stage=1` at k = 1000 and `twopass=False, qsuper=4` at k = 100 with
+   queries/s (K14 → K3, K4 rescue). After the counts were read, each
+   result must equal the two-pass search's (phase 4's route) on every
+   query that did not reach the LUT oracle, both plans' flagged counts
+   print, and the two base encodes and one one-pass search are
+   profiled by kernel.
+
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 5's default
 calls and for its one-pass call: every kernel of the search path must
 have launched in each, K11 and K13 in phase 4, K8, K5, K2 and K3 in
 phase 5, K8's keep=0 form in the one-pass call, K9, K10, K6, K7 and the
-pair merge in phase 6.
+pair merge in phase 6, K12 (once) and K14 in phase 7.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data. The
@@ -144,6 +168,8 @@ REPLACES = {
     "codes_lut_f32_candidates":
         "rayuela_tpu/search/scan_codes_pallas.py:179",
     "codes_verify_counts": "rayuela_tpu/search/scan_codes_pallas.py:232",
+    "encoding_ils": "rayuela_tpu/ops/icm_pallas.py:111",
+    "codes_decode_onepass": "rayuela_tpu/search/scan_codes_pallas.py:332",
 }
 SOURCES = {
     "codes_decode_candidates": "rayuela_tpu_torch/csrc/codes_scan.cu",
@@ -160,6 +186,8 @@ SOURCES = {
     "verify_counts": "rayuela_tpu_torch/csrc/decoded_scan.cu",
     "codes_lut_f32_candidates": "rayuela_tpu_torch/csrc/lut_scan.cu",
     "codes_verify_counts": "rayuela_tpu_torch/csrc/lut_scan.cu",
+    "encoding_ils": "rayuela_tpu_torch/csrc/icm.cu",
+    "codes_decode_onepass": "rayuela_tpu_torch/csrc/codes_scan.cu",
 }
 # published peaks of one H100 SXM at its full power limit (per second)
 PEAK = {"bf16 tensor-core": 989e12, "f32 CUDA-core": 67e12, "HBM": 3.35e12}
@@ -862,15 +890,15 @@ def phase1c(rng, errs):
         torch.cuda.empty_cache()
 
 
-def _encode_case(rng, kind, n, m, h=256):
-    """X (n, D), C (m, h, D) as f32 tensors on the card."""
+def _encode_case(rng, kind, n, m, h=256, d=D):
+    """X (n, d), C (m, h, d) as f32 tensors on the card."""
     import torch
     if kind == "int":
-        X = rng.integers(-1, 2, (n, D)).astype("float32")
-        C = rng.integers(-1, 2, (m, h, D)).astype("float32")
+        X = rng.integers(-1, 2, (n, d)).astype("float32")
+        C = rng.integers(-1, 2, (m, h, d)).astype("float32")
     else:
-        X = rng.standard_normal((n, D)).astype("float32")
-        C = (rng.standard_normal((m, h, D)) * 0.3).astype("float32")
+        X = rng.standard_normal((n, d)).astype("float32")
+        C = (rng.standard_normal((m, h, d)) * 0.3).astype("float32")
     return torch.as_tensor(X, device=DEV), torch.as_tensor(C, device=DEV)
 
 
@@ -1195,7 +1223,7 @@ def phase4(seed, card, ds, Xq):
     print(f"  sr_d: recall@1 {out[100]:.4f} (JAX package, BASELINE.md: "
           f"{JAX_RECALL1['sr_d']})")
     check(out[100] >= 0.99, f"SR-D recall@1 {out[100]:.4f} < 0.99")
-    return index, Xb
+    return index, Xb, t2 - t1
 
 
 def shared_ids(a, b):
@@ -1639,6 +1667,242 @@ def diagnostics5(index, index4, Xq):
         profile(lambda: rq.search(index4, Xq, k=k, mode="lut"))
 
 
+ILS_KW = dict(ilsiter=8, icmiter=4, npert=4)   # phase 1e's K12 runs
+
+
+def _orders(rng, m, rounds):
+    """``rounds`` node orders (rounds, m) int32 on the card."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.stack([rng.permutation(m)
+                                     for _ in range(rounds)]),
+                           dtype=torch.int32, device=DEV)
+
+
+def phase1e(rng, errs):
+    """K12 and K14 against their plain versions on the card, and K11 at
+    the shapes beyond its former range (h = 512, d = 960)."""
+    import torch
+
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    m = 7
+    print(f"== phase 1e: K12 vs plain, n={N1B}, d={D}, m={m}, h=256, "
+          f"{ILS_KW}")
+    for kind in ("int", "gauss"):
+        X, C = _encode_case(rng, kind, N1B, m)
+        B = torch.as_tensor(rng.integers(0, 256, (N1B, m)),
+                            dtype=torch.int32, device=DEV)
+        orders = _orders(rng, m, ILS_KW["ilsiter"])
+        seed = int(rng.integers(0, 2 ** 31 - 1))
+        got = ticm.encoding_ils(X, C, B, orders, seed, **ILS_KW)
+        ref = ticm.encoding_ils_plain(X, C, B, orders, seed,
+                                      op_dtype=torch.bfloat16, **ILS_KW)
+        note(errs, "encoding_ils", compare_icm(f"K12 {kind}", got, ref,
+                                               kind == "int"))
+        del X, C, B
+    print("  K11 beyond one register block of labels and at GIST's d")
+    for h, d in ((512, D), (256, 960)):
+        for kind in ("int", "gauss"):
+            X, C = _encode_case(rng, kind, 16_384, 8, h=h, d=d)
+            B = torch.as_tensor(rng.integers(0, h, (16_384, 8)),
+                                dtype=torch.int32, device=DEV)
+            order = _orders(rng, 8, 1)[0]
+            got = ticm.icm_sweeps(X, C, B, order, 4)
+            ref = ticm.icm_sweeps_plain(X, C, B, order, 4,
+                                        op_dtype=torch.bfloat16)
+            note(errs, "icm_sweeps", compare_icm(
+                f"K11 h={h} d={d} {kind} icmiter=4", got, ref,
+                kind == "int"))
+            del X, C, B
+    print(f"  K14 vs plain, n={N}, d={D}, nq={NQ1}, the one-pass plans")
+    for pq in (False, True):
+        for kind, dtype in (("int", torch.float32),
+                            ("gauss", torch.bfloat16)):
+            c = Phase1(rng, pq, kind, dtype, NQ1)
+            exact = kind == "int"
+            print(f" {c.name}")
+            for k in (100, 1000):
+                r, keep, tile = tsc._onepass_config(k, c.idx.mprime)
+                idbits = tsp._pack_idbits(-(-N // tile) * tile)
+                kw = dict(tile=tile, r=r, keep=keep, idbits=idbits,
+                          has_norms=not pq)
+                out = tsc.codes_decode_onepass(c.Qm, c.Cf, c.nrm,
+                                               c.idx.packed, **kw)
+                ref = tsc.codes_decode_onepass_plain(c.Qm, c.Cf, c.nrm,
+                                                     c.idx.packed, **kw)
+                if exact:
+                    check(torch.equal(out, ref),
+                          f"K14 {c.name} k={k}: kernel != plain")
+                note(errs, "codes_decode_onepass", compare_topk(
+                    f"k={k} K14+K3 (r={r}, keep={keep}, tile={tile})",
+                    plain_topk(out, r, k, idbits),
+                    plain_topk(ref, r, k, idbits), idbits, exact))
+            del c
+            torch.cuda.empty_cache()
+
+
+def onepass_ils_times(rng, errs):
+    """K14 beside its plain version (K1 → K2's plain versions), its bound
+    and the library's call at the main path's search batch (bf16
+    RVQ-7+1 layout, nq=1e4, both one-pass plans; the k=1000 plan's
+    figures are kept), and K12 beside its plain version at the timed
+    encode batch (1e5 vectors, m=7, ilsiter 8, icmiter 4; bound as K11:
+    its visits' multiply-adds at the bf16 tensor-core peak), the results
+    of the timed runs held against each other as in phase 1e."""
+    import torch
+
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print(f"== K14 and K12 times (ms; CUDA events), bf16 RVQ-7+1, n={N}, "
+          f"nq={NQ}")
+    c = Phase1(rng, False, "gauss", torch.bfloat16, NQ)
+    args = (c.Qm, c.Cf, c.nrm, c.idx.packed)
+    codes = tsc.unpack_codes(c.idx.packed, c.idx.mprime)
+    ncb = c.idx.norms_cbook
+    Xf, x2 = tsp.decode_base(c.idx.C, codes[:, :-1],
+                             norm_term=ncb[codes[:, -1].long()])
+    XfT, Qmf = Xf.T.contiguous(), c.Qm.float()
+    del Xf, codes
+    times = {}
+    for k in (100, 1000):
+        r, keep, tile = tsc._onepass_config(k, c.idx.mprime)
+        idbits = tsp._pack_idbits(-(-N // tile) * tile)
+        kw = dict(tile=tile, r=r, keep=keep, idbits=idbits, has_norms=True)
+        print(f" k={k} one-pass plan (r={r}, keep={keep}, tile={tile})")
+        lib_ms, _ = timed(lambda: library_scan(Qmf, XfT, x2, k), 1)
+        ms, out = timed(lambda: tsc.codes_decode_onepass(*args, **kw), 2)
+        pms, ref = timed(lambda: tsc.codes_decode_onepass_plain(*args, **kw),
+                         1, warm=False)
+        note(errs, "codes_decode_onepass", compare_topk(
+            f"k={k} K14+K3 timed", plain_topk(out, r, k, idbits),
+            plain_topk(ref, r, k, idbits), idbits, exact=False))
+        t = {}
+        record(t, "codes_decode_onepass", ms, pms, 2.0 * N * NQ * D,
+               "bf16 tensor-core", nbytes(*args, out), lib_ms)
+        if k == 1000:
+            times.update(t)
+        del out, ref
+        torch.cuda.empty_cache()
+    del XfT, Qmf, c
+    m = 7
+    X, C = _encode_case(rng, "gauss", NT, m)
+    B = torch.as_tensor(rng.integers(0, 256, (NT, m)), dtype=torch.int32,
+                        device=DEV)
+    orders = _orders(rng, m, ILS_KW["ilsiter"])
+    ms, got = timed(lambda: ticm.encoding_ils(X, C, B, orders, 7, **ILS_KW),
+                    2)
+    pms, ref = timed(lambda: ticm.encoding_ils_plain(
+        X, C, B, orders, 7, op_dtype=torch.bfloat16, **ILS_KW), 1,
+        warm=False)
+    note(errs, "encoding_ils", compare_icm("K12 timed", got, ref,
+                                           exact=False))
+    visits = ILS_KW["ilsiter"] * ILS_KW["icmiter"] * m
+    record(times, "encoding_ils", ms, pms, 2.0 * visits * 256 * D * NT,
+           "bf16 tensor-core", nbytes(X, C, B, orders, *got))
+    del X, C, B
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase7(card, ds, Xq, Xb, index4, wall4):
+    """The whole-ILS encode and the one-pass decode scan through the
+    facade at full width, on phase 4's model and data."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import veccost_chunked
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print(f"== phase 7: whole-ILS encode (K12) and one-pass decode scan "
+          f"(K14), SR-D-7+1, {N} base, {NQ} queries ({card})")
+    model = index4.model
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    index = rq.index_base(model, Xb, mode="codes", impl="pallas-ils")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    q7 = float(veccost_chunked(Xb, model.codebooks, index.codes).mean())
+    q4 = float(veccost_chunked(Xb, model.codebooks, index4.codes).mean())
+    print(f"  index_base(impl='pallas-ils', ILS 32 rounds in one launch): "
+          f"{wall:.2f} s, {N / wall:,.0f} base vectors/s (relaunch path, "
+          f"phase 4: {wall4:.2f} s); base qerror {q7:.6f} against the "
+          f"relaunch codes' {q4:.6f} ({q7 / q4 - 1:+.4%})")
+    check(q7 <= 1.01 * q4, f"K12's base qerror {q7:.6f} > 1.01 x {q4:.6f}")
+    dists, ids = rq.search(index, Xq, k=100)
+    check_search(dists, ids, 100)
+    r1 = float(eval_recall(ids, ds.gt, verbose=False)[0])
+    print(f"  default codes search of the K12 index: recall@1 {r1:.4f}")
+    check(r1 >= 0.99, f"recall@1 {r1:.4f} < 0.99 on the K12 index")
+    res = {}
+    calls = [(f"twopass=False k={k}", k, dict(twopass=False))
+             for k in (100, 1000)]
+    calls += [("stage=1 k=1000", 1000, dict(stage=1)),
+              ("twopass=False qsuper=4 k=100", 100,
+               dict(twopass=False, qsuper=4))]
+    for tag, k, kw in calls:
+        dists, ids = rq.search(index4, Xq, k=k, **kw)
+        check_search(dists, ids, k)
+        walls = warm_walls(lambda: rq.search(index4, Xq, k=k, **kw))
+        wall = float(np.median(walls))
+        print(f"  search({tag}): {NQ / wall:,.0f} queries/s (median of "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
+        res[tag] = (k, kw, dists, ids)
+    return index, res
+
+
+def phase7_checks(Xq, Xb, index4, res):
+    """After phase 7's launch counts were read: each one-pass search
+    against the two-pass search on the same index, which must be
+    identical but for queries that reached the LUT oracle (a query K4
+    flags again), and the flagged counts of both plans."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print("== phase 7 results against the two-pass search (phase 4's)")
+    si = index4.scan_index
+    Cf, nrm = si.decode_operands(D, torch.bfloat16)
+    ref = {}
+    for tag, (k, kw, dists, ids) in res.items():
+        if k not in ref:
+            ref[k] = rq.search(index4, Xq, k=k)
+        rd, ri = ref[k]
+        r2, keep2, tile2 = tsc._codes_config(k)[1:]
+        fl2 = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, si.packed, k=k,
+                                            pq=si.pq, r=r2, keep=keep2,
+                                            tile=tile2)[2]
+        r, keep, tile = tsc._onepass_config(k, si.mprime)
+        fl1 = tsc.scan_codes_decode_topk(Xq, Cf, nrm, si.packed, k=k,
+                                         pq=si.pq, r=r, keep=keep,
+                                         tile=tile)[2]
+        either = torch.nonzero(fl1 | fl2).flatten()
+        oracle = torch.zeros_like(fl1)
+        if either.numel():     # the rescue's K4 pass: its flags go on
+            oracle[either] = tsc.scan_codes_decode_topk(
+                Xq[either], Cf, nrm, si.packed, k=k, pq=si.pq)[2]
+        same = (dists == rd).all(1) & (ids == ri).all(1)
+        bad = int((~same & ~oracle).sum())
+        print(f"  {tag}: flagged one-pass {int(fl1.sum())}, two-pass "
+              f"{int(fl2.sum())} of {NQ}; {int(oracle.sum())} reach the LUT "
+              f"oracle; identical to the two-pass result: "
+              f"{int(same.sum())} of {NQ} queries")
+        check(bad == 0, f"{tag}: {bad} queries differ from the two-pass "
+              "search outside the LUT oracle's")
+    print("  device time of the two base encodes, by kernel")
+    model = index4.model
+    for impl in ("pallas-ils", "auto"):
+        print(f"   index_base(impl={impl!r})")
+        profile(lambda: rq.index_base(model, Xb, mode="codes", impl=impl))
+    profile(lambda: rq.search(index4, Xq, k=1000, twopass=False))
+
+
 def ptxas_summary(log):
     """One line per compiled kernel from nvcc's ``-Xptxas=-v`` output:
     its (mangled) name, registers and spills."""
@@ -1698,12 +1962,15 @@ def main() -> int:
              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
     path5b = {"scan_onepass": tsp.scan_onepass,
               "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
+    path7 = {"encoding_ils": ticm.encoding_ils,
+             "codes_decode_onepass": tsc.codes_decode_onepass,
+             "tail_merge": tsp.tail_merge}
     path6 = {"scan_f32_candidates": tsp.scan_f32_candidates,
              "pair_merge": tsp.pair_merge,
              "verify_counts": tsp.verify_counts,
              "codes_lut_f32_candidates": tsc.codes_lut_f32_candidates,
              "codes_verify_counts": tsc.codes_verify_counts}
-    wrappers = {**path4, **path5, **path5b, **path6}
+    wrappers = {**path4, **path5, **path5b, **path6, **path7}
     errs = {}
     phase_t = {}
 
@@ -1726,6 +1993,8 @@ def main() -> int:
         run("phase 1b", phase1b, rng, errs)
         times.update(run("encode kernel times", encode_kernel_times, rng,
                          errs))
+        run("phase 1e", phase1e, rng, errs)
+        times.update(run("K14 and K12 times", onepass_ils_times, rng, errs))
         run("phase 2", phase2, rng)
         zero()
         served, Xq, ds = run("phase 3", phase3, args.seed, smi)
@@ -1734,7 +2003,8 @@ def main() -> int:
         check(all(launches.values()), "a kernel of the search path never "
               "launched in phase 3")
         zero()
-        served["sr_d"], Xb = run("phase 4", phase4, args.seed, smi, ds, Xq)
+        served["sr_d"], Xb, wall4 = run("phase 4", phase4, args.seed, smi,
+                                        ds, Xq)
         launches4 = {n: w.launches for n, w in path4.items()}
         print(f"phase-4 launches: {launches4}")
         check(all(launches4.values()), "a kernel of the path never launched "
@@ -1751,7 +2021,6 @@ def main() -> int:
         check(tsp.scan_onepass.launches == 0
               and tsc.codes_decode_candidates.launches == 0,
               "phase 5's counts hold launches of another path")
-        del Xb
         zero()
         index6, res6, host = run("phase 6", phase6, smi, ds, Xq,
                                  served["sr_d"], index5)
@@ -1762,6 +2031,16 @@ def main() -> int:
         packed6 = {n: w.launches for n, w in wrappers.items()
                    if n not in path6 and w.launches}
         check(not packed6, f"a pack=False call launched {packed6}")
+        zero()
+        _, res7 = run("phase 7", phase7, smi, ds, Xq, Xb, served["sr_d"],
+                      wall4)
+        launches7 = {n: w.launches for n, w in path7.items()}
+        print(f"phase-7 launches: {launches7}")
+        check(all(launches7.values()), "a kernel of the path never launched "
+              "in phase 7")
+        check(ticm.encoding_ils.launches == 1
+              and ticm.icm_sweeps.launches == 0,
+              "the whole-ILS encode was not one K12 launch")
         del ds
         zero()
         run("phase 6 streamed decode", phase6_streamed_decode,
@@ -1784,6 +2063,8 @@ def main() -> int:
         run("diagnostics 5", diagnostics5, index5, served["sr_d"], Xq)
         run("phase 6 checks", phase6_checks, Xq, served["sr_d"], index6, res6)
         del res6, index6
+        run("phase 7 checks", phase7_checks, Xq, Xb, served["sr_d"], res7)
+        del res7, Xb
         run("plan sweep", plan_sweep, index5, served["sr_d"], Xq)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1791,7 +2072,9 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s, the build included")
     # a kernel's launches are those of the latest main path that runs it
-    on_path = {n: ("phase 6", launches6[n]) if n in launches6
+    on_path = {n: ("phase 7", launches7[n]) if n in ("encoding_ils",
+                                                     "codes_decode_onepass")
+               else ("phase 6", launches6[n]) if n in launches6
                else ("phase 5", launches5[n]) if n in launches5
                else ("phase 5, explicit one-pass configuration",
                      launches5b[n]) if n in launches5b

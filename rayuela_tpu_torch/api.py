@@ -128,7 +128,9 @@ def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:
     """Encode vectors with a trained model → (n, m) int32. The LSQ
     family starts from the greedy RVQ encode and runs ILS/ICM at the
     base budget (``ilsiter=32`` unless ``kw`` says otherwise), drawing
-    from ``gen`` (a generator on X's device; seeded with 1 if None)."""
+    from ``gen`` (a generator on X's device; seeded with 1 if None);
+    ``impl="pallas-ils"`` runs all rounds in one whole-ILS kernel
+    launch (`ops.icm.encoding_icm`)."""
     from rayuela_tpu_torch.models.chainq import ChainQModel, quantize_chainq
     from rayuela_tpu_torch.models.opq import OPQModel, quantize_opq
     from rayuela_tpu_torch.models.pq import PQModel, quantize_pq
@@ -198,7 +200,9 @@ def search(index: MCQIndex, Q, k: int = 100, mesh=None,
     truncated scores (bfloat16 operands on the card, float32 on the
     CPU). OPQ and ChainQ queries are rotated by the model's R first.
     ``kw`` goes to `scan.search` (decoded) or `scan_codes.search_codes`
-    (codes; ``mode="lut"`` picks the table scan). ``pack=False`` asks
+    (codes; ``mode="lut"`` picks the table scan, ``twopass=False``,
+    ``stage`` or an explicit ``r``/``keep``/``tile`` the one-pass decode
+    scan, as in the JAX package). ``pack=False`` asks
     for the exact-float scan: the exact top-k of the untruncated f32
     scores, the lowest id among equal ones (decoded index, or codes with
     ``mode="lut"``)."""

@@ -1,10 +1,16 @@
-// Code-resident scan kernels for Hopper (sm_90a): K1, K2 and K4, and the
-// pair merge of the exact-float scans (K9, K6).
+// Code-resident scan kernels for Hopper (sm_90a): K1, K2, K4 and K14, and
+// the pair merge of the exact-float scans (K9, K6).
 //
 // Replaces (rayuela_tpu/search/scan_codes_pallas.py):
-//   K1 codes_decode_candidates  <- _codes_decode_kernel_candidates
-//   K2 cand_merge               <- _cand_merge_kernel
-//   K4 codes_decode_topk        <- _codes_decode_kernel_packed (keep=0)
+//   K1  codes_decode_candidates <- _codes_decode_kernel_candidates (:384,
+//                                  launched at :727)
+//   K2  cand_merge              <- _cand_merge_kernel (:424, at :761)
+//   K4  codes_decode_topk       <- _codes_decode_kernel_packed (:318) with
+//                                  keep = 0, launched at :613
+//   K14 codes_decode_onepass    <- the keep > 0 bodies launched at :613:
+//                                  _codes_decode_kernel_packed (:318),
+//                                  _codes_decode_kernel_packed_multi
+//                                  (:332, qsuper) and _staged (:365)
 //   pair_merge                  <- the running (r, 128, bq) buffer of
 //                                  _scan_kernel (scan_pallas.py) and
 //                                  _codes_scan_kernel: its merge across
@@ -14,7 +20,10 @@
 // key and selection contract) over the row source of this file: a row
 // decodes to x_hat = sum_j Cflat[j*h + code_j] (f32, codebook order),
 // rounded to the operand type; its norm x2 is |x_hat|^2 of the f32 row
-// (PQ) or nrm[norm_code] (additive models).
+// (PQ) or nrm[norm_code] (additive models). K14 is K1's body (its
+// decode, its blocking and its scores, bit for bit) with a loop over
+// the tiles inside the CTA: K1 -> K2's function at (r, keep, tile) in
+// one pass, with no candidate array in device memory.
 //
 // What bounds them on the card. K1 does n*nq*dp multiply-adds (1.3e12
 // FMAs at n=1e6, nq=1e4, dp=128) on the CUDA cores, and before that it
@@ -29,8 +38,10 @@
 // key is rejected by one compare. K2 is bound by reading its candidate
 // array (coalesced: consecutive threads take consecutive queries). K4
 // re-decodes its rows for every 2 queries; it serves only the rare
-// certificate-flagged queries, so it is bound by latency.
-
+// certificate-flagged queries, so it is bound by latency. K14 is bound
+// as K1 is (the same products and the same decode per 32 queries); its
+// CTAs walk the whole base, so a batch of query blocks that is not a
+// multiple of the card's CTA slots leaves a last wave part-empty.
 #include "scan_common.cuh"
 
 namespace {
@@ -206,6 +217,145 @@ cudaError_t launch_pair_merge(const void* candv, const void* candi,
   return cudaGetLastError();
 }
 
+// K14's tile-end merge for one (lane, query): the tile's KEEP survivors
+// `carry` (ascending) into the ascending R-key buffer buf[c * stride]
+// (device memory private to the thread), and every key that does not
+// make it into the R smallest into `rest`. A streaming merge: position c
+// takes the smaller of buf[c] and the carry's head, the larger joins the
+// carry; the carry left at the end is what the buffer evicted. Most tiles
+// of a scan bring nothing below buf[R-1]: one load decides that.
+template <int R, int KEEP>
+__device__ __forceinline__ void merge_survivors(int (&carry)[KEEP], int& rest,
+                                                int* buf, int stride) {
+  if (carry[0] < buf[(size_t)(R - 1) * stride]) {
+#pragma unroll 1
+    for (int c = 0; c < R; ++c) {
+      const int x = buf[(size_t)c * stride];
+      const int lo = min(carry[0], x), hi = max(carry[0], x);
+#pragma unroll
+      for (int e = 0; e < KEEP - 1; ++e) carry[e] = carry[e + 1];
+      carry[KEEP - 1] = hi;
+#pragma unroll
+      for (int e = KEEP - 1; e > 0; --e) {
+        const int a = carry[e - 1], b = carry[e];
+        carry[e - 1] = min(a, b);
+        carry[e] = max(a, b);
+      }
+      buf[(size_t)c * stride] = lo;
+    }
+  }
+  rest = min(rest, carry[0]);
+}
+
+// K14: the one-pass scan with a per-tile cut. Grid (query blocks of 32,
+// splits). CTA (qb, s) decodes each 128-row step of tiles [s*tiles_per,
+// (s+1)*tiles_per) once into shared memory and scores it for its 32
+// queries, K1's blocking: a thread owns 4 lanes x 4 queries. Per
+// (lane, query) the tile's KEEP smallest keys stay in registers and the
+// rest go to the certificate `rest`, as in K1; at the tile's end the
+// survivors merge into the running R-key buffer, which lives in `scratch`
+// (per CTA R x 16 x 256 ints, laid out [c][pair][thread] so that a warp's
+// loads are coalesced, and in L2 while the CTA runs). At the end the
+// buffer goes to cand[s*R .. s*R + R) and the certificate to disc[s],
+// with one split the final (R+1)-row buffer; with more K2 merges the
+// splits (every key not kept is some split's rejected key or a merge
+// loser, so the certificate stays exact).
+template <class Src, int R, int KEEP>
+__global__ void __launch_bounds__(THREADS, 2)
+    scan_onepass_cut_kernel(const Src src,
+                            const typename Src::Op* __restrict__ Qm,
+                            int* __restrict__ cand, int* __restrict__ disc,
+                            int* __restrict__ scratch, int n, int nq, int dp,
+                            int rows, int ntiles, int tiles_per, int idbits) {
+  using T = typename Src::Op;
+  extern __shared__ __align__(16) float smem[];
+  float* XsT = smem;                  // dp * LP
+  float* Qs = XsT + dp * LP;          // K1_QB * dp
+  float* x2s = Qs + K1_QB * dp;       // LANES
+  int* words = (int*)(x2s + LANES);   // src.words()
+  const int q0 = blockIdx.x * K1_QB, s = blockIdx.y;
+  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
+  const int vmask = -(1 << idbits);
+  constexpr int PAIRS = 16, STRIDE = PAIRS * THREADS;
+  int* buf = scratch +
+             ((size_t)s * gridDim.x + blockIdx.x) * R * STRIDE + threadIdx.x;
+  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+  for (int c = 0; c < R * PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
+
+  int best[4][4][KEEP];
+  int rest[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rest[i][j] = INT_MAX;
+
+  const int t1 = min(ntiles, (s + 1) * tiles_per);
+  for (int t = s * tiles_per; t < t1; ++t) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < KEEP; ++c) best[i][j][c] = INT_MAX;
+    for (int step = 0; step < rows; ++step) {
+      const int rid = t * rows + step;
+      __syncthreads();  // the previous step's readers are done with XsT
+      src.load(n, rid, dp, XsT, x2s, words);
+      float acc[4][4];
+      block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lane = lg + 32 * i;
+        const bool pad = (long long)rid * LANES + lane >= n;
+        const float x2 = x2s[lane];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float sc = pad ? __int_as_float(0x7F800000) : acc[i][j] + x2;
+          insert_sorted<KEEP>(best[i][j], rest[i][j], row_key(sc, rid, vmask));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        merge_survivors<R, KEEP>(best[i][j], rest[i][j],
+                                 buf + (size_t)(i * 4 + j) * THREADS, STRIDE);
+  }
+
+  const size_t plane = (size_t)LANES * nq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = q0 + qg * 4 + j;
+      if (q >= nq) continue;
+      const size_t off = (size_t)(lg + 32 * i) * nq + q;
+      const int* b = buf + (size_t)(i * 4 + j) * THREADS;
+      for (int c = 0; c < R; ++c)
+        cand[((size_t)s * R + c) * plane + off] = b[(size_t)c * STRIDE];
+      disc[(size_t)s * plane + off] = rest[i][j];
+    }
+}
+
+template <class Src, int R, int KEEP>
+cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
+                               void* disc, void* scratch, int n, int nq,
+                               int dp, int rows, int ntiles, int tiles_per,
+                               int idbits, cudaStream_t st) {
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = scan_onepass_cut_kernel<Src, R, KEEP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((nq + K1_QB - 1) / K1_QB,
+                  (ntiles + tiles_per - 1) / tiles_per);
+  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
+                                    (int*)cand, (int*)disc, (int*)scratch, n,
+                                    nq, dp, rows, ntiles, tiles_per, idbits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -260,10 +410,41 @@ int rq_codes_decode_topk(const void* Qm, const void* Cflat, const void* nrm,
   return (int)cudaErrorInvalidValue;
 }
 
+// K14's (r, keep) pairs are the one-pass plan's: (14, 2), (12, 4), (28, 4)
+int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
+                            const void* nrm, const void* packed, void* cand,
+                            void* disc, void* scratch, int n, int nq, int dp,
+                            int m, int h, int nw, int has_norms, int rows,
+                            int ntiles, int tiles_per, int r, int keep,
+                            int idbits, int bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define RQ_K14(T, R, K)                                                     \
+  return (int)launch_onepass_cut<CodesSrc<T>, R, K>(                        \
+      CodesSrc<T>{(const T*)Cflat, (const T*)nrm, (const int*)packed, m, h, \
+                  nw, has_norms},                                           \
+      Qm, cand, disc, scratch, n, nq, dp, rows, ntiles, tiles_per, idbits, \
+      st)
+#define RQ_K14_T(T)                                  \
+  if (r == 14 && keep == 2) RQ_K14(T, 14, 2);        \
+  if (r == 12 && keep == 4) RQ_K14(T, 12, 4);        \
+  if (r == 28 && keep == 4) RQ_K14(T, 28, 4);
+  if (bf16) {
+    RQ_K14_T(__nv_bfloat16)
+  } else {
+    RQ_K14_T(float)
+  }
+#undef RQ_K14_T
+#undef RQ_K14
+  return (int)cudaErrorInvalidValue;
+}
+
 int rq_cand_merge(const void* cand, const void* disc, void* out, int ncand,
                   int ndisc, int nq, int r, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (r) {
+    case 12: return (int)launch_merge<12>(cand, disc, out, ncand, ndisc, nq, st);
+    case 14: return (int)launch_merge<14>(cand, disc, out, ncand, ndisc, nq, st);
+    case 28: return (int)launch_merge<28>(cand, disc, out, ncand, ndisc, nq, st);
     case 16: return (int)launch_merge<16>(cand, disc, out, ncand, ndisc, nq, st);
     case 32: return (int)launch_merge<32>(cand, disc, out, ncand, ndisc, nq, st);
     case 48: return (int)launch_merge<48>(cand, disc, out, ncand, ndisc, nq, st);

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
+    "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
     "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
     "rq_scan_onepass": [_P] * 5 + [_I] * 8 + [_P],
     "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "rq_pair_merge": [_P] * 4 + [_I] * 3 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
+    "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
 }
 

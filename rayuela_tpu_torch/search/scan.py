@@ -61,9 +61,11 @@ _QBLOCK = 1024
 _SEG_DECODED = (1 << 16) * LANES
 
 # the kernels' compile-time variants: per-tile keep of the candidates
-# kernels, buffer depth r of K2, and r of the one-pass kernels
+# kernels, buffer depth r of K2 (the two-pass plans' r, and the one-pass
+# plan's, whose K14 splits K2 merges), and r of the keep=0 one-pass
+# kernels
 _KEEPS = (2, 4)
-_RS = (16, 32, 48, 96)
+_RS = (12, 14, 16, 28, 32, 48, 96)
 _ONEPASS_R = 48
 _MAX_DP = 256
 _MAX_SPLITS = 4096

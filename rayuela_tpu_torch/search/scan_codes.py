@@ -21,6 +21,13 @@ plan's), and when K4 flags it again, through the plain LUT oracle
 `lut_scan`. The result is the exact top-k of the
 truncated kernel scores, certified per query.
 
+``search_codes(twopass=False)`` (or with ``stage=``, or an explicit
+``r``/``keep``/``tile``/``bq``, as the JAX package routes them) takes
+the one-pass scan with a per-tile cut instead of K1 → K2: K14
+`codes_decode_onepass` computes K1 → K2's function at the one-pass
+plan's ``(r, keep, tile)`` (`_onepass_config`) in one pass, with no
+candidate array in device memory, then K3 and the same rescue.
+
 ``search_codes(mode="lut", pack=False)`` is the exact-float LUT scan
 (see `scan`): K6 `codes_lut_f32_candidates` → `scan.pair_merge` →
 `torch.topk` over the candidates → K7 `codes_verify_counts`; its result
@@ -29,7 +36,18 @@ ones. `search_codes_streamed` serves a base whose packed codes stay in
 host memory.
 
 Every kernel wrapper takes its plain PyTorch version for CPU tensors
-only; for CUDA tensors it launches the kernel or raises.
+only; for CUDA tensors it launches the kernel or raises. The TPU kernels
+they replace, in `rayuela_tpu/search/scan_codes_pallas.py` (definition,
+launch): K1 ``_codes_decode_kernel_candidates`` (:384, :727), K2
+``_cand_merge_kernel`` (:424, :761), K4 and K14
+``_codes_decode_kernel_packed`` (:318) at keep = 0 and keep > 0, with
+``_codes_decode_kernel_packed_multi`` (:332) and ``_staged`` (:365) for
+K14 (launched at :613), K5 ``_codes_scan_kernel_packed`` (:220, :866),
+K6 ``_codes_scan_kernel`` (:179, :898), K7 ``_codes_verify_kernel``
+(:232, :932). On the card K1, K4 and K14 are bound by their n·nq·dp
+multiply-adds on the CUDA cores and the decode's L2 gathers, K5–K7 by
+their table reads and adds, K2 by reading its candidates (the kernels'
+headers in ``csrc/`` say more).
 """
 
 from __future__ import annotations
@@ -53,6 +71,13 @@ _DECODE_SEG = (1 << 16) * LANES
 # rescue kernel shape: one-pass scan, keep=0, a 48-deep per-lane buffer
 # (K4 is compiled for this depth alone)
 _RESCUE_R, _RESCUE_TILE = scan._ONEPASS_R, 2048
+
+# K14's compiled (r, keep) pairs: the one-pass plan's (`_onepass_config`)
+_ONEPASS_CUTS = ((14, 2), (12, 4), (28, 4))
+# queries per K14 CTA (its decode is shared by them), and the ints of
+# scratch per CTA and buffer row (16 (lane, query) pairs x 256 threads),
+# as in csrc/codes_scan.cu
+_ONEPASS_QB, _ONEPASS_SCRATCH = 32, 16 * 256
 
 # tile of the two-pass scans (K1 and K5)
 _TILE = 8192
@@ -408,6 +433,75 @@ codes_decode_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel K14: the one-pass decode scan with a per-tile cut
+# ---------------------------------------------------------------------------
+
+def codes_decode_onepass_plain(Qm, Cflat, nrm, packed, *, tile: int, r: int,
+                               keep: int, idbits: int, has_norms: bool):
+    """Plain version of `codes_decode_onepass` (same signature and
+    outputs): K1's plain candidates, then K2's plain merge."""
+    return cand_merge_plain(*codes_decode_candidates_plain(
+        Qm, Cflat, nrm, packed, tile=tile, keep=keep, idbits=idbits,
+        has_norms=has_norms), r)
+
+
+def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
+                         keep: int, idbits: int, has_norms: bool):
+    """Kernel K14, the one-pass scan with a per-tile cut: per (lane,
+    query) each tile of ``tile`` rows keeps its ``keep`` smallest keys,
+    and the ``r`` smallest survivors over the whole base, ascending,
+    then the certificate, min(every per-tile discard, every survivor not
+    kept) → ``(r + 1, 128, nq)`` int32: K1 → K2's function (K1's
+    scores, bit for bit) with no candidate array. Operands as
+    `codes_decode_candidates`. On the card a CTA decodes each 128-row
+    step once for 32 queries and carries its buffers over all tiles; the
+    row range is split over CTAs, on tile boundaries, only when the
+    query blocks are too few to give every SM two CTAs, and K2 merges
+    the splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+    rows = tile // LANES
+    if tile % LANES or not 1 <= keep <= rows:
+        raise ValueError(f"tile={tile} must be a multiple of 128 and "
+                         f"1 <= keep={keep} <= tile/128")
+    if not _check_operands(Qm, Cflat, nrm, packed, has_norms):
+        return codes_decode_onepass_plain(Qm, Cflat, nrm, packed, tile=tile,
+                                          r=r, keep=keep, idbits=idbits,
+                                          has_norms=has_norms)
+    if (r, keep) not in _ONEPASS_CUTS:
+        raise ValueError(f"(r={r}, keep={keep}): the kernel takes "
+                         f"{_ONEPASS_CUTS}")
+    n, nw = packed.shape
+    (nq, dp), h = Qm.shape, nrm.shape[0]
+    dev = Qm.device
+    if not (nq and n):
+        return torch.full((r + 1, LANES, nq), scan.IMAX, dtype=torch.int32,
+                          device=dev)
+    ntiles, nqb = cdiv(n, tile), cdiv(nq, _ONEPASS_QB)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = 1 if nqb >= 2 * sms else min(ntiles, cdiv(4 * sms, nqb))
+    tiles_per = cdiv(ntiles, splits)
+    splits = cdiv(ntiles, tiles_per)
+    out = torch.empty((r + 1, LANES, nq), dtype=torch.int32, device=dev)
+    if splits == 1:
+        cand, disc = out[:r], out[r:]
+    else:
+        cand = torch.empty((splits * r, LANES, nq), dtype=torch.int32,
+                           device=dev)
+        disc = torch.empty((splits, LANES, nq), dtype=torch.int32,
+                           device=dev)
+    scratch = torch.empty(nqb * splits * r * _ONEPASS_SCRATCH,
+                          dtype=torch.int32, device=dev)
+    launch("rq_codes_decode_onepass", Qm, Cflat, nrm, packed, cand, disc,
+           scratch, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
+           rows, ntiles, tiles_per, r, keep, idbits,
+           int(Qm.dtype == torch.bfloat16), device=dev)
+    codes_decode_onepass.launches += 1
+    return _merge_onepass(out, cand, disc, r)
+
+
+codes_decode_onepass.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Kernel K5: the LUT scan
 # ---------------------------------------------------------------------------
 
@@ -637,13 +731,49 @@ def scan_codes_decode_topk_2p(Q, Cflat, nrm, packed, *, k: int, pq: bool,
     return _finish(outp, Q.shape[0], r, min(k, packed.shape[0]), idbits)
 
 
+def _check_onepass_plan(r: int, tile: int, keep: int, qsuper: int,
+                        stage: int) -> None:
+    """The JAX package's checks of a one-pass decode plan
+    (``pallas_scan_codes_decode_topk``): its bitonic widths are powers of
+    two, and ``stage`` needs a per-tile cut and excludes ``qsuper``."""
+    rows = tile // LANES
+    if tile % LANES or rows & (rows - 1):
+        raise ValueError(f"tile/128={tile / LANES} must be a power of two")
+    if keep and (keep & (keep - 1) or keep > rows):
+        raise ValueError(f"keep={keep} must be a power of two <= {rows}")
+    wide = keep if (keep and keep < rows) else rows
+    if stage:
+        if not keep or keep >= rows:
+            raise ValueError("staged merge requires 0 < keep < tile/128")
+        if qsuper > 1:
+            raise ValueError("stage and qsuper are mutually exclusive")
+        w = r + keep * stage
+        if w & (w - 1):
+            raise ValueError(f"r+keep*stage={w} must be a power of two")
+        if (keep * stage) & (keep * stage - 1):
+            raise ValueError(f"keep*stage={keep * stage} must be a power "
+                             "of two (staging-sort width)")
+    elif (r + wide) & (r + wide - 1):
+        raise ValueError(f"r+{wide}={r + wide} must be a power of two")
+
+
 def scan_codes_decode_topk(Q, Cflat, nrm, packed, *, k: int, pq: bool,
-                           r: int = _RESCUE_R, tile: int = _RESCUE_TILE):
-    """One-pass decode scan (K4 → K3), same contract as
-    `scan_codes_decode_topk_2p`."""
+                           r: int = _RESCUE_R, tile: int = _RESCUE_TILE,
+                           keep: int = 0, qsuper: int = 1, stage: int = 0):
+    """One-pass decode scan → K3, same contract as
+    `scan_codes_decode_topk_2p`: K4 (no per-tile cut, ``keep=0``: the
+    rescue kernel) or K14 (``keep > 0``). ``qsuper`` and ``stage`` name
+    the TPU kernel's bodies (a query super-block; a buffer merge once per
+    ``stage`` tiles): they compute one function, checked as the JAX
+    package checks them, and on the card K14 decodes each step once per
+    32 queries and merges after every tile whatever they are."""
+    _check_onepass_plan(r, tile, keep, qsuper, stage)
     Qm, idbits = _scan_setup(Q, Cflat, packed, k, r, tile)
-    outp = codes_decode_topk(Qm, Cflat, nrm, packed, tile=tile, r=r,
-                             idbits=idbits, has_norms=not pq)
+    kw = dict(tile=tile, r=r, idbits=idbits, has_norms=not pq)
+    if keep:
+        outp = codes_decode_onepass(Qm, Cflat, nrm, packed, keep=keep, **kw)
+    else:
+        outp = codes_decode_topk(Qm, Cflat, nrm, packed, **kw)
     return _finish(outp, Q.shape[0], r, min(k, packed.shape[0]), idbits)
 
 
@@ -716,6 +846,17 @@ def _codes_config(k: int, mode: str = "decode", n: int | None = None,
     return "2p", r, keep, tile
 
 
+def _onepass_config(k: int, mprime: int) -> tuple[int, int, int]:
+    """The JAX package's one-pass decode plan (``_codes_auto_config`` in
+    decode mode) → ``(r, keep, tile)``: (14, 2, 2048) to k=512, then
+    (28, 4, 8192); with more than 11 bytes per code (12, 4, 2048) and
+    (28, 4, 4096). Its ``bq`` and ``qsuper`` are TPU blocking."""
+    small = mprime <= 11
+    if k <= 512:
+        return (14, 2, 2048) if small else (12, 4, 2048)
+    return (28, 4, 8192) if small else (28, 4, 4096)
+
+
 def _rescue(Q, Cf, nrm, index: CodesIndex, s, i, flagged, k: int, d: int,
             op_dtype, deep: bool):
     """Re-run certificate-flagged queries exactly: through K4 when
@@ -753,30 +894,40 @@ def _search_segments(index: CodesIndex, Q, k: int, **kw):
 
 
 def search_codes(index: CodesIndex, Q, k: int, *,
-                 op_dtype=None, mode: str = "decode", qsuper: int = 1,
-                 stage: int = 0, pack: bool | None = None
+                 op_dtype=None, mode: str = "decode",
+                 pack: bool | None = None, twopass: bool | None = None,
+                 r: int | None = None, keep: int | None = None,
+                 tile: int | None = None, bq: int | None = None,
+                 stage: int | None = None, qsuper: int | None = None,
+                 vmem_mb: int | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k (for the kernel scores) over a packed-code index →
     ``(dists (nq, k) f32 with +|q|^2, ids (nq, k) int32)``.
 
-    ``mode="decode"`` scores a row by decoding it (K1/K4), ``mode="lut"``
-    by summing per-query table entries (K5); flagged queries re-run
-    exactly. ``op_dtype`` is the dtype of the kernels' operands (decode)
-    or tables (lut): bfloat16 on the card, float32 on the CPU by
-    default. ``pack=None`` (or True) selects by packed keys, the exact
-    top-k of the truncated scores; ``mode="lut", pack=False`` is the
-    exact-float scan (K6, K7): the exact top-k of the f32 table sums by
-    (score, id), with no segments (its ids are 32 bits wide). In
+    ``mode="decode"`` scores a row by decoding it (K1/K14/K4),
+    ``mode="lut"`` by summing per-query table entries (K5); flagged
+    queries re-run exactly. ``op_dtype`` is the dtype of the kernels'
+    operands (decode) or tables (lut): bfloat16 on the card, float32 on
+    the CPU by default. ``pack=None`` (or True) selects by packed keys,
+    the exact top-k of the truncated scores; ``mode="lut", pack=False``
+    is the exact-float scan (K6, K7): the exact top-k of the f32 table
+    sums by (score, id), with no segments (its ids are 32 bits wide). In
     ``mode="decode"`` the JAX package always packs and ``pack`` only
     picks its plan; here the argument is accepted and the plan stays.
-    A base beyond `_DECODE_SEG` rows runs in segments, and a query batch
-    whose candidate array would pass `scan._CAND_CAP` bytes in chunks.
-    The JAX package's ``qsuper`` and ``stage`` variants of the one-pass
-    decode scan are not ported."""
-    if qsuper != 1 or stage:
-        raise NotImplementedError(
-            "the qsuper/stage variants of the one-pass scan are not "
-            "ported yet (ROADMAP B11)")
+
+    Decode mode routes as the JAX package does: the two-pass scan (K1 →
+    K2) unless ``twopass=False``, ``stage`` or an explicit ``r``,
+    ``keep``, ``tile`` or ``bq`` is given; then the one-pass scan with a
+    per-tile cut (K14, at `_onepass_config`'s plan for what is not
+    given; ``keep=0`` is K4's form). Both return the exact top-k of the
+    same truncated keys where their plans give the keys the same id
+    bits. ``stage`` and ``qsuper`` are checked as the JAX package checks
+    them and compute the same function; ``bq`` and ``vmem_mb`` are TPU
+    blocking and have no effect on the card. In LUT mode ``r``, ``keep``
+    and ``tile`` replace the plan's and the routing arguments have no
+    effect. A base beyond `_DECODE_SEG` rows runs in segments, and a
+    query batch whose candidate array would pass `scan._CAND_CAP` bytes
+    in chunks (where the JAX package takes the one-pass scan instead)."""
     if mode not in ("decode", "lut"):
         raise ValueError(f"mode {mode!r}: 'decode' or 'lut'")
     dev = index.packed.device
@@ -785,21 +936,37 @@ def search_codes(index: CodesIndex, Q, k: int, *,
         op_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     k = min(k, index.n)
     f32 = mode == "lut" and pack is not None and not pack
+    stage, qsuper = stage or 0, qsuper or 1
+    if twopass is None:
+        twopass = r is None and keep is None and tile is None \
+            and bq is None and not stage
+    plan = dict(twopass=twopass, r=r, keep=keep, tile=tile, stage=stage,
+                qsuper=qsuper)
     if index.n > _DECODE_SEG and not f32:
-        return _search_segments(index, Q, k, op_dtype=op_dtype, mode=mode)
+        return _search_segments(index, Q, k, op_dtype=op_dtype, mode=mode,
+                                **plan)
     d = Q.shape[1] if index.d in (-1, None) else index.d
     q2 = (Q * Q).sum(-1, keepdim=True)
-    kind, r, keep, tile = _codes_config(k, mode, index.n,
-                                        dev if f32 else None)
+    if mode == "decode" and not twopass:
+        kind = "onepass"
+        pr, pkeep, ptile = _onepass_config(k, index.mprime)
+    else:
+        kind, pr, pkeep, ptile = _codes_config(k, mode, index.n,
+                                               dev if f32 else None)
     if kind == "lut":
         s, i = _lut_scan_tiled(index, Q, k, d, op_dtype)
         return s + q2, i
+    r = pr if r is None else r
+    keep = pkeep if keep is None else keep
+    tile = ptile if tile is None else tile
     if mode == "decode":
         Cf, nrm = index.decode_operands(d, op_dtype)
     parts = []
     per_query = cdiv(index.n, tile) * max(keep, 1) * LANES * 4
     if f32:
         per_query = scan._f32_bytes_per_query(index.n, r, tile, keep)
+    elif kind == "onepass":   # its output and its buffers' scratch
+        per_query = (2 * r + 1) * LANES * 4
     for a, b in scan._query_chunks(Q.shape[0], per_query):
         Qc = Q[a:b]
         if mode == "lut":
@@ -812,6 +979,10 @@ def search_codes(index: CodesIndex, Q, k: int, *,
             parts.append(scan_codes_decode_topk_2p(
                 Qc, Cf, nrm, index.packed, k=k, pq=index.pq, r=r,
                 tile=tile, keep=keep))
+        elif kind == "onepass":
+            parts.append(scan_codes_decode_topk(
+                Qc, Cf, nrm, index.packed, k=k, pq=index.pq, r=r,
+                tile=tile, keep=keep, qsuper=qsuper, stage=stage))
         else:
             parts.append(scan_codes_decode_topk(Qc, Cf, nrm, index.packed,
                                                 k=k, pq=index.pq))

@@ -4,6 +4,7 @@ eval_recall, held against the JAX package's facade. The tests ask for
 the CPU with ``device="cpu"``; the facade's own default is the card."""
 
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -235,3 +236,19 @@ def test_port_never_imports_jax(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-2:] == ["False", "False"]
+
+
+def test_port_sources_name_no_jax():
+    """No source of the port, nor chip_smoke.py, imports jax or the JAX
+    package: a grep of every import statement (the smoke runs where
+    there is no jax, and imports its modules inside functions)."""
+    import re
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|rayuela_tpu)(?![\w])",
+                     re.M)
+    root = pathlib.Path(REPO)
+    files = [*sorted((root / "rayuela_tpu_torch").rglob("*.py")),
+             root / "chip_smoke.py"]
+    assert len(files) > 20
+    hits = [f"{f.name}: {m.group(0).strip()}" for f in files
+            for m in pat.finditer(f.read_text())]
+    assert not hits, hits

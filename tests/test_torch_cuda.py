@@ -166,8 +166,78 @@ def test_cuda_tensors_never_fall_back(dev):
         tsc.codes_decode_candidates(Qm, Cf, nrm, idx.packed, tile=8192,
                                     keep=3, idbits=8, has_norms=False)
     cand = torch.zeros((4, 128, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="r=12"):
-        tsc.cand_merge(cand, cand[:1].contiguous(), 12)
+    with pytest.raises(ValueError, match="r=20"):
+        tsc.cand_merge(cand, cand[:1].contiguous(), 20)
+    with pytest.raises(ValueError, match="r=16, keep=2"):
+        tsc.codes_decode_onepass(Qm, Cf, nrm, idx.packed, tile=2048, r=16,
+                                 keep=2, idbits=8, has_norms=False)
+
+
+@pytest.mark.parametrize("pq", [True, False])
+@pytest.mark.parametrize("r,keep,tile", [(14, 2, 2048), (12, 4, 2048),
+                                         (28, 4, 8192), (28, 4, 4096)])
+@pytest.mark.parametrize("nq", [1, 40, 9000])
+def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
+                                                         tile, nq):
+    """K14 against K1 → K2's plain versions: identical buffers, with the
+    row range split over CTAs (few queries, K2 merges the splits) and
+    not (9000 queries: 282 blocks of 32 fill the card)."""
+    n = 20_000 if nq < 9000 else 50_001
+    idx, Q, Cf, nrm, Qm = _case(dev, pq=pq, kind="int",
+                                dtype=torch.float32, n=n, nq=nq)
+    idbits = tsp._pack_idbits(-(-n // tile) * tile)
+    kw = dict(tile=tile, r=r, keep=keep, idbits=idbits, has_norms=not pq)
+    n14 = tsc.codes_decode_onepass.launches
+    out = tsc.codes_decode_onepass(Qm, Cf, nrm, idx.packed, **kw)
+    torch.cuda.synchronize()
+    assert tsc.codes_decode_onepass.launches == n14 + 1
+    ref = tsc.codes_decode_onepass_plain(Qm, Cf, nrm, idx.packed, **kw)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("pq", [True, False])
+def test_onepass_cut_bf16_within_one_truncation_step(dev, pq):
+    n, nq, k = 50_000, 64, 100
+    idx, Q, Cf, nrm, Qm = _case(dev, pq=pq, kind="gauss",
+                                dtype=torch.bfloat16, n=n, nq=nq)
+    s, i, _ = tsc.scan_codes_decode_topk(Q, Cf, nrm, idx.packed, k=k, pq=pq,
+                                         r=14, keep=2, tile=2048)
+    idbits = tsp._pack_idbits(-(-n // 2048) * 2048)
+    o0 = tsc.codes_decode_onepass_plain(Qm, Cf, nrm, idx.packed, tile=2048,
+                                        r=14, keep=2, idbits=idbits,
+                                        has_norms=not pq)
+    v0, i0, _ = tsp._packed_candidates(o0, nq, 14, k, idbits)
+    _close((s, i), (v0, i0), idbits)
+
+
+def test_onepass_search_on_the_card_equals_the_cpu_search(dev):
+    """`search_codes(twopass=False)` (and with ``stage``, ``qsuper``) on
+    the card returns the CPU search's exact result, and the two-pass
+    search's at the same tile, including a query the rescue repairs."""
+    rng = np.random.default_rng(1)
+    n, m, k = 30_000, 8, 50
+    C = rng.integers(-1, 2, (m, H, D // m)).astype(np.float32)
+    B = rng.integers(0, H, (n, m)).astype(np.int32)
+    B[np.arange(20) * 128] = B[0]          # 20 exact ties in lane 0
+    Q = rng.integers(-1, 2, (8, D)).astype(np.float32)
+    Q[0] = np.concatenate([C[j, B[0, j]] for j in range(m)])
+    out = []
+    for device, kw in (("cpu", dict(twopass=False)),
+                       (dev, dict(twopass=False)),
+                       (dev, dict(stage=1, tile=8192)),
+                       (dev, dict(twopass=False, qsuper=4, tile=8192)),
+                       (dev, dict())):
+        idx = tsc.build_codes_index(torch.as_tensor(C, device=device),
+                                    torch.as_tensor(B, device=device),
+                                    pq=True, d=D)
+        n14 = tsc.codes_decode_onepass.launches
+        out.append(tsc.search_codes(idx, torch.as_tensor(Q), k,
+                                    op_dtype=torch.float32, **kw))
+        if device == dev and kw:
+            assert tsc.codes_decode_onepass.launches == n14 + 1
+    for got in out[1:]:
+        assert torch.equal(out[0][0], got[0].cpu())
+        assert torch.equal(out[0][1], got[1].cpu())
 
 
 def _same_up_to_ties(a, b):
@@ -356,14 +426,14 @@ def test_new_scans_never_fall_back(dev, tmp_path, monkeypatch):
                                  keep=2, idbits=8)
 
 
-def _encode_case(dev, kind, n, m, seed=0, h=H):
+def _encode_case(dev, kind, n, m, seed=0, h=H, d=D):
     rng = np.random.default_rng(seed)
     if kind == "int":
-        X = rng.integers(-1, 2, (n, D)).astype(np.float32)
-        C = rng.integers(-1, 2, (m, h, D)).astype(np.float32)
+        X = rng.integers(-1, 2, (n, d)).astype(np.float32)
+        C = rng.integers(-1, 2, (m, h, d)).astype(np.float32)
     else:
-        X = rng.standard_normal((n, D)).astype(np.float32)
-        C = (rng.standard_normal((m, h, D)) * 0.3).astype(np.float32)
+        X = rng.standard_normal((n, d)).astype(np.float32)
+        C = (rng.standard_normal((m, h, d)) * 0.3).astype(np.float32)
     B = rng.integers(0, h, (n, m)).astype(np.int32)
     order = rng.permutation(m).astype(np.int32)
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -404,6 +474,75 @@ def test_icm_sweeps_kernel_any_h(dev, h):
 
 
 @pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("h,d", [(512, D), (1000, 64), (H, 960)])
+def test_icm_sweeps_kernel_wide_shapes(dev, kind, h, d):
+    """K11 beyond one register block of labels (h = 512, and 1000 padded
+    to 1024) and at GIST's d = 960 (two warps per CTA) against its plain
+    version: identical on integer data, the K11 bound on Gaussian."""
+    X, C, B, order = _encode_case(dev, kind, 2000, 8, h=h, d=d)
+    for icmiter in (0, 2):
+        gb, ge = ticm.icm_sweeps(X, C, B, order, icmiter)
+        rb, re_ = ticm.icm_sweeps_plain(X, C, B, order, icmiter,
+                                        op_dtype=torch.bfloat16)
+        assert int(gb.max()) < h
+        _icm_close(kind, (gb, ge), (rb, re_))
+
+
+def _icm_close(kind, got, ref):
+    (gb, ge), (rb, re_) = got, ref
+    if kind == "int":
+        assert torch.equal(gb, rb) and torch.equal(ge, re_)
+    else:
+        assert float((gb == rb).float().mean()) >= 0.99
+        me, mr = float(ge.double().mean()), float(re_.double().mean())
+        assert abs(me - mr) <= 1e-4 * abs(mr)
+
+
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("m,h,d,n", [(7, H, D, 8191), (8, 200, D, 4096),
+                                     (8, 512, 64, 2000), (4, H, 960, 1000)])
+def test_ils_kernel_equals_plain(dev, kind, m, h, d, n):
+    """K12 (whole ILS in one launch) against its plain version: on
+    integer data codes and energies identical (the counter-hash
+    perturbation is the same function of seed, vector and round), on
+    Gaussian data the K11 bound; the energy never rises above B0's."""
+    X, C, B, _ = _encode_case(dev, kind, n, m, h=h, d=d)
+    rng = np.random.default_rng(5)
+    orders = torch.as_tensor(np.stack([rng.permutation(m) for _ in range(3)]),
+                             dtype=torch.int32, device=dev)
+    kw = dict(ilsiter=3, icmiter=2, npert=2)
+    n12 = ticm.encoding_ils.launches
+    got = ticm.encoding_ils(X, C, B, orders, 987654321, **kw)
+    torch.cuda.synchronize()
+    assert ticm.encoding_ils.launches == n12 + 1
+    ref = ticm.encoding_ils_plain(X, C, B, orders, 987654321,
+                                  op_dtype=torch.bfloat16, **kw)
+    assert int(got[0].max()) < h
+    _icm_close(kind, got, ref)
+    _, e0 = ticm.icm_sweeps_plain(X, C, B, list(range(m)), 0,
+                                  op_dtype=torch.bfloat16)
+    assert bool((got[1] <= e0 + 1e-3 * e0.abs()).all())
+    kw0 = dict(ilsiter=0, icmiter=2, npert=2)
+    got0 = ticm.encoding_ils(X, C, B, orders[:0].contiguous(), 1, **kw0)
+    assert torch.equal(got0[0], B)
+    _icm_close(kind, got0, ticm.encoding_ils_plain(
+        X, C, B, orders[:0], 1, op_dtype=torch.bfloat16, **kw0))
+
+
+def test_whole_ils_encode_runs_one_launch(dev):
+    """`encoding_icm(impl="pallas-ils")` on CUDA tensors is one K12
+    launch, and no K11 launch."""
+    X, C, B, _ = _encode_case(dev, "gauss", 3000, 4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n11, n12 = ticm.icm_sweeps.launches, ticm.encoding_ils.launches
+    out = ticm.encoding_icm(gen, X, C, B, ilsiter=4, impl="pallas-ils")
+    torch.cuda.synchronize()
+    assert ticm.encoding_ils.launches == n12 + 1
+    assert ticm.icm_sweeps.launches == n11
+    assert out.shape == B.shape and out.dtype == torch.int32
+
+
+@pytest.mark.parametrize("kind", ["int", "gauss"])
 @pytest.mark.parametrize("m", [7, 8])
 def test_viterbi_kernel_equals_plain(dev, kind, m):
     X, C, _, _ = _encode_case(dev, kind, 8192, m)
@@ -425,8 +564,12 @@ def test_encode_kernels_never_fall_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         ticm.icm_sweeps(torch.zeros(64, 4096, device=dev),
                         torch.zeros(4, H, 4096, device=dev), B, order, 1)
-    with pytest.raises(ValueError, match="h=512"):
-        ticm.icm_sweeps(X, torch.zeros(4, 512, D, device=dev), B, order, 1)
+    with pytest.raises(ValueError, match="h=2048"):
+        ticm.icm_sweeps(X, torch.zeros(4, 2048, D, device=dev), B, order, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        ticm.encoding_ils(torch.zeros(64, 4096, device=dev),
+                          torch.zeros(4, H, 4096, device=dev), B,
+                          order[None], 0, ilsiter=1, icmiter=1, npert=1)
     with pytest.raises(ValueError, match="int32"):
         ticm.icm_sweeps(X, C, B.long(), order, 1)
     with pytest.raises(ValueError, match="h <= 1024"):

@@ -139,10 +139,23 @@ def test_ils_never_raises_a_cost_and_matches_jax(rng):
 
 
 def test_whole_ils_kernel_and_bad_impls_raise(rng):
+    """``impl="pallas-ils"`` is one `encoding_ils` call: the node orders
+    and then one seed drawn from the generator (on the CPU its plain
+    version at f32; ``"pallas-ils-interpret"`` at the kernel's bf16
+    objective); an unknown impl and a non-f32 input raise."""
     X, C, B0 = _case(rng, "gauss", n=10)
+    kw = dict(ilsiter=3, icmiter=2, npert=2)
+    for impl, dtype in (("pallas-ils", torch.float32),
+                        ("pallas-ils-interpret", torch.bfloat16)):
+        gen = torch.Generator().manual_seed(0)
+        got = ticm.encoding_icm(gen, _t(X), _t(C), _t(B0), impl=impl, **kw)
+        gen = torch.Generator().manual_seed(0)
+        orders = ticm._ils_schedule(gen, 4, 3, True, "cpu")
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+        ref, _ = ticm.encoding_ils_plain(_t(X), _t(C), _t(B0), orders, seed,
+                                         op_dtype=dtype, **kw)
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP B10"):
-        ticm.encoding_icm(gen, _t(X), _t(C), _t(B0), impl="pallas-ils")
     with pytest.raises(ValueError, match="impl"):
         ticm.encoding_icm(gen, _t(X), _t(C), _t(B0), impl="xla-ish")
     with pytest.raises(ValueError, match="float32"):

@@ -244,12 +244,21 @@ def test_lut_oracles_match_jax(rng):
 
 
 def test_unported_routes_raise(rng):
+    """The JAX package's routing arguments are all ported: ``qsuper``
+    alone keeps the two-pass scan, ``stage`` (and ``twopass=False``)
+    take the one-pass scan, and on integer data all serve the default
+    search's result (at its tile, so that the keys keep the same score
+    bits); a bad combination and a bad mode raise."""
     C, B = int_dataset(rng, d=D, n=300, m=M, h=H, pq=True)
     idx = tsc.build_codes_index(_t(C), _t(B), pq=True, d=D)
     Q = _t(_queries(rng, 2, "int"))
-    for kw in (dict(qsuper=2), dict(stage=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-            tsc.search_codes(idx, Q, 5, **kw)
+    rd, ri = tsc.search_codes(idx, Q, 5)
+    for kw in (dict(qsuper=2), dict(stage=1, tile=8192),
+               dict(twopass=False, qsuper=2, tile=8192)):
+        d, i = tsc.search_codes(idx, Q, 5, **kw)
+        assert torch.equal(d, rd) and torch.equal(i, ri)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tsc.search_codes(idx, Q, 5, stage=1, qsuper=2)
     with pytest.raises(ValueError, match="'decode' or 'lut'"):
         tsc.search_codes(idx, Q, 5, mode="tables")
     # the streamed search is ported: it serves the same result
