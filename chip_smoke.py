@@ -56,7 +56,9 @@ phases below; any failure exits non-zero.
    (14, 2, 2048) at k = 100, (28, 4, 8192) at k = 1000): identical int32
    outputs on integer data, the phase-1 bounds on Gaussian data. Then
    K14's time at nq = 1e4 and K12's at 1e5 vectors beside their plain
-   versions', held against each other in the same way.
+   versions', held against each other in the same way, and K14's time
+   with its row range unsplit beside the splits its wrapper chooses
+   (identical buffers).
 2. Rescue: an index with many exact ties of one query in one lane,
    served through the facade; the rescue kernel must run and the result
    must equal the plain LUT oracle.
@@ -117,7 +119,9 @@ for K3).
    the relaunch codes', recall@1 >= 0.99 through the default codes
    search; then `api.search(index4, twopass=False)` at k = 100 and 1000,
    `stage=1` at k = 1000 and `twopass=False, qsuper=4` at k = 100 with
-   queries/s (K14 → K3, K4 rescue). After the counts were read, each
+   queries/s (K14 → K3, K4 rescue). After the counts were read, K12 is
+   held against its plain version on the operands of that base encode
+   (below), each
    result must equal the two-pass search's (phase 4's route) on every
    query that did not reach the LUT oracle, both plans' flagged counts
    print, and the two base encodes and one one-pass search are
@@ -131,7 +135,11 @@ phase 5, K8's keep=0 form in the one-pass call, K9, K10, K6, K7 and the
 pair merge in phase 6, K12 (once) and K14 in phase 7.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
-codes, icmiter 4), as in phase 1b on Gaussian data. The
+codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
+K12 runs again on the operands phase 7's base encode gave it (the 1e6
+base, the greedy codes, its 32 node orders and its seed), must give
+phase 7's codes and is held against its plain version there in the same
+way. The
 flag counts and the profiler pass run after those reads. The line before
 the last is a JSON summary of the kernels (launches from the phase
 named beside them); the last line is the device record.
@@ -142,6 +150,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1781,6 +1790,26 @@ def onepass_ils_times(rng, errs):
         note(errs, "codes_decode_onepass", compare_topk(
             f"k={k} K14+K3 timed", plain_topk(out, r, k, idbits),
             plain_topk(ref, r, k, idbits), idbits, exact=False))
+        qb, _, per_sm = tsc._onepass_layout(r, keep, c.Qm.shape[1],
+                                            c.idx.packed.shape[1], 1,
+                                            c.Qm.device)
+        slots = per_sm * torch.cuda.get_device_properties(
+            c.Qm.device).multi_processor_count
+        ntiles = -(-N // tile)
+        tp = tsc._onepass_tiles_per(-(-NQ // qb), ntiles, slots)
+        rule = tsc._onepass_tiles_per
+        tsc._onepass_tiles_per = lambda nqb, ntiles, slots: ntiles
+        try:
+            ms1, out1 = timed(lambda: tsc.codes_decode_onepass(*args, **kw),
+                              2)
+        finally:
+            tsc._onepass_tiles_per = rule
+        check(torch.equal(out1, out), f"K14 k={k}: one split != "
+              f"{-(-ntiles // tp)} splits")
+        print(f"  K14 at {-(-ntiles // tp)} splits ({tp} of {ntiles} tiles "
+              f"per CTA, {slots} CTA slots) {ms:.3f} ms; unsplit "
+              f"{ms1:.3f} ms; the same buffers")
+        del out1
         t = {}
         record(t, "codes_decode_onepass", ms, pms, 2.0 * N * NQ * D,
                "bf16 tensor-core", nbytes(*args, out), lib_ms)
@@ -1816,17 +1845,30 @@ def phase7(card, ds, Xq, Xb, index4, wall4):
     import torch
 
     import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops import icm as ticm
     from rayuela_tpu_torch.ops.qerror import veccost_chunked
     from rayuela_tpu_torch.search.linscan import eval_recall
 
     print(f"== phase 7: whole-ILS encode (K12) and one-pass decode scan "
           f"(K14), SR-D-7+1, {N} base, {NQ} queries ({card})")
     model = index4.model
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    index = rq.index_base(model, Xb, mode="codes", impl="pallas-ils")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    ils, cap = ticm._ils, {}
+
+    def capture(ops, B, orders, seed, **kw):
+        """K12's launch as the facade makes it, its operands kept for
+        `ils_base_check`."""
+        cap.update(B=B, orders=orders, seed=seed, kw=kw)
+        return ils(ops, B, orders, seed, **kw)
+
+    ticm._ils = capture
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index = rq.index_base(model, Xb, mode="codes", impl="pallas-ils")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        ticm._ils = ils
     q7 = float(veccost_chunked(Xb, model.codebooks, index.codes).mean())
     q4 = float(veccost_chunked(Xb, model.codebooks, index4.codes).mean())
     print(f"  index_base(impl='pallas-ils', ILS 32 rounds in one launch): "
@@ -1853,7 +1895,32 @@ def phase7(card, ds, Xq, Xb, index4, wall4):
         print(f"  search({tag}): {NQ / wall:,.0f} queries/s (median of "
               f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
         res[tag] = (k, kw, dists, ids)
-    return index, res
+    return index, res, cap
+
+
+def ils_base_check(errs, model, Xb, index, cap):
+    """After phase 7's launch counts were read: K12 on the operands phase
+    7's base encode gave it (the 1e6 base, the SR-D codebooks, the greedy
+    codes, its 32 node orders and seed) once more, which must give phase
+    7's codes, against its plain version at the bf16 objective."""
+    import torch
+
+    from rayuela_tpu_torch.ops import icm as ticm
+
+    kw = cap["kw"]
+    print(f"== K12 vs plain at the base encode: n={Xb.shape[0]}, "
+          f"m={model.codebooks.shape[0]}, SR-D codebooks, greedy codes, "
+          f"seed {cap['seed']}, {kw}")
+    args = (Xb, model.codebooks, cap["B"], cap["orders"], cap["seed"])
+    got = ticm.encoding_ils(*args, **kw)
+    check(torch.equal(got[0], index.codes),
+          "K12 on phase 7's operands does not give phase 7's codes")
+    t = time.perf_counter()
+    ref = ticm.encoding_ils_plain(*args, op_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    print(f"  plain version: {time.perf_counter() - t:.1f} s")
+    note(errs, "encoding_ils", compare_icm(
+        f"K12 base ilsiter={kw['ilsiter']}", got, ref, exact=False))
 
 
 def phase7_checks(Xq, Xb, index4, res):
@@ -1910,11 +1977,15 @@ def ptxas_summary(log):
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split(" for ", 1)[1].strip()
+            # drop the anonymous namespace's prefix: the kernel's name and
+            # its template arguments (e.g. ...Li28ELi4E: R=28, KEEP=4) stay
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                          name)
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
             regs = line.split("Used", 1)[1].split(",")[0].strip()
-            out.append(f"{name[:72]}: {regs}; {spill}")
+            out.append(f"{name[:96]}: {regs}; {spill}")
             name, spill = None, ""
     return out
 
@@ -2032,8 +2103,8 @@ def main() -> int:
                    if n not in path6 and w.launches}
         check(not packed6, f"a pack=False call launched {packed6}")
         zero()
-        _, res7 = run("phase 7", phase7, smi, ds, Xq, Xb, served["sr_d"],
-                      wall4)
+        index7, res7, cap7 = run("phase 7", phase7, smi, ds, Xq, Xb,
+                                 served["sr_d"], wall4)
         launches7 = {n: w.launches for n, w in path7.items()}
         print(f"phase-7 launches: {launches7}")
         check(all(launches7.values()), "a kernel of the path never launched "
@@ -2041,6 +2112,9 @@ def main() -> int:
         check(ticm.encoding_ils.launches == 1
               and ticm.icm_sweeps.launches == 0,
               "the whole-ILS encode was not one K12 launch")
+        run("K12 base encode check", ils_base_check, errs,
+            served["sr_d"].model, Xb, index7, cap7)
+        del index7, cap7
         del ds
         zero()
         run("phase 6 streamed decode", phase6_streamed_decode,

@@ -39,14 +39,18 @@
 // array (coalesced: consecutive threads take consecutive queries). K4
 // re-decodes its rows for every 2 queries; it serves only the rare
 // certificate-flagged queries, so it is bound by latency. K14 is bound
-// as K1 is (the same products and the same decode per 32 queries); its
-// CTAs walk the whole base, so a batch of query blocks that is not a
-// multiple of the card's CTA slots leaves a last wave part-empty.
+// as K1 is (the same products and the same decode per 32 queries, and
+// K1's register block: at keep = 4 both spill, see -Xptxas=-v); its
+// CTAs walk whole tile ranges, so the wrapper splits the rows until the
+// waves of CTAs fill the card's CTA slots (`rq_codes_onepass_layout`
+// reports them), or a last wave part-empty would cost as much as a full
+// one.
 #include "scan_common.cuh"
 
 namespace {
 
 constexpr int DEC_BATCH = 8;   // codebook loads a decoding thread keeps in flight
+constexpr int K14_PAIRS = 16;  // (lane, query) pairs of a K14 thread (4 x 4)
 
 // Decode the 128 rows of row id `rid` into XsT[kk * LP + lane] (values
 // rounded to T) and their norms into x2s[lane]. G threads share a row,
@@ -255,7 +259,10 @@ __device__ __forceinline__ void merge_survivors(int (&carry)[KEEP], int& rest,
 // rest go to the certificate `rest`, as in K1; at the tile's end the
 // survivors merge into the running R-key buffer, which lives in `scratch`
 // (per CTA R x 16 x 256 ints, laid out [c][pair][thread] so that a warp's
-// loads are coalesced, and in L2 while the CTA runs). At the end the
+// loads are coalesced). The buffers of the resident CTAs (264 x 458 KB
+// at R = 28) outgrow the 50 MB L2, so they stream between device memory
+// and L2; what a tile's end reads for most pairs is the one load of
+// buf[R-1] that rejects its survivors. At the end the
 // buffer goes to cand[s*R .. s*R + R) and the certificate to disc[s],
 // with one split the final (R+1)-row buffer; with more K2 merges the
 // splits (every key not kept is some split's rejected key or a merge
@@ -276,11 +283,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int q0 = blockIdx.x * K1_QB, s = blockIdx.y;
   const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
   const int vmask = -(1 << idbits);
-  constexpr int PAIRS = 16, STRIDE = PAIRS * THREADS;
+  constexpr int STRIDE = K14_PAIRS * THREADS;
   int* buf = scratch +
              ((size_t)s * gridDim.x + blockIdx.x) * R * STRIDE + threadIdx.x;
   load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
-  for (int c = 0; c < R * PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
+  for (int c = 0; c < R * K14_PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
 
   int best[4][4][KEEP];
   int rest[4][4];
@@ -336,6 +343,21 @@ __global__ void __launch_bounds__(THREADS, 2)
         cand[((size_t)s * R + c) * plane + off] = b[(size_t)c * STRIDE];
       disc[(size_t)s * plane + off] = rest[i][j];
     }
+}
+
+// K14's layout for its wrapper: out[0] queries per CTA, out[1] ints of
+// scratch per CTA, out[2] the CTAs an SM holds at once.
+template <class Src, int R, int KEEP>
+cudaError_t onepass_cut_layout(int dp, int words, int* out) {
+  const size_t smem = scan_smem(dp, K1_QB, words);
+  auto kern = scan_onepass_cut_kernel<Src, R, KEEP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  out[0] = K1_QB;
+  out[1] = R * K14_PAIRS * THREADS;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kern,
+                                                       THREADS, smem);
 }
 
 template <class Src, int R, int KEEP>
@@ -435,6 +457,28 @@ int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
   }
 #undef RQ_K14_T
 #undef RQ_K14
+  return (int)cudaErrorInvalidValue;
+}
+
+// K14's layout at (r, keep, dp, nw) into out[3]: queries per CTA, ints of
+// scratch per CTA (`scratch` holds one such block per CTA of the grid),
+// CTAs per SM. The wrapper sizes its scratch and its splits from these.
+int rq_codes_onepass_layout(int r, int keep, int dp, int nw, int bf16,
+                            void* out) {
+#define RQ_K14L(T, R, K)                                                   \
+  return (int)onepass_cut_layout<CodesSrc<T>, R, K>(dp, LANES * nw,        \
+                                                    (int*)out)
+#define RQ_K14L_T(T)                                 \
+  if (r == 14 && keep == 2) RQ_K14L(T, 14, 2);       \
+  if (r == 12 && keep == 4) RQ_K14L(T, 12, 4);       \
+  if (r == 28 && keep == 4) RQ_K14L(T, 28, 4);
+  if (bf16) {
+    RQ_K14L_T(__nv_bfloat16)
+  } else {
+    RQ_K14L_T(float)
+  }
+#undef RQ_K14L_T
+#undef RQ_K14L
   return (int)cudaErrorInvalidValue;
 }
 

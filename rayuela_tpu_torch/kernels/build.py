@@ -32,11 +32,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, the trailing pointer is the stream
+# (but for the layout query, which fills the int array it points to)
 _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
+    "rq_codes_onepass_layout": [_I] * 5 + [_P],
     "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
     "rq_scan_onepass": [_P] * 5 + [_I] * 8 + [_P],
     "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],

@@ -52,10 +52,13 @@ headers in ``csrc/`` say more).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
-from rayuela_tpu_torch.kernels.build import launch
+from rayuela_tpu_torch.kernels.build import launch, library
 from rayuela_tpu_torch.search import scan
 from rayuela_tpu_torch.search.scan import (  # noqa: F401 (re-exported)
     _KEEPS, _MAX_DP, LANES, _alloc_candidates, _alloc_onepass,
@@ -74,10 +77,9 @@ _RESCUE_R, _RESCUE_TILE = scan._ONEPASS_R, 2048
 
 # K14's compiled (r, keep) pairs: the one-pass plan's (`_onepass_config`)
 _ONEPASS_CUTS = ((14, 2), (12, 4), (28, 4))
-# queries per K14 CTA (its decode is shared by them), and the ints of
-# scratch per CTA and buffer row (16 (lane, query) pairs x 256 threads),
-# as in csrc/codes_scan.cu
-_ONEPASS_QB, _ONEPASS_SCRATCH = 32, 16 * 256
+# the most CTAs K14's splits may add, in waves of the card's CTA slots
+# (each CTA holds its own scratch: ~1 GB at 8 waves, r = 28)
+_ONEPASS_WAVES = 8
 
 # tile of the two-pass scans (K1 and K5)
 _TILE = 8192
@@ -455,8 +457,8 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     scores, bit for bit) with no candidate array. Operands as
     `codes_decode_candidates`. On the card a CTA decodes each 128-row
     step once for 32 queries and carries its buffers over all tiles; the
-    row range is split over CTAs, on tile boundaries, only when the
-    query blocks are too few to give every SM two CTAs, and K2 merges
+    row range is split over CTAs, on tile boundaries, where that fills
+    the card's waves of CTAs better (`_onepass_tiles_per`), and K2 merges
     the splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     rows = tile // LANES
     if tile % LANES or not 1 <= keep <= rows:
@@ -475,10 +477,11 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     if not (nq and n):
         return torch.full((r + 1, LANES, nq), scan.IMAX, dtype=torch.int32,
                           device=dev)
-    ntiles, nqb = cdiv(n, tile), cdiv(nq, _ONEPASS_QB)
+    bf16 = int(Qm.dtype == torch.bfloat16)
+    qb, per_cta, per_sm = _onepass_layout(r, keep, dp, nw, bf16, dev)
+    ntiles, nqb = cdiv(n, tile), cdiv(nq, qb)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = 1 if nqb >= 2 * sms else min(ntiles, cdiv(4 * sms, nqb))
-    tiles_per = cdiv(ntiles, splits)
+    tiles_per = _onepass_tiles_per(nqb, ntiles, sms * per_sm)
     splits = cdiv(ntiles, tiles_per)
     out = torch.empty((r + 1, LANES, nq), dtype=torch.int32, device=dev)
     if splits == 1:
@@ -488,17 +491,47 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
                            device=dev)
         disc = torch.empty((splits, LANES, nq), dtype=torch.int32,
                            device=dev)
-    scratch = torch.empty(nqb * splits * r * _ONEPASS_SCRATCH,
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(nqb * splits * per_cta, dtype=torch.int32,
+                          device=dev)
     launch("rq_codes_decode_onepass", Qm, Cflat, nrm, packed, cand, disc,
            scratch, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
-           rows, ntiles, tiles_per, r, keep, idbits,
-           int(Qm.dtype == torch.bfloat16), device=dev)
+           rows, ntiles, tiles_per, r, keep, idbits, bf16, device=dev)
     codes_decode_onepass.launches += 1
     return _merge_onepass(out, cand, disc, r)
 
 
 codes_decode_onepass.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _onepass_layout(r: int, keep: int, dp: int, nw: int, bf16: int,
+                    device: torch.device) -> tuple[int, int, int]:
+    """K14's ``(queries per CTA, scratch ints per CTA, CTAs per SM)``
+    at these operands, as the kernel's source states them."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = library().rq_codes_onepass_layout(r, keep, dp, nw, bf16,
+                                                ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"rq_codes_onepass_layout: CUDA error {err}: "
+                           f"{library().rq_error_string(err).decode()}")
+    return tuple(out)
+
+
+def _onepass_tiles_per(nqb: int, ntiles: int, slots: int) -> int:
+    """Tiles per K14 CTA. Its CTAs walk whole tile ranges, so with
+    ``tiles_per`` tiles (``s = ceil(ntiles / tiles_per)`` splits) the scan
+    takes about ``ceil(nqb * s / slots)`` waves of ``tiles_per`` tiles
+    each: the fewest splits within 2% of the least such cost, with at
+    most ``_ONEPASS_WAVES`` waves of CTAs unless the query blocks alone
+    are more."""
+    cap = max(1, min(ntiles, max(nqb, _ONEPASS_WAVES * slots) // nqb))
+    cost = {}
+    for s in range(1, cap + 1):
+        tp = cdiv(ntiles, s)
+        cost.setdefault(tp, cdiv(nqb * cdiv(ntiles, tp), slots) * tp)
+    least = min(cost.values())
+    return max(tp for tp, c in cost.items() if c <= 1.02 * least)
 
 
 # ---------------------------------------------------------------------------

@@ -176,13 +176,19 @@ def test_cuda_tensors_never_fall_back(dev):
 @pytest.mark.parametrize("pq", [True, False])
 @pytest.mark.parametrize("r,keep,tile", [(14, 2, 2048), (12, 4, 2048),
                                          (28, 4, 8192), (28, 4, 4096)])
-@pytest.mark.parametrize("nq", [1, 40, 9000])
+@pytest.mark.parametrize("nq", [1, 40, 9000, "one wave"])
 def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
                                                          tile, nq):
     """K14 against K1 → K2's plain versions: identical buffers, with the
-    row range split over CTAs (few queries, K2 merges the splits) and
-    not (9000 queries: 282 blocks of 32 fill the card)."""
-    n = 20_000 if nq < 9000 else 50_001
+    row range split over CTAs, K2 merging the splits (1, 40 and 9000
+    queries), and not (one query block per CTA slot of the card: one
+    whole wave)."""
+    n = 20_000 if nq in (1, 40) else 50_001
+    if nq == "one wave":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nq = 32 * 2 * sms
+        assert tsc._onepass_tiles_per(2 * sms, -(-n // tile),
+                                      2 * sms) == -(-n // tile)
     idx, Q, Cf, nrm, Qm = _case(dev, pq=pq, kind="int",
                                 dtype=torch.float32, n=n, nq=nq)
     idbits = tsp._pack_idbits(-(-n // tile) * tile)
@@ -193,6 +199,18 @@ def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
     assert tsc.codes_decode_onepass.launches == n14 + 1
     ref = tsc.codes_decode_onepass_plain(Qm, Cf, nrm, idx.packed, **kw)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("r,keep", [(14, 2), (12, 4), (28, 4)])
+def test_onepass_layout_is_the_kernels(dev, r, keep):
+    """K14's layout comes from its source: 32 queries per CTA, r rows of
+    16 (lane, query) pairs x 256 threads of scratch per CTA, two CTAs
+    per SM at dp = 128 (the occupancy its launch bounds ask for)."""
+    for bf16 in (0, 1):
+        assert tsc._onepass_layout(r, keep, 128, 2, bf16,
+                                   torch.device(dev)) == (32, r * 4096, 2)
+    with pytest.raises(RuntimeError, match="rq_codes_onepass_layout"):
+        tsc._onepass_layout(16, 2, 128, 2, 1, torch.device(dev))
 
 
 @pytest.mark.parametrize("pq", [True, False])

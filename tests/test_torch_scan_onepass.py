@@ -183,3 +183,27 @@ def test_the_jax_validation_errors_are_raised(rng):
         tsc.search_codes(idx, Q, 8, r=26, keep=2, stage=3, **kw)
     with pytest.raises(ValueError, match="r\\*128"):
         tsc.search_codes(idx, Q, 5000, twopass=False)
+
+
+@pytest.mark.parametrize("nqb,ntiles,splits", [
+    (313, 123, 5),     # nq = 1e4, tile 8192 at n = 1e6: 1.2 waves unsplit
+    (313, 489, 5),     # the same at tile 2048
+    (264, 123, 1),     # one whole wave of query blocks
+    (3125, 123, 1),    # nq = 1e5: the waves are nearly full unsplit
+    (1, 123, 123),     # one query block: a CTA per tile
+    (32, 8, 8)])
+def test_onepass_splits_fill_the_waves(nqb, ntiles, splits):
+    """K14's row-range splits on a card of 264 CTA slots (132 SMs x 2):
+    the fewest splits whose waves of tile ranges cost within 2% of the
+    least, and never more than 8 waves of CTAs added."""
+    slots = 264
+    tp = tsc._onepass_tiles_per(nqb, ntiles, slots)
+    assert -(-ntiles // tp) == splits
+
+    def cost(t):
+        return -(-nqb * -(-ntiles // t) // slots) * t
+    cap = max(nqb, tsc._ONEPASS_WAVES * slots) // nqb
+    allowed = {-(-ntiles // s) for s in range(1, min(cap, ntiles) + 1)}
+    assert cost(tp) <= 1.02 * min(cost(t) for t in allowed)
+    assert all(cost(t) > 1.02 * min(map(cost, allowed))
+               for t in allowed if t > tp)
