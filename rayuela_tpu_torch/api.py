@@ -159,10 +159,13 @@ def index_base(model: MCQModel, Xb, mode: str = "decoded",
     """Encode the base set on the model's device (``kw`` goes to
     `encode`) and build the scan index: ``mode="decoded"`` the base
     decoded once (bfloat16 on the card), ``mode="codes"`` the packed
-    codes. Every non-orthogonal model gets the norms byte (its codebook
-    has 256 entries, capped at h for ``mode="codes"`` so that it stacks
-    with the per-codebook tables). One generator seeded with ``seed``
-    serves the encode and the norms codebook."""
+    codes. A non-orthogonal model with its ``train_codes`` gets the norms
+    byte (its codebook has 256 entries, capped at h for
+    ``mode="codes"`` so that it stacks with the per-codebook tables);
+    without them (a model carried over by `convert.model_from_arrays`)
+    the decoded index keeps the exact |x_hat|^2, and ``mode="codes"``
+    raises in `build_codes_index`, as in the JAX facade. One generator
+    seeded with ``seed`` serves the encode and the norms codebook."""
     from rayuela_tpu_torch.search.norms import (get_norms_codebook,
                                                 quantize_norms)
     from rayuela_tpu_torch.search.scan import build_index
@@ -174,10 +177,7 @@ def index_base(model: MCQModel, Xb, mode: str = "decoded",
     gen = torch.Generator(device=Xb.device).manual_seed(seed)
     B = encode(model, Xb, gen=gen, **kw)
     norms_cb = norm_codes = None
-    if not model.pq_layout:
-        if model.train_codes is None:
-            raise ValueError("an additive model needs its train_codes to "
-                             "train the norms codebook")
+    if not model.pq_layout and model.train_codes is not None:
         nh = min(256, model.h) if mode == "codes" else 256
         _, norms_cb = get_norms_codebook(gen, model.codebooks,
                                          model.train_codes, h=nh)

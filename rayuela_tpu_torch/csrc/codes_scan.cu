@@ -20,7 +20,9 @@
 // key and selection contract) over the row source of this file: a row
 // decodes to x_hat = sum_j Cflat[j*h + code_j] (f32, codebook order),
 // rounded to the operand type; its norm x2 is |x_hat|^2 of the f32 row
-// (PQ) or nrm[norm_code] (additive models). K14 is K1's body (its
+// (PQ) or nrm[norm_code] (additive models). Beyond dp = 256 a row
+// decodes and scores in d-blocks of 128 (scan_common.cuh), the codebook
+// rows summed in codebook order within each block. K14 is K1's body (its
 // decode, its blocking and its scores, bit for bit) with a loop over
 // the tiles inside the CTA: K1 -> K2's function at (r, keep, tile) in
 // one pass, with no candidate array in device memory.
@@ -52,26 +54,33 @@ namespace {
 constexpr int DEC_BATCH = 8;   // codebook loads a decoding thread keeps in flight
 constexpr int K14_PAIRS = 16;  // (lane, query) pairs of a K14 thread (4 x 4)
 
-// Decode the 128 rows of row id `rid` into XsT[kk * LP + lane] (values
-// rounded to T) and their norms into x2s[lane]. G threads share a row,
-// each 16 bytes of it at a time, so a warp's loads are coalesced; each
-// thread issues up to DEC_BATCH codebook loads before it adds any, so
-// their L2 latencies overlap. Ends with a barrier.
+// Decode dimensions [b0, b0 + nb) of the 128 rows of row id `rid` (dp
+// values each) into XsT[kk * LP + lane] (values rounded to T) and their
+// norms into x2s[lane]: the norms byte's entry, or |x_hat|^2 of the f32
+// row (the PQ layout), which a block at b0 > 0 adds to the earlier
+// blocks' sum. The codes load at b0 = 0 and stay for the row's later
+// blocks. G threads share a row, each 16 bytes of it at a time, so a
+// warp's loads are coalesced; each thread issues up to DEC_BATCH
+// codebook loads before it adds any, so their L2 latencies overlap.
+// Ends with a barrier.
 template <typename T>
 __device__ void decode_rows(const T* __restrict__ Cflat,
                             const T* __restrict__ nrm,
                             const int* __restrict__ packed, int n, int rid,
-                            int m, int h, int nw, int dp, int has_norms,
-                            float* XsT, float* x2s, int* words) {
+                            int m, int h, int nw, int b0, int nb, int dp,
+                            int has_norms, float* XsT, float* x2s,
+                            int* words) {
   constexpr int V = Vec16<T>::N;
   const int tid = threadIdx.x;
   const long long g0 = (long long)rid * LANES;
-  for (int i = tid; i < LANES * nw; i += blockDim.x) {
-    const long long gid = g0 + i / nw;
-    words[i] = gid < n ? packed[gid * nw + i % nw] : 0;
+  if (b0 == 0) {
+    for (int i = tid; i < LANES * nw; i += blockDim.x) {
+      const long long gid = g0 + i / nw;
+      words[i] = gid < n ? packed[gid * nw + i % nw] : 0;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const int cpr = dp / V;              // 16-byte chunks per row
+  const int cpr = nb / V;              // 16-byte chunks per row
   const int G = cpr < 32 ? cpr : 32;   // threads per row (a power of 2)
   const int t = tid & 31, per_warp = 32 / G;
   const int row_step = (blockDim.x >> 5) * per_warp;
@@ -90,7 +99,7 @@ __device__ void decode_rows(const T* __restrict__ Cflat,
           if (j0 + u < m)
             v[u] = __ldg(reinterpret_cast<const uint4*>(
                 Cflat + (size_t)((j0 + u) * h + code_of(wl, j0 + u)) * dp +
-                c * V));
+                b0 + c * V));
 #pragma unroll
         for (int u = 0; u < DEC_BATCH; ++u)
           if (j0 + u < m) Vec16<T>::add(v[u], acc);
@@ -106,7 +115,7 @@ __device__ void decode_rows(const T* __restrict__ Cflat,
     if (t % G == 0)
       x2s[lane] = has_norms
                       ? to_f32(nrm[(size_t)code_of(wl, m) * LANES])
-                      : part;
+                      : (b0 == 0 ? part : x2s[lane] + part);
   }
   __syncthreads();
 }
@@ -120,10 +129,11 @@ template <typename T> struct CodesSrc {
   const int* packed;
   int m, h, nw, has_norms;
   __host__ __device__ int words() const { return LANES * nw; }
-  __device__ __forceinline__ void load(int n, int rid, int dp, float* XsT,
-                                       float* x2s, int* words) const {
-    decode_rows<T>(Cflat, nrm, packed, n, rid, m, h, nw, dp, has_norms, XsT,
-                   x2s, words);
+  __device__ __forceinline__ void load(int n, int rid, int b0, int nb,
+                                       int dp, float* XsT, float* x2s,
+                                       int* words) const {
+    decode_rows<T>(Cflat, nrm, packed, n, rid, m, h, nw, b0, nb, dp,
+                   has_norms, XsT, x2s, words);
   }
 };
 
@@ -266,8 +276,9 @@ __device__ __forceinline__ void merge_survivors(int (&carry)[KEEP], int& rest,
 // buffer goes to cand[s*R .. s*R + R) and the certificate to disc[s],
 // with one split the final (R+1)-row buffer; with more K2 merges the
 // splits (every key not kept is some split's rejected key or a merge
-// loser, so the certificate stays exact).
-template <class Src, int R, int KEEP>
+// loser, so the certificate stays exact). WIDE: the d-blocks of
+// `step_scores`.
+template <class Src, int R, int KEEP, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_onepass_cut_kernel(const Src src,
                             const typename Src::Op* __restrict__ Qm,
@@ -276,9 +287,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                             int rows, int ntiles, int tiles_per, int idbits) {
   using T = typename Src::Op;
   extern __shared__ __align__(16) float smem[];
-  float* XsT = smem;                  // dp * LP
-  float* Qs = XsT + dp * LP;          // K1_QB * dp
-  float* x2s = Qs + K1_QB * dp;       // LANES
+  const int db = WIDE ? DBLK : dp;
+  float* XsT = smem;                  // db * LP
+  float* Qs = XsT + db * LP;          // K1_QB * db
+  float* x2s = Qs + K1_QB * db;       // LANES
   int* words = (int*)(x2s + LANES);   // src.words()
   const int q0 = blockIdx.x * K1_QB, s = blockIdx.y;
   const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
@@ -286,7 +298,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   constexpr int STRIDE = K14_PAIRS * THREADS;
   int* buf = scratch +
              ((size_t)s * gridDim.x + blockIdx.x) * R * STRIDE + threadIdx.x;
-  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
   for (int c = 0; c < R * K14_PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
 
   int best[4][4][KEEP];
@@ -306,10 +318,9 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int c = 0; c < KEEP; ++c) best[i][j][c] = INT_MAX;
     for (int step = 0; step < rows; ++step) {
       const int rid = t * rows + step;
-      __syncthreads();  // the previous step's readers are done with XsT
-      src.load(n, rid, dp, XsT, x2s, words);
       float acc[4][4];
-      block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
+      step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
+                        acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int lane = lg + 32 * i;
@@ -345,17 +356,21 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 }
 
-// K14's layout for its wrapper: out[0] queries per CTA, out[1] ints of
-// scratch per CTA, out[2] the CTAs an SM holds at once.
+// K14's layout for its wrapper at width dp: out[0] queries per CTA,
+// out[1] ints of scratch per CTA, out[2] the CTAs an SM holds at once,
+// out[3] the d-block, out[4] the bytes of shared memory per CTA.
 template <class Src, int R, int KEEP>
 cudaError_t onepass_cut_layout(int dp, int words, int* out) {
   const size_t smem = scan_smem(dp, K1_QB, words);
-  auto kern = scan_onepass_cut_kernel<Src, R, KEEP>;
+  auto kern = dp > NARROW_DP ? scan_onepass_cut_kernel<Src, R, KEEP, true>
+                             : scan_onepass_cut_kernel<Src, R, KEEP, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   out[0] = K1_QB;
   out[1] = R * K14_PAIRS * THREADS;
+  out[3] = scan_dblock(dp);
+  out[4] = (int)smem;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kern,
                                                        THREADS, smem);
 }
@@ -365,17 +380,14 @@ cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
                                void* disc, void* scratch, int n, int nq,
                                int dp, int rows, int ntiles, int tiles_per,
                                int idbits, cudaStream_t st) {
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = scan_onepass_cut_kernel<Src, R, KEEP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid((nq + K1_QB - 1) / K1_QB,
                   (ntiles + tiles_per - 1) / tiles_per);
-  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
-                                    (int*)cand, (int*)disc, (int*)scratch, n,
-                                    nq, dp, rows, ntiles, tiles_per, idbits);
-  return cudaGetLastError();
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = dp > NARROW_DP ? scan_onepass_cut_kernel<Src, R, KEEP, true>
+                             : scan_onepass_cut_kernel<Src, R, KEEP, false>;
+  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
+                     (int*)cand, (int*)disc, (int*)scratch, n, nq, dp, rows,
+                     ntiles, tiles_per, idbits);
 }
 
 }  // namespace
@@ -460,9 +472,10 @@ int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
   return (int)cudaErrorInvalidValue;
 }
 
-// K14's layout at (r, keep, dp, nw) into out[3]: queries per CTA, ints of
+// K14's layout at (r, keep, dp, nw) into out[5]: queries per CTA, ints of
 // scratch per CTA (`scratch` holds one such block per CTA of the grid),
-// CTAs per SM. The wrapper sizes its scratch and its splits from these.
+// CTAs per SM, the d-block, shared bytes per CTA. The wrapper sizes its
+// scratch and its splits from these.
 int rq_codes_onepass_layout(int r, int keep, int dp, int nw, int bf16,
                             void* out) {
 #define RQ_K14L(T, R, K)                                                   \

@@ -24,7 +24,8 @@
 // of this file: the 128 rows of a row id are a contiguous block of the
 // decoded base Xd (n, dp), dp a multiple of 8, already at the operand
 // type, and their norms come from x2 (n,) f32. The scores are those of
-// K1: the same f32 dot in dimension order plus x2.
+// K1: the same f32 dot in dimension order plus x2. A row wider than 256
+// (GIST's d = 960) goes through in d-blocks of 128 (scan_common.cuh).
 //
 // K9 and K10 replace scan_pallas.py::_scan_kernel and ::_verify_kernel
 // (pallas_scan_topk(pack=False), the idbits = 0 form of the counting
@@ -68,11 +69,15 @@ template <typename T> struct RowsSrc {
   // chunk c0 + t % (32/V) of lane l0 + t / (32/V), so 32/V neighbours
   // read one contiguous run, and element e of the chunk goes to bank
   // (V * (t % (32/V)) + t / (32/V) + e) % 32, distinct over the warp.
-  __device__ __forceinline__ void load(int n, int rid, int dp, float* XsT,
-                                       float* x2s, int*) const {
+  // The d-block [b0, b0 + nb) is chunks b0/V .. (b0 + nb)/V of a row (nb
+  // and b0 are multiples of 8).
+  __device__ __forceinline__ void load(int n, int rid, int b0, int nb,
+                                       int dp, float* XsT, float* x2s,
+                                       int*) const {
     constexpr int V = Vec16<T>::N;
     constexpr int CW = 32 / V;
-    const int cpr = dp / V;                     // 16-byte chunks per row
+    const int cpr = nb / V;               // 16-byte chunks of the block
+    const int cb = b0 / V;                // its first chunk in the row
     const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
     const int lgroups = LANES / V;
@@ -89,7 +94,7 @@ template <typename T> struct RowsSrc {
         u[b] = make_uint4(0u, 0u, 0u, 0u);
         if (it < items && c < cpr && gid < n)
           u[b] = __ldg(reinterpret_cast<const uint4*>(Xd + (size_t)gid * dp) +
-                       c);
+                       cb + c);
       }
 #pragma unroll
       for (int b = 0; b < LOAD_BATCH; ++b) {

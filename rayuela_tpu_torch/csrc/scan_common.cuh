@@ -22,11 +22,26 @@
 //   using Op = float | __nv_bfloat16     the operand type
 //   static constexpr bool kQueryFastest  block index order (see below)
 //   int words() const                    ints of scratch per CTA
-//   void load(n, rid, dp, XsT, x2s, words)
-// where load() brings the 128 rows of row id `rid` into shared memory,
-// transposed as XsT[kk * LP + lane] (f32 holding values of Op; the
-// padded stride keeps the score reads free of bank conflicts), and
-// their norms into x2s[lane], and ends with a barrier.
+//   void load(n, rid, b0, nb, dp, XsT, x2s, words)
+// where load() brings dimensions [b0, b0 + nb) of the 128 rows of row
+// id `rid` (dp values each) into shared memory, transposed as
+// XsT[kk * LP + lane] for kk < nb (f32 holding values of Op; the padded
+// stride keeps the score reads free of bank conflicts), and their norms
+// into x2s[lane] (with a block at b0 > 0 only adding to what the earlier
+// blocks left there, where the norms come from the row itself), and
+// ends with a barrier.
+//
+// The d-blocks. Up to NARROW_DP a row is one block (b0 = 0, nb = dp):
+// the tile and the queries of a CTA sit in shared memory whole, and the
+// queries load once. A wider row (GIST's d = 960) goes through in
+// blocks of DBLK dimensions, in ascending order, each with the CTA's
+// queries cut to the same block: the per-thread scores stay in
+// registers across the blocks, so a score is still one fmaf chain in
+// dimension order and its bits do not depend on the blocking. Such a
+// CTA reloads its queries' block for every row id (from L2: a quarter
+// of the bytes of the rows' block at 32 queries) and takes the shared
+// memory of dp = DBLK, two CTAs per SM. The layout (`scan_dblock`,
+// `scan_smem`) is the kernels' alone; the wrappers ask for it.
 
 #pragma once
 
@@ -41,6 +56,19 @@ constexpr int LP = LANES + 1;  // padded stride of the transposed tile
 constexpr int K1_QB = 32;      // queries per candidates CTA (8 warps x 4)
 constexpr int K4_QB = 2;       // queries per one-pass CTA (2 x 128 lanes)
 constexpr int THREADS = 256;
+constexpr int NARROW_DP = 256;  // up to this width a row is one d-block
+constexpr int DBLK = 128;       // the d-block of a wider row
+
+// The d-block of a scan over rows of dp values.
+inline int scan_dblock(int dp) { return dp <= NARROW_DP ? dp : DBLK; }
+
+// Dynamic shared memory of a scan CTA: the transposed tile and the
+// queries of one d-block, the rows' norms, the row source's scratch.
+inline size_t scan_smem(int dp, int qb, int words) {
+  const size_t db = scan_dblock(dp);
+  return sizeof(float) * (db * LP + (size_t)qb * db + LANES) +
+         sizeof(int) * (size_t)words;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -125,23 +153,40 @@ __device__ void load_queries(const T* __restrict__ Qm, int q0, int nq,
   }
 }
 
-// The 4-lane x 4-query block of dot products of a candidates thread:
-// lanes lg + 32 i of the transposed tile XsT against the four queries
-// at qrow, each an f32 fmaf chain in dimension order. One 16-byte
-// shared load brings four dimensions of a query (dp is a multiple of
-// 4).
-__device__ __forceinline__ void block_scores(const float* XsT,
-                                             const float* qrow, int dp,
-                                             int lg, float (&acc)[4][4]) {
+// Dimensions [b0, b0 + nb) of the CTA's nqb queries to Qs[j * DBLK + kk]
+// (zeros past nb and past nq).
+template <typename T>
+__device__ void load_query_block(const T* __restrict__ Qm, int q0, int nq,
+                                 int dp, int b0, int nb, int nqb,
+                                 float* Qs) {
+  for (int i = threadIdx.x; i < nqb * DBLK; i += blockDim.x) {
+    const int q = q0 + i / DBLK, kk = i % DBLK;
+    Qs[i] = q < nq && kk < nb ? to_f32(Qm[(size_t)q * dp + b0 + kk]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void zero_scores(float (&acc)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int kk0 = 0; kk0 < dp; kk0 += 4) {
+}
+
+// The 4-lane x 4-query block of dot products of a candidates thread,
+// over the nd dimensions of the tile in shared memory: lanes lg + 32 i
+// of the transposed tile XsT against the four queries at qrow (query j
+// at qrow + j * qs), each added to acc[i][j] as an f32 fmaf chain in
+// dimension order. One 16-byte shared load brings four dimensions of a
+// query (nd and qs are multiples of 4).
+__device__ __forceinline__ void block_scores(const float* XsT,
+                                             const float* qrow, int qs,
+                                             int nd, int lg,
+                                             float (&acc)[4][4]) {
+  for (int kk0 = 0; kk0 < nd; kk0 += 4) {
     float4 qv[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      qv[j] = *reinterpret_cast<const float4*>(qrow + j * dp + kk0);
+      qv[j] = *reinterpret_cast<const float4*>(qrow + j * qs + kk0);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float xv[4];
@@ -156,6 +201,49 @@ __device__ __forceinline__ void block_scores(const float* XsT,
   }
 }
 
+// One row step of a scan CTA of QB queries: the 128 rows of row id
+// `rid` into shared memory and `dot(Qb, qs, nd)` over them, with Qb the
+// CTA's queries (query j's values at Qb + j * qs) and nd the dimensions
+// in XsT. Narrow (dp <= NARROW_DP): one block, the queries already in Qs
+// (the kernel loaded them once). WIDE: the d-blocks in ascending order,
+// each with its block of the queries; `dot` adds to scores that it keeps
+// in registers across the blocks.
+template <bool WIDE, int QB, class Src, class Dot>
+__device__ __forceinline__ void scan_step(
+    const Src& src, const typename Src::Op* __restrict__ Qm, int q0, int nq,
+    int n, int rid, int dp, float* XsT, float* Qs, float* x2s, int* words,
+    Dot dot) {
+  if constexpr (!WIDE) {
+    __syncthreads();  // the previous step's readers are done with XsT
+    src.load(n, rid, 0, dp, dp, XsT, x2s, words);
+    dot(Qs, dp, dp);
+  } else {
+    for (int b0 = 0; b0 < dp; b0 += DBLK) {
+      const int nb = min(DBLK, dp - b0);
+      __syncthreads();  // the readers of the last block are done
+      load_query_block(Qm, q0, nq, dp, b0, nb, QB, Qs);
+      src.load(n, rid, b0, nb, dp, XsT, x2s, words);
+      dot(Qs, DBLK, nb);
+    }
+  }
+}
+
+// The scores of row id `rid` in a 4x4-blocked CTA (K1, K8, K9, K10,
+// K14): the thread's 4 lanes x 4 queries to acc, the rows' norms to x2s.
+template <bool WIDE, class Src>
+__device__ __forceinline__ void step_scores(
+    const Src& src, const typename Src::Op* __restrict__ Qm, int q0, int nq,
+    int n, int rid, int dp, float* XsT, float* Qs, float* x2s, int* words,
+    float (&acc)[4][4]) {
+  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
+  zero_scores(acc);
+  scan_step<WIDE, K1_QB>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
+                         [&](const float* Qb, int qs, int nd) {
+                           block_scores(XsT, Qb + (qg * 4) * qs, qs, nd, lg,
+                                        acc);
+                         });
+}
+
 // The candidates body (K1, K8): CTA (t, qb) scans tile t (rows row ids)
 // for 32 queries and writes, per (lane, query), the KEEP smallest keys
 // ascending to cand[t*KEEP + c] and the smallest other key to disc[t]
@@ -165,8 +253,9 @@ __device__ __forceinline__ void block_scores(const float* XsT,
 // (lane, query) pairs in registers; two CTAs share an SM, so one loads
 // rows while the other scores. The grid is (ntiles, query blocks), or
 // the transpose when Src::kQueryFastest: the blocks that run together
-// then share one tile, which they find in L2.
-template <class Src, int KEEP>
+// then share one tile, which they find in L2. WIDE: the d-blocks of
+// `step_scores`.
+template <class Src, int KEEP, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_candidates_kernel(const Src src,
                            const typename Src::Op* __restrict__ Qm,
@@ -174,15 +263,16 @@ __global__ void __launch_bounds__(THREADS, 2)
                            int n, int nq, int dp, int rows, int idbits) {
   using T = typename Src::Op;
   extern __shared__ __align__(16) float smem[];
-  float* XsT = smem;                  // dp * LP
-  float* Qs = XsT + dp * LP;          // K1_QB * dp
-  float* x2s = Qs + K1_QB * dp;       // LANES
+  const int db = WIDE ? DBLK : dp;
+  float* XsT = smem;                  // db * LP
+  float* Qs = XsT + db * LP;          // K1_QB * db
+  float* x2s = Qs + K1_QB * db;       // LANES
   int* words = (int*)(x2s + LANES);   // src.words()
   const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
   const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
   const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
   const int vmask = -(1 << idbits);
-  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
 
   int best[4][4][KEEP];
   int rest[4][4];
@@ -197,10 +287,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   for (int step = 0; step < rows; ++step) {
     const int rid = t * rows + step;
-    __syncthreads();  // the previous step's readers are done with XsT
-    src.load(n, rid, dp, XsT, x2s, words);
     float acc[4][4];
-    block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
+    step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
+                      acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lane = lg + 32 * i;
@@ -238,35 +327,38 @@ __global__ void __launch_bounds__(THREADS, 2)
 // every key not kept is some split's rejected key or a merge loser).
 // It loads its rows anew for every 2 queries; it serves only the few
 // queries a certificate flagged, so it is bound by latency, and the
-// wrapper splits the row range over enough CTAs to fill the card.
-template <class Src, int R>
+// wrapper splits the row range over enough CTAs to fill the card. WIDE:
+// the d-blocks of `step_scores`.
+template <class Src, int R, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
     scan_topk_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
                      int* __restrict__ cand, int* __restrict__ disc, int n,
                      int nq, int dp, int nrows, int rows_per, int idbits) {
   using T = typename Src::Op;
   extern __shared__ __align__(16) float smem[];
-  float* XsT = smem;                  // dp * LP
-  float* Qs = XsT + dp * LP;          // K4_QB * dp
-  float* x2s = Qs + K4_QB * dp;       // LANES
+  const int db = WIDE ? DBLK : dp;
+  float* XsT = smem;                  // db * LP
+  float* Qs = XsT + db * LP;          // K4_QB * db
+  float* x2s = Qs + K4_QB * db;       // LANES
   int* words = (int*)(x2s + LANES);   // src.words()
   const int lane = threadIdx.x & (LANES - 1), qi = threadIdx.x >> 7;
   const int q0 = blockIdx.x * K4_QB, q = q0 + qi, s = blockIdx.y;
   const int vmask = -(1 << idbits);
-  load_queries<T>(Qm, q0, nq, dp, K4_QB, Qs);
+  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K4_QB, Qs);
 
   int buf[R];
 #pragma unroll
   for (int c = 0; c < R; ++c) buf[c] = INT_MAX;
   int rest = INT_MAX;
-  const float* qrow = Qs + qi * dp;
   const int rid1 = min(nrows, (s + 1) * rows_per);
   for (int rid = s * rows_per; rid < rid1; ++rid) {
-    __syncthreads();
-    src.load(n, rid, dp, XsT, x2s, words);
     float acc = 0.f;
-    for (int kk = 0; kk < dp; ++kk)
-      acc = fmaf(XsT[kk * LP + lane], qrow[kk], acc);
+    scan_step<WIDE, K4_QB>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
+                           [&](const float* Qb, int qs, int nd) {
+                             const float* qrow = Qb + qi * qs;
+                             for (int kk = 0; kk < nd; ++kk)
+                               acc = fmaf(XsT[kk * LP + lane], qrow[kk], acc);
+                           });
     const bool pad = (long long)rid * LANES + lane >= n;
     const float sc = pad ? __int_as_float(0x7F800000) : acc + x2s[lane];
     insert_sorted<R>(buf, rest, row_key(sc, rid, vmask));
@@ -278,42 +370,43 @@ __global__ void __launch_bounds__(THREADS)
   disc[(size_t)s * plane + off] = rest;
 }
 
-inline size_t scan_smem(int dp, int qb, int words) {
-  return sizeof(float) * ((size_t)dp * LP + (size_t)qb * dp + LANES) +
-         sizeof(int) * (size_t)words;
+// Opt kernel `kern` in to `smem` bytes of dynamic shared memory and
+// launch it with THREADS threads a CTA on stream st.
+template <typename... P, typename... A>
+cudaError_t launch_scan(void (*kern)(P...), dim3 grid, size_t smem,
+                        cudaStream_t st, A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 template <class Src, int KEEP>
 cudaError_t launch_candidates(const Src& src, const void* Qm, void* cand,
                               void* disc, int n, int nq, int dp, int ntiles,
                               int rows, int idbits, cudaStream_t st) {
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = scan_candidates_kernel<Src, KEEP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
   const int nqb = (nq + K1_QB - 1) / K1_QB;
   const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
-  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
-                                    (int*)cand, (int*)disc, n, nq, dp, rows,
-                                    idbits);
-  return cudaGetLastError();
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = dp > NARROW_DP ? scan_candidates_kernel<Src, KEEP, true>
+                             : scan_candidates_kernel<Src, KEEP, false>;
+  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
+                     (int*)cand, (int*)disc, n, nq, dp, rows, idbits);
 }
 
 template <class Src, int R>
 cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
                         void* disc, int n, int nq, int dp, int nrows,
                         int rows_per, int idbits, cudaStream_t st) {
+  const dim3 grid((nq + K4_QB - 1) / K4_QB,
+                  (nrows + rows_per - 1) / rows_per);
   const size_t smem = scan_smem(dp, K4_QB, src.words());
-  auto kern = scan_topk_kernel<Src, R>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((nq + K4_QB - 1) / K4_QB, (nrows + rows_per - 1) / rows_per);
-  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm,
-                                    (int*)cand, (int*)disc, n, nq, dp, nrows,
-                                    rows_per, idbits);
-  return cudaGetLastError();
+  auto kern = dp > NARROW_DP ? scan_topk_kernel<Src, R, true>
+                             : scan_topk_kernel<Src, R, false>;
+  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
+                     (int*)cand, (int*)disc, n, nq, dp, nrows, rows_per,
+                     idbits);
 }
 
 // ---------------------------------------------------------------------------
@@ -421,20 +514,21 @@ struct CountSink {
 // The exact scan body over a row source (K9 with a SelectSink, K10 with
 // the CountSink): the blocking, loads and dot products of the
 // candidates body above, the scores handed to the sink.
-template <class Src, class Sink>
+template <class Src, class Sink, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
     exact_scan_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
                       const Sink sink, int n, int nq, int dp, int rows) {
   using T = typename Src::Op;
   extern __shared__ __align__(16) float smem[];
-  float* XsT = smem;                  // dp * LP
-  float* Qs = XsT + dp * LP;          // K1_QB * dp
-  float* x2s = Qs + K1_QB * dp;       // LANES
+  const int db = WIDE ? DBLK : dp;
+  float* XsT = smem;                  // db * LP
+  float* Qs = XsT + db * LP;          // K1_QB * db
+  float* x2s = Qs + K1_QB * db;       // LANES
   int* words = (int*)(x2s + LANES);   // src.words()
   const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
   const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
   const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
-  load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
+  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
 
   typename Sink::State st[4][4];
 #pragma unroll
@@ -444,10 +538,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   for (int step = 0; step < rows; ++step) {
     const int rid = t * rows + step;
-    __syncthreads();  // the previous step's readers are done with XsT
-    src.load(n, rid, dp, XsT, x2s, words);
     float acc[4][4];
-    block_scores(XsT, Qs + (qg * 4) * dp, dp, lg, acc);
+    step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
+                      acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lane = lg + 32 * i, gid = rid * LANES + lane;
@@ -471,16 +564,13 @@ template <class Src, class Sink>
 cudaError_t launch_exact(const Src& src, const void* Qm, const Sink& sink,
                          int n, int nq, int dp, int ntiles, int rows,
                          cudaStream_t st) {
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = exact_scan_kernel<Src, Sink>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
   const int nqb = (nq + K1_QB - 1) / K1_QB;
   const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
-  kern<<<grid, THREADS, smem, st>>>(src, (const typename Src::Op*)Qm, sink, n,
-                                    nq, dp, rows);
-  return cudaGetLastError();
+  const size_t smem = scan_smem(dp, K1_QB, src.words());
+  auto kern = dp > NARROW_DP ? exact_scan_kernel<Src, Sink, true>
+                             : exact_scan_kernel<Src, Sink, false>;
+  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
+                     sink, n, nq, dp, rows);
 }
 
 }  // namespace

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
     "codes_scan.cu", "decoded_scan.cu", "lut_scan.cu", "topk_tail.cu",
-    "icm.cu", "viterbi.cu"))
+    "icm.cu", "viterbi.cu", "fusion_probe.cu"))
 HEADERS = (_PKG / "csrc" / "scan_common.cuh",)   # included by the scans
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types, the trailing pointer is the stream
-# (but for the layout query, which fills the int array it points to)
+# (but for the layout and attribute queries, which fill the int array it
+# points to)
 _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
@@ -46,11 +47,14 @@ _SIGNATURES = {
     "rq_scan_verify_counts": [_P] * 6 + [_I] * 6 + [_P],
     "rq_codes_lut_f32_candidates": [_P] * 4 + [_I] * 9 + [_P],
     "rq_codes_lut_verify_counts": [_P] * 5 + [_I] * 8 + [_P],
+    "rq_lut_layout": [_I] * 3 + [_P],
     "rq_pair_merge": [_P] * 4 + [_I] * 3 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
     "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
+    "rq_fusion_chain": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_fusion_attrs": [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()
@@ -133,6 +137,21 @@ def library() -> ctypes.CDLL:
             lib.rq_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def query(name: str, *args: int, size: int,
+          device: torch.device) -> tuple[int, ...]:
+    """Call C query ``name`` (a layout or attribute query, which fills
+    ``size`` ints) on ``device`` → those ints; a nonzero CUDA error code
+    raises."""
+    lib = library()
+    out = (ctypes.c_int * size)()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, ctypes.addressof(out))
+    if err:
+        msg = lib.rq_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    return tuple(out)
 
 
 def launch(name: str, *args, device: torch.device) -> None:

@@ -67,7 +67,6 @@ _SEG_DECODED = (1 << 16) * LANES
 _KEEPS = (2, 4)
 _RS = (12, 14, 16, 28, 32, 48, 96)
 _ONEPASS_R = 48
-_MAX_DP = 256
 _MAX_SPLITS = 4096
 
 # largest candidate array (bytes) one scan call may allocate: larger
@@ -392,11 +391,10 @@ def _check_decoded(Qm, Xd, x2, tile: int, premin: int) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if Xd.shape[1] % 8 or Xd.shape[1] > _MAX_DP:
+    if Xd.shape[1] % 8:
         raise ValueError(f"d={Xd.shape[1]} must be a multiple of 8 (the "
                          "kernel reads rows 16 bytes at a time; "
-                         f"`LinscanIndex` pads) and at most {_MAX_DP} (the "
-                         "tile must fit the kernel's shared memory)")
+                         "`LinscanIndex` pads)")
     if Xd.data_ptr() % 16:
         raise ValueError("Xd must be 16-byte aligned")
     if Qm.shape[0] >= 1 << 21 or cdiv(Xd.shape[0], tile) >= 1 << 16:

@@ -52,16 +52,15 @@ headers in ``csrc/`` say more).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from rayuela_tpu_torch.kernels.build import launch, library
+from rayuela_tpu_torch.kernels.build import launch, query
 from rayuela_tpu_torch.search import scan
 from rayuela_tpu_torch.search.scan import (  # noqa: F401 (re-exported)
-    _KEEPS, _MAX_DP, LANES, _alloc_candidates, _alloc_onepass,
+    _KEEPS, LANES, _alloc_candidates, _alloc_onepass,
     _candidates_plain, _finish, _merge_onepass, _onepass_plain,
     _pack_idbits, _query_operand, _row_key, cand_merge, cand_merge_plain)
 from rayuela_tpu_torch.utils import (as_tensor, cdiv, exact_f32, splitarray,
@@ -83,10 +82,6 @@ _ONEPASS_WAVES = 8
 
 # tile of the two-pass scans (K1 and K5)
 _TILE = 8192
-
-# K5 keeps the tables of 16 queries in shared memory
-_LUT_QB = 16
-_MAX_SMEM = 232_448
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +296,8 @@ def _check_operands(Qm, Cflat, nrm, packed, has_norms: bool) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if Cflat.shape[1] > _MAX_DP or Cflat.shape[1] % LANES:
-        raise ValueError(f"dp={Cflat.shape[1]} must be a multiple of 128 "
-                         f"and at most {_MAX_DP} (the decoded tile must fit "
-                         "the kernel's shared memory)")
+    if Cflat.shape[1] % LANES:
+        raise ValueError(f"dp={Cflat.shape[1]} must be a multiple of 128")
     if Cflat.data_ptr() % 16:
         raise ValueError("Cflat must be 16-byte aligned: the kernels read "
                          "it 16 bytes at a time")
@@ -478,7 +471,7 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
         return torch.full((r + 1, LANES, nq), scan.IMAX, dtype=torch.int32,
                           device=dev)
     bf16 = int(Qm.dtype == torch.bfloat16)
-    qb, per_cta, per_sm = _onepass_layout(r, keep, dp, nw, bf16, dev)
+    qb, per_cta, per_sm, _, _ = _onepass_layout(r, keep, dp, nw, bf16, dev)
     ntiles, nqb = cdiv(n, tile), cdiv(nq, qb)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles_per = _onepass_tiles_per(nqb, ntiles, sms * per_sm)
@@ -505,17 +498,12 @@ codes_decode_onepass.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _onepass_layout(r: int, keep: int, dp: int, nw: int, bf16: int,
-                    device: torch.device) -> tuple[int, int, int]:
-    """K14's ``(queries per CTA, scratch ints per CTA, CTAs per SM)``
-    at these operands, as the kernel's source states them."""
-    out = (ctypes.c_int * 3)()
-    with torch.cuda.device(device):
-        err = library().rq_codes_onepass_layout(r, keep, dp, nw, bf16,
-                                                ctypes.addressof(out))
-    if err:
-        raise RuntimeError(f"rq_codes_onepass_layout: CUDA error {err}: "
-                           f"{library().rq_error_string(err).decode()}")
-    return tuple(out)
+                    device: torch.device) -> tuple[int, int, int, int, int]:
+    """K14's ``(queries per CTA, scratch ints per CTA, CTAs per SM,
+    d-block, shared bytes per CTA)`` at these operands, as the kernel's
+    source states them (dp up to 256 is one d-block)."""
+    return query("rq_codes_onepass_layout", r, keep, dp, nw, bf16, size=5,
+                 device=device)
 
 
 def _onepass_tiles_per(nqb: int, ntiles: int, slots: int) -> int:
@@ -583,14 +571,26 @@ def _check_lut(T, packed, tile: int) -> bool:
     if T.device.type != "cuda":
         raise ValueError(f"unsupported device {T.device}")
     mprime, h, nq = T.shape
-    smem = 2 * T.element_size() * (_LUT_QB // 2) * mprime * h
-    if h > 256 or smem > _MAX_SMEM:
-        raise ValueError(f"m'*h={mprime * h} tables of {_LUT_QB} queries "
-                         f"({smem} bytes) exceed the kernel's shared memory "
-                         f"({_MAX_SMEM}), or h={h} > 256")
+    if h > 256:
+        raise ValueError(f"h={h} > 256: a code is one byte (and its tables "
+                         "must fit the kernels' shared memory)")
+    qb, smem = _lut_layout(mprime, h, int(T.dtype == torch.bfloat16),
+                           T.device)
+    if not qb:
+        raise ValueError(f"m'*h={mprime * h} tables of 8 queries ({smem} "
+                         "bytes) exceed the kernels' shared memory")
     if nq >= 1 << 20:
         raise ValueError("at most 2**20 queries per call")
     return True
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_layout(mprime: int, h: int, bf16: int,
+                device: torch.device) -> tuple[int, int]:
+    """K5-K7's ``(queries per CTA, shared bytes per CTA)`` at m' tables
+    of h entries, as the kernels' source chooses them: 16 queries where
+    their tables fit, else 8, else 0 (the bytes then are 8 queries')."""
+    return query("rq_lut_layout", mprime, h, bf16, size=2, device=device)
 
 
 def codes_lut_candidates_plain(T, packed, *, tile: int, keep: int,

@@ -205,10 +205,16 @@ def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
 def test_onepass_layout_is_the_kernels(dev, r, keep):
     """K14's layout comes from its source: 32 queries per CTA, r rows of
     16 (lane, query) pairs x 256 threads of scratch per CTA, two CTAs
-    per SM at dp = 128 (the occupancy its launch bounds ask for)."""
+    per SM at dp = 128 (the occupancy its launch bounds ask for), the
+    row as one d-block and the tile, the queries, the norms and the
+    codes of a step in shared memory; at GIST's dp = 1024 the same CTA
+    over d-blocks of 128."""
+    smem = 4 * (128 * 129 + 32 * 128 + 128 + 128 * 2)
     for bf16 in (0, 1):
-        assert tsc._onepass_layout(r, keep, 128, 2, bf16,
-                                   torch.device(dev)) == (32, r * 4096, 2)
+        for dp in (128, 1024):
+            assert tsc._onepass_layout(r, keep, dp, 2, bf16,
+                                       torch.device(dev)) == (
+                32, r * 4096, 2, 128, smem)
     with pytest.raises(RuntimeError, match="rq_codes_onepass_layout"):
         tsc._onepass_layout(16, 2, 128, 2, 1, torch.device(dev))
 
@@ -790,3 +796,312 @@ def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
                                             tile=2048)):
         with pytest.raises(OSError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The wide configurations: rows over several d-blocks (K1, K4, K14, K8,
+# K9, K10), 128-bit codes with f32 tables (K5, K6, K7 at 8 queries a
+# CTA), the fusion probe's kernel
+# ---------------------------------------------------------------------------
+
+WIDE_D = (384, 784, 960)
+
+
+def _wide_codes_case(dev, *, pq, kind, dtype, n, nq, d, seed=0, m=None):
+    """`_case` at width d: PQ-8 (subspaces of ceil(d/8)) or 7 additive
+    codebooks + the norms byte, or ``m`` codebooks."""
+    rng = np.random.default_rng(seed)
+    m = m or (8 if pq else 7)
+    ds = -(-d // m) if pq else d
+    mk = (lambda *sh: rng.integers(-2, 3, sh)) if kind == "int" \
+        else (lambda *sh: rng.standard_normal(sh))
+    t = lambda a, dt=torch.float32: None if a is None else torch.as_tensor(
+        np.asarray(a), dtype=dt, device=dev)
+    C, Q = t(mk(m, H, ds)), t(mk(nq, d))
+    B = t(rng.integers(0, H, (n, m)), torch.int32)
+    ncb = None if pq else t(rng.integers(0, 500, H))
+    nco = None if pq else t(rng.integers(0, H, n), torch.int32)
+    idx = tsc.build_codes_index(C, B, pq=pq, d=d, norms_cbook=ncb,
+                                norms_codes=nco)
+    Cf, nrm = idx.decode_operands(d, dtype)
+    return idx, Q, Cf, nrm, tsc._query_operand(Q, Cf.shape[1], dtype)
+
+
+@pytest.mark.parametrize("pq,m,d", [(pq, None, d) for pq in (True, False)
+                                    for d in WIDE_D]
+                         + [(False, 15, 128), (True, 16, 128),
+                            (False, 15, 960)])
+def test_wide_codes_kernels_equal_plain_on_integer_data(dev, pq, m, d):
+    """K1 (and K2 on its output), K4 and K14 against their plain versions:
+    identical int32 outputs over rows of several d-blocks (dp = 384, 896,
+    1024; the PQ layout's |x_hat|^2 summed over the blocks), and at
+    m' = 16, four packed words a row (SR-D-15+1 with its norms byte,
+    PQ-16), at d = 128 and 960."""
+    n, nq = 20_000, 40
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="int",
+                                           dtype=torch.float32, n=n, nq=nq,
+                                           d=d, m=m)
+    assert Cf.shape[1] == -(-d // 128) * 128
+    idbits = tsp._pack_idbits(-(-n // 8192) * 8192)
+    kw = dict(tile=8192, keep=4, idbits=idbits, has_norms=not pq)
+    n1, n4, n14 = (tsc.codes_decode_candidates.launches,
+                   tsc.codes_decode_topk.launches,
+                   tsc.codes_decode_onepass.launches)
+    cand, disc = tsc.codes_decode_candidates(Qm, Cf, nrm, idx.packed, **kw)
+    cand0, disc0 = tsc.codes_decode_candidates_plain(Qm, Cf, nrm, idx.packed,
+                                                     **kw)
+    assert torch.equal(cand, cand0) and torch.equal(disc, disc0)
+    assert torch.equal(tsc.cand_merge(cand, disc, 32),
+                       tsc.cand_merge_plain(cand, disc, 32))
+    idb4 = tsp._pack_idbits(-(-n // 2048) * 2048)
+    kw4 = dict(tile=2048, r=48, idbits=idb4, has_norms=not pq)
+    assert torch.equal(
+        tsc.codes_decode_topk(Qm, Cf, nrm, idx.packed, **kw4),
+        tsc.codes_decode_topk_plain(Qm, Cf, nrm, idx.packed, **kw4))
+    for r, keep, tile in ((14, 2, 2048), (28, 4, 8192)):
+        kw14 = dict(tile=tile, r=r, keep=keep, has_norms=not pq,
+                    idbits=tsp._pack_idbits(-(-n // tile) * tile))
+        assert torch.equal(
+            tsc.codes_decode_onepass(Qm, Cf, nrm, idx.packed, **kw14),
+            tsc.codes_decode_onepass_plain(Qm, Cf, nrm, idx.packed, **kw14))
+    torch.cuda.synchronize()
+    assert tsc.codes_decode_candidates.launches == n1 + 1
+    assert tsc.codes_decode_topk.launches == n4 + 1
+    assert tsc.codes_decode_onepass.launches == n14 + 2
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_decoded_kernels_equal_plain_on_integer_data(dev, d, dtype):
+    """K8 (both forms), K9 with the pair merge, and K10 over rows of
+    several d-blocks (the last one partial at d = 784 and 960): identical
+    keys, pairs and counts (small integers are exact in bf16 too)."""
+    n, nq = 20_001, 33
+    idx, Q, Qm = _decoded_case(dev, "int", dtype, n, d, nq)
+    assert idx.Xd.shape[1] == d
+    n8, n9, n10 = (tsp.scan_candidates.launches, tsp.scan_f32_candidates
+                   .launches, tsp.verify_counts.launches)
+    kw = dict(tile=8192, keep=4, premin=0,
+              idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+    got = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+    ref = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2, **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    kw1 = dict(tile=2048, r=48, premin=0,
+               idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
+    assert torch.equal(tsp.scan_onepass(Qm, idx.Xd, idx.x2, **kw1),
+                       tsp.scan_onepass_plain(Qm, idx.Xd, idx.x2, **kw1))
+    cv, ci = tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=2)
+    cv0, ci0 = tsp.scan_f32_candidates_plain(Qm, idx.Xd, idx.x2, tile=8192,
+                                             keep=2)
+    assert torch.equal(cv, cv0) and torch.equal(ci, ci0)
+    s, i, fl = tsp.scan_topk_f32(Q, idx.Xd, idx.x2, k=100, r=16, tile=8192,
+                                 keep=2)
+    taus, taui = s[:, -1].contiguous(), i[:, -1].contiguous()
+    cnt = tsp.verify_counts(Qm, idx.Xd, idx.x2, taus, taui, tile=8192)
+    cnt0 = tsp.verify_counts_plain(Qm, idx.Xd, idx.x2, taus, taui, tile=8192)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt0)
+    assert tsp.scan_candidates.launches == n8 + 1
+    assert tsp.scan_f32_candidates.launches == n9 + 2
+    assert tsp.verify_counts.launches == n10 + 2
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+def test_wide_scans_on_gaussian_data(dev, d):
+    """PERF.md's limits over several d-blocks: K1 (both layouts), K14
+    and K8 in bf16 within one truncation step (+ the f32 rounding of
+    sums of d terms near zero) of their plain versions with 99% of ids
+    by position; K9 in f32 within 1e-5 relative (+ 1e-4), at least 99.9%
+    of ids by position, equal flags."""
+    n, nq, k = 50_000, 33, 100
+    idbits = tsp._pack_idbits(-(-n // 8192) * 8192)
+    atol = d * 2e-6
+    for pq in (True, False):
+        idx, Q, Cf, nrm, Qm = _wide_codes_case(
+            dev, pq=pq, kind="gauss", dtype=torch.bfloat16, n=n, nq=nq, d=d)
+        s, i, _ = tsc.scan_codes_decode_topk_2p(Q, Cf, nrm, idx.packed, k=k,
+                                                pq=pq, r=16, keep=2)
+        o0 = tsc.cand_merge_plain(*tsc.codes_decode_candidates_plain(
+            Qm, Cf, nrm, idx.packed, tile=8192, keep=2, idbits=idbits,
+            has_norms=not pq), 16)
+        _close((s, i), tsp._packed_candidates(o0, nq, 16, k, idbits)[:2],
+               idbits, atol=atol)
+        s, i, _ = tsc.scan_codes_decode_topk(Q, Cf, nrm, idx.packed, k=k,
+                                             pq=pq, r=28, keep=4, tile=8192)
+        o0 = tsc.codes_decode_onepass_plain(Qm, Cf, nrm, idx.packed,
+                                            tile=8192, r=28, keep=4,
+                                            idbits=idbits, has_norms=not pq)
+        _close((s, i), tsp._packed_candidates(o0, nq, 28, k, idbits)[:2],
+               idbits, atol=atol)
+    idx, Q, Qm = _decoded_case(dev, "gauss", torch.bfloat16, n, d, nq)
+    s, i, _ = tsp.scan_topk_packed(Q, idx.Xd, idx.x2, k=k, r=16, tile=8192,
+                                   keep=2)
+    o0 = tsp.cand_merge_plain(*tsp.scan_candidates_plain(
+        Qm, idx.Xd, idx.x2, tile=8192, keep=2, premin=0, idbits=idbits), 16)
+    _close((s, i), tsp._packed_candidates(o0, nq, 16, k, idbits)[:2],
+           idbits, atol=atol)
+    idx, Q, Qm = _decoded_case(dev, "gauss", torch.float32, n, d, nq)
+    s, i, fl = tsp.scan_topk_f32(Q, idx.Xd, idx.x2, k=k, r=16, tile=8192,
+                                 keep=2)
+    ov, oi = tsp.scan_f32_topk_plain(Qm, idx.Xd, idx.x2, r=16, tile=8192,
+                                     keep=2)
+    s0, i0, fl0 = tsp._finish_f32(
+        ov, oi, k, 16, 2, lambda ts, ti: tsp.verify_counts_plain(
+            Qm, idx.Xd, idx.x2, ts, ti, tile=8192))
+    assert bool(((s - s0).abs() <= 1e-5 * s0.abs() + 1e-4).all())
+    assert float((i == i0).float().mean()) >= 0.999
+    assert torch.equal(fl, fl0)
+
+
+def _lut_case(dev, mprime, h, kind, n, nq, seed=7):
+    """Tables (m', h, nq) f32 and packed codes of m' bytes (the last
+    byte read as the norms byte, as the kernels do)."""
+    rng = np.random.default_rng(seed)
+    mk = (lambda *sh: rng.integers(-20, 21, sh)) if kind == "int" \
+        else (lambda *sh: rng.standard_normal(sh))
+    T = torch.as_tensor(np.asarray(mk(mprime, h, nq)), dtype=torch.float32,
+                        device=dev)
+    B = torch.as_tensor(rng.integers(0, h, (n, mprime)), dtype=torch.int32,
+                        device=dev)
+    return T.contiguous(), tsc.pack_codes(B[:, :-1], B[:, -1])
+
+
+@pytest.mark.parametrize("mprime,qb", [(14, 16), (15, 8), (16, 8)])
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+def test_lut_kernels_at_128_bits_equal_plain(dev, mprime, qb, kind):
+    """K5, K6 and K7 with f32 tables of h = 256 entries: 16 queries' tables
+    fit up to m' = 14; from 15 (the 128-bit configurations: 15 + the
+    norms byte, PQ-16) a CTA takes 8 queries (`rq_lut_layout`). Either
+    way the sums go in the plain versions' order: identical outputs on
+    any data, nq ragged against both query blocks."""
+    n, nq, tile, r, keep = 20_001, 37, 8192, 16, 2
+    assert tsc._lut_layout(mprime, H, 0, dev)[0] == qb
+    assert tsc._lut_layout(mprime, H, 1, dev)[0] == 16
+    T, packed = _lut_case(dev, mprime, H, kind, n, nq)
+    n5, n6, n7 = (tsc.codes_lut_candidates.launches,
+                  tsc.codes_lut_f32_candidates.launches,
+                  tsc.codes_verify_counts.launches)
+    kw = dict(tile=tile, keep=keep,
+              idbits=tsp._pack_idbits(-(-n // tile) * tile))
+    got = tsc.codes_lut_candidates(T, packed, **kw)
+    ref = tsc.codes_lut_candidates_plain(T, packed, **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    s, i, fl = tsc.scan_codes_topk(T, packed, k=100, r=r, tile=tile,
+                                   keep=keep, lut_dtype=torch.float32,
+                                   pack=False)
+    ov, oi = tsc.codes_lut_topk_f32_plain(T, packed, r=r, tile=tile,
+                                          keep=keep)
+    s0, i0, fl0 = tsp._finish_f32(
+        ov, oi, 100, r, keep, lambda ts, ti: tsc.codes_verify_counts_plain(
+            T, packed, ts, ti, tile=tile))
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0) and torch.equal(i, i0) and torch.equal(fl, fl0)
+    assert tsc.codes_lut_candidates.launches == n5 + 1
+    assert tsc.codes_lut_f32_candidates.launches == n6 + 1
+    assert tsc.codes_verify_counts.launches == n7 + 1
+
+
+def test_lut_tables_beyond_8_queries_raise(dev):
+    """Where not even 8 queries' tables fit (f32, m' = 29 at h = 256:
+    4 pairs x 8 bytes x 7424 entries) the LUT kernels raise; bf16 tables
+    of that width take 8 queries."""
+    T, packed = _lut_case(dev, 29, H, "int", 3000, 4)
+    with pytest.raises(ValueError, match="8 queries"):
+        tsc.codes_lut_candidates(T, packed, tile=8192, keep=2, idbits=8)
+    with pytest.raises(ValueError, match="8 queries"):
+        tsc.codes_lut_f32_candidates(T, packed, tile=8192, keep=2)
+    assert tsc._lut_layout(29, H, 1, dev)[0] == 8
+    Tb = T.to(torch.bfloat16).contiguous()
+    kw = dict(tile=8192, keep=2, idbits=8)
+    got = tsc.codes_lut_candidates(Tb, packed, **kw)
+    ref = tsc.codes_lut_candidates_plain(Tb, packed, **kw)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_fusion_kernel_equals_plain(dev, split):
+    """The fusion probe's kernel (each product and sum rounded apart)
+    equals its plain version bit for bit for every k, rows ragged
+    against its CTAs' ranges."""
+    from rayuela_tpu_torch.demos import fusion_probe as tfp
+    rng = np.random.default_rng(8)
+    for rows in (8 * 1001, 65_536):
+        X = torch.as_tensor(rng.standard_normal((rows, 256),
+                                                dtype=np.float32),
+                            device=dev)
+        for k in tfp.KS:
+            n0 = tfp.fusion_chain.launches
+            got = tfp.fusion_chain(X, k, split=split)
+            torch.cuda.synchronize()
+            assert tfp.fusion_chain.launches == n0 + 1
+            assert torch.equal(got, tfp.fusion_chain_plain(X, k))
+    regs = tfp.kernel_attrs(8, split, dev)
+    assert regs[0] > 0 and regs[1] == 0
+
+
+def test_search_at_gist_width_in_every_mode(dev, monkeypatch):
+    """`api.search` at d = 960 through every scan on the card (decoded,
+    decoded pack=False, codes two-pass, one-pass and LUT, LUT
+    pack=False) does not raise, launches its kernels, and hands an exact
+    scan no more queries than the certificate flagged."""
+    from rayuela_tpu_torch import convert
+    from rayuela_tpu_torch.search import linscan
+    rng = np.random.default_rng(9)
+    n, d, m, h, nq, k = 30_000, 960, 4, 16, 64, 50
+    C = (rng.standard_normal((m, h, d)) * 0.5).astype(np.float32)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = torch.as_tensor(rng.standard_normal((nq, d)), dtype=torch.float32,
+                        device=dev)
+    tc = rng.integers(0, h, (4000, m)).astype(np.int32)
+    model = convert.model_from_arrays("rvq", C, h=h, device=dev,
+                                      train_codes=tc)
+    dec = tapi.index_base(model, X)
+    codes = tapi.index_base(model, X, mode="codes")
+    rescued = []
+    exact, lut_tiled = linscan.exact_rescan, tsc._lut_scan_tiled
+
+    def count_exact(Qx, *a, **kw):
+        rescued.append(Qx.shape[0])
+        return exact(Qx, *a, **kw)
+
+    def count_lut(index, Qx, *a, **kw):
+        rescued.append(Qx.shape[0])
+        return lut_tiled(index, Qx, *a, **kw)
+
+    monkeypatch.setattr(linscan, "exact_rescan", count_exact)
+    monkeypatch.setattr(tsc, "_lut_scan_tiled", count_lut)
+    si, sc = dec.scan_index, codes.scan_index
+    Cf, nrm = sc.decode_operands(d, torch.bfloat16)
+    T = tsc.build_luts(sc.C, Q, pq=sc.pq, d=d, norms_cbook=sc.norms_cbook)
+    r, keep, tile = tsp._scan_config(k)
+    rf, kf, tf, _ = tsp._f32_config(k, dev)
+    ro, ko, to = tsc._onepass_config(k, sc.mprime)
+    cases = (
+        (dec, {}, tsp.scan_candidates, lambda: tsp.scan_topk_packed(
+            Q, si.Xd, si.x2, k=k, r=r, tile=tile, keep=keep)[2]),
+        (dec, dict(pack=False), tsp.verify_counts, lambda: tsp.scan_topk_f32(
+            Q, si.Xd, si.x2, k=k, r=rf, tile=tf, keep=kf)[2]),
+        (codes, {}, tsc.codes_decode_candidates,
+         lambda: tsc.scan_codes_decode_topk_2p(
+             Q, Cf, nrm, sc.packed, k=k, pq=sc.pq, r=r, keep=keep)[2]),
+        (codes, dict(twopass=False), tsc.codes_decode_onepass,
+         lambda: tsc.scan_codes_decode_topk(
+             Q, Cf, nrm, sc.packed, k=k, pq=sc.pq, r=ro, keep=ko,
+             tile=to)[2]),
+        (codes, dict(mode="lut"), tsc.codes_lut_candidates,
+         lambda: tsc.scan_codes_topk(T.to(torch.bfloat16), sc.packed, k=k,
+                                     r=r, tile=tile, keep=keep,
+                                     lut_dtype=torch.bfloat16)[2]),
+        (codes, dict(mode="lut", pack=False, op_dtype=torch.float32),
+         tsc.codes_verify_counts, lambda: tsc.scan_codes_topk(
+             T, sc.packed, k=k, r=rf, tile=tf, keep=kf,
+             lut_dtype=torch.float32, pack=False)[2]))
+    for index, kw, kernel, flags in cases:
+        rescued.clear()
+        n0 = kernel.launches
+        dists, ids = tapi.search(index, Q, k=k, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches > n0, kw
+        assert dists.shape == (nq, k) and bool(torch.isfinite(dists).all())
+        assert bool(((ids >= 0) & (ids < n)).all())
+        assert sum(rescued) <= int(flags().sum()), kw
