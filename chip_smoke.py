@@ -14,10 +14,12 @@ phases below; any failure exits non-zero.
    sum in another order than cuBLAS (>= 99.9% of ids equal by position,
    every score within one truncation step). Then each kernel's time
    beside its plain version's at the search batch of the main path
-   (nq = 1e4; K4 at 128 rescued queries), where the timed runs' results
-   are held against each other in the same way, and K4 in bf16 at the
-   1, 2 and 8 flagged queries the main path's rescue gives it, where the
-   base is split over the most CTAs and K2 merges the splits.
+   (nq = 1e4; K4 and K8's keep=0 form at 128 rescued queries), where
+   the timed runs' results are held against each other in the same way,
+   and K4 in bf16 at the 1, 2 and 8 flagged queries the main path's
+   rescue gives it, where the base is split over CTAs and K2 merges the
+   splits; timed at 1 and 8 beside its plain version, its bound and the
+   library's call.
 1c. K8 (`scan_candidates`, and `scan_onepass`, its keep=0 form) and K5
    (`codes_lut_candidates`) against their plain versions at n = 1e6,
    d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
@@ -150,7 +152,10 @@ for the fusion kernel at k = 0).
    every scan kernel against its plain version on those queries over
    the whole base (K4 on 8 of them, K8's keep=0 form on 32); then the
    kernels' times at d = 960 beside their bounds and the library's
-   call.
+   call; then K4 on the rescue's own batch (the queries decode mode's
+   two-pass scan flags at k = 100), timed and held against its plain
+   version, and decode mode's k = 100 search profiled by kernel, the
+   rescue's K4 and its K2 apart.
 9. 128 bits on phase 3's data (d = 128): `api.train(method="sr_d",
    m=15, ...)` → `index_base(mode="codes")` (m' = 16) → LUT mode with
    bf16 tables (K5, 16 queries a CTA) and f32 tables (K5, 8 queries a
@@ -171,7 +176,8 @@ every kernel of the search path must have launched in each, K11 and K13
 in phase 4, K8, K5, K2 and K3 in phase 5, K8's keep=0 form in the
 one-pass call, K9, K10, K6, K7 and the pair merge in phase 6, K12
 (once) and K14 in phase 7, K11, K13, K8, K1, K14, K5, K9, the pair
-merge, K10, K2 and K3 in phase 8, K11, K13, K5, K6, the pair merge, K7,
+merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
+the pair merge, K7,
 K1, K2 and K3 in phase 9, the fusion kernel and K8 in the probes.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
@@ -484,6 +490,22 @@ def phase1(rng, errs):
                                               c.idx.packed, **kw4)
             if exact:
                 check(torch.equal(o4, o40), f"K4 {c.name}: kernel != plain")
+                # K8's keep=0 form over the same rows decoded: the same
+                # scores (exact on integer data), so the same keys
+                codes = tsc.unpack_codes(c.idx.packed, c.idx.mprime)
+                if pq:
+                    Xd, x2 = tsp.decode_base(c.idx.C, codes, pq=True, d=D)
+                else:
+                    Xd, x2 = tsp.decode_base(
+                        c.idx.C, codes[:, :-1],
+                        norm_term=c.idx.norms_cbook[codes[:, -1].long()])
+                o8 = tsp.scan_onepass(c.Qm, Xd, x2, tile=tsc._RESCUE_TILE,
+                                      r=r4, premin=0, idbits=idb4)
+                same = float((o8 == o4).float().mean())
+                print(f"  K8 (keep=0) keys equal to K4's on the same codes: "
+                      f"{same:.6f}")
+                check(same == 1.0, f"K8 (keep=0) {c.name}: keys != K4's")
+                del codes, Xd, x2, o8
             got = tsc.scan_codes_decode_topk(c.Q, c.Cf, c.nrm, c.idx.packed,
                                              k=k, pq=pq)
             note(errs, "codes_decode_topk",
@@ -587,11 +609,15 @@ def kernel_times(rng, errs):
         plain_topk(o80, r4, 1000, idb4), idb4, exact=False))
     record(times, "scan_onepass", ms, pms, 2.0 * N * 128 * D,
            "bf16 tensor-core", nbytes(Qr, Xd, x2, o8), lib_ms)
+    # Gaussian data: K4 rounds its norms table and its summed codebook
+    # rows to bf16, the decoded base its f32 rows, so the keys may differ
     same = float((o8 == o4).float().mean())
-    print(f"  K8 (keep=0) keys equal to K4's on the same codes: {same:.6f}")
-    del Xd, Xf, o8, o80
+    print(f"  K8 (keep=0) keys equal to K4's on the same Gaussian codes "
+          f"(bf16 norms and rows rounded apart): {same:.6f}")
+    del Xd, o8, o80
     # the rescue's own batch: a few flagged queries, the base split over
-    # the most CTAs and the splits merged by K2
+    # CTAs and the splits merged by K2; timed at 1 and 8 queries
+    XfT = Xf.T.contiguous()
     for nq in (1, 2, 8):
         Qr = c.Qm[:nq].contiguous()
         for k in (100, 1000):
@@ -600,7 +626,20 @@ def kernel_times(rng, errs):
             note(errs, "codes_decode_topk", compare_topk(
                 f"{nq} queries, k={k} K4+K3", plain_topk(o4, r4, k, idb4),
                 plain_topk(o40, r4, k, idb4), idb4, exact=False))
-    del c
+        if nq == 2:
+            continue
+        lib_ms, _ = timed(lambda: library_scan(Qr.float(), XfT, x2, 1000),
+                          5)
+        ms, o4 = timed(lambda: tsc.codes_decode_topk(Qr, *args[1:], **kw4),
+                       5)
+        pms, _ = timed(lambda: tsc.codes_decode_topk_plain(
+            Qr, *args[1:], **kw4), 1, warm=False)
+        check(torch.equal(o4, tsc.codes_decode_topk(Qr, *args[1:], **kw4)),
+              f"K4 {nq} queries: two calls differ")
+        record(times, f"codes_decode_topk nq={nq}", ms, pms,
+               2.0 * N * nq * D, "bf16 tensor-core",
+               nbytes(Qr, *args[1:], o4), lib_ms)
+    del c, XfT, Xf
     torch.cuda.empty_cache()
     return times
 
@@ -1200,9 +1239,11 @@ def phase2(rng):
           f"result equals the LUT oracle within one truncation step")
 
 
-def profile(fn):
+def profile(fn, top=8):
     """Device time by kernel over one call of ``fn``, and the device's
-    idle share of the call's wall time (torch.profiler)."""
+    idle share of the call's wall time (torch.profiler) → ``(wall ms,
+    [(kernel, device ms)])``, the kernels by time (none where the
+    profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1218,11 +1259,12 @@ def profile(fn):
     busy = sum(ms for _, ms in rows)
     if not rows:
         print("    profile: no device time recorded (not measured)")
-        return
+        return wall * 1e3, rows
     print(f"    profile: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
-    for name, ms in rows[:8]:
+    for name, ms in rows[:top]:
         print(f"      {ms:9.2f} ms  {name[:90]}")
+    return wall * 1e3, rows
 
 
 def phase3(seed, card):
@@ -2325,6 +2367,8 @@ def phase8_checks(errs, p8):
         fl2 = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, sc.packed, k=k,
                                             pq=False, r=r2, keep=keep2,
                                             tile=tile2)[2]
+        if k == 100:
+            p8["flagged"] = fl2     # decode mode's rescue batch at k = 100
         either = torch.nonzero(fl1 | fl2).flatten()
         oracle = torch.zeros_like(fl1)
         if either.numel():
@@ -2558,6 +2602,80 @@ def wide_times(p8):
     record(t, "verify_counts", ms, None, flop, "f32 CUDA-core",
            nbytes(Qf, sf.Xd, sf.x2, *tau, cnt))
     torch.cuda.empty_cache()
+    return t
+
+
+def rescue8(errs, p8):
+    """K4 on phase 8's own rescue batch (the queries decode mode's
+    two-pass scan flags at k = 100), timed beside its plain version, its
+    bound and the library's call and held against the plain version by
+    the d = 960 rule; then decode mode's k = 100 search profiled by
+    kernel, with the rescue's kernels apart → ``{name: record}``."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    sc, sf = p8["codes"].scan_index, p8["f32"].scan_index
+    Xq, fl = p8["Xq"], p8["flagged"]
+    dt = p8["index"].scan_index.Xd.dtype
+    Cf, nrm = sc.decode_operands(D8, dt)
+    Qf = Xq[fl].contiguous()
+    nf = Qf.shape[0]
+    print(f"== phase 8's rescue: K4 on the {nf} queries decode mode flags "
+          f"at k=100 (d={D8}, n={N8}, r=48, tile 2048; CUDA events)")
+    t = {}
+    if nf:
+        Qc = tsp._query_operand(Qf, Cf.shape[1], dt)
+        r4, tile4 = tsc._RESCUE_R, tsc._RESCUE_TILE
+        idb4 = tsp._pack_idbits(-(-N8 // tile4) * tile4)
+        kw4 = dict(tile=tile4, r=r4, idbits=idb4, has_norms=True)
+        args = (Qc, Cf, nrm, sc.packed)
+        lay = tsc._rescue_layout(Cf.shape[1], sc.packed.shape[1], r4,
+                                 int(dt == torch.bfloat16), Qc.device)
+        print(f"  layout (queries, lanes per CTA, CTAs per SM, d-block, "
+              f"shared bytes): {lay}")
+        XfT = sf.Xd.T.contiguous()
+        lib_ms, _ = timed(lambda: library_scan(
+            tsp._query_operand(Qf, D8, torch.float32), XfT, sf.x2, 1000), 1)
+        del XfT
+        torch.cuda.empty_cache()
+        ms, o4 = timed(lambda: tsc.codes_decode_topk(*args, **kw4), 2)
+        pms, o40 = timed(lambda: tsc.codes_decode_topk_plain(*args, **kw4),
+                         1, warm=False)
+        Xc, x2c = tsc._decode_x2(Cf, nrm, sc.packed, sc.mprime - 1, True)
+        note(errs, "codes_decode_topk", compare_topk(
+            f"codes_decode_topk d={D8} on the {nf} flagged queries vs plain",
+            plain_topk(o4, r4, 100, idb4), plain_topk(o40, r4, 100, idb4),
+            idb4, False, row_scores(Qc, Xc, x2c)))
+        del Xc, x2c, o4, o40
+        record(t, f"codes_decode_topk d={D8} flagged nq={nf}", ms, pms,
+               2.0 * N8 * nf * D8, "bf16 tensor-core",
+               nbytes(*args) + 49 * 128 * nf * 4, lib_ms)
+    torch.cuda.empty_cache()
+    print("  decode mode k=100, device time by kernel")
+    k4 = tsc.codes_decode_topk.launches
+    wall, rows = profile(lambda: rq.search(p8["codes"], Xq, k=100), top=12)
+    busy = sum(ms for _, ms in rows)
+    k4ms = sum(ms for name, ms in rows if "scan_topk_kernel" in name)
+    # K2 at r = 48 merges K4's splits (the profiler's names may be
+    # mangled or not)
+    k2ms = sum(ms for name, ms in rows
+               if re.search(r"cand_merge_kernel(ILi48E|<48>)", name))
+    print(f"  the rescue's K4 {k4ms:.2f} ms ({tsc.codes_decode_topk.launches - k4}"
+          f" launch(es)) + its K2<48> {k2ms:.2f} ms: "
+          f"{(k4ms + k2ms) / max(busy, 1e-9):.3f} of the device busy time, "
+          f"{(k4ms + k2ms) / wall:.3f} of the wall")
+    if not any("scan_candidates_kernel" in name for name, _ in rows):
+        print("  (the profiler holds no record of the scan kernel K1)")
+    # the search without its rescue: the two-pass scan and its flags
+    r2, keep2, tile2 = tsc._codes_config(100)[1:]
+    scan_ms, _ = timed(lambda: tsc.scan_codes_decode_topk_2p(
+        Xq, Cf, nrm, sc.packed, k=100, pq=False, r=r2, keep=keep2,
+        tile=tile2), 1)
+    print(f"  the two-pass scan alone (K1 -> K2 -> K3 and the flags; CUDA "
+          f"events): {scan_ms:.2f} ms")
     return t
 
 
@@ -2825,7 +2943,9 @@ def main() -> int:
              "pair_merge": tsp.pair_merge,
              "verify_counts": tsp.verify_counts, "codes_decode_candidates":
              tsc.codes_decode_candidates, "codes_decode_onepass":
-             tsc.codes_decode_onepass, "icm_sweeps": ticm.icm_sweeps,
+             tsc.codes_decode_onepass,
+             "codes_decode_topk": tsc.codes_decode_topk,
+             "icm_sweeps": ticm.icm_sweeps,
              "viterbi_encode": tvit.viterbi_encode}
     path9 = {"codes_lut_candidates": tsc.codes_lut_candidates,
              "codes_lut_f32_candidates": tsc.codes_lut_f32_candidates,
@@ -2918,6 +3038,8 @@ def main() -> int:
         check(all(launches9.values()), "a kernel of the path never launched "
               "in phase 9")
         wide = run("phase 9 checks", phase9_checks, errs, p9, Xq)
+        # K4 at the rescue's few queries stands beside its 128-query time
+        wide.update({n: rec for n, rec in times.items() if " " in n})
         run("phase 9 encode checks", encode_checks, rng, errs, "m=15",
             p9["sr_d"].model, p9["Xb"], p9["vit"])
         del p9, ds
@@ -2950,14 +3072,14 @@ def main() -> int:
         zero()
         p8 = run("phase 8", phase8, args.seed, smi)
         launches8 = {n: w.launches for n, w in path8.items()}
-        print(f"phase-8 launches: {launches8}; the rescue's K4: "
-              f"{tsc.codes_decode_topk.launches}")
+        print(f"phase-8 launches: {launches8}")
         check(all(launches8.values()), "a kernel of the path never launched "
               "in phase 8")
         run("phase 8 checks", phase8_checks, errs, p8)
         run("phase 8 encode checks", encode_checks, rng, errs, f"d={D8}",
             p8["model"], p8["Xb"], p8["vit"])
         wide.update(run("d=960 kernel times", wide_times, p8))
+        wide.update(run("phase 8 rescue", rescue8, errs, p8))
         del p8
         torch.cuda.empty_cache()
         zero()

@@ -16,7 +16,7 @@
 //                                  _codes_scan_kernel: its merge across
 //                                  the sequential tile axis
 //
-// K1 and K4 are the two scan bodies of scan_common.cuh (which states the
+// K1 and K4 are two scan bodies of scan_common.cuh (which states the
 // key and selection contract) over the row source of this file: a row
 // decodes to x_hat = sum_j Cflat[j*h + code_j] (f32, codebook order),
 // rounded to the operand type; its norm x2 is |x_hat|^2 of the f32 row
@@ -38,9 +38,15 @@
 // and took most of K1's time. K2 and K4's selection is register
 // insertion into a sorted array: after the first few rows nearly every
 // key is rejected by one compare. K2 is bound by reading its candidate
-// array (coalesced: consecutive threads take consecutive queries). K4
-// re-decodes its rows for every 2 queries; it serves only the rare
-// certificate-flagged queries, so it is bound by latency. K14 is bound
+// array (coalesced: consecutive threads take consecutive queries); with
+// few queries (a few hundred threads) by the latency of its loads, one
+// per candidate row. K4 does K1's multiply-adds for the flagged queries
+// and decodes every row once per query block of its CTA (32 queries, as
+// K1; 16 where a wide f32 row needs it), 32 rows of a lane group at a
+// time (`decode_lanes`; the one-pass body of scan_common.cuh says why);
+// with few queries its row range is split over CTAs, and the splits
+// trade its waves against K2's merge of them (`rq_codes_topk_layout`
+// reports the layout the wrapper splits from). K14 is bound
 // as K1 is (the same products and the same decode per 32 queries, and
 // K1's register block: at keep = 4 both spill, see -Xptxas=-v); its
 // CTAs walk whole tile ranges, so the wrapper splits the rows until the
@@ -53,6 +59,31 @@ namespace {
 
 constexpr int DEC_BATCH = 8;   // codebook loads a decoding thread keeps in flight
 constexpr int K14_PAIRS = 16;  // (lane, query) pairs of a K14 thread (4 x 4)
+
+// The 16 bytes of dimensions [col, col + V) of a row with codes `wl`:
+// sum_j Cflat[j*h + code_j] in codebook order, f32, to acc[0..V). Up to
+// DEC_BATCH codebook loads are issued before any is added, so their L2
+// latencies overlap.
+template <typename T>
+__device__ __forceinline__ void decode_chunk(const T* __restrict__ Cflat,
+                                             const int* wl, int m, int h,
+                                             int dp, int col,
+                                             float (&acc)[Vec16<T>::N]) {
+#pragma unroll
+  for (int e = 0; e < Vec16<T>::N; ++e) acc[e] = 0.f;
+  for (int j0 = 0; j0 < m; j0 += DEC_BATCH) {
+    uint4 v[DEC_BATCH];
+#pragma unroll
+    for (int u = 0; u < DEC_BATCH; ++u)
+      if (j0 + u < m)
+        v[u] = __ldg(reinterpret_cast<const uint4*>(
+            Cflat + (size_t)((j0 + u) * h + code_of(wl, j0 + u)) * dp +
+            col));
+#pragma unroll
+    for (int u = 0; u < DEC_BATCH; ++u)
+      if (j0 + u < m) Vec16<T>::add(v[u], acc);
+  }
+}
 
 // Decode dimensions [b0, b0 + nb) of the 128 rows of row id `rid` (dp
 // values each) into XsT[kk * LP + lane] (values rounded to T) and their
@@ -90,20 +121,7 @@ __device__ void decode_rows(const T* __restrict__ Cflat,
     float part = 0.f;
     for (int c = t % G; c < cpr; c += G) {
       float acc[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = 0.f;
-      for (int j0 = 0; j0 < m; j0 += DEC_BATCH) {
-        uint4 v[DEC_BATCH];
-#pragma unroll
-        for (int u = 0; u < DEC_BATCH; ++u)
-          if (j0 + u < m)
-            v[u] = __ldg(reinterpret_cast<const uint4*>(
-                Cflat + (size_t)((j0 + u) * h + code_of(wl, j0 + u)) * dp +
-                b0 + c * V));
-#pragma unroll
-        for (int u = 0; u < DEC_BATCH; ++u)
-          if (j0 + u < m) Vec16<T>::add(v[u], acc);
-      }
+      decode_chunk<T>(Cflat, wl, m, h, dp, b0 + c * V, acc);
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         XsT[(c * V + e) * LP + lane] = round_op<T>(acc[e]);
@@ -120,7 +138,71 @@ __device__ void decode_rows(const T* __restrict__ Cflat,
   __syncthreads();
 }
 
-// Row source of K1 and K4: rows decoded from their packed codes.
+// Sixteen bytes of T holding the values of acc[0..N) rounded to T (round
+// to nearest even, as torch's .to(torch.bfloat16) does).
+__device__ __forceinline__ uint4 pack16(const float (&acc)[4]) {
+  return make_uint4(__float_as_uint(acc[0]), __float_as_uint(acc[1]),
+                    __float_as_uint(acc[2]), __float_as_uint(acc[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&acc)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * i])) |
+           ((unsigned)__bfloat16_as_ushort(
+                __float2bfloat16_rn(acc[2 * i + 1])) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// decode_rows for the NL lanes [l0, l0 + NL) of the NR row ids rid ..
+// rid + NR - 1, stored row by row at the operand type: row j < NR * NL
+// (row id rid + j / NL, lane l0 + j % NL) at Xs[j * xs + kk], its norm at
+// x2s[j] (the one-pass body's layout). The same threads per row, chunks
+// and sums as decode_rows, so the values and norms are bit for bit the
+// same. Ends with a barrier.
+template <typename T, int NL, int NR>
+__device__ void decode_lanes(const T* __restrict__ Cflat,
+                             const T* __restrict__ nrm,
+                             const int* __restrict__ packed, int n, int rid,
+                             int l0, int m, int h, int nw, int b0, int nb,
+                             int dp, int has_norms, T* Xs, int xs,
+                             float* x2s, int* words) {
+  constexpr int V = Vec16<T>::N, ROWS = NL * NR;
+  const int tid = threadIdx.x;
+  if (b0 == 0) {
+    for (int i = tid; i < ROWS * nw; i += blockDim.x) {
+      const int j = i / nw;
+      const long long gid = (long long)(rid + j / NL) * LANES + l0 + j % NL;
+      words[i] = gid < n ? packed[gid * nw + i % nw] : 0;
+    }
+    __syncthreads();
+  }
+  const int cpr = nb / V;              // 16-byte chunks per row
+  const int G = cpr < 32 ? cpr : 32;   // threads per row (a power of 2)
+  const int t = tid & 31, per_warp = 32 / G;
+  const int row_step = (blockDim.x >> 5) * per_warp;
+  // ROWS (32) is a multiple of per_warp (G >= 16 at nb >= 128), so a
+  // warp's threads take the loop and the shuffles together
+  for (int j = (tid >> 5) * per_warp + t / G; j < ROWS; j += row_step) {
+    const int* wl = words + j * nw;
+    float part = 0.f;
+    for (int c = t % G; c < cpr; c += G) {
+      float acc[V];
+      decode_chunk<T>(Cflat, wl, m, h, dp, b0 + c * V, acc);
+      *reinterpret_cast<uint4*>(Xs + j * xs + c * V) = pack16(acc);
+#pragma unroll
+      for (int e = 0; e < V; ++e) part += acc[e] * acc[e];
+    }
+    for (int o = G >> 1; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (t % G == 0)
+      x2s[j] = has_norms ? to_f32(nrm[(size_t)code_of(wl, m) * LANES])
+                         : (b0 == 0 ? part : x2s[j] + part);
+  }
+  __syncthreads();
+}
+
+// Row source of K1, K4 and K14: rows decoded from their packed codes.
 template <typename T> struct CodesSrc {
   using Op = T;
   static constexpr bool kQueryFastest = false;
@@ -129,11 +211,19 @@ template <typename T> struct CodesSrc {
   const int* packed;
   int m, h, nw, has_norms;
   __host__ __device__ int words() const { return LANES * nw; }
+  __host__ __device__ int lane_words() const { return nw; }
   __device__ __forceinline__ void load(int n, int rid, int b0, int nb,
                                        int dp, float* XsT, float* x2s,
                                        int* words) const {
     decode_rows<T>(Cflat, nrm, packed, n, rid, m, h, nw, b0, nb, dp,
                    has_norms, XsT, x2s, words);
+  }
+  template <int NL, int NR>
+  __device__ __forceinline__ void load_lanes(int n, int rid, int l0, int b0,
+                                             int nb, int dp, T* Xs, int xs,
+                                             float* x2s, int* words) const {
+    decode_lanes<T, NL, NR>(Cflat, nrm, packed, n, rid, l0, m, h, nw, b0, nb,
+                            dp, has_norms, Xs, xs, x2s, words);
   }
 };
 
@@ -425,23 +515,34 @@ int rq_codes_decode_candidates(const void* Qm, const void* Cflat,
   return (int)cudaErrorInvalidValue;
 }
 
+// K4 at qb queries a CTA (the layout's) over row ids split rows_per a CTA
 int rq_codes_decode_topk(const void* Qm, const void* Cflat, const void* nrm,
                          const void* packed, void* cand, void* disc, int n,
                          int nq, int dp, int m, int h, int nw, int has_norms,
-                         int nrows, int rows_per, int r, int idbits,
+                         int nrows, int rows_per, int qb, int r, int idbits,
                          int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define RQ_K4(T, R)                                                         \
   return (int)launch_topk<CodesSrc<T>, R>(                                  \
       CodesSrc<T>{(const T*)Cflat, (const T*)nrm, (const int*)packed, m, h, \
                   nw, has_norms},                                           \
-      Qm, cand, disc, n, nq, dp, nrows, rows_per, idbits, st)
+      Qm, cand, disc, n, nq, dp, nrows, rows_per, qb, idbits, st)
   if (r == 48) {
     if (bf16) RQ_K4(__nv_bfloat16, 48);
     RQ_K4(float, 48);
   }
 #undef RQ_K4
   return (int)cudaErrorInvalidValue;
+}
+
+// K4's layout at (dp, nw) into out[5]: queries per CTA, lanes per CTA,
+// CTAs per SM, the d-block, shared bytes per CTA. The wrapper launches
+// that many queries a CTA and splits its rows from the rest.
+int rq_codes_topk_layout(int dp, int nw, int r, int bf16, void* out) {
+  if (r != 48) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)topk_layout<CodesSrc<__nv_bfloat16>, 48>(dp, nw, (int*)out);
+  return (int)topk_layout<CodesSrc<float>, 48>(dp, nw, (int*)out);
 }
 
 // K14's (r, keep) pairs are the one-pass plan's: (14, 2), (12, 4), (28, 4)

@@ -50,7 +50,13 @@
 // device memory once or twice and from L2 for the other query blocks.
 // A warp reads 64- or 128-byte runs of a row (whole sectors) and writes
 // them transposed into shared memory at distinct banks, four loads in
-// flight per thread.
+// flight per thread. scan_onepass (keep = 0) is the one-pass body of
+// scan_common.cuh over the same rows (`load_lanes`: a lane group's rows
+// are one contiguous run of Xd): it reads a row once per query block of
+// its CTA (up to 32 queries), and the query blocks of one lane group and
+// split are neighbours in the grid, so they find its rows in L2; it does
+// K8's multiply-adds for the queries it is given, and with few queries
+// its row range is split over CTAs as K4's is.
 
 #include "scan_common.cuh"
 
@@ -117,6 +123,46 @@ template <typename T> struct RowsSrc {
     }
     __syncthreads();
   }
+  __host__ __device__ int lane_words() const { return 0; }
+  // The NL lanes [l0, l0 + NL) of the NR row ids rid .. rid + NR - 1
+  // (NR runs of NL consecutive rows of Xd) at dimensions [b0, b0 + nb),
+  // row by row at the operand type: item i is chunk i % cpr of row j =
+  // i / cpr (row id rid + j / NL, lane l0 + j % NL), so neighbouring
+  // threads read one contiguous run, and its 16 bytes go to Xs[j * xs +
+  // c * V ..) as they are.
+  template <int NL, int NR>
+  __device__ __forceinline__ void load_lanes(int n, int rid, int l0, int b0,
+                                             int nb, int dp, T* Xs, int xs,
+                                             float* x2s, int*) const {
+    constexpr int V = Vec16<T>::N;
+    const int cpr = nb / V, cb = b0 / V, items = NL * NR * cpr;
+    for (int it0 = threadIdx.x; it0 < items;
+         it0 += blockDim.x * LOAD_BATCH) {
+      uint4 u[LOAD_BATCH];
+#pragma unroll
+      for (int b = 0; b < LOAD_BATCH; ++b) {
+        const int it = it0 + b * blockDim.x, j = it / cpr;
+        const long long gid =
+            (long long)(rid + j / NL) * LANES + l0 + j % NL;
+        u[b] = make_uint4(0u, 0u, 0u, 0u);
+        if (it < items && gid < n)
+          u[b] = __ldg(reinterpret_cast<const uint4*>(Xd + (size_t)gid * dp) +
+                       cb + it % cpr);
+      }
+#pragma unroll
+      for (int b = 0; b < LOAD_BATCH; ++b) {
+        const int it = it0 + b * blockDim.x;
+        if (it < items)
+          *reinterpret_cast<uint4*>(Xs + (it / cpr) * xs + (it % cpr) * V) =
+              u[b];
+      }
+    }
+    for (int j = threadIdx.x; j < NL * NR; j += blockDim.x) {
+      const long long gid = (long long)(rid + j / NL) * LANES + l0 + j % NL;
+      x2s[j] = gid < n ? x2[gid] : 0.f;
+    }
+    __syncthreads();
+  }
 };
 
 }  // namespace
@@ -147,21 +193,33 @@ int rq_scan_candidates(const void* Qm, const void* Xd, const void* x2,
   return (int)cudaErrorInvalidValue;
 }
 
+// K8 at keep = 0: the one-pass body at qb queries a CTA (the layout's)
+// over row ids split rows_per a CTA.
 int rq_scan_onepass(const void* Qm, const void* Xd, const void* x2,
                     void* cand, void* disc, int n, int nq, int dp, int nrows,
-                    int rows_per, int r, int idbits, int bf16,
+                    int rows_per, int qb, int r, int idbits, int bf16,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define RQ_K8_1P(T, R)                                                     \
   return (int)launch_topk<RowsSrc<T>, R>(                                  \
       RowsSrc<T>{(const T*)Xd, (const float*)x2}, Qm, cand, disc, n, nq,   \
-      dp, nrows, rows_per, idbits, st)
+      dp, nrows, rows_per, qb, idbits, st)
   if (r == 48) {
     if (bf16) RQ_K8_1P(__nv_bfloat16, 48);
     RQ_K8_1P(float, 48);
   }
 #undef RQ_K8_1P
   return (int)cudaErrorInvalidValue;
+}
+
+// The layout of K8 at keep = 0 at width dp into out[5] (as
+// rq_codes_topk_layout: queries per CTA, lanes per CTA, CTAs per SM, the
+// d-block, shared bytes per CTA).
+int rq_scan_onepass_layout(int dp, int r, int bf16, void* out) {
+  if (r != 48) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)topk_layout<RowsSrc<__nv_bfloat16>, 48>(dp, 0, (int*)out);
+  return (int)topk_layout<RowsSrc<float>, 48>(dp, 0, (int*)out);
 }
 
 // K9, pass 1: per tile and (lane, query) the `keep` smallest (f32

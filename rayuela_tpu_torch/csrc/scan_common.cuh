@@ -22,14 +22,20 @@
 //   using Op = float | __nv_bfloat16     the operand type
 //   static constexpr bool kQueryFastest  block index order (see below)
 //   int words() const                    ints of scratch per CTA
+//   int lane_words() const               of them, per lane
 //   void load(n, rid, b0, nb, dp, XsT, x2s, words)
+//   void load_lanes<NL, NR>(n, rid, l0, b0, nb, dp, Xs, xs, x2s, words)
+//                                        (Xs: Op *)
 // where load() brings dimensions [b0, b0 + nb) of the 128 rows of row
 // id `rid` (dp values each) into shared memory, transposed as
 // XsT[kk * LP + lane] for kk < nb (f32 holding values of Op; the padded
 // stride keeps the score reads free of bank conflicts), and their norms
 // into x2s[lane] (with a block at b0 > 0 only adding to what the earlier
 // blocks left there, where the norms come from the row itself), and
-// ends with a barrier.
+// ends with a barrier. load_lanes() does the same for the NL lanes
+// [l0, l0 + NL) of the NR row ids rid .. rid + NR - 1, row by row: row
+// j < NR * NL (row id rid + j / NL, lane l0 + j % NL) at Xs[j * xs + kk]
+// at the operand type, its norm at x2s[j] (the one-pass body's layout).
 //
 // The d-blocks. Up to NARROW_DP a row is one block (b0 = 0, nb = dp):
 // the tile and the queries of a CTA sit in shared memory whole, and the
@@ -54,13 +60,14 @@ namespace {
 constexpr int LANES = 128;
 constexpr int LP = LANES + 1;  // padded stride of the transposed tile
 constexpr int K1_QB = 32;      // queries per candidates CTA (8 warps x 4)
-constexpr int K4_QB = 2;       // queries per one-pass CTA (2 x 128 lanes)
 constexpr int THREADS = 256;
 constexpr int NARROW_DP = 256;  // up to this width a row is one d-block
 constexpr int DBLK = 128;       // the d-block of a wider row
 
 // The d-block of a scan over rows of dp values.
-inline int scan_dblock(int dp) { return dp <= NARROW_DP ? dp : DBLK; }
+__host__ __device__ inline int scan_dblock(int dp) {
+  return dp <= NARROW_DP ? dp : DBLK;
+}
 
 // Dynamic shared memory of a scan CTA: the transposed tile and the
 // queries of one d-block, the rows' norms, the row source's scratch.
@@ -201,35 +208,12 @@ __device__ __forceinline__ void block_scores(const float* XsT,
   }
 }
 
-// One row step of a scan CTA of QB queries: the 128 rows of row id
-// `rid` into shared memory and `dot(Qb, qs, nd)` over them, with Qb the
-// CTA's queries (query j's values at Qb + j * qs) and nd the dimensions
-// in XsT. Narrow (dp <= NARROW_DP): one block, the queries already in Qs
-// (the kernel loaded them once). WIDE: the d-blocks in ascending order,
-// each with its block of the queries; `dot` adds to scores that it keeps
-// in registers across the blocks.
-template <bool WIDE, int QB, class Src, class Dot>
-__device__ __forceinline__ void scan_step(
-    const Src& src, const typename Src::Op* __restrict__ Qm, int q0, int nq,
-    int n, int rid, int dp, float* XsT, float* Qs, float* x2s, int* words,
-    Dot dot) {
-  if constexpr (!WIDE) {
-    __syncthreads();  // the previous step's readers are done with XsT
-    src.load(n, rid, 0, dp, dp, XsT, x2s, words);
-    dot(Qs, dp, dp);
-  } else {
-    for (int b0 = 0; b0 < dp; b0 += DBLK) {
-      const int nb = min(DBLK, dp - b0);
-      __syncthreads();  // the readers of the last block are done
-      load_query_block(Qm, q0, nq, dp, b0, nb, QB, Qs);
-      src.load(n, rid, b0, nb, dp, XsT, x2s, words);
-      dot(Qs, DBLK, nb);
-    }
-  }
-}
-
 // The scores of row id `rid` in a 4x4-blocked CTA (K1, K8, K9, K10,
-// K14): the thread's 4 lanes x 4 queries to acc, the rows' norms to x2s.
+// K14): its 128 rows into shared memory, the thread's 4 lanes x 4
+// queries to acc, the rows' norms to x2s. Narrow (dp <= NARROW_DP): one
+// block, the queries already in Qs (the kernel loaded them once). WIDE:
+// the d-blocks in ascending order, each with its block of the CTA's
+// queries; acc keeps the sums across the blocks.
 template <bool WIDE, class Src>
 __device__ __forceinline__ void step_scores(
     const Src& src, const typename Src::Op* __restrict__ Qm, int q0, int nq,
@@ -237,11 +221,19 @@ __device__ __forceinline__ void step_scores(
     float (&acc)[4][4]) {
   const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
   zero_scores(acc);
-  scan_step<WIDE, K1_QB>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
-                         [&](const float* Qb, int qs, int nd) {
-                           block_scores(XsT, Qb + (qg * 4) * qs, qs, nd, lg,
-                                        acc);
-                         });
+  if constexpr (!WIDE) {
+    __syncthreads();  // the previous step's readers are done with XsT
+    src.load(n, rid, 0, dp, dp, XsT, x2s, words);
+    block_scores(XsT, Qs + (qg * 4) * dp, dp, dp, lg, acc);
+  } else {
+    for (int b0 = 0; b0 < dp; b0 += DBLK) {
+      const int nb = min(DBLK, dp - b0);
+      __syncthreads();  // the readers of the last block are done
+      load_query_block(Qm, q0, nq, dp, b0, nb, K1_QB, Qs);
+      src.load(n, rid, b0, nb, dp, XsT, x2s, words);
+      block_scores(XsT, Qs + (qg * 4) * DBLK, DBLK, nb, lg, acc);
+    }
+  }
 }
 
 // The candidates body (K1, K8): CTA (t, qb) scans tile t (rows row ids)
@@ -318,56 +310,170 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 }
 
-// The one-pass body (K4, and K8 at keep = 0): grid (cdiv(nq, 2),
-// splits). Thread (lane, query) of CTA (qb, s) scans row ids
-// [s * rows_per, (s + 1) * rows_per) and writes its R smallest keys
+// Elements of T in 16 bytes, unpacked to f32 (exact: a bf16 is the top
+// half of the f32 with the same value; the lower address is the low half).
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// The one-pass body (K4, and K8 at keep = 0), which replaces
+// scan_codes_pallas.py::_codes_decode_kernel_packed (:318) and
+// scan_pallas.py::_scan_kernel_packed at keep = 0. Per (lane, query)
+// over row ids [s * rows_per, (s + 1) * rows_per): the R smallest keys
 // ascending to cand[s*R .. s*R + R) and the smallest other key to
-// disc[s]. With one split that is the final (R+1)-row buffer; with
-// more, K2 merges the splits into it (the certificate stays exact:
-// every key not kept is some split's rejected key or a merge loser).
-// It loads its rows anew for every 2 queries; it serves only the few
-// queries a certificate flagged, so it is bound by latency, and the
-// wrapper splits the row range over enough CTAs to fill the card. WIDE:
-// the d-blocks of `step_scores`.
-template <class Src, int R, bool WIDE>
-__global__ void __launch_bounds__(THREADS)
+// disc[s]. With one split that is the final (R+1)-row buffer; with more,
+// K2 merges the splits into it (the certificate stays exact: every key
+// not kept is some split's rejected key or a merge loser).
+//
+// What bounds it on this card. The TPU kernel keeps an (r, 128, bq)
+// buffer in VMEM, so it decodes a tile once per bq queries. Here the
+// R-deep buffer of a (lane, query) pair is a sorted register array
+// (R = 48: 48 registers, one insertion a compare after the first rows),
+// which leaves room for one pair per thread: 256 pairs a CTA. At 2
+// queries x 128 lanes a CTA decoded (K4) or loaded (K8) every row once
+// per 2 queries, and the L2 gathers of the decode, waited on 8 chunks a
+// thread per step, bounded it (on an H100, 34 ms for 128 queries at
+// n = 1e6, 11x the library's scan). The lever is the rows a CTA decodes
+// per query, not the depth of the buffer: a CTA here holds LN = 8 lanes
+// x QB = 32 queries (16 x 16 where 32 queries of a wide f32 row would
+// not leave two CTAs an SM), so a row is decoded or loaded once per 32
+// queries, and the 128 / LN lane groups run as CTAs of their own: the
+// grid is (query blocks, lane groups, splits). That layout serves a few
+// queries best too (on an H100, a sweep of 2 to 32 queries a CTA over 1
+// to 128 queries, `demos/time_onepass.py --sweep`): the lane groups
+// multiply the CTAs a split has, so fewer splits fill the card and K2
+// merges fewer. The buffers take 48 of a thread's 128 registers (two
+// CTAs an SM), so a step brings NR = 32 / LN row ids at once (32 rows,
+// one barrier and one wait on the gathers for all), and a thread scores
+// its query against its lane of each, NR independent chains. One pair
+// per thread makes the shared loads the bound of the scoring (each
+// operand is read by its own thread), so rows and queries sit in shared
+// memory at the operand type, row by row (stride + 16 bytes: the lanes x
+// queries of a warp read distinct banks), and one 16-byte load brings 8
+// bf16 dimensions of a row or of a query, the query's shared by the NR
+// rows. A score is the fmaf chain in dimension order (over the values
+// widened to f32) plus x2 of the former kernel and of K1, so the keys are
+// bit for bit those of the former kernel on any data. WIDE rows (dp >
+// NARROW_DP) go through in d-blocks of DBLK, the scores staying in
+// registers across the blocks; the queries stay whole (at dp = 1024 and
+// QB = 32, 66 KB in bf16). `topk_qb` picks QB, `rq_codes_topk_layout`
+// and `rq_scan_onepass_layout` report it and the CTAs an SM holds, and
+// the wrappers split the rows from that.
+template <class Src, int R, int LN>
+__global__ void __launch_bounds__(THREADS, 2)
     scan_topk_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
                      int* __restrict__ cand, int* __restrict__ disc, int n,
                      int nq, int dp, int nrows, int rows_per, int idbits) {
   using T = typename Src::Op;
-  extern __shared__ __align__(16) float smem[];
-  const int db = WIDE ? DBLK : dp;
-  float* XsT = smem;                  // db * LP
-  float* Qs = XsT + db * LP;          // K4_QB * db
-  float* x2s = Qs + K4_QB * db;       // LANES
-  int* words = (int*)(x2s + LANES);   // src.words()
-  const int lane = threadIdx.x & (LANES - 1), qi = threadIdx.x >> 7;
-  const int q0 = blockIdx.x * K4_QB, q = q0 + qi, s = blockIdx.y;
+  constexpr int QB = THREADS / LN, NR = 32 / LN, V = Vec16<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int db = scan_dblock(dp), xs = db + V, qs = dp + V;
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // QB * qs
+  T* Xs = Qs + QB * qs;                    // NR * LN * xs
+  float* x2s = reinterpret_cast<float*>(Xs + NR * LN * xs);  // NR * LN
+  int* words = reinterpret_cast<int*>(x2s + NR * LN);  // NR*LN*lane_words
+  const int j = threadIdx.x % LN, qi = threadIdx.x / LN;
+  const int l0 = blockIdx.y * LN, lane = l0 + j;
+  const int q = blockIdx.x * QB + qi, s = blockIdx.z;
   const int vmask = -(1 << idbits);
-  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K4_QB, Qs);
+  for (int i = threadIdx.x; i < QB * dp; i += THREADS) {
+    const int qq = blockIdx.x * QB + i / dp;
+    Qs[(i / dp) * qs + i % dp] =
+        qq < nq ? Qm[(size_t)qq * dp + i % dp] : T(0.f);
+  }
 
+  const bool live = q < nq;
+  const T* qrow = Qs + qi * qs;
   int buf[R];
 #pragma unroll
   for (int c = 0; c < R; ++c) buf[c] = INT_MAX;
   int rest = INT_MAX;
   const int rid1 = min(nrows, (s + 1) * rows_per);
-  for (int rid = s * rows_per; rid < rid1; ++rid) {
-    float acc = 0.f;
-    scan_step<WIDE, K4_QB>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
-                           [&](const float* Qb, int qs, int nd) {
-                             const float* qrow = Qb + qi * qs;
-                             for (int kk = 0; kk < nd; ++kk)
-                               acc = fmaf(XsT[kk * LP + lane], qrow[kk], acc);
-                           });
-    const bool pad = (long long)rid * LANES + lane >= n;
-    const float sc = pad ? __int_as_float(0x7F800000) : acc + x2s[lane];
-    insert_sorted<R>(buf, rest, row_key(sc, rid, vmask));
+  for (int rid0 = s * rows_per; rid0 < rid1; rid0 += NR) {
+    float acc[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+    for (int b0 = 0; b0 < dp; b0 += db) {
+      const int nb = min(db, dp - b0);
+      __syncthreads();  // the readers of the last block are done with Xs
+      src.template load_lanes<LN, NR>(n, rid0, l0, b0, nb, dp, Xs, xs, x2s,
+                                      words);
+      if (live) {
+        for (int kk = 0; kk < nb; kk += V) {
+          float v[V];
+          unpack16(*reinterpret_cast<const uint4*>(qrow + b0 + kk), v);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            float x[V];
+            unpack16(*reinterpret_cast<const uint4*>(
+                         Xs + (r * LN + j) * xs + kk), x);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[r] = fmaf(x[e], v[e], acc[r]);
+          }
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const int rid = rid0 + r;
+        if (rid < rid1) {
+          const bool pad = (long long)rid * LANES + lane >= n;
+          const float sc =
+              pad ? __int_as_float(0x7F800000) : acc[r] + x2s[r * LN + j];
+          insert_sorted<R>(buf, rest, row_key(sc, rid, vmask));
+        }
+      }
+    }
   }
-  if (q >= nq) return;
+  if (!live) return;
   const size_t plane = (size_t)LANES * nq, off = (size_t)lane * nq + q;
 #pragma unroll
   for (int c = 0; c < R; ++c) cand[((size_t)s * R + c) * plane + off] = buf[c];
   disc[(size_t)s * plane + off] = rest;
+}
+
+// Shared memory of a one-pass CTA of qb queries over operands of
+// op_bytes: the queries whole, the 32 rows of a step (its THREADS / qb
+// lanes of 32 qb / THREADS row ids) at one d-block, their norms and
+// codes.
+inline size_t topk_smem(int dp, int qb, int lane_words, int op_bytes) {
+  const size_t pad = 16 / op_bytes, rows = 32;
+  return (size_t)op_bytes * ((size_t)qb * (dp + pad) +
+                             rows * (scan_dblock(dp) + pad)) +
+         sizeof(float) * rows + sizeof(int) * rows * (size_t)lane_words;
+}
+
+// Queries per one-pass CTA at width dp: 32 where two such CTAs fit an
+// SM, else 16 where one fits, else 0 (none fits).
+inline int topk_qb(int dp, int lane_words, int op_bytes) {
+  int dev = 0, cap = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  // two CTAs an SM: each also takes 1 KB of the SM's shared memory
+  if (topk_smem(dp, 32, lane_words, op_bytes) <= (size_t)(cap - 1024) / 2)
+    return 32;
+  return topk_smem(dp, 16, lane_words, op_bytes) <= (size_t)cap ? 16 : 0;
+}
+
+// The compiled instance for qb queries a CTA (nullptr: none).
+template <class Src, int R>
+auto topk_kernel(int qb) -> decltype(&scan_topk_kernel<Src, R, 8>) {
+  return qb == 32 ? scan_topk_kernel<Src, R, 8>
+                  : qb == 16 ? scan_topk_kernel<Src, R, 16> : nullptr;
 }
 
 // Opt kernel `kern` in to `smem` bytes of dynamic shared memory and
@@ -395,18 +501,42 @@ cudaError_t launch_candidates(const Src& src, const void* Qm, void* cand,
                      (int*)cand, (int*)disc, n, nq, dp, rows, idbits);
 }
 
+// The one-pass body at qb queries a CTA (`topk_qb`; the wrapper passes
+// the layout it was given) over row ids split rows_per a CTA.
 template <class Src, int R>
 cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
                         void* disc, int n, int nq, int dp, int nrows,
-                        int rows_per, int idbits, cudaStream_t st) {
-  const dim3 grid((nq + K4_QB - 1) / K4_QB,
+                        int rows_per, int qb, int idbits, cudaStream_t st) {
+  auto kern = topk_kernel<Src, R>(qb);
+  if (!kern) return cudaErrorInvalidValue;
+  const dim3 grid((nq + qb - 1) / qb, LANES / (THREADS / qb),
                   (nrows + rows_per - 1) / rows_per);
-  const size_t smem = scan_smem(dp, K4_QB, src.words());
-  auto kern = dp > NARROW_DP ? scan_topk_kernel<Src, R, true>
-                             : scan_topk_kernel<Src, R, false>;
+  const size_t smem = topk_smem(dp, qb, src.lane_words(),
+                                sizeof(typename Src::Op));
   return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
                      (int*)cand, (int*)disc, n, nq, dp, nrows, rows_per,
                      idbits);
+}
+
+// The one-pass layout at width dp into out[5]: queries per CTA, lanes per
+// CTA, the CTAs an SM holds at once, the d-block, the bytes of shared
+// memory per CTA.
+template <class Src, int R>
+cudaError_t topk_layout(int dp, int lane_words, int* out) {
+  constexpr int ob = sizeof(typename Src::Op);
+  const int qb = topk_qb(dp, lane_words, ob);
+  auto kern = topk_kernel<Src, R>(qb);
+  if (!kern) return cudaErrorInvalidValue;
+  const size_t smem = topk_smem(dp, qb, lane_words, ob);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  out[0] = qb;
+  out[1] = THREADS / qb;
+  out[3] = scan_dblock(dp);
+  out[4] = (int)smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kern,
+                                                       THREADS, smem);
 }
 
 // ---------------------------------------------------------------------------

@@ -37,11 +37,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
     "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
-    "rq_codes_decode_topk": [_P] * 6 + [_I] * 12 + [_P],
+    "rq_codes_decode_topk": [_P] * 6 + [_I] * 13 + [_P],
+    "rq_codes_topk_layout": [_I] * 4 + [_P],
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
     "rq_codes_onepass_layout": [_I] * 5 + [_P],
     "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
-    "rq_scan_onepass": [_P] * 5 + [_I] * 8 + [_P],
+    "rq_scan_onepass": [_P] * 5 + [_I] * 9 + [_P],
+    "rq_scan_onepass_layout": [_I] * 3 + [_P],
     "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],
     "rq_scan_f32_candidates": [_P] * 5 + [_I] * 7 + [_P],
     "rq_scan_verify_counts": [_P] * 6 + [_I] * 6 + [_P],

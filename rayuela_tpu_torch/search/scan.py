@@ -43,9 +43,11 @@ in one tile of a lane) and the query is flagged and re-runs through
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from rayuela_tpu_torch.kernels.build import launch
+from rayuela_tpu_torch.kernels.build import launch, query
 from rayuela_tpu_torch.utils import (as_tensor, cdiv, exact_f32,
                                      topk_lowest_id)
 from rayuela_tpu_torch.utils import sortable_key as _sortable_key
@@ -68,6 +70,12 @@ _KEEPS = (2, 4)
 _RS = (12, 14, 16, 28, 32, 48, 96)
 _ONEPASS_R = 48
 _MAX_SPLITS = 4096
+# the cost model of the keep=0 one-pass splits (`_onepass_splits`), in
+# microseconds on an H100 (`demos/time_onepass.py --sweep`: 6.3 to 8.6
+# at 1 to 128 queries): one step of a one-pass CTA (32 rows) per 128
+# dimensions, and one candidate row of K2's merge, per wave of
+# _MERGE_THREADS threads an SM
+_STEP_US, _MERGE_US, _MERGE_THREADS = 8.0, 0.2, 2048
 
 # largest candidate array (bytes) one scan call may allocate: larger
 # query batches run in chunks
@@ -333,22 +341,60 @@ def _alloc_candidates(n: int, nq: int, tile: int, keep: int, device):
     return ntiles, cand, disc
 
 
-def _alloc_onepass(n: int, nq: int, tile: int, r: int, device):
-    """Outputs of a one-pass kernel → ``(out, cand, disc, nrows,
-    rows_per)``. The row range is split until the card holds ~4 CTAs per
-    SM: such a kernel serves a few queries, and one CTA per query pair
-    walking the whole base would leave most SMs idle. With one split
-    ``cand`` and ``disc`` are views of the final ``out (r + 1, 128,
-    nq)``; with more they are scratch that K2 merges into it
+def _onepass_splits(ctas: int, nsteps: int, slots: int, step_us: float,
+                    merge_us: float) -> int:
+    """Steps per CTA of a keep=0 one-pass kernel (K4, K8) whose grid has
+    ``ctas`` CTAs per split and whose rows take ``nsteps`` steps, on a
+    card of ``slots`` CTA slots. With ``s`` splits of ``per`` steps the
+    scan takes about ``ceil(ctas * s / slots)`` waves of ``per`` steps
+    of ``step_us`` each, and K2 then merges ``s`` candidate blocks at
+    ``merge_us`` each (none with one split): the fewest splits within 2%
+    of the least such cost, with at most 4 waves of CTAs unless the query
+    blocks alone are more."""
+    cap = max(1, min(nsteps, _MAX_SPLITS, cdiv(4 * slots, ctas)))
+    cost = {}
+    for s in range(1, cap + 1):
+        per = cdiv(nsteps, s)
+        sp = cdiv(nsteps, per)
+        cost.setdefault(per, cdiv(ctas * sp, slots) * per * step_us
+                        + (sp > 1) * sp * merge_us)
+    least = min(cost.values())
+    return max(per for per, c in cost.items() if c <= 1.02 * least)
+
+
+def _onepass_rows(n: int, nq: int, tile: int, r: int, layout, dp: int,
+                  sms: int) -> tuple[int, int]:
+    """``(nrows, rows_per)`` of a keep=0 one-pass kernel with ``layout``
+    (its ``(queries per CTA, lanes per CTA, CTAs per SM, d-block, shared
+    bytes)``, from the kernel's source) on a card of ``sms`` SMs: its
+    grid has a CTA per query block and lane group, a CTA takes 32 / lanes
+    row ids a step, and the row range is split over more CTAs
+    (`_onepass_splits`) where those do not fill the card. K2's cost per
+    candidate block grows with the plane of (lane, query) pairs beyond a
+    wave of its threads."""
+    qb, ln, per_sm = layout[:3]
+    nr = 32 // ln
+    nrows = cdiv(n, tile) * tile // LANES
+    merge_waves = cdiv(LANES * nq, sms * _MERGE_THREADS)
+    per = _onepass_splits(
+        cdiv(nq, qb) * (LANES // ln), cdiv(nrows, nr), sms * per_sm,
+        _STEP_US * cdiv(dp, 128), r * _MERGE_US * merge_waves)
+    return nrows, per * nr
+
+
+def _alloc_onepass(n: int, nq: int, tile: int, r: int, device, layout,
+                   dp: int):
+    """Outputs of a keep=0 one-pass kernel with ``layout`` →
+    ``(out, cand, disc, nrows, rows_per)`` (`_onepass_rows`). With one
+    split ``cand`` and ``disc`` are views of the final ``out (r + 1,
+    128, nq)``; with more they are scratch that K2 merges into it
     (`_merge_onepass`)."""
     out = torch.empty((r + 1, LANES, nq), dtype=torch.int32, device=device)
-    nrows = cdiv(n, tile) * tile // LANES
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = min(nrows, _MAX_SPLITS, max(1, cdiv(4 * sms, cdiv(nq, 2))))
-    rows_per = cdiv(nrows, splits)
-    splits = cdiv(nrows, rows_per)
-    if splits == 1:
+    nrows, rows_per = _onepass_rows(n, nq, tile, r, layout, dp, sms)
+    if rows_per >= nrows:
         return out, out[:r], out[r:], nrows, rows_per
+    splits = cdiv(nrows, rows_per)
     cand = torch.empty((splits * r, LANES, nq), dtype=torch.int32,
                        device=device)
     disc = torch.empty((splits, LANES, nq), dtype=torch.int32, device=device)
@@ -492,9 +538,13 @@ def scan_onepass(Qm, Xd, x2, *, tile: int, r: int, premin: int,
     query) over the whole base (padded to a multiple of ``tile`` rows):
     the ``r`` smallest keys after the pre-min, ascending, then the
     smallest other key → ``(r + 1, 128, nq)`` int32. Scores exactly as
-    `scan_candidates`. On the card the row range is split over CTAs and
-    K2 merges the splits; the kernel is compiled for ``r=48`` without
-    the pre-min. Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
+    `scan_candidates`. On the card a CTA holds 8 lanes for a block of 32
+    queries (16 x 16 where 32 queries of a wide f32 row do not fit;
+    `_topk_layout`), reads each row once per query block and keeps each
+    (lane, query)'s buffer in a thread's registers; where those CTAs do
+    not fill the card the row range is split over more and K2 merges the
+    splits. The kernel is compiled for ``r=48`` without the pre-min.
+    Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
     if not _check_decoded(Qm, Xd, x2, tile, premin):
         return scan_onepass_plain(Qm, Xd, x2, tile=tile, r=r, premin=premin,
                                   idbits=idbits)
@@ -505,11 +555,24 @@ def scan_onepass(Qm, Xd, x2, *, tile: int, r: int, premin: int,
     dev = Qm.device
     if not nq:
         return torch.empty((r + 1, LANES, 0), dtype=torch.int32, device=dev)
-    out, cand, disc, nrows, rows_per = _alloc_onepass(n, nq, tile, r, dev)
+    bf16 = int(Xd.dtype == torch.bfloat16)
+    layout = _topk_layout(dp, r, bf16, dev)
+    out, cand, disc, nrows, rows_per = _alloc_onepass(n, nq, tile, r, dev,
+                                                      layout, dp)
     launch("rq_scan_onepass", Qm, Xd, x2, cand, disc, n, nq, dp, nrows,
-           rows_per, r, idbits, int(Xd.dtype == torch.bfloat16), device=dev)
+           rows_per, layout[0], r, idbits, bf16, device=dev)
     scan_onepass.launches += 1
     return _merge_onepass(out, cand, disc, r)
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_layout(dp: int, r: int, bf16: int,
+                 device: torch.device) -> tuple[int, int, int, int, int]:
+    """The layout of K8 at keep=0 at width ``dp``: ``(queries per CTA,
+    lanes per CTA, CTAs per SM, d-block, shared bytes per CTA)``, as the
+    kernel's source states it."""
+    return query("rq_scan_onepass_layout", dp, r, bf16, size=5,
+                 device=device)
 
 
 scan_onepass.launches = 0

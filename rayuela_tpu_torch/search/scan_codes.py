@@ -71,7 +71,7 @@ from rayuela_tpu_torch.utils import (as_tensor, cdiv, exact_f32, splitarray,
 _DECODE_SEG = (1 << 16) * LANES
 
 # rescue kernel shape: one-pass scan, keep=0, a 48-deep per-lane buffer
-# (K4 is compiled for this depth alone)
+# (K4 is compiled for this depth alone, at 32 and 16 queries a CTA)
 _RESCUE_R, _RESCUE_TILE = scan._ONEPASS_R, 2048
 
 # K14's compiled (r, keep) pairs: the one-pass plan's (`_onepass_config`)
@@ -401,8 +401,13 @@ def codes_decode_topk(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     over the whole base (padded to a multiple of ``tile`` rows): the
     ``r`` smallest packed keys, ascending, then the (r+1)-th smallest,
     the certificate → ``(r + 1, 128, nq)`` int32. Scores exactly as K1.
-    On the card the row range is split over CTAs and K2 merges the
-    splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+    On the card a CTA holds 8 lanes for a block of 32 queries (16 x 16
+    where 32 queries of a wide f32 row do not fit; `_rescue_layout`,
+    from the kernel's source), decodes each row once per query block and
+    keeps each (lane, query)'s 48-deep buffer in a thread's registers;
+    where those CTAs do not fill the card the row range is split over
+    more and K2 merges the splits (`scan._alloc_onepass`). Source:
+    ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     if tile % LANES:
         raise ValueError(f"tile={tile} must be a multiple of 128")
     if not _check_operands(Qm, Cflat, nrm, packed, has_norms):
@@ -416,12 +421,25 @@ def codes_decode_topk(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     dev = Qm.device
     if not nq:
         return torch.empty((r + 1, LANES, 0), dtype=torch.int32, device=dev)
-    out, cand, disc, nrows, rows_per = _alloc_onepass(n, nq, tile, r, dev)
+    bf16 = int(Qm.dtype == torch.bfloat16)
+    layout = _rescue_layout(dp, nw, r, bf16, dev)
+    out, cand, disc, nrows, rows_per = _alloc_onepass(n, nq, tile, r, dev,
+                                                      layout, dp)
     launch("rq_codes_decode_topk", Qm, Cflat, nrm, packed, cand, disc, n,
            nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms), nrows,
-           rows_per, r, idbits, int(Qm.dtype == torch.bfloat16), device=dev)
+           rows_per, layout[0], r, idbits, bf16, device=dev)
     codes_decode_topk.launches += 1
     return _merge_onepass(out, cand, disc, r)
+
+
+@functools.lru_cache(maxsize=None)
+def _rescue_layout(dp: int, nw: int, r: int, bf16: int,
+                   device: torch.device) -> tuple[int, int, int, int, int]:
+    """K4's layout at width ``dp`` with ``nw`` packed words a row:
+    ``(queries per CTA, lanes per CTA, CTAs per SM, d-block, shared
+    bytes per CTA)``, as the kernel's source states it."""
+    return query("rq_codes_topk_layout", dp, nw, r, bf16, size=5,
+                 device=device)
 
 
 codes_decode_topk.launches = 0

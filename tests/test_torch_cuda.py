@@ -105,11 +105,25 @@ def test_two_pass_kernels_equal_plain_on_integer_data(dev, pq, keep, r):
         assert tsp.tail_merge.launches == n3 + 1
 
 
+ONEPASS_NQ = (1, 2, 5, 15, 16, 17, 33, 128)
+
+
+@pytest.mark.parametrize("nq", ONEPASS_NQ)
+@pytest.mark.parametrize("d", [128, 960])
 @pytest.mark.parametrize("pq", [True, False])
-def test_rescue_kernel_equals_plain_on_integer_data(dev, pq):
-    n, nq = 20_000, 5
-    idx, Q, Cf, nrm, Qm = _case(dev, pq=pq, kind="int",
-                                dtype=torch.float32, n=n, nq=nq)
+@pytest.mark.parametrize("mprime", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rescue_kernel_equals_plain_on_integer_data(dev, nq, d, pq, mprime,
+                                                    dtype):
+    """K4 against its plain version: identical int32 buffers at 1 to 128
+    queries (the last block of 32 or 16 queries cut short where nq is
+    not a multiple), rows of one d-block and of eight
+    (d = 960), both norm branches, 8 and 16 packed bytes a row, f32 and
+    bf16 operands (small integers are exact in both); then K3 on them."""
+    n = 20_000
+    m = mprime if pq else mprime - 1
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="int",
+                                           dtype=dtype, n=n, nq=nq, d=d, m=m)
     idbits = tsp._pack_idbits(-(-n // 2048) * 2048)
     kw = dict(tile=2048, r=48, idbits=idbits, has_norms=not pq)
     n4 = tsc.codes_decode_topk.launches
@@ -121,6 +135,84 @@ def test_rescue_kernel_equals_plain_on_integer_data(dev, pq):
     rows = out[:48].contiguous()
     a, b = tsp.tail_merge(rows, 8192), tsp.tail_merge_plain(rows, 8192)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dp,nw", [(128, 2), (1024, 2), (128, 4),
+                                   (2432, 2)])
+def test_rescue_layout_is_the_kernels(dev, dp, nw):
+    """K4's and K8's keep=0 layouts come from their source: 32 queries x 8
+    lanes a CTA where two such CTAs fit an SM, else 16 x 16 (f32 rows at
+    dp = 1024, any row at d ~2400); the queries whole and the 32 rows of a
+    step at one d-block, at the operand type with 16 bytes of padding a
+    row, their norms and codes in shared memory."""
+    cap = getattr(torch.cuda.get_device_properties(dev),
+                  "shared_memory_per_block_optin", 232_448)   # H100: 227 KB
+    db = dp if dp <= 256 else 128
+
+    def smem(qb, words, ob):
+        pad = 16 // ob
+        return ob * (qb * (dp + pad) + 32 * (db + pad)) + 4 * 32 \
+            + 4 * 32 * words
+
+    for bf16 in (0, 1):
+        ob = 2 if bf16 else 4
+        for name, words, lay in (
+                ("K4", nw, tsc._rescue_layout(dp, nw, 48, bf16, dev)),
+                ("K8", 0, tsp._topk_layout(dp, 48, bf16, dev))):
+            qb = 32 if smem(32, words, ob) <= (cap - 1024) // 2 else 16
+            assert lay[:2] == (qb, 256 // qb), (name, dp, bf16)
+            assert lay[3:] == (db, smem(qb, words, ob)), (name, dp, bf16)
+            assert lay[2] == (2 if qb == 32 else
+                              min(2, (cap + 1024) // (lay[4] + 1024))), \
+                (name, dp, bf16)
+    assert tsc._rescue_layout(128, 2, 48, 1, dev)[:3] == (32, 8, 2)
+    assert tsc._rescue_layout(1024, 2, 48, 1, dev)[:3] == (32, 8, 2)
+    with pytest.raises(RuntimeError, match="rq_codes_topk_layout"):
+        tsc._rescue_layout(128, 2, 32, 1, dev)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 33, 128, 1259])
+def test_rescue_launches_its_layout(dev, monkeypatch, nq):
+    """The wrappers of K4 and K8 (keep=0) launch the queries per CTA of
+    their layout entry and the row split `scan._onepass_rows` makes of
+    it, and the buffers of a split launch merge to the plain ones."""
+    n = 50_000
+    idx, Q, Cf, nrm, Qm = _case(dev, pq=False, kind="int",
+                                dtype=torch.bfloat16, n=n, nq=nq)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    idbits = tsp._pack_idbits(-(-n // 2048) * 2048)
+    seen = []
+    real = tsc.launch
+
+    def spy(name, *args, **kw):
+        seen.append((name, args))
+        return real(name, *args, **kw)
+    monkeypatch.setattr(tsc, "launch", spy)
+    monkeypatch.setattr(tsp, "launch", spy)
+    kw = dict(tile=2048, r=48, idbits=idbits)
+    out = tsc.codes_decode_topk(Qm, Cf, nrm, idx.packed, has_norms=True,
+                                **kw)
+    assert torch.equal(out, tsc.codes_decode_topk_plain(
+        Qm, Cf, nrm, idx.packed, has_norms=True, **kw))
+    lay = tsc._rescue_layout(128, idx.packed.shape[1], 48, 1, dev)
+    nrows, rows_per = tsp._onepass_rows(n, nq, 2048, 48, lay, 128, sms)
+    (name, args), rest = seen[0], seen[1:]
+    assert name == "rq_codes_decode_topk"
+    assert args[13:16] == (nrows, rows_per, lay[0])
+    assert [nm for nm, _ in rest] == (["rq_cand_merge"] if rows_per < nrows
+                                      else [])
+    seen.clear()
+    codes = tsc.unpack_codes(idx.packed, idx.mprime)
+    Xf, x2 = tsp.decode_base(idx.C, codes[:, :-1],
+                             norm_term=idx.norms_cbook[codes[:, -1].long()])
+    Xd = Xf.to(torch.bfloat16)
+    out8 = tsp.scan_onepass(Qm, Xd, x2, premin=0, **kw)
+    assert torch.equal(out8, tsp.scan_onepass_plain(Qm, Xd, x2, premin=0,
+                                                    **kw))
+    lay = tsp._topk_layout(128, 48, 1, dev)
+    nrows, rows_per = tsp._onepass_rows(n, nq, 2048, 48, lay, 128, sms)
+    assert seen[0][0] == "rq_scan_onepass"
+    assert seen[0][1][8:11] == (nrows, rows_per, lay[0])
 
 
 @pytest.mark.parametrize("pq", [True, False])
@@ -305,10 +397,17 @@ def test_decoded_scan_kernel_equals_plain_on_integer_data(dev, d, nq, keep,
     assert torch.equal(cand, cand0) and torch.equal(disc, disc0)
 
 
-@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 5)])
-def test_decoded_onepass_kernel_equals_plain_on_integer_data(dev, d, nq):
+@pytest.mark.parametrize("nq", ONEPASS_NQ)
+@pytest.mark.parametrize("d", [24, 100, 128, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoded_onepass_kernel_equals_plain_on_integer_data(dev, d, nq,
+                                                             dtype):
+    """K8 at keep = 0 against its plain version: identical int32 buffers
+    at 1 to 128 queries (query blocks cut short), rows narrower than 128
+    (d = 24, 100 -> 104), of one d-block and of eight, f32 and bf16
+    rows."""
     n = 20_001
-    idx, Q, Qm = _decoded_case(dev, "int", torch.float32, n, d, nq)
+    idx, Q, Qm = _decoded_case(dev, "int", dtype, n, d, nq)
     idbits = tsp._pack_idbits(-(-n // 2048) * 2048)
     kw = dict(tile=2048, r=48, premin=0, idbits=idbits)
     n8 = tsp.scan_onepass.launches

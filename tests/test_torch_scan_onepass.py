@@ -207,3 +207,45 @@ def test_onepass_splits_fill_the_waves(nqb, ntiles, splits):
     assert cost(tp) <= 1.02 * min(cost(t) for t in allowed)
     assert all(cost(t) > 1.02 * min(map(cost, allowed))
                for t in allowed if t > tp)
+
+
+@pytest.mark.parametrize("nq,layout,dp,n", [
+    (1, (32, 8, 2), 128, 1_000_000),         # the rescue's single query
+    (8, (32, 8, 2), 128, 1_000_000),
+    (128, (32, 8, 2), 128, 1_000_000),       # a quarter wave unsplit
+    (1259, (32, 8, 2), 1024, 500_000),       # GIST's rescue: 2.4 waves
+    (10_000, (32, 8, 2), 128, 1_000_000),    # 19 waves: never split
+    (5, (16, 16, 1), 2432, 20_000),          # one CTA an SM, few rows
+    (40, (16, 16, 2), 1024, 100_000)])       # f32 rows at GIST's width
+def test_keep0_splits_trade_waves_against_the_merge(nq, layout, dp, n):
+    """K4's and K8's (keep=0) row split from a layout as their entry
+    reports it (queries per CTA, lanes per CTA, CTAs per SM) on a card of
+    132 SMs: a CTA per query block and lane group, a split a whole number
+    of the CTA's steps (32 / lanes row ids), and the fewest
+    splits whose waves of steps plus K2's merge of the splits cost within
+    2% of the least, with at most 4 waves of CTAs unless the query blocks
+    alone are more."""
+    sms, tile, r = 132, 2048, 48
+    qb, ln, per_sm = layout
+    lay = layout + (min(dp, 128) if dp > 256 else dp, 0)
+    nrows, rows_per = tsp._onepass_rows(n, nq, tile, r, lay, dp, sms)
+    nr = 32 // ln
+    assert nrows == -(-n // tile) * tile // 128
+    assert rows_per % nr == 0
+    ctas, slots, nsteps = -(-nq // qb) * (128 // ln), sms * per_sm, \
+        -(-nrows // nr)
+    step = tsp._STEP_US * -(-dp // 128)
+    merge = r * tsp._MERGE_US * -(-128 * nq // (sms * tsp._MERGE_THREADS))
+
+    def cost(per):
+        s = -(-nsteps // per)
+        return -(-ctas * s // slots) * per * step + (s > 1) * s * merge
+    cap = max(1, min(nsteps, 4 * slots // ctas + (4 * slots % ctas > 0)))
+    allowed = {-(-nsteps // s) for s in range(1, cap + 1)}
+    per = rows_per // nr
+    assert per in allowed
+    least = min(map(cost, allowed))
+    assert cost(per) <= 1.02 * least
+    assert all(cost(p) > 1.02 * least for p in allowed if p > per)
+    if ctas >= 4 * slots:
+        assert rows_per >= nrows
