@@ -19,7 +19,11 @@ phases below; any failure exits non-zero.
    and K4 in bf16 at the 1, 2 and 8 flagged queries the main path's
    rescue gives it, where the base is split over CTAs and K2 merges the
    splits; timed at 1 and 8 beside its plain version, its bound and the
-   library's call.
+   library's call. On bf16 operands K1, K14 and K4 score on the tensor
+   cores with one score function: at each plan K4's first `keep` keys
+   must equal those of K2's merge of K1's candidates on Gaussian data
+   (128 queries; phase 8 the same at d = 960 on 32), the ground of the
+   one-pass = two-pass gate of phases 7 and 8.
 1c. K8 (`scan_candidates`, and `scan_onepass`, its keep=0 form) and K5
    (`codes_lut_candidates`) against their plain versions at n = 1e6,
    d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
@@ -164,7 +168,8 @@ for the fusion kernel at k = 0).
    each; then PQ-16 through the f32-table LUT search, recall@1 >= 0.75
    (BASELINE.md:56: SR-D 1.000, PQ .823). After its counts were read,
    K5 (both table types), K6 and K7 against their plain versions on its
-   tables, and their times and K1's at m = 15.
+   tables, K1 (+K2+K3) and K4 at m = 15 against theirs, and the times of
+   K5-K7 and K1 at m = 15.
 Then the two probes at the JAX probes' sizes: the fusion probe (its
 kernel against its plain version for every k and both source forms,
 timed) and the scan-tail probe (K8 alone and the steps after it).
@@ -578,6 +583,7 @@ def kernel_times(rng, errs):
             plain_topk(tsc.cand_merge_plain(cand0, disc0, r), r, k, idbits),
             idbits, exact=False))
         del cand0, disc0
+        k4_keys_equal_k1s(args, True, out, keep, idbits, f"k={k} plan")
         decoded_lut_times(c, Xf, x2, k, cand, disc, scan_lib_ms, errs, t)
         del cand, disc
         f32_times(c, Xf, x2, k, scan_lib_ms, errs, t)
@@ -644,6 +650,24 @@ def kernel_times(rng, errs):
     return times
 
 
+def k4_keys_equal_k1s(args, has_norms, out, keep, idbits, tag, nq=128):
+    """K4 (the rescue's one-pass scan) against K1 -> K2 on Gaussian data:
+    on bf16 operands the three code-resident scans share one tensor-core
+    score, so K4's first ``keep`` keys of each (lane, query) equal those
+    of K2's merge of K1's candidates ``out`` (the tiles' top keeps hold
+    each lane's top keep) for the first ``nq`` queries of ``args`` (K1's
+    operands), bit for bit; the one-pass = two-pass gate of phases 7 and
+    8 rests on it."""
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    o4 = tsc.codes_decode_topk(
+        args[0][:nq].contiguous(), *args[1:], tile=tsc._RESCUE_TILE,
+        r=tsc._RESCUE_R, idbits=idbits, has_norms=has_norms)
+    same = float((o4[:keep] == out[:keep, :, :nq]).float().mean())
+    print(f"  {tag}: K4's first {keep} keys equal to K1 -> K2's on {nq} "
+          f"Gaussian queries: {same:.6f}")
+    check(same == 1.0, f"{tag}: K4's keys != K1's on Gaussian data")
+
+
 def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
     """K8 and K5 at the k-class plan on the codes of ``c`` (whose K1
     output is ``cand1, disc1``; ``lib_ms`` is the library's call on the
@@ -671,8 +695,9 @@ def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
         idbits, exact=False))
     same = float(((cand == cand1).float().mean()
                   + (disc == disc1).float().mean()) / 2)
-    print(f"  K8 keys equal to K1's on the same codes and norms byte: "
-          f"{same:.6f}")
+    print(f"  K8 keys equal to K1's on the same codes and norms byte (K8 "
+          f"scans rows decoded from the f32 codebooks, K1 its bf16 "
+          f"operands: below 1 on Gaussian data): {same:.6f}")
     del cand0, disc0, cand, disc, Xd
     T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
     Tb = T.to(torch.bfloat16).contiguous()
@@ -1957,12 +1982,11 @@ def onepass_ils_times(rng, errs):
         note(errs, "codes_decode_onepass", compare_topk(
             f"k={k} K14+K3 timed", plain_topk(out, r, k, idbits),
             plain_topk(ref, r, k, idbits), idbits, exact=False))
-        qb, _, per_sm, _, _ = tsc._onepass_layout(
+        lay = tsc._onepass_layout(
             r, keep, c.Qm.shape[1], c.idx.packed.shape[1], 1, c.Qm.device)
-        slots = per_sm * torch.cuda.get_device_properties(
-            c.Qm.device).multi_processor_count
         ntiles = -(-N // tile)
-        tp = tsc._onepass_tiles_per(-(-NQ // qb), ntiles, slots)
+        _, tp = tsc._onepass_grid(NQ, ntiles, lay)
+        slots = f"{lay[6]} slots of {lay[5]}-CTA clusters"
         rule = tsc._onepass_tiles_per
         tsc._onepass_tiles_per = lambda nqb, ntiles, slots: ntiles
         try:
@@ -1973,7 +1997,7 @@ def onepass_ils_times(rng, errs):
         check(torch.equal(out1, out), f"K14 k={k}: one split != "
               f"{-(-ntiles // tp)} splits")
         print(f"  K14 at {-(-ntiles // tp)} splits ({tp} of {ntiles} tiles "
-              f"per CTA, {slots} CTA slots) {ms:.3f} ms; unsplit "
+              f"per CTA, {slots}) {ms:.3f} ms; unsplit "
               f"{ms1:.3f} ms; the same buffers")
         del out1
         t = {}
@@ -2495,6 +2519,9 @@ def wide_kernels_vs_plain(errs, p8, Q, dec):
                 f"{name} d={D8} k={k} (+K2+K3) vs plain",
                 plain_topk(got, r, k, idb), plain_topk(ref, r, k, idb), idb,
                 False, own[name]))
+            if name == "codes_decode_candidates":
+                k4_keys_equal_k1s(args, True, got, keep, idb,
+                                  f"d={D8} k={k} plan", nq=32)
         r1, keep1, tile1 = tsc._onepass_config(k, sc.mprime)
         idb1 = tsp._pack_idbits(-(-N8 // tile1) * tile1)
         kw1 = dict(tile=tile1, r=r1, keep=keep1, idbits=idb1, has_norms=True)
@@ -2667,7 +2694,14 @@ def rescue8(errs, p8):
           f" launch(es)) + its K2<48> {k2ms:.2f} ms: "
           f"{(k4ms + k2ms) / max(busy, 1e-9):.3f} of the device busy time, "
           f"{(k4ms + k2ms) / wall:.3f} of the wall")
-    if not any("scan_candidates_kernel" in name for name, _ in rows):
+    # K1: the tensor-core body at R = 0 on bf16, the fmaf body on f32
+    k1ms = sum(ms for name, ms in rows if re.search(
+        r"codes_mma_kernel(<\d+, 0,|ILi\d+ELi0E)|scan_candidates_kernel",
+        name))
+    if k1ms:
+        print(f"  K1 {k1ms:.2f} ms: {k1ms / max(busy, 1e-9):.3f} of the "
+              f"device busy time, {k1ms / wall:.3f} of the wall")
+    else:
         print("  (the profiler holds no record of the scan kernel K1)")
     # the search without its rescue: the two-pass scan and its flags
     r2, keep2, tile2 = tsc._codes_config(100)[1:]
@@ -2918,6 +2952,15 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for line in ptxas_summary(log):
         print("  " + line)
+    for dp in (D, 1024):
+        cuda = torch.device(DEV)
+        print(f"  layouts at dp={dp}, bf16, 2 packed words a row (queries "
+              f"per CTA, scratch ints per CTA, CTAs per SM, d-block, shared "
+              f"bytes, CTAs per cluster, clusters the card holds, step "
+              f"buffers): K1 keep=4 {tsc._candidates_layout(4, dp, 2, 1, cuda)}"
+              f", K14 (28, 4) {tsc._onepass_layout(28, 4, dp, 2, 1, cuda)}; "
+              f"K4 (queries, lanes per CTA, CTAs per SM, d-block, shared "
+              f"bytes) {tsc._rescue_layout(dp, 2, 48, 1, cuda)}")
 
     rng = np.random.default_rng(args.seed)
     search_wrappers = {

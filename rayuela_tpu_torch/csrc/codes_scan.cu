@@ -16,71 +16,72 @@
 //                                  _codes_scan_kernel: its merge across
 //                                  the sequential tile axis
 //
-// K1 and K4 are two scan bodies of scan_common.cuh (which states the
-// key and selection contract) over the row source of this file: a row
-// decodes to x_hat = sum_j Cflat[j*h + code_j] (f32, codebook order),
-// rounded to the operand type; its norm x2 is |x_hat|^2 of the f32 row
-// (PQ) or nrm[norm_code] (additive models). Beyond dp = 256 a row
-// decodes and scores in d-blocks of 128 (scan_common.cuh), the codebook
-// rows summed in codebook order within each block. K14 is K1's body (its
-// decode, its blocking and its scores, bit for bit) with a loop over
-// the tiles inside the CTA: K1 -> K2's function at (r, keep, tile) in
-// one pass, with no candidate array in device memory.
+// On f32 operands K1 and K4 are two scan bodies of scan_common.cuh
+// (which states the key and selection contract) over the row source of
+// this file, and K14 is K1's body with a loop over the tiles inside the
+// CTA: K1 -> K2's function at (r, keep, tile) in one pass, with no
+// candidate array in device memory. A row decodes to x_hat = sum_j
+// Cflat[j*h + code_j] (f32, codebook order), rounded to the operand
+// type; its norm x2 is |x_hat|^2 of the f32 row (PQ) or nrm[norm_code]
+// (additive models). Beyond dp = 256 a row decodes and scores in d-blocks
+// of 128 (scan_common.cuh), the codebook rows summed in codebook order
+// within each block. On bf16 operands K1 and K14 are one tensor-core body
+// shared over a cluster of CTAs (`codes_mma_kernel`, below, which says
+// why), and K4 takes its score function: the three give the same keys.
 //
-// What bounds them on the card. K1 does n*nq*dp multiply-adds (1.3e12
-// FMAs at n=1e6, nq=1e4, dp=128) on the CUDA cores, and before that it
-// decodes every row once per 32-query block: m codebook rows of dp
-// values gathered from Cflat, which sits in L2 (m*h*dp operands, too
-// large for L1 beside the tile). Each CTA decodes 128 rows (one rid) at
-// a time into shared memory. The decode reads Cflat 16 bytes per
-// thread, coalesced, with up to 8 codebook loads in flight per thread:
-// a decode that waited on one 2-byte load at a time was latency-bound
-// and took most of K1's time. K2 and K4's selection is register
-// insertion into a sorted array: after the first few rows nearly every
-// key is rejected by one compare. K2 is bound by reading its candidate
-// array (coalesced: consecutive threads take consecutive queries); with
-// few queries (a few hundred threads) by the latency of its loads, one
-// per candidate row. K4 does K1's multiply-adds for the flagged queries
-// and decodes every row once per query block of its CTA (32 queries, as
-// K1; 16 where a wide f32 row needs it), 32 rows of a lane group at a
-// time (`decode_lanes`; the one-pass body of scan_common.cuh says why);
-// with few queries its row range is split over CTAs, and the splits
-// trade its waves against K2's merge of them (`rq_codes_topk_layout`
-// reports the layout the wrapper splits from). K14 is bound
-// as K1 is (the same products and the same decode per 32 queries, and
-// K1's register block: at keep = 4 both spill, see -Xptxas=-v); its
-// CTAs walk whole tile ranges, so the wrapper splits the rows until the
-// waves of CTAs fill the card's CTA slots (`rq_codes_onepass_layout`
-// reports them), or a last wave part-empty would cost as much as a full
-// one.
+// What bounds them on the card. The f32 bodies do n*nq*dp multiply-adds
+// on the CUDA cores, and before that decode every row once per 32-query
+// block: m codebook rows of dp values gathered from Cflat, which sits in
+// L2 (m*h*dp operands, too large for L1 beside the tile). The decode
+// reads Cflat 16 bytes per thread, coalesced, with several codebook
+// loads in flight per thread: a decode that waited on one 2-byte load at
+// a time was latency-bound. The bf16 body scores on the tensor cores and
+// decodes a row once per cluster of query blocks; what bounds it is
+// stated there. K2 and K4's selection is register insertion into a
+// sorted array: after the first few rows nearly every key is rejected by
+// one compare. K2 is bound by reading its candidate array (coalesced:
+// consecutive threads take consecutive queries); with few queries (a few
+// hundred threads) by the latency of its loads, one per candidate row.
+// K4 scores K1's products for the flagged queries and decodes every row
+// once per query block of its CTA (32 queries; 16 where a wide f32 row
+// needs it), 32 rows of a lane group at a time (`decode_lanes`; the
+// one-pass body of scan_common.cuh says why); with few queries its row
+// range is split over CTAs, and the splits trade its waves against K2's
+// merge of them (`rq_codes_topk_layout` reports the layout the wrapper
+// splits from). K14's CTAs (clusters, on bf16) walk whole tile ranges,
+// so the wrapper splits the rows until the waves fill the card's CTA
+// (cluster) slots (`rq_codes_onepass_layout` reports them), or a last
+// wave part-empty would cost as much as a full one.
 #include "scan_common.cuh"
 
 namespace {
 
 constexpr int DEC_BATCH = 8;   // codebook loads a decoding thread keeps in flight
 constexpr int K14_PAIRS = 16;  // (lane, query) pairs of a K14 thread (4 x 4)
+// buffer loads a K14 tile-end merge keeps in flight (`merge_survivors`)
+constexpr int MERGE_BATCH = 7;
 
 // The 16 bytes of dimensions [col, col + V) of a row with codes `wl`:
 // sum_j Cflat[j*h + code_j] in codebook order, f32, to acc[0..V). Up to
-// DEC_BATCH codebook loads are issued before any is added, so their L2
-// latencies overlap.
-template <typename T>
+// BATCH codebook loads are issued before any is added, so their L2
+// latencies overlap (the sum does not depend on BATCH).
+template <typename T, int BATCH = DEC_BATCH>
 __device__ __forceinline__ void decode_chunk(const T* __restrict__ Cflat,
                                              const int* wl, int m, int h,
                                              int dp, int col,
                                              float (&acc)[Vec16<T>::N]) {
 #pragma unroll
   for (int e = 0; e < Vec16<T>::N; ++e) acc[e] = 0.f;
-  for (int j0 = 0; j0 < m; j0 += DEC_BATCH) {
-    uint4 v[DEC_BATCH];
+  for (int j0 = 0; j0 < m; j0 += BATCH) {
+    uint4 v[BATCH];
 #pragma unroll
-    for (int u = 0; u < DEC_BATCH; ++u)
+    for (int u = 0; u < BATCH; ++u)
       if (j0 + u < m)
         v[u] = __ldg(reinterpret_cast<const uint4*>(
             Cflat + (size_t)((j0 + u) * h + code_of(wl, j0 + u)) * dp +
             col));
 #pragma unroll
-    for (int u = 0; u < DEC_BATCH; ++u)
+    for (int u = 0; u < BATCH; ++u)
       if (j0 + u < m) Vec16<T>::add(v[u], acc);
   }
 }
@@ -154,19 +155,47 @@ __device__ __forceinline__ uint4 pack16(const float (&acc)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// Dimensions [b0, b0 + cpr * V) of one row with codes `wl`, decoded by
+// the G threads of its group (t: the thread's lane in the warp): each
+// takes the 16-byte chunks c = t % G, t % G + G, ... in ascending order,
+// hands each to store(c, the chunk rounded to T) and sums the squares of
+// its f32 values; the G sums then add in a shuffle tree. Returns the
+// row's |x_hat|^2 over the block, in every thread of the group. K1, K14
+// and K4 decode through this one function, so their rows and norms are
+// bit for bit the same.
+template <typename T, int BATCH, class Store>
+__device__ __forceinline__ float decode_row(const T* __restrict__ Cflat,
+                                            const int* wl, int m, int h,
+                                            int dp, int b0, int cpr, int G,
+                                            int t, Store store) {
+  constexpr int V = Vec16<T>::N;
+  float part = 0.f;
+  for (int c = t % G; c < cpr; c += G) {
+    float acc[V];
+    decode_chunk<T, BATCH>(Cflat, wl, m, h, dp, b0 + c * V, acc);
+    store(c, pack16(acc));
+#pragma unroll
+    for (int e = 0; e < V; ++e) part += acc[e] * acc[e];
+  }
+  for (int o = G >> 1; o > 0; o >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  return part;
+}
+
 // decode_rows for the NL lanes [l0, l0 + NL) of the NR row ids rid ..
 // rid + NR - 1, stored row by row at the operand type: row j < NR * NL
 // (row id rid + j / NL, lane l0 + j % NL) at Xs[j * xs + kk], its norm at
 // x2s[j] (the one-pass body's layout). The same threads per row, chunks
 // and sums as decode_rows, so the values and norms are bit for bit the
-// same. Ends with a barrier.
+// same. With xns, a row of one d-block also gives the norm of its f32
+// values at xns[j] (`score_slack`). Ends with a barrier.
 template <typename T, int NL, int NR>
 __device__ void decode_lanes(const T* __restrict__ Cflat,
                              const T* __restrict__ nrm,
                              const int* __restrict__ packed, int n, int rid,
                              int l0, int m, int h, int nw, int b0, int nb,
                              int dp, int has_norms, T* Xs, int xs,
-                             float* x2s, int* words) {
+                             float* x2s, int* words, float* xns) {
   constexpr int V = Vec16<T>::N, ROWS = NL * NR;
   const int tid = threadIdx.x;
   if (b0 == 0) {
@@ -185,19 +214,15 @@ __device__ void decode_lanes(const T* __restrict__ Cflat,
   // warp's threads take the loop and the shuffles together
   for (int j = (tid >> 5) * per_warp + t / G; j < ROWS; j += row_step) {
     const int* wl = words + j * nw;
-    float part = 0.f;
-    for (int c = t % G; c < cpr; c += G) {
-      float acc[V];
-      decode_chunk<T>(Cflat, wl, m, h, dp, b0 + c * V, acc);
-      *reinterpret_cast<uint4*>(Xs + j * xs + c * V) = pack16(acc);
-#pragma unroll
-      for (int e = 0; e < V; ++e) part += acc[e] * acc[e];
-    }
-    for (int o = G >> 1; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (t % G == 0)
+    const float part = decode_row<T, DEC_BATCH>(
+        Cflat, wl, m, h, dp, b0, cpr, G, t, [&](int c, uint4 v) {
+          *reinterpret_cast<uint4*>(Xs + j * xs + c * V) = v;
+        });
+    if (t % G == 0) {
       x2s[j] = has_norms ? to_f32(nrm[(size_t)code_of(wl, m) * LANES])
                          : (b0 == 0 ? part : x2s[j] + part);
+      if (xns) xns[j] = sqrtf(part);
+    }
   }
   __syncthreads();
 }
@@ -206,6 +231,9 @@ __device__ void decode_lanes(const T* __restrict__ Cflat,
 template <typename T> struct CodesSrc {
   using Op = T;
   static constexpr bool kQueryFastest = false;
+  // bf16 rows score on the tensor cores (K4 here; K1 and K14 in their own
+  // body below)
+  static constexpr bool kTensorScores = std::is_same<T, __nv_bfloat16>::value;
   const T* Cflat;
   const T* nrm;
   const int* packed;
@@ -221,9 +249,10 @@ template <typename T> struct CodesSrc {
   template <int NL, int NR>
   __device__ __forceinline__ void load_lanes(int n, int rid, int l0, int b0,
                                              int nb, int dp, T* Xs, int xs,
-                                             float* x2s, int* words) const {
+                                             float* x2s, int* words,
+                                             float* xns = nullptr) const {
     decode_lanes<T, NL, NR>(Cflat, nrm, packed, n, rid, l0, m, h, nw, b0, nb,
-                            dp, has_norms, Xs, xs, x2s, words);
+                            dp, has_norms, Xs, xs, x2s, words, xns);
   }
 };
 
@@ -327,25 +356,35 @@ cudaError_t launch_pair_merge(const void* candv, const void* candi,
 // make it into the R smallest into `rest`. A streaming merge: position c
 // takes the smaller of buf[c] and the carry's head, the larger joins the
 // carry; the carry left at the end is what the buffer evicted. Most tiles
-// of a scan bring nothing below buf[R-1]: one load decides that.
+// of a scan bring nothing below buf[R-1]: one load decides that. A merge
+// loads MERGE_BATCH positions before it merges any, so their latencies
+// overlap (the keys it leaves do not depend on the batch).
 template <int R, int KEEP>
 __device__ __forceinline__ void merge_survivors(int (&carry)[KEEP], int& rest,
                                                 int* buf, int stride) {
+  constexpr int B = MERGE_BATCH;
   if (carry[0] < buf[(size_t)(R - 1) * stride]) {
 #pragma unroll 1
-    for (int c = 0; c < R; ++c) {
-      const int x = buf[(size_t)c * stride];
-      const int lo = min(carry[0], x), hi = max(carry[0], x);
+    for (int c0 = 0; c0 < R; c0 += B) {
+      int x[B];
 #pragma unroll
-      for (int e = 0; e < KEEP - 1; ++e) carry[e] = carry[e + 1];
-      carry[KEEP - 1] = hi;
+      for (int u = 0; u < B; ++u)
+        if (c0 + u < R) x[u] = buf[(size_t)(c0 + u) * stride];
 #pragma unroll
-      for (int e = KEEP - 1; e > 0; --e) {
-        const int a = carry[e - 1], b = carry[e];
-        carry[e - 1] = min(a, b);
-        carry[e] = max(a, b);
+      for (int u = 0; u < B; ++u) {
+        if (c0 + u >= R) break;
+        const int lo = min(carry[0], x[u]), hi = max(carry[0], x[u]);
+#pragma unroll
+        for (int e = 0; e < KEEP - 1; ++e) carry[e] = carry[e + 1];
+        carry[KEEP - 1] = hi;
+#pragma unroll
+        for (int e = KEEP - 1; e > 0; --e) {
+          const int a = carry[e - 1], b = carry[e];
+          carry[e - 1] = min(a, b);
+          carry[e] = max(a, b);
+        }
+        buf[(size_t)(c0 + u) * stride] = lo;
       }
-      buf[(size_t)c * stride] = lo;
     }
   }
   rest = min(rest, carry[0]);
@@ -446,25 +485,6 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 }
 
-// K14's layout for its wrapper at width dp: out[0] queries per CTA,
-// out[1] ints of scratch per CTA, out[2] the CTAs an SM holds at once,
-// out[3] the d-block, out[4] the bytes of shared memory per CTA.
-template <class Src, int R, int KEEP>
-cudaError_t onepass_cut_layout(int dp, int words, int* out) {
-  const size_t smem = scan_smem(dp, K1_QB, words);
-  auto kern = dp > NARROW_DP ? scan_onepass_cut_kernel<Src, R, KEEP, true>
-                             : scan_onepass_cut_kernel<Src, R, KEEP, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  out[0] = K1_QB;
-  out[1] = R * K14_PAIRS * THREADS;
-  out[3] = scan_dblock(dp);
-  out[4] = (int)smem;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kern,
-                                                       THREADS, smem);
-}
-
 template <class Src, int R, int KEEP>
 cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
                                void* disc, void* scratch, int n, int nq,
@@ -478,6 +498,454 @@ cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
   return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
                      (int*)cand, (int*)disc, (int*)scratch, n, nq, dp, rows,
                      ntiles, tiles_per, idbits);
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K14 on bf16 operands: the tensor-core body shared over a cluster
+// ---------------------------------------------------------------------------
+//
+// What bounds the fmaf body above. Its CTA of 32 queries decodes each
+// 128-row step itself (m codebook rows gathered from L2 for every row:
+// 1.8 GB of L2 reads per query block at n = 1e6, d = 128, m = 7) and
+// scores it on the CUDA cores (20 shared loads per 64 FMAs); both halves
+// grow with n * nq * d. Here the products go to the tensor cores
+// (`tile_scores`, the score function K4 shares), and a cluster of
+// MMA_CL CTAs on neighbouring query blocks shares each decoded step: each
+// CTA decodes 128 / MMA_CL of the step's rows and writes them, with their
+// norms, into the shared memory of every CTA of the cluster (distributed
+// shared memory), then a cluster barrier publishes the step. A row is
+// decoded once per MMA_CL * 32 queries. With two step buffers (where two
+// CTAs an SM still fit) the next step's decode goes into the other
+// buffer, so one cluster barrier a step serves both directions; with one
+// a second barrier keeps the writers out until every CTA has scored. The
+// codes of a CTA's rows are fetched a step ahead.
+//
+// A CTA holds 32 queries and 256 threads; warp w scores queries [16 (w %
+// 2), +16) against lanes [32 (w / 2), +32), four m16n8 tiles, and its
+// thread owns 2 queries x 8 lanes: the same 16 (lane, query) pairs at
+// every step, whose KEEP-deep buffers and certificates stay in registers
+// (K1's selection, unchanged). Queries sit whole in shared memory at any
+// dp; rows in d-blocks (`scan_dblock`: the decode's blocks are K4's, so
+// the PQ layout's norms sum in K4's order). The grid is (query blocks
+// padded to a multiple of MMA_CL, splits): K1 is one tile a CTA (R = 0),
+// K14 walks its split's tiles and merges the survivors at each tile's end
+// as the fmaf body does, its loads MERGE_BATCH at a time.
+//
+// Clusters of 8 CTAs, the largest portable size: a row is then decoded
+// once per 256 queries. The cluster size, the loads a decoding thread
+// keeps in flight and the step buffers were chosen by trial variants on
+// an H100 whose times are not kept (not measured by a script in the
+// repo). What bounds the body at d = 128 is the latency chain of a step,
+// not a rate: the gathers of a thread's rows, the stores to the peers and
+// the cluster barrier (PERF.md gives the rates, from chip_smoke.py).
+
+constexpr int MMA_QB = 32;        // queries per CTA
+constexpr int MMA_CL = 8;         // CTAs per cluster, along the query blocks
+constexpr int MMA_DEC_BATCH = 4;  // codebook loads a decoding thread keeps
+                                  // in flight (the buffers hold registers)
+
+__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(unsigned a, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster(unsigned a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v)
+               : "memory");
+}
+// every thread of every CTA of the cluster; the writes before it are
+// visible after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// This CTA's share of a step: lanes [rank * RPC, +RPC) of its row id,
+// dimensions [b0, b0 + nb), decoded as decode_lanes decodes (the same
+// threads per row, chunks and sums) and written to every CTA of the
+// cluster: the values at Xb[lane * xs + kk], the norm at x2b[lane] and,
+// with xnb (a row of one d-block), the norm of its f32 values at
+// xnb[lane] (the same offsets in each CTA). x2own keeps the PQ layout's
+// running norm of this CTA's rows across the d-blocks; `words` holds
+// their codes (the caller fetched them a step ahead). No barrier at the
+// end: the caller's cluster barrier publishes the step.
+__device__ void decode_share(const CodesSrc<__nv_bfloat16>& src, int rank,
+                             int b0, int nb, int dp, __nv_bfloat16* Xb,
+                             int xs, float* x2b, float* xnb, float* x2own,
+                             const int* words) {
+  constexpr int RPC = LANES / MMA_CL, V = 8;
+  const int tid = threadIdx.x, nw = src.nw, l0 = rank * RPC;
+  const int cpr = nb / V, G = cpr < 32 ? cpr : 32;
+  const int t = tid & 31, per_warp = 32 / G;
+  const int row_step = (THREADS >> 5) * per_warp;
+  const unsigned xa = smem_addr(Xb), x2a = smem_addr(x2b);
+  // RPC (16) is a multiple of per_warp (2, or 1 at G = 32): a warp takes
+  // the loop and the shuffles together
+  for (int j = (tid >> 5) * per_warp + t / G; j < RPC; j += row_step) {
+    const int* wl = words + j * nw;
+    const unsigned row = xa + 2u * (unsigned)((l0 + j) * xs);
+    const unsigned xna = xnb ? smem_addr(xnb + l0 + j) : 0u;
+    const float part = decode_row<__nv_bfloat16, MMA_DEC_BATCH>(
+        src.Cflat, wl, src.m, src.h, dp, b0, cpr, G, t,
+        [&](int c, uint4 v) {
+#pragma unroll
+          for (int p = 0; p < MMA_CL; ++p)
+            st_cluster(peer_addr(row + 2u * (unsigned)(c * V), p), v);
+        });
+    if (t % G == 0) {
+      const float x =
+          src.has_norms ? to_f32(src.nrm[(size_t)code_of(wl, src.m) * LANES])
+                        : (b0 == 0 ? part : x2own[j] + part);
+      x2own[j] = x;
+#pragma unroll
+      for (int p = 0; p < MMA_CL; ++p)
+        st_cluster(peer_addr(x2a + 4u * (unsigned)(l0 + j), p), x);
+      if (xnb) {
+        const float xn = sqrtf(part);
+#pragma unroll
+        for (int p = 0; p < MMA_CL; ++p) st_cluster(peer_addr(xna, p), xn);
+      }
+    }
+  }
+}
+
+// Shared bytes of a CTA with nbuf step buffers: the queries whole and
+// their margins (`slack_of_query`), the step's 128 rows at one d-block and their two norms
+// (x2, and that of the f32 values) per buffer, this CTA's running norms
+// and the codes of its rows for two steps (16 bytes of padding a row: the
+// ldmatrix rows fall in distinct banks); where a row is one d-block, room
+// for the chains' requests (16 a thread: a key and an item each).
+inline size_t mma_smem(int dp, int nw, int nbuf) {
+  const size_t rpc = LANES / MMA_CL, db = scan_dblock(dp);
+  return 2 * ((size_t)MMA_QB * (dp + 8) + (size_t)nbuf * LANES * (db + 8)) +
+         4 * (MMA_QB + 2 * (size_t)nbuf * LANES + rpc) +
+         8 * rpc * (size_t)nw + (dp <= NARROW_DP ? 6 * 16 * THREADS : 0);
+}
+
+// Step buffers at width dp: 2 where two such CTAs fit an SM, else 1 where
+// two or one fit, else 0 (none fits, or a thread would fetch more than
+// one word of a step's codes).
+inline int mma_nbuf(int dp, int nw) {
+  int dev = 0, cap = 0;
+  if (LANES / MMA_CL * nw > THREADS || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  // two CTAs an SM: each also takes 1 KB of the SM's shared memory
+  if (mma_smem(dp, nw, 2) <= (size_t)(cap - 1024) / 2) return 2;
+  return mma_smem(dp, nw, 1) <= (size_t)cap ? 1 : 0;
+}
+
+// K1 (R = 0: tile blockIdx.y, its KEEP smallest keys and certificate per
+// (lane, query) to cand/disc as the fmaf body writes them) and K14 (R > 0:
+// tiles [s * tiles_per, +tiles_per) of split s = blockIdx.y, the running
+// R-key buffer in `scratch`, the survivors merged at each tile's end) on
+// bf16 operands. Launched in clusters of MMA_CL CTAs along x (the query
+// blocks); the CTAs of a cluster walk the same rows.
+template <int KEEP, int R, bool WIDE>
+__global__ void __launch_bounds__(THREADS, 2)
+    codes_mma_kernel(const CodesSrc<__nv_bfloat16> src,
+                     const __nv_bfloat16* __restrict__ Qm,
+                     int* __restrict__ cand, int* __restrict__ disc,
+                     int* __restrict__ scratch, int n, int nq, int dp,
+                     int rows, int ntiles, int tiles_per, int nbuf,
+                     int idbits) {
+  using T = __nv_bfloat16;
+  constexpr int RPC = LANES / MMA_CL, V = 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int db = WIDE ? DBLK : dp, xs = db + V, qs = dp + V;
+  T* Qs = reinterpret_cast<T*>(smem_raw);             // MMA_QB * qs
+  T* Xs = Qs + MMA_QB * qs;                           // nbuf * LANES * xs
+  float* x2s = reinterpret_cast<float*>(Xs + nbuf * LANES * xs);
+  float* xns = x2s + nbuf * LANES;                    // nbuf * LANES
+  float* qcs = xns + nbuf * LANES;                    // MMA_QB
+  float* x2own = qcs + MMA_QB;                        // RPC
+  int* words = reinterpret_cast<int*>(x2own + RPC);   // 2 * RPC * nw
+  // one d-block: the chains' requests, 16 a thread (keys, then items)
+  int* rkeys = words + 2 * RPC * src.nw;
+  unsigned short* ritems =
+      reinterpret_cast<unsigned short*>(rkeys + 16 * THREADS);
+  const int rank = cluster_rank();
+  const int q0 = blockIdx.x * MMA_QB, s = blockIdx.y;
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int qw = (warp & 1) * 16, lw = (warp >> 1) * 32;
+  const int vmask = -(1 << idbits);
+  for (int i = threadIdx.x; i < MMA_QB * (dp / V); i += THREADS) {
+    const int qq = i / (dp / V), c = i % (dp / V);
+    *reinterpret_cast<uint4*>(Qs + qq * qs + c * V) =
+        q0 + qq < nq ? *reinterpret_cast<const uint4*>(
+                           Qm + (size_t)(q0 + qq) * dp + c * V)
+                     : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (!WIDE) {
+    __syncthreads();
+    if (threadIdx.x < MMA_QB)
+      qcs[threadIdx.x] = slack_of_query(Qs + threadIdx.x * qs, dp);
+  }
+  constexpr int STRIDE = K14_PAIRS * THREADS;
+  int* buf = nullptr;
+  if constexpr (R > 0) {
+    buf = scratch + ((size_t)s * gridDim.x + blockIdx.x) * R * STRIDE +
+          threadIdx.x;
+    for (int c = 0; c < R * K14_PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
+  }
+  // pair p = 4 i + e: lane lw + 8 i + 2 (l % 4) + e % 2, query q0 + qw +
+  // l / 4 + 8 (e / 2) (`tile_scores`' accumulator)
+  int best[16][KEEP];
+  int rest[16];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) rest[p] = INT_MAX;
+  const int t0 = s * tiles_per, t1 = min(ntiles, t0 + tiles_per);
+  // thread i < RPC * nw fetches word i of the codes of this CTA's rows of
+  // row id rid, a step before the decode reads them (words[step % 2])
+  const int nword = LANES / MMA_CL * src.nw;
+  auto fetch = [&](int rid) {
+    const long long gid = (long long)rid * LANES + rank * RPC +
+                          threadIdx.x / src.nw;
+    return threadIdx.x < nword && rid < t1 * rows && gid < n
+               ? src.packed[gid * src.nw + threadIdx.x % src.nw]
+               : 0;
+  };
+  if (threadIdx.x < nword)
+    words[((t0 * rows) & 1) * nword + threadIdx.x] = fetch(t0 * rows);
+  // every CTA of the cluster has started (its shared memory may be
+  // written) and the queries and the first codes are in place
+  cluster_sync();
+
+  // the margins of the thread's two queries (one d-block)
+  const float qc0 = WIDE ? 0.f : qcs[qw + (l >> 2)],
+              qc1 = WIDE ? 0.f : qcs[qw + (l >> 2) + 8];
+  int unit = 0;  // decoded (step, d-block) units so far
+  for (int t = t0; t < t1; ++t) {
+#pragma unroll
+    for (int p = 0; p < 16; ++p)
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c) best[p][c] = INT_MAX;
+    for (int step = 0; step < rows; ++step) {
+      const int rid = t * rows + step;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      int b = 0;
+      const int* wcur = words + (rid & 1) * nword;
+      const int wnext = fetch(rid + 1);
+      for (int b0 = 0; b0 < dp; b0 += db, ++unit) {
+        b = nbuf == 2 ? unit & 1 : 0;
+        // one buffer: every CTA has scored the last unit before any
+        // writes over it (two: the last barrier saw to the other buffer)
+        if (nbuf == 1 && unit > 0) cluster_sync();
+        decode_share(src, rank, b0, db, dp, Xs + b * LANES * xs, xs,
+                     x2s + b * LANES, WIDE ? nullptr : xns + b * LANES, x2own,
+                     wcur);
+        // the next step's codes, to the buffer its decode reads (the last
+        // readers of that buffer, a step ago, passed a barrier since)
+        if (b0 + db >= dp && threadIdx.x < nword)
+          words[((rid + 1) & 1) * nword + threadIdx.x] = wnext;
+        cluster_sync();
+        tile_scores<4>(Qs + qw * qs + b0, qs, Xs + (b * LANES + lw) * xs, xs,
+                       db, acc);
+      }
+      // pair p = 4 i + e: the keys lo <= hi its score allows (one key
+      // where the score settles it, or beyond one d-block, where the
+      // tensor-core key stands), lo in place of the score; eq: the pairs
+      // whose key is known, need: those the fmaf chain decides
+      const float* x2 = x2s + b * LANES;
+      unsigned eq = 0, need = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 4 * i + e;
+          const int lane = lw + 8 * i + 2 * (l & 3) + (e & 1);
+          const bool pad = (long long)rid * LANES + lane >= n;
+          const float sc = pad ? __int_as_float(0x7F800000)
+                               : acc[i][e] + x2[lane];
+          int lo, hi;
+          if constexpr (WIDE) {
+            lo = hi = row_key(sc, rid, vmask);
+          } else {
+            margin_keys(sc,
+                        score_slack(sc, e >> 1 ? qc1 : qc0,
+                                    xns[b * LANES + lane]),
+                        rid, vmask, lo, hi);
+          }
+          eq |= (unsigned)(lo == hi) << p;
+          need |= (unsigned)(lo != hi && lo < max(best[p][KEEP - 1], rest[p]))
+                  << p;
+          acc[i][e] = __int_as_float(lo);
+        }
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        if (eq >> p & 1)
+          insert_sorted<KEEP>(best[p], rest[p],
+                              __float_as_int(acc[p >> 2][p & 3]));
+      if constexpr (!WIDE) {
+        int total;
+        const int base = warp_offsets(need, total);
+        if (total) {
+          int* keys = rkeys + warp * 32 * 16;
+          unsigned short* item = ritems + warp * 32 * 16;
+          int k = base;
+#pragma unroll
+          for (int p = 0; p < 16; ++p)
+            if (need >> p & 1) {
+              item[k] = (unsigned short)((l << 4) | p);
+              keys[k++] = __float_as_int(acc[p >> 2][p & 3]);
+            }
+          warp_chain_keys(item, keys, total, [&](int it) {
+            const int sl = it >> 4, p = it & 15;
+            const int lane = lw + 8 * (p >> 2) + 2 * (sl & 3) + (p & 1);
+            const int q = qw + (sl >> 2) + 8 * ((p & 3) >> 1);
+            return row_key(chain_score(Xs + (b * LANES + lane) * xs,
+                                       Qs + q * qs, dp, x2[lane]),
+                           rid, vmask);
+          });
+          k = base;
+#pragma unroll
+          for (int p = 0; p < 16; ++p)
+            if (need >> p & 1)
+              insert_sorted<KEEP>(best[p], rest[p], keys[k++]);
+        }
+      }
+    }
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        merge_survivors<R, KEEP>(
+            best[p], rest[p], buf + (size_t)p * THREADS, STRIDE);
+    }
+  }
+  // the last remote writes came before the last cluster barrier: no CTA
+  // of the cluster touches another's shared memory after this point
+
+  const size_t plane = (size_t)LANES * nq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 4 * i + e;
+      const int q = q0 + qw + (l >> 2) + 8 * (e >> 1);
+      if (q >= nq) continue;
+      const size_t off =
+          (size_t)(lw + 8 * i + 2 * (l & 3) + (e & 1)) * nq + q;
+      if constexpr (R == 0) {
+#pragma unroll
+        for (int c = 0; c < KEEP; ++c)
+          cand[(size_t)(t0 * KEEP + c) * plane + off] = best[p][c];
+        disc[(size_t)t0 * plane + off] = rest[p];
+      } else {
+        const int* bp = buf + (size_t)p * THREADS;
+        for (int c = 0; c < R; ++c)
+          cand[((size_t)s * R + c) * plane + off] = bp[(size_t)c * STRIDE];
+        disc[(size_t)s * plane + off] = rest[p];
+      }
+    }
+}
+
+template <int KEEP, int R>
+auto mma_kernel(int dp) -> decltype(&codes_mma_kernel<KEEP, R, false>) {
+  return dp > NARROW_DP ? codes_mma_kernel<KEEP, R, true>
+                        : codes_mma_kernel<KEEP, R, false>;
+}
+
+// A launch configuration of THREADS threads a CTA in clusters of MMA_CL
+// CTAs along x.
+struct ClusterConfig {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterConfig(dim3 grid, size_t smem, cudaStream_t st) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = MMA_CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// K1 (R = 0, tiles_per = 1) or K14 on bf16 operands over nq queries: the
+// grid's query blocks padded to a multiple of MMA_CL (a padded block
+// decodes its share of each step and writes nothing).
+template <int KEEP, int R>
+cudaError_t launch_mma(const CodesSrc<__nv_bfloat16>& src, const void* Qm,
+                       void* cand, void* disc, void* scratch, int n, int nq,
+                       int dp, int rows, int ntiles, int tiles_per,
+                       int idbits, cudaStream_t st) {
+  const int nbuf = mma_nbuf(dp, src.nw);
+  if (!nbuf) return cudaErrorInvalidValue;
+  const int ncl = (nq + MMA_QB * MMA_CL - 1) / (MMA_QB * MMA_CL);
+  const size_t smem = mma_smem(dp, src.nw, nbuf);
+  auto kern = mma_kernel<KEEP, R>(dp);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  ClusterConfig c(dim3(ncl * MMA_CL, (ntiles + tiles_per - 1) / tiles_per),
+                  smem, st);
+  e = cudaLaunchKernelEx(&c.cfg, kern, src, (const __nv_bfloat16*)Qm,
+                         (int*)cand, (int*)disc, (int*)scratch, n, nq, dp,
+                         rows, ntiles, tiles_per, nbuf, idbits);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The layout of a K1 or K14 kernel `kern` into out[8]: queries per CTA,
+// ints of scratch per CTA, CTAs per SM, the d-block, shared bytes per CTA,
+// CTAs per cluster, the clusters the card holds at once, step buffers.
+inline cudaError_t codes_layout(const void* kern, int dp, size_t smem,
+                                int scratch, int qb, int cluster, int nbuf,
+                                int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  out[0] = qb;
+  out[1] = scratch;
+  out[3] = scan_dblock(dp);
+  out[4] = (int)smem;
+  out[5] = cluster;
+  out[7] = nbuf;
+  int dev = 0, sms = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &out[2], kern, THREADS, smem)) != cudaSuccess ||
+      (e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if (cluster == 1) {
+    out[6] = out[2] * sms;
+    return cudaSuccess;
+  }
+  ClusterConfig c(dim3(cluster * sms), smem, 0);
+  return cudaOccupancyMaxActiveClusters(&out[6], kern, &c.cfg);
+}
+
+// The layout of K1 (R = 0) or K14 on bf16 operands at (dp, nw).
+template <int KEEP, int R>
+cudaError_t mma_layout(int dp, int nw, int* out) {
+  const int nbuf = mma_nbuf(dp, nw);
+  if (!nbuf) return cudaErrorInvalidValue;
+  return codes_layout((const void*)mma_kernel<KEEP, R>(dp), dp,
+                      mma_smem(dp, nw, nbuf), R * K14_PAIRS * THREADS, MMA_QB,
+                      MMA_CL, nbuf, out);
 }
 
 }  // namespace
@@ -495,24 +963,51 @@ int rq_codes_decode_candidates(const void* Qm, const void* Cflat,
                                int ntiles, int rows, int keep, int idbits,
                                int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RQ_K1(T, K)                                                         \
-  return (int)launch_candidates<CodesSrc<T>, K>(                            \
-      CodesSrc<T>{(const T*)Cflat, (const T*)nrm, (const int*)packed, m, h, \
-                  nw, has_norms},                                           \
-      Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st)
   if (bf16) {
+    const CodesSrc<__nv_bfloat16> src{(const __nv_bfloat16*)Cflat,
+                                      (const __nv_bfloat16*)nrm,
+                                      (const int*)packed, m, h, nw,
+                                      has_norms};
     switch (keep) {
-      case 2: RQ_K1(__nv_bfloat16, 2);
-      case 4: RQ_K1(__nv_bfloat16, 4);
+      case 2: return (int)launch_mma<2, 0>(src, Qm, cand, disc, nullptr, n,
+                                           nq, dp, rows, ntiles, 1, idbits,
+                                           st);
+      case 4: return (int)launch_mma<4, 0>(src, Qm, cand, disc, nullptr, n,
+                                           nq, dp, rows, ntiles, 1, idbits,
+                                           st);
     }
-  } else {
-    switch (keep) {
-      case 2: RQ_K1(float, 2);
-      case 4: RQ_K1(float, 4);
-    }
+    return (int)cudaErrorInvalidValue;
   }
-#undef RQ_K1
+  const CodesSrc<float> src{(const float*)Cflat, (const float*)nrm,
+                            (const int*)packed, m, h, nw, has_norms};
+  switch (keep) {
+    case 2: return (int)launch_candidates<CodesSrc<float>, 2>(
+        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
+    case 4: return (int)launch_candidates<CodesSrc<float>, 4>(
+        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// K1's layout at (keep, dp, nw) into out[8]: queries per CTA, ints of
+// scratch per CTA (none), CTAs per SM, the d-block, shared bytes per CTA,
+// CTAs per cluster, the clusters the card holds at once, step buffers.
+int rq_codes_candidates_layout(int keep, int dp, int nw, int bf16,
+                               void* out) {
+  if (keep != 2 && keep != 4) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)(keep == 2 ? mma_layout<2, 0>(dp, nw, (int*)out)
+                           : mma_layout<4, 0>(dp, nw, (int*)out));
+  using S = CodesSrc<float>;
+  const void* kern =
+      keep == 2 ? (dp > NARROW_DP
+                       ? (const void*)scan_candidates_kernel<S, 2, true>
+                       : (const void*)scan_candidates_kernel<S, 2, false>)
+                : (dp > NARROW_DP
+                       ? (const void*)scan_candidates_kernel<S, 4, true>
+                       : (const void*)scan_candidates_kernel<S, 4, false>);
+  return (int)codes_layout(kern, dp, scan_smem(dp, K1_QB, LANES * nw), 0,
+                           K1_QB, 1, 1, (int*)out);
 }
 
 // K4 at qb queries a CTA (the layout's) over row ids split rows_per a CTA
@@ -553,45 +1048,56 @@ int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
                             int ntiles, int tiles_per, int r, int keep,
                             int idbits, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define RQ_K14(T, R, K)                                                     \
-  return (int)launch_onepass_cut<CodesSrc<T>, R, K>(                        \
-      CodesSrc<T>{(const T*)Cflat, (const T*)nrm, (const int*)packed, m, h, \
-                  nw, has_norms},                                           \
-      Qm, cand, disc, scratch, n, nq, dp, rows, ntiles, tiles_per, idbits, \
-      st)
-#define RQ_K14_T(T)                                  \
-  if (r == 14 && keep == 2) RQ_K14(T, 14, 2);        \
-  if (r == 12 && keep == 4) RQ_K14(T, 12, 4);        \
-  if (r == 28 && keep == 4) RQ_K14(T, 28, 4);
   if (bf16) {
-    RQ_K14_T(__nv_bfloat16)
-  } else {
-    RQ_K14_T(float)
+    const CodesSrc<__nv_bfloat16> src{(const __nv_bfloat16*)Cflat,
+                                      (const __nv_bfloat16*)nrm,
+                                      (const int*)packed, m, h, nw,
+                                      has_norms};
+#define RQ_K14B(R, K)                                                      \
+  return (int)launch_mma<K, R>(src, Qm, cand, disc, scratch, n, nq, dp,    \
+                               rows, ntiles, tiles_per, idbits, st)
+    if (r == 14 && keep == 2) RQ_K14B(14, 2);
+    if (r == 12 && keep == 4) RQ_K14B(12, 4);
+    if (r == 28 && keep == 4) RQ_K14B(28, 4);
+#undef RQ_K14B
+    return (int)cudaErrorInvalidValue;
   }
-#undef RQ_K14_T
+  const CodesSrc<float> src{(const float*)Cflat, (const float*)nrm,
+                            (const int*)packed, m, h, nw, has_norms};
+#define RQ_K14(R, K)                                                        \
+  return (int)launch_onepass_cut<CodesSrc<float>, R, K>(                    \
+      src, Qm, cand, disc, scratch, n, nq, dp, rows, ntiles, tiles_per,     \
+      idbits, st)
+  if (r == 14 && keep == 2) RQ_K14(14, 2);
+  if (r == 12 && keep == 4) RQ_K14(12, 4);
+  if (r == 28 && keep == 4) RQ_K14(28, 4);
 #undef RQ_K14
   return (int)cudaErrorInvalidValue;
 }
 
-// K14's layout at (r, keep, dp, nw) into out[5]: queries per CTA, ints of
+// K14's layout at (r, keep, dp, nw) into out[8]: queries per CTA, ints of
 // scratch per CTA (`scratch` holds one such block per CTA of the grid),
-// CTAs per SM, the d-block, shared bytes per CTA. The wrapper sizes its
-// scratch and its splits from these.
+// CTAs per SM, the d-block, shared bytes per CTA, CTAs per cluster, the
+// clusters the card holds at once, step buffers. The wrapper pads the
+// query blocks to whole clusters and sizes its scratch and its splits
+// from these.
 int rq_codes_onepass_layout(int r, int keep, int dp, int nw, int bf16,
                             void* out) {
-#define RQ_K14L(T, R, K)                                                   \
-  return (int)onepass_cut_layout<CodesSrc<T>, R, K>(dp, LANES * nw,        \
-                                                    (int*)out)
-#define RQ_K14L_T(T)                                 \
-  if (r == 14 && keep == 2) RQ_K14L(T, 14, 2);       \
-  if (r == 12 && keep == 4) RQ_K14L(T, 12, 4);       \
-  if (r == 28 && keep == 4) RQ_K14L(T, 28, 4);
-  if (bf16) {
-    RQ_K14L_T(__nv_bfloat16)
-  } else {
-    RQ_K14L_T(float)
-  }
-#undef RQ_K14L_T
+  using S = CodesSrc<float>;
+  const size_t smem = scan_smem(dp, K1_QB, LANES * nw);
+#define RQ_K14L(R, K)                                                        \
+  return (int)(bf16 ? mma_layout<K, R>(dp, nw, (int*)out)                    \
+                    : codes_layout(                                          \
+                          dp > NARROW_DP                                     \
+                              ? (const void*)scan_onepass_cut_kernel<S, R, K, \
+                                                                    true>    \
+                              : (const void*)scan_onepass_cut_kernel<S, R, K, \
+                                                                    false>,  \
+                          dp, smem, R * K14_PAIRS * THREADS, K1_QB, 1, 1,    \
+                          (int*)out))
+  if (r == 14 && keep == 2) RQ_K14L(14, 2);
+  if (r == 12 && keep == 4) RQ_K14L(12, 4);
+  if (r == 28 && keep == 4) RQ_K14L(28, 4);
 #undef RQ_K14L
   return (int)cudaErrorInvalidValue;
 }

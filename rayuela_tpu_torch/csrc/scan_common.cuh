@@ -10,8 +10,8 @@
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
 // per-lane row id rid = gid >> 7. Its score against query q is
 // dot(x, Qm[q]) + x2, with x the row at the operand type, Qm = -2q at
-// the operand type and an f32 dot taken in dimension order, and +inf
-// for pad rows gid >= n. The selection key is
+// the operand type and an f32 dot taken in dimension order (on the
+// tensor cores in chunks of 16, below), and +inf for pad rows gid >= n. The selection key is
 // (sortable(score) & -(1 << idbits)) | rid: unique per (lane, query),
 // so per-lane selections have no ties. Per (lane, query), over the
 // lane's row ids in order: a tile keeps its KEEP smallest keys, and
@@ -48,12 +48,28 @@
 // of the bytes of the rows' block at 32 queries) and takes the shared
 // memory of dp = DBLK, two CTAs per SM. The layout (`scan_dblock`,
 // `scan_smem`) is the kernels' alone; the wrappers ask for it.
+//
+// The tensor-core score. The bf16 code-resident scans (K1 and K14 in
+// codes_scan.cu, K4 below) score on the tensor cores instead: a score is
+// the f32 sum, over the 16-dimension chunks of the row in ascending order
+// (d-blocks ascending), of one mma.sync m16n8k16 each (bf16 operands, f32
+// accumulator) from a zero accumulator, then + x2 in f32 (`tile_scores`).
+// One instruction shape and one chunk order in all three, so that they
+// give the same score bits for a (row, query) wherever it sits in a tile:
+// the one-pass search (K14, and K4's rescue) equals the two-pass one (K1
+// -> K2). Where a row is one d-block (dp <= NARROW_DP) the key is then
+// the fmaf chain's: a tensor-core score settles it unless it lies near a
+// key boundary, and there the pair is scored again by the chain
+// (`margin_keys`). The f32 instances and the decoded scans keep the
+// fmaf chain.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -327,6 +343,199 @@ __device__ __forceinline__ void unpack16(const uint4& u, float (&v)[8]) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core score of the bf16 codes scans (K1, K14, K4)
+// ---------------------------------------------------------------------------
+
+// Whether row source Src scores on the tensor cores (`Src::kTensorScores`;
+// a source that does not say keeps the fmaf chain).
+template <class Src, class = void> struct tensor_scores : std::false_type {};
+template <class Src>
+struct tensor_scores<Src, std::void_t<decltype(Src::kTensorScores)>>
+    : std::bool_constant<Src::kTensorScores> {};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four (or two) 8 x 8 matrices of 16-bit values from shared memory; thread
+// i gives the address of row i % 8 of matrix i / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// acc += A B: A 16 x 16 (row-major, bf16), B 16 x 8 (column-major, bf16),
+// acc the 16 x 8 f32 sums of the warp (thread l holds rows l / 4 and
+// l / 4 + 8, columns 2 (l % 4) and 2 (l % 4) + 1). The product is one
+// m16n8k16 from a zero accumulator, added to acc in f32 (round to
+// nearest): the tensor cores' own accumulation may drop the low bits of
+// the products against a large running sum, a chunk's sum of 16 does not
+// meet one.
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// The score function of the bf16 codes scans, for one warp: acc[t] += the
+// products of 16 queries (rows of Q, qs elements apart) with the 8 rows
+// X[8 t .. 8 t + 8) (xs elements apart), over dimensions [0, nk) of both
+// in chunks of 16, ascending, one m16n8k16 product a chunk and tile
+// (`mma_bf16`).
+// acc[t][e] is query l / 4 + 8 (e / 2) against row 8 t + 2 (l % 4) +
+// e % 2 (l the thread's lane in the warp). Operands load with ldmatrix:
+// each row's stride is 16 bytes past a multiple of 128, so the 8 rows of
+// a matrix fall in distinct banks. Both operands are 16-byte aligned.
+template <int NT>
+__device__ __forceinline__ void tile_scores(const __nv_bfloat16* Q, int qs,
+                                            const __nv_bfloat16* X, int xs,
+                                            int nk, float (&acc)[NT][4]) {
+  static_assert(NT == 1 || NT % 2 == 0, "NT: 1 or even");
+  const int l = threadIdx.x & 31;
+  const __nv_bfloat16* qa = Q + (l & 15) * qs + (l >> 4) * 8;
+  const __nv_bfloat16* xa =
+      X + ((NT == 1 ? 0 : (l >> 4) * 8) + (l & 7)) * xs + ((l >> 3) & 1) * 8;
+  for (int k0 = 0; k0 < nk; k0 += 16) {
+    unsigned a[4];
+    ldmatrix_x4(a, qa + k0);
+    if constexpr (NT == 1) {
+      unsigned b[2];
+      ldmatrix_x2(b, xa + k0);
+      mma_bf16(acc[0], a, b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        unsigned b[4];
+        ldmatrix_x4(b, xa + t * 8 * xs + k0);
+        mma_bf16(acc[t], a, b[0], b[1]);
+        mma_bf16(acc[t + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The keys of the tensor-core scores, where a row is one d-block. A key
+// keeps the bits of the score above its idbits low ones (`row_key`), so a
+// tensor-core score s and the fmaf chain's score of the same pair give
+// one key unless a key boundary lies between them: they differ by a few
+// f32 rounding steps of the products' magnitude, a step of the key is
+// 2^idbits of them. The scan takes the keys lo and hi of s - slack and s
+// + slack (`score_slack`): where they agree that is the chain's key too;
+// where they do not and lo could enter the pair's buffer, the pair is
+// scored again by the chain (`chain_score`), the requests of a warp's
+// threads side by side (`warp_offsets`, `warp_chain_keys`). So a key is
+// the fmaf chain's, that of the f32 bodies and of the plain versions' f32
+// matmul, and the tensor cores do the work of every pair away from a
+// boundary. The chain's key is held at lo or above, so that a key is a
+// function of the pair alone even where the two sums were further apart
+// than the margin: the one-pass scans then still keep the two-pass
+// scan's keys.
+
+// |v| in f32 of dp bf16 values (16-byte aligned), one fmaf chain in
+// dimension order, times dp 2^-25 (the factor of `score_slack`): the same
+// bits in every kernel that asks.
+__device__ __forceinline__ float slack_of_query(const __nv_bfloat16* v,
+                                               int dp) {
+  float a = 0.f;
+  for (int k = 0; k < dp; k += 8) {
+    float x[8];
+    unpack16(*reinterpret_cast<const uint4*>(v + k), x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = fmaf(x[e], x[e], a);
+  }
+  return __fmul_rn(sqrtf(a), (float)dp * 0x1p-25f);
+}
+
+// The score of the f32 bodies: x . q over dp bf16 values (16-byte
+// aligned, dp a multiple of 16), one fmaf chain in dimension order from
+// zero, then + x2.
+__device__ __forceinline__ float chain_score(const __nv_bfloat16* x,
+                                             const __nv_bfloat16* q, int dp,
+                                             float x2) {
+  float a = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < dp; k += 8) {
+    float xv[8], qv[8];
+    unpack16(*reinterpret_cast<const uint4*>(x + k), xv);
+    unpack16(*reinterpret_cast<const uint4*>(q + k), qv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = fmaf(xv[e], qv[e], a);
+  }
+  return a + x2;
+}
+
+// The margin around a tensor-core score s of a pair whose query gives qc
+// (`slack_of_query`: its norm qn times dp 2^-25) and whose row's f32
+// values have norm xn: qn xn bounds the sum of the products' magnitudes,
+// the partial sums of both the chain and the chunks. The chain rounds dp
+// times, each by at most 2^-24 of that bound, and mostly in both
+// directions (a spread of sqrt(dp) steps); the tensor cores drop at most
+// ~17 steps of a chunk's largest product; two more roundings add x2. The
+// margin takes dp / 2 steps of 2^-24 of the bound, and 2^-21 of |s|
+// (rounded as written, in every kernel alike).
+__device__ __forceinline__ float score_slack(float s, float qc, float xn) {
+  return fmaf(fabsf(s), 0x1p-21f, __fmul_rn(qc, xn));
+}
+
+// The keys lo <= hi that the margin allows a tensor-core score s (x2
+// added; +inf for a pad row) of row id rid.
+__device__ __forceinline__ void margin_keys(float s, float slack, int rid,
+                                            int vmask, int& lo, int& hi) {
+  const bool pad = __float_as_int(s) == 0x7F800000;
+  lo = row_key(pad ? s : s - slack, rid, vmask);
+  hi = row_key(pad ? s : s + slack, rid, vmask);
+}
+
+// A warp's requests for the chain: bit p of `need` asks for pair p of the
+// calling thread. Returns the index of the calling thread's first request
+// in the warp's request arrays (its others follow, in the order of p) and
+// the warp's count in `total`. Every thread of the warp calls it.
+__device__ __forceinline__ int warp_offsets(unsigned need, int& total) {
+  const unsigned full = 0xffffffffu;
+  const int l = threadIdx.x & 31, c = __popc(need);
+  int incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(full, incl, o);
+    if (l >= o) incl += v;
+  }
+  total = __shfl_sync(full, incl, 31);
+  return incl - c;
+}
+
+// The warp's `total` requests, side by side over its lanes: request i is
+// item[i] (the caller's encoding of a pair) with its lower key keys[i];
+// keys[i] becomes max(chain(item[i]), keys[i]), chain returning the
+// pair's key from the fmaf chain's score. Every thread of the warp calls
+// it; the barriers order the caller's writes before and its reads after.
+template <class Chain>
+__device__ __forceinline__ void warp_chain_keys(const unsigned short* item,
+                                                int* keys, int total,
+                                                Chain chain) {
+  __syncwarp();
+  for (int i = threadIdx.x & 31; i < total; i += 32)
+    keys[i] = max(chain((int)item[i]), keys[i]);
+  __syncwarp();
+}
+
 // The one-pass body (K4, and K8 at keep = 0), which replaces
 // scan_codes_pallas.py::_codes_decode_kernel_packed (:318) and
 // scan_pallas.py::_scan_kernel_packed at keep = 0. Per (lane, query)
@@ -370,6 +579,16 @@ __device__ __forceinline__ void unpack16(const uint4& u, float (&v)[8]) {
 // QB = 32, 66 KB in bf16). `topk_qb` picks QB, `rq_codes_topk_layout`
 // and `rq_scan_onepass_layout` report it and the CTAs an SM holds, and
 // the wrappers split the rows from that.
+//
+// K4 on bf16 operands (`tensor_scores`) takes the tensor-core score of K1
+// and K14 instead of the fmaf chain, so that its keys equal theirs on any
+// data: a step's QB x 32 products are QB / 4 m16n8 tiles, one a warp
+// (`tile_scores`), accumulated over the d-blocks in the fragments; at the
+// step's end they pass through shared memory to the thread that owns each
+// (lane, query), and at one d-block the key is the chain's
+// (`margin_keys`, over the step's rows, still in shared memory). The
+// layout, buffers and splits are the fmaf body's. K8 at keep = 0 keeps
+// the fmaf chain, as K8's candidates body does.
 template <class Src, int R, int LN>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_topk_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
@@ -377,12 +596,30 @@ __global__ void __launch_bounds__(THREADS, 2)
                      int nq, int dp, int nrows, int rows_per, int idbits) {
   using T = typename Src::Op;
   constexpr int QB = THREADS / LN, NR = 32 / LN, V = Vec16<T>::N;
+  constexpr bool MMA = tensor_scores<Src>::value;
+  constexpr int SS = 40;  // row stride of the products in shared memory
+  static_assert(!MMA || std::is_same<T, __nv_bfloat16>::value,
+                "tensor-core scores take bf16 operands");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int db = scan_dblock(dp), xs = db + V, qs = dp + V;
+  // MMA at one d-block: the keys are the fmaf chain's, and the rows of two
+  // steps stay, so that the chain's requests of a step wait for the next
+  // step's and a warp serves both in one pass
+  const bool one_block = db == dp;
+  const int nbx = MMA && one_block ? 2 : 1;
   T* Qs = reinterpret_cast<T*>(smem_raw);  // QB * qs
-  T* Xs = Qs + QB * qs;                    // NR * LN * xs
-  float* x2s = reinterpret_cast<float*>(Xs + NR * LN * xs);  // NR * LN
-  int* words = reinterpret_cast<int*>(x2s + NR * LN);  // NR*LN*lane_words
+  T* Xs0 = Qs + QB * qs;                   // nbx * NR * LN * xs
+  float* x2s0 = reinterpret_cast<float*>(Xs0 + nbx * NR * LN * xs);
+  int* words = reinterpret_cast<int*>(x2s0 + nbx * NR * LN);  // lane_words
+  // MMA: the products (QB x SS), the queries' margins, the rows' norms
+  // and, at one d-block, the chain's requests of two steps (64 NR a warp:
+  // keys, then items)
+  float* S = reinterpret_cast<float*>(words + NR * LN * src.lane_words());
+  float* qcs = S + QB * SS;
+  float* xns = qcs + QB;
+  int* rkeys = reinterpret_cast<int*>(xns + NR * LN);
+  unsigned short* ritems =
+      reinterpret_cast<unsigned short*>(rkeys + 64 * NR * (THREADS / 32));
   const int j = threadIdx.x % LN, qi = threadIdx.x / LN;
   const int l0 = blockIdx.y * LN, lane = l0 + j;
   const int q = blockIdx.x * QB + qi, s = blockIdx.z;
@@ -392,24 +629,56 @@ __global__ void __launch_bounds__(THREADS, 2)
     Qs[(i / dp) * qs + i % dp] =
         qq < nq ? Qm[(size_t)qq * dp + i % dp] : T(0.f);
   }
+  if constexpr (MMA) {
+    __syncthreads();
+    if (threadIdx.x < QB)
+      qcs[threadIdx.x] = slack_of_query(
+          reinterpret_cast<const __nv_bfloat16*>(Qs) + threadIdx.x * qs, dp);
+  }
 
   const bool live = q < nq;
   const T* qrow = Qs + qi * qs;
+  if constexpr (MMA) __syncthreads();  // qcs
+  const float qc = MMA ? qcs[qi] : 0.f;
   int buf[R];
 #pragma unroll
   for (int c = 0; c < R; ++c) buf[c] = INT_MAX;
   int rest = INT_MAX;
   const int rid1 = min(nrows, (s + 1) * rows_per);
+  const int warp = threadIdx.x >> 5, lt = threadIdx.x & 31;
+  // MMA: warp w < QB / 4 scores queries [16 (w / 4), +16) against the
+  // rows [8 (w % 4), +8) of the step (row r * LN + j: row id rid0 + r,
+  // lane l0 + j)
+  const bool tiled = warp < QB / 4;
+  const int qt = 16 * (warp >> 2), rt = 8 * (warp & 3);
+  // the chain's requests waiting in the warp's arrays: the warp's count,
+  // and where the thread's of the last step start and how many they are
+  int woff = 0, pstart = 0, pcount = 0;
   for (int rid0 = s * rows_per; rid0 < rid1; rid0 += NR) {
+    const int bb = nbx == 2 ? ((rid0 - s * rows_per) / NR) & 1 : 0;
+    T* Xs = Xs0 + bb * NR * LN * xs;
+    float* x2s = x2s0 + bb * NR * LN;
     float acc[NR];
 #pragma unroll
     for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+    float frag[1][4] = {{0.f, 0.f, 0.f, 0.f}};
     for (int b0 = 0; b0 < dp; b0 += db) {
       const int nb = min(db, dp - b0);
       __syncthreads();  // the readers of the last block are done with Xs
-      src.template load_lanes<LN, NR>(n, rid0, l0, b0, nb, dp, Xs, xs, x2s,
-                                      words);
-      if (live) {
+      if constexpr (MMA)
+        src.template load_lanes<LN, NR>(n, rid0, l0, b0, nb, dp, Xs, xs, x2s,
+                                        words, one_block ? xns : nullptr);
+      else
+        src.template load_lanes<LN, NR>(n, rid0, l0, b0, nb, dp, Xs, xs, x2s,
+                                        words);
+      if constexpr (MMA) {
+        if (tiled)
+          tile_scores<1>(reinterpret_cast<const __nv_bfloat16*>(Qs) +
+                             qt * qs + b0,
+                         qs,
+                         reinterpret_cast<const __nv_bfloat16*>(Xs) + rt * xs,
+                         xs, nb, frag);
+      } else if (live) {
         for (int kk = 0; kk < nb; kk += V) {
           float v[V];
           unpack16(*reinterpret_cast<const uint4*>(qrow + b0 + kk), v);
@@ -424,15 +693,90 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
     }
-    if (live) {
+    if constexpr (MMA) {
+      // (the last step's readers of S passed the barrier of this step's
+      // first block)
+      if (tiled) {
+        const int qq = qt + (lt >> 2), rr = rt + 2 * (lt & 3);
+        S[qq * SS + rr] = frag[0][0];
+        S[qq * SS + rr + 1] = frag[0][1];
+        S[(qq + 8) * SS + rr] = frag[0][2];
+        S[(qq + 8) * SS + rr + 1] = frag[0][3];
+      }
+      __syncthreads();
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const int rid = rid0 + r;
-        if (rid < rid1) {
-          const bool pad = (long long)rid * LANES + lane >= n;
-          const float sc =
-              pad ? __int_as_float(0x7F800000) : acc[r] + x2s[r * LN + j];
-          insert_sorted<R>(buf, rest, row_key(sc, rid, vmask));
+      for (int r = 0; r < NR; ++r) acc[r] = S[qi * SS + r * LN + j];
+    }
+    // the keys lo <= hi each row's score allows (one key where the score
+    // is the fmaf chain's or settles it), lo in place of the score; eq:
+    // the rows whose key is known, need: those the chain decides
+    unsigned eq = 0, need = 0;
+    const int thr = max(buf[R - 1], rest);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int rid = rid0 + r;
+      const bool pad = (long long)rid * LANES + lane >= n;
+      const float sc =
+          pad ? __int_as_float(0x7F800000) : acc[r] + x2s[r * LN + j];
+      int lo, hi;
+      if (MMA && one_block) {
+        margin_keys(sc, score_slack(sc, qc, xns[r * LN + j]), rid, vmask, lo,
+                    hi);
+      } else {
+        lo = hi = row_key(sc, rid, vmask);
+      }
+      const bool in = live && rid < rid1;
+      eq |= (unsigned)(in && lo == hi) << r;
+      need |= (unsigned)(in && lo != hi && lo < thr) << r;
+      acc[r] = __int_as_float(lo);
+    }
+    // one copy of the R-deep insertion for the step's rows (and one for
+    // each step's keys from the chain below): the step's code stays small
+#pragma unroll 1
+    for (int r = 0; r < NR; ++r) {
+      float a = acc[0];
+#pragma unroll
+      for (int u = 1; u < NR; ++u) a = r == u ? acc[u] : a;
+      if (eq >> r & 1) insert_sorted<R>(buf, rest, __float_as_int(a));
+    }
+    if constexpr (MMA) {
+      if (one_block) {
+        int total;
+        const int base = woff + warp_offsets(need, total);
+        int* keys = rkeys + warp * 64 * NR;
+        unsigned short* item = ritems + warp * 64 * NR;
+        int k = base;
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          if (need >> r & 1) {
+            item[k] = (unsigned short)((lt << 3) | (bb << 2) | r);
+            keys[k++] = __float_as_int(acc[r]);
+          }
+        woff += total;
+        if (bb == 1 || rid0 + NR >= rid1) {  // the last step's rows go next
+          if (woff) {
+            warp_chain_keys(item, keys, woff, [&](int it) {
+              const int t = warp * 32 + (it >> 3), r = it & 3, jj = t % LN;
+              const int o = ((it >> 2) & 1) * NR * LN + r * LN + jj;
+              return row_key(
+                  chain_score(
+                      reinterpret_cast<const __nv_bfloat16*>(Xs0) + o * xs,
+                      reinterpret_cast<const __nv_bfloat16*>(Qs) +
+                          (t / LN) * qs,
+                      dp, x2s0[o]),
+                  rid0 - (bb - ((it >> 2) & 1)) * NR + r, vmask);
+            });
+#pragma unroll 1
+            for (int c = 0; c < pcount; ++c)
+              insert_sorted<R>(buf, rest, keys[pstart + c]);
+#pragma unroll 1
+            for (int c = base; c < k; ++c)
+              insert_sorted<R>(buf, rest, keys[c]);
+          }
+          woff = pcount = 0;
+        } else {
+          pstart = base;
+          pcount = k - base;
         }
       }
     }
@@ -447,26 +791,38 @@ __global__ void __launch_bounds__(THREADS, 2)
 // Shared memory of a one-pass CTA of qb queries over operands of
 // op_bytes: the queries whole, the 32 rows of a step (its THREADS / qb
 // lanes of 32 qb / THREADS row ids) at one d-block, their norms and
-// codes.
-inline size_t topk_smem(int dp, int qb, int lane_words, int op_bytes) {
+// codes; on the tensor cores (mma) also the step's products (qb rows of
+// 40), the queries' margins, the norms of the rows' values and, where a
+// row is one d-block, a second step's rows and norms and room for the
+// chain's requests of two steps (64 qb keys and items).
+inline size_t topk_smem(int dp, int qb, int lane_words, int op_bytes,
+                        bool mma) {
   const size_t pad = 16 / op_bytes, rows = 32;
   return (size_t)op_bytes * ((size_t)qb * (dp + pad) +
                              rows * (scan_dblock(dp) + pad)) +
-         sizeof(float) * rows + sizeof(int) * rows * (size_t)lane_words;
+         sizeof(float) * rows + sizeof(int) * rows * (size_t)lane_words +
+         (mma ? sizeof(float) * ((size_t)qb * 41 + rows) +
+                    (dp <= NARROW_DP
+                         ? (size_t)op_bytes * rows * (dp + pad) +
+                               sizeof(float) * rows + 6 * 64 * (size_t)qb
+                         : 0)
+              : 0);
 }
 
 // Queries per one-pass CTA at width dp: 32 where two such CTAs fit an
 // SM, else 16 where one fits, else 0 (none fits).
-inline int topk_qb(int dp, int lane_words, int op_bytes) {
+inline int topk_qb(int dp, int lane_words, int op_bytes, bool mma) {
   int dev = 0, cap = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
   // two CTAs an SM: each also takes 1 KB of the SM's shared memory
-  if (topk_smem(dp, 32, lane_words, op_bytes) <= (size_t)(cap - 1024) / 2)
+  if (topk_smem(dp, 32, lane_words, op_bytes, mma) <=
+      (size_t)(cap - 1024) / 2)
     return 32;
-  return topk_smem(dp, 16, lane_words, op_bytes) <= (size_t)cap ? 16 : 0;
+  return topk_smem(dp, 16, lane_words, op_bytes, mma) <= (size_t)cap ? 16
+                                                                       : 0;
 }
 
 // The compiled instance for qb queries a CTA (nullptr: none).
@@ -512,7 +868,8 @@ cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
   const dim3 grid((nq + qb - 1) / qb, LANES / (THREADS / qb),
                   (nrows + rows_per - 1) / rows_per);
   const size_t smem = topk_smem(dp, qb, src.lane_words(),
-                                sizeof(typename Src::Op));
+                                sizeof(typename Src::Op),
+                                tensor_scores<Src>::value);
   return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
                      (int*)cand, (int*)disc, n, nq, dp, nrows, rows_per,
                      idbits);
@@ -524,10 +881,11 @@ cudaError_t launch_topk(const Src& src, const void* Qm, void* cand,
 template <class Src, int R>
 cudaError_t topk_layout(int dp, int lane_words, int* out) {
   constexpr int ob = sizeof(typename Src::Op);
-  const int qb = topk_qb(dp, lane_words, ob);
+  constexpr bool mma = tensor_scores<Src>::value;
+  const int qb = topk_qb(dp, lane_words, ob, mma);
   auto kern = topk_kernel<Src, R>(qb);
   if (!kern) return cudaErrorInvalidValue;
-  const size_t smem = topk_smem(dp, qb, lane_words, ob);
+  const size_t smem = topk_smem(dp, qb, lane_words, ob, mma);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "rq_codes_topk_layout": [_I] * 4 + [_P],
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
     "rq_codes_onepass_layout": [_I] * 5 + [_P],
+    "rq_codes_candidates_layout": [_I] * 4 + [_P],
     "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
     "rq_scan_onepass": [_P] * 5 + [_I] * 9 + [_P],
     "rq_scan_onepass_layout": [_I] * 3 + [_P],

@@ -44,8 +44,14 @@ launch): K1 ``_codes_decode_kernel_candidates`` (:384, :727), K2
 ``_codes_decode_kernel_packed_multi`` (:332) and ``_staged`` (:365) for
 K14 (launched at :613), K5 ``_codes_scan_kernel_packed`` (:220, :866),
 K6 ``_codes_scan_kernel`` (:179, :898), K7 ``_codes_verify_kernel``
-(:232, :932). On the card K1, K4 and K14 are bound by their n·nq·dp
-multiply-adds on the CUDA cores and the decode's L2 gathers, K5–K7 by
+(:232, :932). On the card K1, K4 and K14 score bf16 operands on the
+tensor cores with one score function, so their keys agree (f32 operands
+in fmaf chains); where a row is one d-block (dp <= 256) that function
+keeps the fmaf chain's key, scoring again by the chain the pairs whose
+tensor-core score lies near a key boundary. K1 and K14 share each
+decoded step over a cluster of
+query blocks and are bound by the latency of a step (its L2 gathers,
+the stores to the cluster, the cluster barrier), K5–K7 by
 their table reads and adds, K2 by reading its candidates (the kernels'
 headers in ``csrc/`` say more).
 """
@@ -361,7 +367,11 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
     (m*h, dp)`` and ``nrm (h, 128)`` come from `build_decode_operands`,
     ``packed (n, nw)`` from `pack_codes`. Returns ``cand
     (ntiles*keep, 128, nq)`` and ``disc (ntiles, 128, nq)`` int32.
-    Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+    On bf16 operands the card scores on the tensor cores, and a cluster
+    of CTAs on neighbouring query blocks shares each decoded step
+    (`_candidates_layout`, from the kernel's source); on f32 operands it
+    scores in f32 fmaf chains. Source:
+    ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     if tile % LANES or keep < 1 or keep > tile // LANES:
         raise ValueError(f"tile={tile} must be a multiple of 128 and "
                          f"1 <= keep={keep} <= tile/128")
@@ -373,17 +383,28 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
         raise ValueError(f"keep={keep}: the kernel takes {_KEEPS}")
     n, nw = packed.shape
     (nq, dp), h = Qm.shape, nrm.shape[0]
+    bf16 = int(Qm.dtype == torch.bfloat16)
     ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
     if nq and n:
         launch("rq_codes_decode_candidates", Qm, Cflat, nrm, packed, cand,
                disc, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
-               ntiles, tile // LANES, keep, idbits,
-               int(Qm.dtype == torch.bfloat16), device=Qm.device)
+               ntiles, tile // LANES, keep, idbits, bf16, device=Qm.device)
         codes_decode_candidates.launches += 1
     return cand, disc
 
 
 codes_decode_candidates.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _candidates_layout(keep: int, dp: int, nw: int, bf16: int,
+                       device: torch.device) -> tuple[int, ...]:
+    """K1's layout at width ``dp`` with ``nw`` packed words a row, as the
+    kernel's source states it: ``(queries per CTA, scratch ints per CTA
+    (0), CTAs per SM, d-block, shared bytes per CTA, CTAs per cluster,
+    clusters the card holds at once, step buffers)``."""
+    return query("rq_codes_candidates_layout", keep, dp, nw, bf16, size=8,
+                 device=device)
 
 
 def codes_decode_topk_plain(Qm, Cflat, nrm, packed, *, tile: int, r: int,
@@ -466,10 +487,11 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     then the certificate, min(every per-tile discard, every survivor not
     kept) → ``(r + 1, 128, nq)`` int32: K1 → K2's function (K1's
     scores, bit for bit) with no candidate array. Operands as
-    `codes_decode_candidates`. On the card a CTA decodes each 128-row
-    step once for 32 queries and carries its buffers over all tiles; the
-    row range is split over CTAs, on tile boundaries, where that fills
-    the card's waves of CTAs better (`_onepass_tiles_per`), and K2 merges
+    `codes_decode_candidates`. On the card K14 is K1's body (on bf16
+    operands a cluster of CTAs shares each decoded 128-row step, each
+    CTA scoring 32 queries) carrying its buffers over all tiles; the
+    row range is split over CTAs (clusters), on tile boundaries, where
+    that fills the card's waves better (`_onepass_grid`), and K2 merges
     the splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     rows = tile // LANES
     if tile % LANES or not 1 <= keep <= rows:
@@ -489,10 +511,9 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
         return torch.full((r + 1, LANES, nq), scan.IMAX, dtype=torch.int32,
                           device=dev)
     bf16 = int(Qm.dtype == torch.bfloat16)
-    qb, per_cta, per_sm, _, _ = _onepass_layout(r, keep, dp, nw, bf16, dev)
-    ntiles, nqb = cdiv(n, tile), cdiv(nq, qb)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles_per = _onepass_tiles_per(nqb, ntiles, sms * per_sm)
+    layout = _onepass_layout(r, keep, dp, nw, bf16, dev)
+    ntiles = cdiv(n, tile)
+    nqb, tiles_per = _onepass_grid(nq, ntiles, layout)
     splits = cdiv(ntiles, tiles_per)
     out = torch.empty((r + 1, LANES, nq), dtype=torch.int32, device=dev)
     if splits == 1:
@@ -502,7 +523,7 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
                            device=dev)
         disc = torch.empty((splits, LANES, nq), dtype=torch.int32,
                            device=dev)
-    scratch = torch.empty(nqb * splits * per_cta, dtype=torch.int32,
+    scratch = torch.empty(nqb * splits * layout[1], dtype=torch.int32,
                           device=dev)
     launch("rq_codes_decode_onepass", Qm, Cflat, nrm, packed, cand, disc,
            scratch, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
@@ -516,21 +537,42 @@ codes_decode_onepass.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _onepass_layout(r: int, keep: int, dp: int, nw: int, bf16: int,
-                    device: torch.device) -> tuple[int, int, int, int, int]:
+                    device: torch.device) -> tuple[int, ...]:
     """K14's ``(queries per CTA, scratch ints per CTA, CTAs per SM,
-    d-block, shared bytes per CTA)`` at these operands, as the kernel's
-    source states them (dp up to 256 is one d-block)."""
-    return query("rq_codes_onepass_layout", r, keep, dp, nw, bf16, size=5,
+    d-block, shared bytes per CTA, CTAs per cluster, clusters the card
+    holds at once, step buffers)`` at these operands, as the kernel's
+    source states them (dp up to 256 is one d-block; f32 operands run
+    clusters of one CTA)."""
+    return query("rq_codes_onepass_layout", r, keep, dp, nw, bf16, size=8,
                  device=device)
 
 
+def _query_blocks(nq: int, qb: int, cluster: int) -> int:
+    """The query blocks of a K1 or K14 grid: ``nq`` queries in blocks of
+    ``qb``, padded to whole clusters of ``cluster`` blocks (a padded
+    block decodes its share of each step and writes nothing)."""
+    return cdiv(nq, qb * cluster) * cluster
+
+
+def _onepass_grid(nq: int, ntiles: int, layout) -> tuple[int, int]:
+    """K14's ``(query blocks, tiles per CTA)`` for ``nq`` queries over
+    ``ntiles`` tiles from its layout (`_onepass_layout`): the query
+    blocks padded to whole clusters, and the rows split by
+    `_onepass_tiles_per` over the card's cluster slots (the CTAs of a
+    cluster walk one tile range)."""
+    qb, cluster, held = layout[0], layout[5], layout[6]
+    nqb = _query_blocks(nq, qb, cluster)
+    return nqb, _onepass_tiles_per(nqb // cluster, ntiles, held)
+
+
 def _onepass_tiles_per(nqb: int, ntiles: int, slots: int) -> int:
-    """Tiles per K14 CTA. Its CTAs walk whole tile ranges, so with
-    ``tiles_per`` tiles (``s = ceil(ntiles / tiles_per)`` splits) the scan
-    takes about ``ceil(nqb * s / slots)`` waves of ``tiles_per`` tiles
-    each: the fewest splits within 2% of the least such cost, with at
-    most ``_ONEPASS_WAVES`` waves of CTAs unless the query blocks alone
-    are more."""
+    """Tiles per K14 CTA. Its CTAs (clusters of CTAs, on bf16 operands:
+    ``nqb`` and ``slots`` then count clusters) walk whole tile ranges, so
+    with ``tiles_per`` tiles (``s = ceil(ntiles / tiles_per)`` splits) the
+    scan takes about ``ceil(nqb * s / slots)`` waves of ``tiles_per``
+    tiles each: the fewest splits within 2% of the least such cost, with
+    at most ``_ONEPASS_WAVES`` waves unless the query blocks alone are
+    more."""
     cap = max(1, min(ntiles, max(nqb, _ONEPASS_WAVES * slots) // nqb))
     cost = {}
     for s in range(1, cap + 1):

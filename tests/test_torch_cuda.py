@@ -144,24 +144,31 @@ def test_rescue_layout_is_the_kernels(dev, dp, nw):
     lanes a CTA where two such CTAs fit an SM, else 16 x 16 (f32 rows at
     dp = 1024, any row at d ~2400); the queries whole and the 32 rows of a
     step at one d-block, at the operand type with 16 bytes of padding a
-    row, their norms and codes in shared memory."""
+    row, their norms and codes in shared memory; K4 on bf16 (the
+    tensor-core score) also the step's products (qb rows of 40 floats),
+    the queries' margins, the norms of the rows' values and, at one
+    d-block, a second step's rows and norms and 64 qb requests for the
+    fmaf chain (an int and a 16-bit item each)."""
     cap = getattr(torch.cuda.get_device_properties(dev),
                   "shared_memory_per_block_optin", 232_448)   # H100: 227 KB
     db = dp if dp <= 256 else 128
 
-    def smem(qb, words, ob):
+    def smem(qb, words, ob, mma):
         pad = 16 // ob
         return ob * (qb * (dp + pad) + 32 * (db + pad)) + 4 * 32 \
-            + 4 * 32 * words
+            + 4 * 32 * words + (4 * (qb * 41 + 32) if mma else 0) \
+            + (ob * 32 * (dp + pad) + 4 * 32 + 6 * 64 * qb
+               if mma and dp <= 256 else 0)
 
     for bf16 in (0, 1):
         ob = 2 if bf16 else 4
         for name, words, lay in (
                 ("K4", nw, tsc._rescue_layout(dp, nw, 48, bf16, dev)),
                 ("K8", 0, tsp._topk_layout(dp, 48, bf16, dev))):
-            qb = 32 if smem(32, words, ob) <= (cap - 1024) // 2 else 16
+            mma = bool(bf16) and name == "K4"
+            qb = 32 if smem(32, words, ob, mma) <= (cap - 1024) // 2 else 16
             assert lay[:2] == (qb, 256 // qb), (name, dp, bf16)
-            assert lay[3:] == (db, smem(qb, words, ob)), (name, dp, bf16)
+            assert lay[3:] == (db, smem(qb, words, ob, mma)), (name, dp, bf16)
             assert lay[2] == (2 if qb == 32 else
                               min(2, (cap + 1024) // (lay[4] + 1024))), \
                 (name, dp, bf16)
@@ -293,22 +300,188 @@ def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
     assert torch.equal(out, ref)
 
 
+# K14's compiled (r, keep), each at a tile the one-pass plan gives it
+ONEPASS_PLANS = ((14, 2, 2048), (12, 4, 2048), (28, 4, 8192))
+
+
+def _mma_smem(dp, nw, nbuf):
+    """Shared bytes of a bf16 K1/K14 CTA (`mma_smem` in codes_scan.cu):
+    32 queries whole and their margins, nbuf buffers of 128 rows at one
+    d-block and their two norms (x2 and that of the f32 values), at 16
+    bytes of padding a row; the running norms of the CTA's share of a
+    step (128 rows over a cluster of 8 CTAs: 16) and their codes for two
+    steps; at one d-block 16 requests a thread for the fmaf chain (an
+    int key and a 16-bit item each)."""
+    db, rpc = (dp if dp <= 256 else 128), 128 // 8
+    return 2 * (32 * (dp + 8) + nbuf * 128 * (db + 8)) \
+        + 4 * (32 + 2 * nbuf * 128 + rpc) + 8 * rpc * nw \
+        + (6 * 16 * 256 if dp <= 256 else 0)
+
+
 @pytest.mark.parametrize("r,keep", [(14, 2), (12, 4), (28, 4)])
 def test_onepass_layout_is_the_kernels(dev, r, keep):
-    """K14's layout comes from its source: 32 queries per CTA, r rows of
-    16 (lane, query) pairs x 256 threads of scratch per CTA, two CTAs
-    per SM at dp = 128 (the occupancy its launch bounds ask for), the
-    row as one d-block and the tile, the queries, the norms and the
-    codes of a step in shared memory; at GIST's dp = 1024 the same CTA
-    over d-blocks of 128."""
+    """K14's layout comes from its source. f32: 32 queries per CTA, r
+    rows of 16 (lane, query) pairs x 256 threads of scratch per CTA, two
+    CTAs per SM (the occupancy its launch bounds ask for), the row as one
+    d-block at dp = 128 and blocks of 128 at GIST's dp = 1024, the tile,
+    the queries, the norms and the codes of a step in shared memory,
+    clusters of one CTA. bf16 (the tensor-core body): the same CTA and
+    scratch in clusters of 8 CTAs, the queries whole and two step
+    buffers where two CTAs an SM still fit (dp = 128), else one (dp =
+    1024); the card holds at least one cluster and at most its CTA slots
+    over 8."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smem = 4 * (128 * 129 + 32 * 128 + 128 + 128 * 2)
-    for bf16 in (0, 1):
-        for dp in (128, 1024):
-            assert tsc._onepass_layout(r, keep, dp, 2, bf16,
-                                       torch.device(dev)) == (
-                32, r * 4096, 2, 128, smem)
+    for dp in (128, 1024):
+        assert tsc._onepass_layout(r, keep, dp, 2, 0, torch.device(dev)) == (
+            32, r * 4096, 2, 128, smem, 1, 2 * sms, 1)
+        lay = tsc._onepass_layout(r, keep, dp, 2, 1, torch.device(dev))
+        nbuf = 2 if dp == 128 else 1
+        assert lay[:2] == (32, r * 4096) and lay[3:6] == (
+            dp if dp <= 256 else 128, _mma_smem(dp, 2, nbuf), 8), lay
+        assert lay[7] == nbuf and lay[2] in (1, 2), lay
+        assert 1 <= lay[6] <= lay[2] * sms // 8, lay
     with pytest.raises(RuntimeError, match="rq_codes_onepass_layout"):
         tsc._onepass_layout(16, 2, 128, 2, 1, torch.device(dev))
+
+
+@pytest.mark.parametrize("keep", [2, 4])
+def test_candidates_layout_is_the_kernels(dev, keep):
+    """K1's layout entry: on bf16 the tensor-core body's (clusters of 8
+    CTAs of 32 queries, no scratch), on f32 the fmaf body's (32 queries,
+    two CTAs an SM, clusters of one); `mma_smem`'s bytes at dp = 128 and
+    GIST's 1024 with 2 and 4 packed words a row."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dp in (128, 1024):
+        for nw in (2, 4):
+            lay = tsc._candidates_layout(keep, dp, nw, 1, torch.device(dev))
+            nbuf = 2 if dp == 128 else 1
+            assert lay[:2] == (32, 0) and lay[5] == 8 and lay[7] == nbuf
+            assert lay[4] == _mma_smem(dp, nw, nbuf), lay
+            assert 1 <= lay[6] <= lay[2] * sms // 8, lay
+            f32 = tsc._candidates_layout(keep, dp, nw, 0, torch.device(dev))
+            assert f32[:2] == (32, 0) and f32[5:] == (1, f32[2] * sms, 1)
+    with pytest.raises(RuntimeError, match="rq_codes_candidates_layout"):
+        tsc._candidates_layout(3, 128, 2, 1, torch.device(dev))
+
+
+@pytest.mark.parametrize("nq", [1, 33, 100, 300])
+@pytest.mark.parametrize("d", [128, 960])
+@pytest.mark.parametrize("pq", [True, False])
+@pytest.mark.parametrize("mprime", [8, 16])
+def test_bf16_codes_kernels_equal_plain_on_integer_data(dev, nq, d, pq,
+                                                        mprime):
+    """K1, K14 and K4 on bf16 operands (the tensor-core score) against
+    their plain versions: identical int32 buffers on small-integer data
+    (exact in bf16 and in any f32 sum order), at one d-block and eight,
+    both norm branches, 8 and 16 packed bytes a row, query counts that
+    fill no whole cluster of 8 x 32 queries (300: one and a part), and
+    a base of n = 20,001
+    rows (the last row id holds one row: pad rows score +inf)."""
+    n = 20_001
+    m = mprime if pq else mprime - 1
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="int",
+                                           dtype=torch.bfloat16, n=n, nq=nq,
+                                           d=d, m=m)
+    args = (Qm, Cf, nrm, idx.packed)
+    n1, n4, n14 = (tsc.codes_decode_candidates.launches,
+                   tsc.codes_decode_topk.launches,
+                   tsc.codes_decode_onepass.launches)
+    for keep in (2, 4):
+        kw = dict(tile=8192, keep=keep, has_norms=not pq,
+                  idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+        cand, disc = tsc.codes_decode_candidates(*args, **kw)
+        cand0, disc0 = tsc.codes_decode_candidates_plain(*args, **kw)
+        assert torch.equal(cand, cand0) and torch.equal(disc, disc0), keep
+    for r, keep, tile in ONEPASS_PLANS:
+        kw14 = dict(tile=tile, r=r, keep=keep, has_norms=not pq,
+                    idbits=tsp._pack_idbits(-(-n // tile) * tile))
+        assert torch.equal(tsc.codes_decode_onepass(*args, **kw14),
+                           tsc.codes_decode_onepass_plain(*args, **kw14)), r
+    kw4 = dict(tile=2048, r=48, has_norms=not pq,
+               idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
+    assert torch.equal(tsc.codes_decode_topk(*args, **kw4),
+                       tsc.codes_decode_topk_plain(*args, **kw4))
+    torch.cuda.synchronize()
+    assert tsc.codes_decode_candidates.launches == n1 + 2
+    assert tsc.codes_decode_onepass.launches == n14 + 3
+    assert tsc.codes_decode_topk.launches == n4 + 1
+
+
+def test_bf16_codes_scans_raise_where_no_cta_fits(dev):
+    """At dp = 4096 not even one bf16 K1/K14 CTA (32 queries whole and
+    one step of 128 rows) fits an SM's shared memory: the launches fail
+    and the wrappers raise, taking neither the fmaf body nor the plain
+    version."""
+    n, d = 3000, 4096
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=True, kind="int",
+                                           dtype=torch.bfloat16, n=n, nq=4,
+                                           d=d)
+    args = (Qm, Cf, nrm, idx.packed)
+    n1, n14 = (tsc.codes_decode_candidates.launches,
+               tsc.codes_decode_onepass.launches)
+    with pytest.raises(RuntimeError, match="rq_codes_decode_candidates"):
+        tsc.codes_decode_candidates(*args, tile=8192, keep=2, idbits=8,
+                                    has_norms=False)
+    with pytest.raises(RuntimeError, match="rq_codes_onepass_layout"):
+        tsc.codes_decode_onepass(*args, tile=2048, r=14, keep=2, idbits=8,
+                                 has_norms=False)
+    assert (tsc.codes_decode_candidates.launches,
+            tsc.codes_decode_onepass.launches) == (n1, n14)
+
+
+@pytest.mark.parametrize("nq", [33, 100])
+@pytest.mark.parametrize("d", [128, 960])
+@pytest.mark.parametrize("pq", [True, False])
+def test_bf16_onepass_keys_equal_two_pass_keys_on_gaussian_data(dev, nq, d,
+                                                                pq):
+    """The gate of the one-pass = two-pass search, on the card: on
+    Gaussian data (sums that round) K14's buffers equal K2's merge of
+    K1's candidates bit for bit at each one-pass plan (split or not),
+    and K4's first `keep` keys equal those of K2's merge of K1's
+    candidates (the tiles' top keeps hold each lane's global top keep):
+    the three score each (row, query) to the same bits wherever it sits
+    in their tiles."""
+    n = 50_001
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="gauss",
+                                           dtype=torch.bfloat16, n=n, nq=nq,
+                                           d=d)
+    args = (Qm, Cf, nrm, idx.packed)
+    for r, keep, tile in ONEPASS_PLANS:
+        idbits = tsp._pack_idbits(-(-n // tile) * tile)
+        kw = dict(tile=tile, keep=keep, idbits=idbits, has_norms=not pq)
+        two = tsc.cand_merge(*tsc.codes_decode_candidates(*args, **kw), r)
+        one = tsc.codes_decode_onepass(*args, r=r, **kw)
+        assert torch.equal(one, two), (r, keep, tile)
+        o4 = tsc.codes_decode_topk(*args, tile=2048, r=48, idbits=idbits,
+                                   has_norms=not pq)
+        assert torch.equal(o4[:keep], two[:keep]), (r, keep, tile)
+
+
+@pytest.mark.parametrize("nq", [33, 100])
+@pytest.mark.parametrize("mprime", [8, 16])
+def test_bf16_codes_keys_are_the_fmaf_chains(dev, nq, mprime):
+    """Where a row is one d-block (d = 128) the tensor-core scans keep the
+    fmaf chain's keys: on Gaussian data K1's candidates and K4's buffers
+    equal K8's (candidates and keep = 0), whose scores are fmaf chains in
+    dimension order, over the same decoded rows and norms (the plain
+    decode, in the kernels' codebook order; the norms byte's x2)."""
+    n, d = 50_001, 128
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=False, kind="gauss",
+                                           dtype=torch.bfloat16, n=n, nq=nq,
+                                           d=d, m=mprime - 1)
+    X, x2 = tsc._decode_x2(Cf, nrm, idx.packed, mprime - 1, True)
+    Xd = X.to(torch.bfloat16)
+    args = (Qm, Cf, nrm, idx.packed)
+    for keep in (2, 4):
+        kw = dict(tile=8192, keep=keep,
+                  idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+        c1, d1 = tsc.codes_decode_candidates(*args, has_norms=True, **kw)
+        c8, d8 = tsp.scan_candidates(Qm, Xd, x2, premin=0, **kw)
+        assert torch.equal(c1, c8) and torch.equal(d1, d8), keep
+    kw4 = dict(tile=2048, r=48, idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
+    assert torch.equal(tsc.codes_decode_topk(*args, has_norms=True, **kw4),
+                       tsp.scan_onepass(Qm, Xd, x2, premin=0, **kw4))
 
 
 @pytest.mark.parametrize("pq", [True, False])

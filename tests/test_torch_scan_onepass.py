@@ -209,6 +209,46 @@ def test_onepass_splits_fill_the_waves(nqb, ntiles, splits):
                for t in allowed if t > tp)
 
 
+@pytest.mark.parametrize("nq,qb,cluster,blocks", [
+    (1, 32, 4, 4),          # one query: a whole cluster of blocks
+    (33, 32, 4, 4),
+    (100, 32, 4, 4),
+    (128, 32, 4, 4),        # exactly one cluster
+    (129, 32, 4, 8),
+    (10_000, 32, 4, 316),   # 313 blocks padded to 79 clusters
+    (10_000, 32, 8, 320),   # clusters of 8 (the bf16 body's)
+    (10_000, 32, 1, 313),   # f32 operands: clusters of one CTA
+    (0, 32, 4, 0)])
+def test_query_blocks_pad_to_whole_clusters(nq, qb, cluster, blocks):
+    """K1's and K14's grids hold whole clusters of query blocks: the
+    blocks of ``nq`` queries rounded up to a multiple of the cluster."""
+    got = tsc._query_blocks(nq, qb, cluster)
+    assert got == blocks
+    assert got % cluster == 0 and got * qb >= nq
+    assert (got - cluster) * qb < nq or nq == 0
+
+
+@pytest.mark.parametrize("nq,ntiles,cluster,held,splits", [
+    (10_000, 123, 4, 66, 5),     # 79 clusters on 66 slots: 1.2 waves
+    (10_000, 489, 4, 66, 5),     # the same at tile 2048
+    (8448, 123, 4, 66, 1),       # 66 clusters: one whole wave unsplit
+    (100, 123, 4, 66, 62),       # one cluster: one wave of 2-tile splits
+    (10_000, 123, 8, 33, 4),     # 40 clusters of 8 on 33 slots
+    (10_000, 123, 1, 264, 5),    # f32: clusters of one CTA, 264 slots
+    (1, 8, 4, 60, 8)])
+def test_onepass_grid_splits_over_cluster_slots(nq, ntiles, cluster, held,
+                                                splits):
+    """K14's grid from its layout: the query blocks padded to whole
+    clusters, and the rows split by `_onepass_tiles_per` with the
+    clusters as its units (a cluster of CTAs walks one tile range) over
+    the clusters the card holds at once."""
+    layout = (32, 28 * 4096, 2, 128, 79_744, cluster, held, 2)
+    nqb, tp = tsc._onepass_grid(nq, ntiles, layout)
+    assert nqb == tsc._query_blocks(nq, 32, cluster)
+    assert tp == tsc._onepass_tiles_per(nqb // cluster, ntiles, held)
+    assert -(-ntiles // tp) == splits
+
+
 @pytest.mark.parametrize("nq,layout,dp,n", [
     (1, (32, 8, 2), 128, 1_000_000),         # the rescue's single query
     (8, (32, 8, 2), 128, 1_000_000),
