@@ -117,7 +117,9 @@ bytes, each input read and each output written once, over 3.35 TB/s)
 and, where one PyTorch call computes the same function, that call's
 time (`matmul` + `topk` over the decoded base for the scans, `topk`
 for K3, `topk` along the candidates for K2 and the pair merge, `amin`
-for the fusion kernel at k = 0).
+for the fusion kernel at k = 0). K3 is also timed at the deepest plan a
+k = 4096 search takes (r = 96, cap = 4096, nq = 1e4, Gaussian keys),
+beside `topk` and held against its plain version.
 
 7. The whole-ILS encode and the one-pass decode scan on phase 4's model
    and data: `api.index_base(mode="codes", impl="pallas-ils")` over the
@@ -590,6 +592,7 @@ def kernel_times(rng, errs):
         if k == 1000:
             times.update(t)
     del XfT, Qmf
+    tail_deep(times, errs)
     Qr = c.Qm[:128].contiguous()
     r4 = tsc._RESCUE_R
     idb4 = tsp._pack_idbits(-(-N // tsc._RESCUE_TILE) * tsc._RESCUE_TILE)
@@ -648,6 +651,36 @@ def kernel_times(rng, errs):
     del c, XfT, Xf
     torch.cuda.empty_cache()
     return times
+
+
+def tail_deep(times, errs, k=4096):
+    """K3 at the deepest plan class that a k = 4096 search takes (r = 96,
+    cap = 4096) over nq = 1e4 queries of per-lane ascending keys (the
+    sortable keys of Gaussian scores, a seed of their own: a 96-deep
+    buffer of phase-1 candidates would take 10 GB), held against its
+    plain version and timed beside `torch.topk` over the same keys."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+
+    r = tsp._scan_config(k)[0]
+    cap = min(1 << (k - 1).bit_length(),
+              (1 << (r - 1).bit_length()) * tsp.LANES)
+    g = torch.Generator(device=DEV).manual_seed(k)
+    rows = tsp._sortable_key(torch.randn((r, tsp.LANES, NQ), generator=g,
+                                         device=DEV))
+    rows = rows.sort(dim=0).values.contiguous()
+    flat = rows.permute(2, 0, 1).reshape(NQ, -1).contiguous()
+    lib_ms, _ = timed(lambda: torch.topk(flat, k, dim=1, largest=False), 3)
+    del flat
+    ms, (kk, ln) = timed(lambda: tsp.tail_merge(rows, cap), 3)
+    pms, (kk0, ln0) = timed(lambda: tsp.tail_merge_plain(rows, cap), 1)
+    check(torch.equal(kk, kk0) and torch.equal(ln, ln0),
+          f"K3 r={r} cap={cap} nq={NQ}: kernel != plain")
+    note(errs, "tail_merge", int_err((kk, kk0), (ln, ln0)))
+    print(f" K3 at the k={k} plan (r={r}, cap={cap}), Gaussian keys")
+    record(times, f"tail_merge k={k}", ms, pms, 2.0 * rows.numel(),
+           "f32 CUDA-core", nbytes(rows, kk, ln), lib_ms)
 
 
 def k4_keys_equal_k1s(args, has_norms, out, keep, idbits, tag, nq=128):

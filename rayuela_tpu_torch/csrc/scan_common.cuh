@@ -2,9 +2,9 @@
 // key format, the register selection, and the two scan bodies that K1,
 // K4 (codes_scan.cu) and K8 (decoded_scan.cu) instantiate with their own
 // row source. K5 (lut_scan.cu) scores differently and shares only the
-// key and the selection. The exact-float scans (K9, K10 here over a row
-// source; K6, K7 in lut_scan.cu) share the sinks at the end of this
-// file.
+// key and the selection. The exact-float scans (K9, K10 in
+// decoded_scan.cu; K6, K7 in lut_scan.cu) share the sinks at the end of
+// this file.
 //
 // Logical contract (shared with the plain PyTorch versions in
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
@@ -224,8 +224,8 @@ __device__ __forceinline__ void block_scores(const float* XsT,
   }
 }
 
-// The scores of row id `rid` in a 4x4-blocked CTA (K1, K8, K9, K10,
-// K14): its 128 rows into shared memory, the thread's 4 lanes x 4
+// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K1 and K14,
+// K8; K9 and K10 have a body of their own in decoded_scan.cu): its 128 rows into shared memory, the thread's 4 lanes x 4
 // queries to acc, the rows' norms to x2s. Narrow (dp <= NARROW_DP): one
 // block, the queries already in Qs (the kernel loaded them once). WIDE:
 // the d-blocks in ascending order, each with its block of the CTA's
@@ -998,67 +998,5 @@ struct CountSink {
     atomicMax(cnt + (size_t)LANES * nq + off, st.c);
   }
 };
-
-// The exact scan body over a row source (K9 with a SelectSink, K10 with
-// the CountSink): the blocking, loads and dot products of the
-// candidates body above, the scores handed to the sink.
-template <class Src, class Sink, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2)
-    exact_scan_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
-                      const Sink sink, int n, int nq, int dp, int rows) {
-  using T = typename Src::Op;
-  extern __shared__ __align__(16) float smem[];
-  const int db = WIDE ? DBLK : dp;
-  float* XsT = smem;                  // db * LP
-  float* Qs = XsT + db * LP;          // K1_QB * db
-  float* x2s = Qs + K1_QB * db;       // LANES
-  int* words = (int*)(x2s + LANES);   // src.words()
-  const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
-  const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
-  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
-  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
-
-  typename Sink::State st[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sink.init(st[i][j], q0 + qg * 4 + j, nq);
-
-  for (int step = 0; step < rows; ++step) {
-    const int rid = t * rows + step;
-    float acc[4][4];
-    step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
-                      acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lane = lg + 32 * i, gid = rid * LANES + lane;
-      const float x2 = x2s[lane];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sink.push(st[i][j], gid >= n ? pos_inf() : acc[i][j] + x2, step, gid);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = q0 + qg * 4 + j;
-      if (q < nq) sink.finish(st[i][j], t, rows, lg + 32 * i, q, nq);
-    }
-}
-
-template <class Src, class Sink>
-cudaError_t launch_exact(const Src& src, const void* Qm, const Sink& sink,
-                         int n, int nq, int dp, int ntiles, int rows,
-                         cudaStream_t st) {
-  const int nqb = (nq + K1_QB - 1) / K1_QB;
-  const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = dp > NARROW_DP ? exact_scan_kernel<Src, Sink, true>
-                             : exact_scan_kernel<Src, Sink, false>;
-  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
-                     sink, n, nq, dp, rows);
-}
 
 }  // namespace

@@ -48,11 +48,13 @@ _SIGNATURES = {
     "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],
     "rq_scan_f32_candidates": [_P] * 5 + [_I] * 7 + [_P],
     "rq_scan_verify_counts": [_P] * 6 + [_I] * 6 + [_P],
+    "rq_exact_layout": [_I] * 2 + [_P],
     "rq_codes_lut_f32_candidates": [_P] * 4 + [_I] * 9 + [_P],
     "rq_codes_lut_verify_counts": [_P] * 5 + [_I] * 8 + [_P],
     "rq_lut_layout": [_I] * 3 + [_P],
     "rq_pair_merge": [_P] * 4 + [_I] * 3 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_tail_layout": [_I] * 3 + [_P],
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
     "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],

@@ -145,14 +145,50 @@ def tail_merge_plain(rows: torch.Tensor, cap: int
     return keys, lanes
 
 
+# K3's layout constants (`tail_layout`, csrc/topk_tail.cu): threads and
+# queries of a CTA at most, values a warp sorts at most, bytes of a
+# query's lane offsets and span
+_TAIL_THREADS, _TAIL_QB, _WARP_N, _TAIL_META = 256, 4, 1024, 536
+# dynamic shared memory one CTA may take on the card (H100: 227 KB)
+_SMEM_CAP = 232448
+
+
+def _tail_layout(r: int, cap: int) -> tuple[int, int, int, int, int]:
+    """K3's layout at ``(r, cap)``, as the kernel's source states it
+    (`tail_layout`, ``csrc/topk_tail.cu``): ``(queries per CTA, threads
+    per CTA, slots staged per lane, bytes of one query's region, shared
+    bytes per CTA)``. A query takes ``max(1, cap / 1024)`` warps, which
+    sort its survivors in registers; its region holds its staged lists
+    (``min(L0, r)`` slots of 128 keys), later its warps' exchanges and
+    its sorted keys and lanes (``8 * cap`` bytes), then its lane offsets
+    and span; it is 16 bytes past a multiple of 128 so that the queries
+    of one load instruction meet distinct banks. Queries per CTA halve
+    from 4 until the regions fit and the CTA keeps to 256 threads; 0
+    where not even one query fits (``cap > 8192``)."""
+    lr = min(_tail_shape(r, cap), r)
+    wq = max(1, cap // _WARP_N)
+    r1 = max(4 * LANES * lr, 8 * cap)
+    qbytes = cdiv(r1 + _TAIL_META, 128) * 128 + 16
+    qb = _TAIL_QB
+    while qb and (qb * qbytes > _SMEM_CAP or 32 * wq * qb > _TAIL_THREADS):
+        qb >>= 1
+    return qb, 32 * wq * qb, lr, qbytes, qb * qbytes
+
+
 def tail_merge(rows: torch.Tensor, cap: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K3: per query, the ``cap`` smallest (key, lane) pairs over
     the 128 ascending per-lane lists of ``rows (r, 128, nq)`` int32,
     ordered by (key, lane) → ``keys (nq, cap)``, ``lanes (nq, cap)``.
-    ``cap`` is a power of two no larger than ``next_pow2(r) * 128``.
+    ``cap`` is a power of two no larger than ``next_pow2(r) * 128``; on
+    the card also no larger than 8192 (`_tail_layout`), the deepest the
+    plans ask for (`_MAX_K`).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
+    On the card a warp finds a query's cap-th pair by bisection over
+    counts of the sorted lists, and ``max(1, cap / 1024)`` warps sort the
+    lanes' surviving prefixes in registers (`_tail_layout`); it uses that
+    each lane's list is ascending. CPU tensors take the plain version;
+    CUDA tensors launch the kernel
     (``rayuela_tpu_torch/csrc/topk_tail.cu``) or raise."""
     if rows.dtype != torch.int32 or rows.dim() != 3 \
             or rows.shape[1] != LANES or not rows.is_contiguous():
@@ -169,6 +205,9 @@ def tail_merge(rows: torch.Tensor, cap: int
     if L0 > 128:
         raise ValueError(f"r={r} with cap={cap}: per-lane lists of {L0} "
                          "exceed the kernel's shared memory (<= 128)")
+    if not _tail_layout(r, cap)[0]:
+        raise ValueError(f"cap={cap}: one query's sort exceeds a CTA's "
+                         "shared memory (cap <= 8192)")
     keys = torch.empty((nq, cap), dtype=torch.int32, device=rows.device)
     lanes = torch.empty_like(keys)
     if nq:
@@ -745,6 +784,43 @@ def _check_tau(taus, taui, nq: int, device) -> None:
                          f"({nq},) tensors on {device}")
 
 
+# K9's and K10's layout constants (`exact_rows_kernel`,
+# csrc/decoded_scan.cu): queries and lanes per CTA, queries per thread,
+# row ids per group, dimensions per stage, stages in flight
+_EX_QB, _EX_LC, _EX_QT, _EX_RG, _EX_KC, _EX_STAGES = 64, 16, 4, 8, 64, 2
+
+
+def _exact_layout(keep: int, bf16: int) -> tuple[int, ...]:
+    """K9's (``keep`` 2 or 4) and K10's (``keep=0``) layout, as the
+    kernel's source states it (`rq_exact_layout`): ``(queries per CTA,
+    lanes per CTA, queries per thread, row ids per group, dimensions per
+    stage, stages, shared bytes per CTA)``. A thread owns one lane and
+    its queries; a stage holds a chunk of the group's rows (``row ids x
+    lanes`` rows of ``dimensions x operand bytes + 16`` bytes) and of the
+    CTA's queries (f32, the same pad). Any width dp takes ``cdiv(dp,
+    dimensions per stage)`` stages a group, so the layout depends on
+    neither dp nor keep."""
+    if keep not in (0,) + _KEEPS:
+        raise ValueError(f"keep={keep}: the kernels take 0 (K10) or "
+                         f"{_KEEPS}")
+    xrow = (2 if bf16 else 4) * _EX_KC + 16
+    stage = _EX_RG * _EX_LC * xrow + _EX_QB * (4 * _EX_KC + 16)
+    return (_EX_QB, _EX_LC, _EX_QT, _EX_RG, _EX_KC, _EX_STAGES,
+            _EX_STAGES * stage)
+
+
+def _exact_grid(n: int, nq: int, tile: int, layout) -> tuple[int, int, int]:
+    """K9's and K10's grid: ``(query blocks, lane blocks, tiles)``."""
+    return cdiv(nq, layout[0]), LANES // layout[1], cdiv(n, tile)
+
+
+def _f32_queries(Qm: torch.Tensor) -> torch.Tensor:
+    """K9's and K10's query operand: ``Qm`` in f32 (a bf16 operand
+    widened exactly), 16-byte aligned for the kernels' copies."""
+    Qf = Qm.float()
+    return Qf if Qf.data_ptr() % 16 == 0 else Qf.clone()
+
+
 def scan_f32_candidates_plain(Qm, Xd, x2, *, tile: int, keep: int):
     """Plain version of `scan_f32_candidates` (same signature and
     outputs)."""
@@ -760,7 +836,10 @@ def scan_f32_candidates(Qm, Xd, x2, *, tile: int, keep: int):
     exactly as `scan_candidates` takes it (+inf at and past row n; such
     a slot carries the id `NOID`) → ``candv`` f32 and ``candi`` int32,
     each ``(ntiles * keep, 128, nq)``. Operands as `scan_candidates`.
-    Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
+    On the card a CTA scores 64 queries against 16 lanes of a tile, row
+    ids 8 at a time, its rows and queries staged 64 dimensions a stage
+    (`_exact_layout`, `_exact_grid`); K10 is the same body. Source:
+    ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
     on_card = _check_decoded(Qm, Xd, x2, tile, 0)
     _check_f32_plan(Xd.shape[0], tile, keep)
     if keep < 1:
@@ -772,8 +851,8 @@ def scan_f32_candidates(Qm, Xd, x2, *, tile: int, keep: int):
     (n, dp), nq = Xd.shape, Qm.shape[0]
     ntiles, candv, candi = _alloc_pairs(n, nq, tile, keep, Qm.device)
     if nq and n:
-        launch("rq_scan_f32_candidates", Qm, Xd, x2, candv, candi, n, nq, dp,
-               ntiles, tile // LANES, keep,
+        launch("rq_scan_f32_candidates", _f32_queries(Qm), Xd, x2, candv,
+               candi, n, nq, dp, ntiles, tile // LANES, keep,
                int(Xd.dtype == torch.bfloat16), device=Qm.device)
         scan_f32_candidates.launches += 1
     return candv, candi
@@ -891,8 +970,8 @@ def verify_counts(Qm, Xd, x2, taus, taui, *, tile: int):
     (n, dp), nq = Xd.shape, Qm.shape[0]
     cnt = torch.zeros((2, LANES, nq), dtype=torch.int32, device=Qm.device)
     if nq and n:
-        launch("rq_scan_verify_counts", Qm, Xd, x2, taus, taui, cnt, n, nq,
-               dp, cdiv(n, tile), tile // LANES,
+        launch("rq_scan_verify_counts", _f32_queries(Qm), Xd, x2, taus,
+               taui, cnt, n, nq, dp, cdiv(n, tile), tile // LANES,
                int(Xd.dtype == torch.bfloat16), device=Qm.device)
         verify_counts.launches += 1
     return cnt

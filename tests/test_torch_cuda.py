@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import rayuela_tpu_torch.api as tapi
+from rayuela_tpu_torch.kernels.build import query
 from rayuela_tpu_torch.ops import icm as ticm
 from rayuela_tpu_torch.ops import viterbi as tvit
 from rayuela_tpu_torch.search import scan as tsp
@@ -103,6 +104,60 @@ def test_two_pass_kernels_equal_plain_on_integer_data(dev, pq, keep, r):
         a, b = tsp.tail_merge(rows, cap), tsp.tail_merge_plain(rows, cap)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
         assert tsp.tail_merge.launches == n3 + 1
+
+
+# the (r, cap) classes the plans give K3: the packed plans' r = 16 / 32 /
+# 48 / 96 with cap = next_pow2(k) up to 8192, and the rescue's r = 48
+TAIL_CLASSES = [(16, 128), (16, 2048), (32, 1024), (32, 4096), (48, 128),
+                (48, 1024), (48, 8192), (96, 4096), (96, 8192)]
+
+
+def _tail_rows(dev, r, nq, seed=0):
+    """Per-lane ascending keys ``(r, 128, nq)`` int32 from a narrow range,
+    so that equal keys meet in different lanes (and within a lane), with
+    some lanes' tails padded with INT_MAX, as K2 leaves a lane that
+    found fewer than r rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(-4 * r, 4 * r, (r, 128, nq), generator=g,
+                         device=dev, dtype=torch.int32) * 1000
+    keys[r // 2:, 3] = tsp.IMAX
+    keys[1:, 77, ::3] = tsp.IMAX
+    keys[:, 100] = tsp.IMAX
+    return keys.sort(dim=0).values.contiguous()
+
+
+@pytest.mark.parametrize("r,cap", TAIL_CLASSES)
+@pytest.mark.parametrize("nq", ["1", "qb-1", "qb+1", "10000"])
+def test_tail_merge_equals_plain_at_every_plan_class(dev, r, cap, nq):
+    """K3 against its plain version bit for bit at each (r, cap) class,
+    at a query count of 1, one less and one more than the kernel's query
+    block, and the main path's 10,000: ties between lanes, duplicates
+    within a lane and INT_MAX tails included."""
+    qb = tsp._tail_layout(r, cap)[0]
+    nq = {"1": 1, "qb-1": max(1, qb - 1), "qb+1": qb + 1, "10000": 10_000}[nq]
+    rows = _tail_rows(dev, r, nq)
+    n3 = tsp.tail_merge.launches
+    a = tsp.tail_merge(rows, cap)
+    b = tsp.tail_merge_plain(rows, cap)
+    torch.cuda.synchronize()
+    assert tsp.tail_merge.launches == n3 + 1
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("r,cap", TAIL_CLASSES + [(14, 128), (96, 16384)])
+def test_tail_layout_is_the_kernels(dev, r, cap):
+    """K3's layout comes from its source (`rq_tail_layout`), and
+    `scan._tail_layout` states it; a cap whose run buffers do not fit
+    one CTA raises rather than launch."""
+    L0 = tsp._tail_shape(r, cap)
+    py = tsp._tail_layout(r, cap)
+    if not py[0]:
+        with pytest.raises(RuntimeError, match="rq_tail_layout"):
+            query("rq_tail_layout", r, cap, L0, size=5, device=dev)
+        with pytest.raises(ValueError, match="cap"):
+            tsp.tail_merge(_tail_rows(dev, r, 2), cap)
+        return
+    assert query("rq_tail_layout", r, cap, L0, size=5, device=dev) == py
 
 
 ONEPASS_NQ = (1, 2, 5, 15, 16, 17, 33, 128)
@@ -889,14 +944,17 @@ def test_sr_d_training_is_reproducible_on_the_card(dev):
 # The exact-float scans: K9, K10, K6, K7 and the pair merge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 33)])
+@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 33), (136, 65),
+                                  (264, 63), (960, 129)])
 @pytest.mark.parametrize("keep,tile,r", [(2, 8192, 16), (4, 8192, 32),
                                          (4, 2048, 48), (2, 1024, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_f32_scan_kernels_equal_plain_on_integer_data(dev, d, nq, keep, tile,
                                                       r, dtype):
     """K9's two passes and K10 against their plain versions: identical
-    pairs and counts (small integers are exact in bf16 too), odd n."""
+    pairs and counts (small integers are exact in bf16 too), odd n, query
+    counts that are not multiples of the kernels' 64-query block, and rows
+    of one, several and a last partial 32-dimension stage."""
     n = 20_001
     idx, Q, Qm = _decoded_case(dev, "int", dtype, n, d, nq)
     n9, nm, n10 = (tsp.scan_f32_candidates.launches, tsp.pair_merge.launches,
@@ -938,6 +996,41 @@ def test_f32_scan_on_gaussian_data(dev, d, dtype):
     assert bool(((s - s0).abs() <= 1e-5 * s0.abs() + 5e-5).all())
     assert float((i == i0).float().mean()) >= 0.999
     assert torch.equal(fl, fl0)
+
+
+@pytest.mark.parametrize("d", [128, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,r,keep", [(100, 16, 2), (1000, 32, 4)])
+def test_f32_counts_see_k9s_scores(dev, d, dtype, k, r, keep):
+    """K9 and K10 see the same score bits: for each query a `pack=False`
+    scan leaves unflagged, K10's count at K9's own k-th pair, summed over
+    the 128 lanes, is exactly k - 1, on Gaussian data."""
+    n, nq, tile = 400_001, 100, 8192   # a tile cut flags few queries
+    g = torch.Generator(device=dev).manual_seed(d + k)
+    X = torch.randn((n, d), generator=g, device=dev)
+    Q = torch.randn((nq, d), generator=g, device=dev)
+    idx = tsp.LinscanIndex(X.to(dtype), (X * X).sum(-1))
+    Qm = tsp._query_operand(Q, idx.Xd.shape[1], dtype)
+    del X
+    s, i, fl = tsp.scan_topk_f32(Q, idx.Xd, idx.x2, k=k, r=r, tile=tile,
+                                 keep=keep)
+    cnt = tsp.verify_counts(Qm, idx.Xd, idx.x2, s[:, k - 1].contiguous(),
+                            i[:, k - 1].contiguous(), tile=tile)
+    torch.cuda.synchronize()
+    ok = ~fl
+    assert int(ok.sum()) >= nq // 2
+    assert bool((cnt[0].sum(0)[ok] == k - 1).all())
+
+
+@pytest.mark.parametrize("keep", [0, 2, 4])
+@pytest.mark.parametrize("bf16", [0, 1])
+def test_exact_layout_is_the_kernels(dev, keep, bf16):
+    """K9's (keep 2, 4) and K10's (keep 0) layout comes from their source
+    (`rq_exact_layout`), and `scan._exact_layout` states it; the card
+    holds two CTAs an SM (the occupancy its launch bounds ask for)."""
+    lay = query("rq_exact_layout", keep, bf16, size=8, device=dev)
+    assert lay[:7] == tsp._exact_layout(keep, bf16)
+    assert lay[7] == 2, lay
 
 
 @pytest.mark.parametrize("h,pq,nq", [(16, False, 33), (256, False, 1),
