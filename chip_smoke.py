@@ -731,6 +731,9 @@ def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
     print(f"  K8 keys equal to K1's on the same codes and norms byte (K8 "
           f"scans rows decoded from the f32 codebooks, K1 its bf16 "
           f"operands: below 1 on Gaussian data): {same:.6f}")
+    pairs = tsp._chain_pairs(c.Qm, Xd, x2, **kw)
+    print(f"  K8 k={k} plan: {pairs:,} of {N * NQ:,} (row, query) pairs "
+          f"keyed by the fmaf chain ({pairs / (N * NQ):.3e})")
     del cand0, disc0, cand, disc, Xd
     T = tsc.build_luts(c.idx.C, c.Q, norms_cbook=c.idx.norms_cbook)
     Tb = T.to(torch.bfloat16).contiguous()
@@ -1834,7 +1837,8 @@ def plan_sweep(index, index4, Xq):
 def base_encode_check(rng, errs, model, Xb):
     """K11 against its plain version at the base-encode shape the main
     path launches it at: one icmiter=4 sweep over the whole base from the
-    greedy codes, with the SR-D model's codebooks."""
+    greedy codes, with the SR-D model's codebooks → ``(ms of the sweep,
+    its operations)`` (CUDA events; the products of its visits)."""
     import torch
 
     from rayuela_tpu_torch.models.rvq import quantize_rvq
@@ -1846,11 +1850,14 @@ def base_encode_check(rng, errs, model, Xb):
     B0 = quantize_rvq(model.codebooks, Xb)[0].to(torch.int32).contiguous()
     order = torch.as_tensor(rng.permutation(m), dtype=torch.int32,
                             device=DEV)
-    got = ticm.icm_sweeps(Xb, model.codebooks, B0, order, 4)
+    ms, got = timed(lambda: ticm.icm_sweeps(Xb, model.codebooks, B0,
+                                            order, 4), 3)
     ref = ticm.icm_sweeps_plain(Xb, model.codebooks, B0, order, 4,
                                 op_dtype=torch.bfloat16)
     note(errs, "icm_sweeps", compare_icm("K11 base icmiter=4", got, ref,
                                          exact=False))
+    return ms, 2.0 * 4 * m * model.codebooks.shape[1] * Xb.shape[1] \
+        * Xb.shape[0]
 
 
 def diagnostics(served, Xq):
@@ -1892,6 +1899,15 @@ def diagnostics5(index, index4, Xq):
                                   keep=keep)[2]
         print(f"  decoded k={k}: {int(fl.sum())} of {NQ} queries flagged "
               f"(r={r}, keep={keep}, tile={tile})")
+        if k < 4096 and si.Xd.dtype == torch.bfloat16:
+            Qm = tsp._query_operand(Xq, si.Xd.shape[1], si.Xd.dtype)
+            pairs = tsp._chain_pairs(Qm, si.Xd, si.x2, tile=tile,
+                                     keep=keep, idbits=tsp._pack_idbits(
+                                         -(-N // tile) * tile))
+            print(f"  K8 k={k} plan: {pairs:,} of {N * NQ:,} (row, query) "
+                  f"pairs keyed by the fmaf chain "
+                  f"({pairs / (N * NQ):.3e}): their tensor-core scores lie "
+                  "near a key boundary below their buffer's threshold")
         profile(lambda: rq.search(index, Xq, k=k))
         T = tsc.build_luts(sc.C, Xq, norms_cbook=sc.norms_cbook)
         fl = tsc.scan_codes_topk(T, sc.packed, k=k, r=r, tile=tile,
@@ -2200,8 +2216,9 @@ def phase7_checks(Xq, Xb, index4, res):
 
 D8 = 960            # GIST1M's width (rayuela_tpu/experiments/datasets.py)
 N8 = 500_000        # phase 8's base: GIST1M's 1e6 cut in half to keep the
-                    # script's time (two base encodes at d = 960, 82 s each
-                    # at 1e6 on an H100)
+                    # script's time (two base encodes at d = 960 took 82 s
+                    # each at 1e6 on an H100 before K11 ran on the tensor
+                    # cores; 3.7 s each at 5e5 since, PERF.md)
 NSUB = 256          # the query subset of the phase 8 and 9 checks
 SCANS8 = (("decoded", "index", {}),
           ("decode mode", "codes", {}),
@@ -2282,19 +2299,34 @@ def chainq_operands():
         chainq.viterbi_encode = real
 
 
-def encode_checks(rng, errs, tag, model, Xb, vit):
+def encode_checks(rng, errs, tag, model, Xb, vit, label=""):
     """K11 and K13 against their plain versions on a slice of a phase's
     own operands, after its launch counts were read: K11 as
     `base_encode_check` on the phase's first `NENC` base vectors, K13 on
-    those of its last ChainQ encode (``vit``, `chainq_operands`)."""
+    those of its last ChainQ encode (``vit``, `chainq_operands`). Both
+    timed there (CUDA events) beside their bounds → ``{name + label:
+    record}`` (the ``wide`` records)."""
     from rayuela_tpu_torch.ops import viterbi as tvit
 
-    base_encode_check(rng, errs, model, Xb)
+    t = {}
+    ms, ops = base_encode_check(rng, errs, model, Xb)
+    record(t, "icm_sweeps" + label, ms, None, ops, "bf16 tensor-core",
+           nbytes(Xb, model.codebooks))
     X, C = vit
+    ms, got = timed(lambda: tvit.viterbi_encode(X, C), 3)
     note(errs, "viterbi_encode", compare_viterbi(
         f"K13 {tag}: the last ChainQ encode, {X.shape[0]} vectors, "
-        f"m={C.shape[0]}, d={C.shape[2]}", X, C, tvit.viterbi_encode(X, C),
+        f"m={C.shape[0]}, d={C.shape[2]}", X, C, got,
         tvit.viterbi_encode_plain(X, C), exact=False))
+    m, h, d = C.shape
+    record(t, "viterbi_encode" + label, ms, None,
+           X.shape[0] * (2.0 * m * h * d + 2.0 * (m - 1) * h * h),
+           "f32 CUDA-core", nbytes(X, C, got))
+    print(f"  {tag}: K11 {t['icm_sweeps' + label]['ms']:.3f} ms "
+          f"(bound {t['icm_sweeps' + label]['bound_ms']:.3f}), K13 "
+          f"{ms:.3f} ms (bound {t['viterbi_encode' + label]['bound_ms']:.3f})"
+          f" on {Xb.shape[0]} / {X.shape[0]} vectors")
+    return t
 
 
 def phase8(seed, card):
@@ -3116,8 +3148,9 @@ def main() -> int:
         wide = run("phase 9 checks", phase9_checks, errs, p9, Xq)
         # K4 at the rescue's few queries stands beside its 128-query time
         wide.update({n: rec for n, rec in times.items() if " " in n})
-        run("phase 9 encode checks", encode_checks, rng, errs, "m=15",
-            p9["sr_d"].model, p9["Xb"], p9["vit"])
+        wide.update(run("phase 9 encode checks", encode_checks, rng, errs,
+                        "m=15", p9["sr_d"].model, p9["Xb"], p9["vit"],
+                        " m=15"))
         del p9, ds
         zero()
         run("phase 6 streamed decode", phase6_streamed_decode,
@@ -3152,8 +3185,8 @@ def main() -> int:
         check(all(launches8.values()), "a kernel of the path never launched "
               "in phase 8")
         run("phase 8 checks", phase8_checks, errs, p8)
-        run("phase 8 encode checks", encode_checks, rng, errs, f"d={D8}",
-            p8["model"], p8["Xb"], p8["vit"])
+        wide.update(run("phase 8 encode checks", encode_checks, rng, errs,
+                        f"d={D8}", p8["model"], p8["Xb"], p8["vit"]))
         wide.update(run("d=960 kernel times", wide_times, p8))
         wide.update(run("phase 8 rescue", rescue8, errs, p8))
         del p8

@@ -1,7 +1,9 @@
 // Shared device code of the packed-key scans for Hopper (sm_90a): the
-// key format, the register selection, and the two scan bodies that K1,
-// K4 (codes_scan.cu) and K8 (decoded_scan.cu) instantiate with their own
-// row source. K5 (lut_scan.cu) scores differently and shares only the
+// key format, the register selection, the tensor-core score and its
+// keys, and the two scan bodies that K1, K4 (codes_scan.cu) and K8
+// (decoded_scan.cu) instantiate with their own row source (K8's bf16
+// candidates and bf16 K1/K14 have bodies of their own over the same
+// score and keys). K5 (lut_scan.cu) scores differently and shares only the
 // key and the selection. The exact-float scans (K9, K10 in
 // decoded_scan.cu; K6, K7 in lut_scan.cu) share the sinks at the end of
 // this file.
@@ -54,13 +56,17 @@
 // the f32 sum, over the 16-dimension chunks of the row in ascending order
 // (d-blocks ascending), of one mma.sync m16n8k16 each (bf16 operands, f32
 // accumulator) from a zero accumulator, then + x2 in f32 (`tile_scores`).
-// One instruction shape and one chunk order in all three, so that they
+// One instruction shape and one chunk order in all of them, so that they
 // give the same score bits for a (row, query) wherever it sits in a tile:
 // the one-pass search (K14, and K4's rescue) equals the two-pass one (K1
-// -> K2). Where a row is one d-block (dp <= NARROW_DP) the key is then
-// the fmaf chain's: a tensor-core score settles it unless it lies near a
-// key boundary, and there the pair is scored again by the chain
-// (`margin_keys`). The f32 instances and the decoded scans keep the
+// -> K2). The bf16 decoded scans (K8's candidates body in
+// decoded_scan.cu, K8 at keep = 0 below) take the same score over the
+// rows they read. Where a row is one d-block (dp <= NARROW_DP) the key is
+// then the fmaf chain's: a tensor-core score settles it unless it lies
+// near a key boundary, and there the pair is scored again by the chain
+// (`margin_keys`). A d not a multiple of 16 scores with its last chunk
+// zero-filled in shared memory (the rows' and the queries' pads), so any
+// dp a multiple of 8 takes the same function. The f32 instances keep the
 // fmaf chain.
 
 #pragma once
@@ -224,8 +230,9 @@ __device__ __forceinline__ void block_scores(const float* XsT,
   }
 }
 
-// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K1 and K14,
-// K8; K9 and K10 have a body of their own in decoded_scan.cu): its 128 rows into shared memory, the thread's 4 lanes x 4
+// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K1, K14 and
+// K8; K9 and K10 have a body of their own in decoded_scan.cu): its 128
+// rows into shared memory, the thread's 4 lanes x 4
 // queries to acc, the rows' norms to x2s. Narrow (dp <= NARROW_DP): one
 // block, the queries already in Qs (the kernel loaded them once). WIDE:
 // the d-blocks in ascending order, each with its block of the CTA's
@@ -252,10 +259,11 @@ __device__ __forceinline__ void step_scores(
   }
 }
 
-// The candidates body (K1, K8): CTA (t, qb) scans tile t (rows row ids)
-// for 32 queries and writes, per (lane, query), the KEEP smallest keys
-// ascending to cand[t*KEEP + c] and the smallest other key to disc[t]
-// (INT_MAX when nothing was dropped). Each thread scores a 4-lane x
+// The candidates body (f32 K1 and K8): CTA (t, qb) scans tile t (rows
+// row ids) for 32 queries and writes, per (lane, query), the KEEP
+// smallest keys ascending to cand[t*KEEP + c] and the smallest other key
+// to disc[t] (INT_MAX when nothing was dropped). Each thread scores a
+// 4-lane x
 // 4-query register block (one 16-byte shared load brings four
 // dimensions of a query) and keeps the selection state of its 16
 // (lane, query) pairs in registers; two CTAs share an SM, so one loads
@@ -465,7 +473,7 @@ __device__ __forceinline__ float slack_of_query(const __nv_bfloat16* v,
 }
 
 // The score of the f32 bodies: x . q over dp bf16 values (16-byte
-// aligned, dp a multiple of 16), one fmaf chain in dimension order from
+// aligned, dp a multiple of 8), one fmaf chain in dimension order from
 // zero, then + x2.
 __device__ __forceinline__ float chain_score(const __nv_bfloat16* x,
                                              const __nv_bfloat16* q, int dp,
@@ -480,6 +488,34 @@ __device__ __forceinline__ float chain_score(const __nv_bfloat16* x,
     for (int e = 0; e < 8; ++e) a = fmaf(xv[e], qv[e], a);
   }
   return a + x2;
+}
+
+// The squares of a staged bf16 row's values (16-byte aligned) in its
+// 16-byte chunks g, g + 8, ... below nc, one fmaf chain in that order,
+// added to a: thread g < 8 of the 8 consecutive threads that share a row.
+// A row staged in blocks of 128 dimensions continues the chain block by
+// block (16 chunks a block: the same chunks of a thread, in the same
+// order).
+__device__ __forceinline__ float row_sq_part(const __nv_bfloat16* row,
+                                             int nc, int g, float a) {
+  for (int c = g; c < nc; c += 8) {
+    float x[8];
+    unpack16(*reinterpret_cast<const uint4*>(row + 8 * c), x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a = fmaf(x[e], x[e], a);
+  }
+  return a;
+}
+
+// The norm of the f32 values of a bf16 row (xn of `score_slack`) from the
+// `row_sq_part`s of its 8 consecutive threads, added in a butterfly: the
+// same bits in every thread of the group and in every kernel that asks
+// (K8's candidates and keep = 0 bodies). Every thread of the warp calls it.
+__device__ __forceinline__ float group8_norm(float a) {
+  a += __shfl_xor_sync(0xffffffffu, a, 1);
+  a += __shfl_xor_sync(0xffffffffu, a, 2);
+  a += __shfl_xor_sync(0xffffffffu, a, 4);
+  return sqrtf(a);
 }
 
 // The margin around a tensor-core score s of a pair whose query gives qc
@@ -587,8 +623,10 @@ __device__ __forceinline__ void warp_chain_keys(const unsigned short* item,
 // step's end they pass through shared memory to the thread that owns each
 // (lane, query), and at one d-block the key is the chain's
 // (`margin_keys`, over the step's rows, still in shared memory). The
-// layout, buffers and splits are the fmaf body's. K8 at keep = 0 keeps
-// the fmaf chain, as K8's candidates body does.
+// layout, buffers and splits are the fmaf body's. K8 at keep = 0 on bf16
+// rows takes the same score function (its row source computes the rows'
+// norms from the staged rows, `group8_norm`, as K8's candidates body
+// does), so that its keys equal K8's candidates' and K4's on any data.
 template <class Src, int R, int LN>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_topk_kernel(const Src src, const typename Src::Op* __restrict__ Qm,
@@ -630,6 +668,9 @@ __global__ void __launch_bounds__(THREADS, 2)
         qq < nq ? Qm[(size_t)qq * dp + i % dp] : T(0.f);
   }
   if constexpr (MMA) {
+    // the pads: a last chunk of 16 that dp ends inside reads zeros there
+    for (int i = threadIdx.x; i < QB * V; i += THREADS)
+      Qs[(i / V) * qs + dp + i % V] = T(0.f);
     __syncthreads();
     if (threadIdx.x < QB)
       qcs[threadIdx.x] = slack_of_query(

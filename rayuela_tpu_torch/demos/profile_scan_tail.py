@@ -94,6 +94,13 @@ def main(argv=None) -> dict:
         ms["K8"] = best_ms(lambda: scan.scan_candidates(Qm, Xd, x2, **kw),
                             args.reps, on_card)
         cand, disc = scan.scan_candidates(Qm, Xd, x2, **kw)
+        # K8's bound: its products at the operand type's peak (bf16 on the
+        # tensor cores, f32 on the CUDA cores of an H100 SXM), or its bytes
+        # (each input read, each output written once) at 3.35 TB/s
+        peak = 989e12 if Xd.dtype == torch.bfloat16 else 67e12
+        moved = sum(t.numel() * t.element_size()
+                    for t in (Qm, Xd, x2, cand, disc))
+        bound = max(2.0 * args.n * nq * Xd.shape[1] / peak, moved / 3.35e12)
         ms["K2+K3+flags"] = best_ms(lambda: scan._finish(
             scan.cand_merge(cand, disc, r), nq, r, k, idbits), args.reps,
             on_card)
@@ -116,9 +123,10 @@ def main(argv=None) -> dict:
                        <= step * torch.maximum(got[0].abs(),
                                                ref[0].abs())).all())
         out[k] = dict(ms, r=r, keep=keep, tile=tile, ids_equal=same,
-                      within_step=within)
+                      within_step=within, k8_bound_ms=bound * 1e3)
         print(f" k={k} (r={r}, keep={keep}, tile={tile}): "
-              + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items()))
+              + ", ".join(f"{name} {v:.3f} ms" for name, v in ms.items())
+              + f"; K8's bound {bound * 1e3:.3f} ms")
         print(f"  K8 share of the search {ms['K8'] / ms['search']:.3f}; "
               f"K8 on the first {sub.stop} queries against its plain "
               f"version: ids equal by position {same:.6f}, scores within "

@@ -39,6 +39,24 @@ from pathlib import Path
 
 NQ = 10_000
 TAIL_KS = (100, 1000, 4096)
+
+
+def digest(*ts):
+    """Two int64 sums of each tensor's 32-bit words, each word weighted by
+    a function of its position (wrapping), taken on the tensor's device
+    (`time_onepass.py` and `time_icm.py` take theirs from here)."""
+    import torch
+    out = []
+    for t in ts:
+        w = t.contiguous().view(-1).view(torch.int32)
+        a = b = 0
+        for off in range(0, w.numel(), 1 << 24):
+            x = w[off:off + (1 << 24)].long()
+            i = torch.arange(off, off + x.numel(), device=x.device)
+            a += int((x * (i * 2654435761 + 1)).sum())
+            b += int(((x + i) * ((x ^ (i * 7 + 3)) | 1)).sum())
+        out.append(f"{a % (1 << 64):016x}{b % (1 << 64):016x}")
+    return out
 SCAN_KS = (100, 1000)
 SCANS = ((128, 1_000_000, ("float32", "bfloat16")),
          (960, 500_000, ("float32",)))
@@ -80,21 +98,6 @@ def main(argv=None) -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
-
-    def digest(*ts):
-        """Two int64 sums of each tensor's 32-bit words, each word
-        weighted by a function of its position (wrapping)."""
-        out = []
-        for t in ts:
-            w = t.contiguous().view(-1).view(torch.int32)
-            a = b = 0
-            for off in range(0, w.numel(), 1 << 24):
-                x = w[off:off + (1 << 24)].long()
-                i = torch.arange(off, off + x.numel(), device=dev)
-                a += int((x * (i * 2654435761 + 1)).sum())
-                b += int(((x + i) * ((x ^ (i * 7 + 3)) | 1)).sum())
-            out.append(f"{a % (1 << 64):016x}{b % (1 << 64):016x}")
-        return out
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
     "rq_codes_onepass_layout": [_I] * 5 + [_P],
     "rq_codes_candidates_layout": [_I] * 4 + [_P],
-    "rq_scan_candidates": [_P] * 5 + [_I] * 8 + [_P],
+    "rq_scan_candidates": [_P] * 6 + [_I] * 8 + [_P],
+    "rq_scan_candidates_layout": [_I] * 2 + [_P],
     "rq_scan_onepass": [_P] * 5 + [_I] * 9 + [_P],
     "rq_scan_onepass_layout": [_I] * 3 + [_P],
     "rq_codes_lut_candidates": [_P] * 4 + [_I] * 10 + [_P],
@@ -57,6 +58,7 @@ _SIGNATURES = {
     "rq_tail_layout": [_I] * 3 + [_P],
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
     "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
+    "rq_icm_layout": [_I] * 2 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
     "rq_fusion_chain": [_P] * 3 + [_I] * 4 + [_P],
     "rq_fusion_attrs": [_I] * 2 + [_P],

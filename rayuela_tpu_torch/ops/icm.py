@@ -26,9 +26,11 @@ and f32 ones on the CPU):
   hash of (seed, global vector id, round, draw), so its codes equal the
   JAX kernel's on data that bf16 holds exactly.
 
-Both are bound on the card by their conditional dot products (h*d
-multiply-adds per visit and vector on the CUDA cores) and the L2 reads
-of the codebook slab that feed them; see the kernels' header.
+Both score a visit's conditional dot products (``rest . C_i[b]`` and
+``x . C_i[b]``, 2*h*d products per visit and vector) on the tensor
+cores, a CTA of 8, 16 or 32 vectors at a time (`_icm_layout`), each warp
+loading its codebook fragments straight from L1/L2 (`IcmOperands.Cf`);
+see the kernels' header.
 
 Randomness otherwise comes from a `torch.Generator` on the data's
 device, so the relaunch path's codes do not reproduce the JAX package's
@@ -45,11 +47,13 @@ from rayuela_tpu_torch.utils import exact_f32
 
 # vectors per plain sweep block: bounds the (m, chunk, h) unaries
 _PLAIN_CHUNK = 8192
-# label counts the kernels are compiled for; a larger h is padded to a
-# multiple of the last (one register block of 256 labels), up to _MAX_H
-_KERNEL_H = (32, 64, 128, 256)
+# the kernels take labels in blocks of 128 (h is padded to a multiple),
+# up to _MAX_H
+_LABEL_BLOCK = 128
 _MAX_H = 1024
-_MAX_SMEM = 232448
+# the kernels' layout (`rq_icm_layout` in icm.cu): warps per CTA, shared
+# memory a CTA may opt in to
+_ICM_WARPS, _MAX_SMEM = 4, 232448
 _M32 = 0xFFFFFFFF
 
 
@@ -126,11 +130,15 @@ def _energy(u, S, G, B, nodes, op_dtype):
 
 class IcmOperands:
     """``X (n, d)`` and ``C (m, h, d)`` f32 prepared once for many kernel
-    calls: on the card the kernels' bf16 operands (X, C's rows, C
-    transposed per codebook) and f32 ``|C|^2``, with h padded to a label
-    count the kernels are compiled for (`_padded_h`) by zero rows whose
-    ``|C|^2`` is +inf (they never win an argmin); on the CPU the tensors
-    themselves."""
+    calls: on the card the kernels' bf16 operands (X; C's rows ``Cr``,
+    padded with zeros to a multiple of 8 dimensions, which the kernels
+    read 16 bytes at a time; and ``Cf``, the same codebook in the order of
+    the tensor cores' B fragments: per codebook, 32-label group and
+    16-dimension chunk, lane ``4 r + c``'s 32 bytes hold labels ``8 t +
+    r`` (t < 4) at dimensions ``2 c, 2 c + 1, 2 c + 8, 2 c + 9``) and f32
+    ``|C|^2``, with h padded to a multiple of 128 labels (`_padded_h`) by
+    zero rows whose ``|C|^2`` is +inf (they never win an argmin); on the
+    CPU the tensors themselves."""
 
     def __init__(self, X: torch.Tensor, C: torch.Tensor):
         if X.dim() != 2 or C.dim() != 3 or X.shape[1] != C.shape[2]:
@@ -151,31 +159,66 @@ class IcmOperands:
             return
         if self.h > _MAX_H:
             raise ValueError(f"h={self.h}: the kernels take h up to {_MAX_H}")
-        if _warp_bytes(self.d, self.m) > _MAX_SMEM:
-            raise ValueError(f"d={self.d}, m={self.m}: the kernels' "
-                             "per-vector state exceeds shared memory")
+        _icm_layout(self.d, self.m)          # raises where no CTA fits
         self.hk = _padded_h(self.h)
-        pad = self.hk - self.h
-        Cb = torch.nn.functional.pad(C, (0, 0, 0, pad)).to(torch.bfloat16)
+        pad, dp = self.hk - self.h, -(-self.d // 8) * 8
+        d16 = -(-self.d // 16) * 16
+        Cb = torch.nn.functional.pad(C, (0, d16 - self.d, 0, pad)) \
+            .to(torch.bfloat16)
         c2 = torch.nn.functional.pad((C * C).sum(-1), (0, pad),
                                      value=float("inf"))
         self.Xb = X.to(torch.bfloat16).contiguous()
-        self.Cr = Cb.reshape(self.m * self.hk, self.d).contiguous()
-        self.Ct = Cb.transpose(1, 2).contiguous()           # (m, d, hk)
+        self.Cr = Cb[..., :dp].reshape(self.m * self.hk, dp).contiguous()
+        self.Cf = _fragment_order(Cb)
         self.c2 = c2.reshape(-1).contiguous()
 
 
+def _fragment_order(Cb: torch.Tensor) -> torch.Tensor:
+    """The codebook ``Cb (m, hk, d16)`` (hk a multiple of 32, d16 of 16) in
+    the order of the tensor cores' B fragments, as the kernels read it:
+    per codebook, 32-label group and 16-dimension chunk, lane ``4 r + c``
+    holds, for n-tile t < 4, label ``8 t + r`` of the group at dimensions
+    ``2 c, 2 c + 1`` (b0) and ``2 c + 8, 2 c + 9`` (b1) of the chunk."""
+    m, hk, d16 = Cb.shape
+    # (m, groups, t, r, chunks, half, c, e) -> (m, groups, chunks, r, c, t,
+    # half, e): label 32 group + 8 t + r, dimension 16 chunk + 8 half + 2 c
+    # + e
+    return Cb.reshape(m, hk // 32, 4, 8, d16 // 16, 2, 4, 2) \
+        .permute(0, 1, 4, 3, 6, 2, 5, 7).contiguous()
+
+
 def _padded_h(h: int) -> int:
-    """The label count the kernels run ``h`` at: the next of
-    `_KERNEL_H`, or beyond it the next multiple of 256."""
-    return next((hk for hk in _KERNEL_H if hk >= h), -(-h // 256) * 256)
+    """The label count the kernels run ``h`` at: the next multiple of
+    their label block (128)."""
+    return -(-h // _LABEL_BLOCK) * _LABEL_BLOCK
 
 
-def _warp_bytes(d: int, m: int) -> int:
-    """One warp's shared state in K11 and K12 (8 vectors' x, S, weights,
-    codes, best codes and energies), as ``warp_bytes`` in icm.cu computes
-    it. A CTA runs 4, 2 or 1 warps, as many as fit in `_MAX_SMEM`."""
-    return (3 * 8 * d * 4 + 2 * 8 * m * 4 + 8 * 4 + 15) // 16 * 16
+def _icm_smem(d: int, m: int, t: int) -> int:
+    """Shared bytes of a K11 / K12 CTA of ``8 t`` vectors at width d with
+    m codebooks, as ``icm_smem`` in icm.cu computes it: xb and rest (bf16
+    rows of d rounded up to 8 and then 16, + 8), S (f32 rows of d rounded
+    up to 8), the codes and K12's best codes (int32), K12's best
+    energies, the argmin exchange of the 4 warps (an f32 and an int32 a
+    vector each) and the visit's new and old codes."""
+    v, dp = 8 * t, -(-d // 8) * 8
+    xst = -(-dp // 16) * 16 + 8
+    return (4 * v * xst + 4 * v * dp + 8 * v * m + 4 * v
+            + 8 * _ICM_WARPS * v + 8 * v)
+
+
+def _icm_layout(d: int, m: int) -> tuple[int, int, int]:
+    """The layout of K11 and K12 at (d, m), as ``rq_icm_layout`` states
+    it: ``(vectors per CTA, CTAs an SM is meant to hold, shared bytes per
+    CTA)``: the largest CTA (32, 16 or 8 vectors) with which two CTAs fit
+    an SM, else one; a shape no CTA fits raises."""
+    for ctas in (2, 1):
+        cap = (_MAX_SMEM - 1024) // 2 if ctas == 2 else _MAX_SMEM
+        for t in (4, 2, 1):
+            smem = _icm_smem(d, m, t)
+            if smem <= cap:
+                return 8 * t, ctas, smem
+    raise ValueError(f"d={d}, m={m}: the kernels' per-vector state exceeds "
+                     "shared memory")
 
 
 def _check_codes(ops: IcmOperands, B: torch.Tensor) -> None:
@@ -199,7 +242,7 @@ def _sweeps(ops: IcmOperands, B: torch.Tensor, order, icmiter: int):
     out = torch.empty_like(B)
     E = torch.empty(ops.n, dtype=torch.float32, device=ops.device)
     if ops.n:
-        launch("rq_icm_sweeps", ops.Xb, ops.Cr, ops.Ct, ops.c2, B, order,
+        launch("rq_icm_sweeps", ops.Xb, ops.Cr, ops.Cf, ops.c2, B, order,
                out, E, ops.n, ops.d, ops.m, ops.hk, icmiter,
                device=ops.device)
         icm_sweeps.launches += 1
@@ -214,8 +257,8 @@ def icm_sweeps(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor, order,
     (``icmiter=0`` only evaluates it). ``X (n, d)``, ``C (m, h, d)``
     f32, ``B (n, m)`` int32, ``order (m,)`` a permutation of the nodes
     (int32 on X's device for the kernel); on the card h <= 1024 and d
-    up to ~2400 (one warp's state in shared memory, `_warp_bytes`). CPU
-    tensors take the plain version at f32.
+    up to ~3600 at m = 8 (a CTA's vectors in shared memory,
+    `_icm_layout`). CPU tensors take the plain version at f32.
     Source: ``rayuela_tpu_torch/csrc/icm.cu``."""
     return _sweeps(IcmOperands(X, C), B, order, icmiter)
 
@@ -342,7 +385,7 @@ def _ils(ops: IcmOperands, B: torch.Tensor, orders: torch.Tensor, seed: int,
     E = torch.empty(ops.n, dtype=torch.float32, device=ops.device)
     if ops.n:
         seed32 = ((seed & _M32) ^ 0x80000000) - 0x80000000   # as C int
-        launch("rq_icm_ils", ops.Xb, ops.Cr, ops.Ct, ops.c2, B, orders, out,
+        launch("rq_icm_ils", ops.Xb, ops.Cr, ops.Cf, ops.c2, B, orders, out,
                E, ops.n, ops.d, ops.m, ops.h, ops.hk, ilsiter, icmiter,
                npert, seed32, device=ops.device)
         encoding_ils.launches += 1

@@ -537,9 +537,14 @@ def scan_candidates(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
     ``Qm (nq, dp)`` is ``-2 Q`` at the operand dtype, ``Xd (n, dp)`` the
     decoded base at that dtype (dp a multiple of 8 on the card), ``x2
     (n,)`` f32. Returns ``cand (ntiles*keep, 128, nq)`` and ``disc
-    (ntiles, 128, nq)`` int32. The kernel is compiled without the
-    pre-min (it saved no time on the card): a CUDA tensor with
-    ``premin != 0`` raises. Source:
+    (ntiles, 128, nq)`` int32. On bf16 rows the kernel scores on the
+    tensor cores (K1's score function, a CTA of 32 queries over 128-row
+    steps staged 128 dimensions at a time, `_candidates_layout`); where
+    a row is one d-block (dp <= 256) its keys are the fmaf chain's, as
+    the f32 body's and the plain version's f32 matmul's on data whose
+    sums round alike, beyond that the tensor-core keys. The kernel is
+    compiled without the pre-min (it saved no time on the card): a CUDA
+    tensor with ``premin != 0`` raises. Source:
     ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
     on_card = _check_decoded(Qm, Xd, x2, tile, premin)
     if keep < 1 or keep > (tile // LANES) >> premin:
@@ -553,14 +558,70 @@ def scan_candidates(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
     (n, dp), nq = Xd.shape, Qm.shape[0]
     ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
     if nq and n:
-        launch("rq_scan_candidates", Qm, Xd, x2, cand, disc, n, nq, dp,
-               ntiles, tile // LANES, keep, idbits,
-               int(Xd.dtype == torch.bfloat16), device=Qm.device)
+        _launch_candidates(Qm, Xd, x2, cand, disc, 0, tile, keep, idbits)
         scan_candidates.launches += 1
     return cand, disc
 
 
 scan_candidates.launches = 0
+
+
+def _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile: int, keep: int,
+                       idbits: int) -> None:
+    """K8's launch on checked CUDA operands; ``stats`` (an int32 tensor,
+    or 0) gains the pairs the fmaf chain scored (bf16 rows)."""
+    (n, dp), nq = Xd.shape, Qm.shape[0]
+    bf16 = int(Xd.dtype == torch.bfloat16)
+    if bf16 and Qm.data_ptr() % 16:      # the kernel copies 16 bytes
+        Qm = Qm.clone()
+    launch("rq_scan_candidates", Qm, Xd, x2, cand, disc, stats, n, nq, dp,
+           cdiv(n, tile), tile // LANES, keep, idbits, bf16,
+           device=Qm.device)
+
+
+def _chain_pairs(Qm, Xd, x2, *, tile: int, keep: int, idbits: int) -> int:
+    """The (row, query) pairs whose key K8 on bf16 rows takes from the fmaf
+    chain (where a row is one d-block: pairs whose tensor-core score lies
+    near a key boundary and could enter their buffer). One more launch of
+    the kernel, not counted in ``scan_candidates.launches``."""
+    if not _check_decoded(Qm, Xd, x2, tile, 0) \
+            or Xd.dtype != torch.bfloat16 or keep not in _KEEPS:
+        raise ValueError("the chain's pairs are counted on bf16 CUDA "
+                         f"operands at keep in {_KEEPS}")
+    n, nq = Xd.shape[0], Qm.shape[0]
+    _, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
+    stats = torch.zeros(1, dtype=torch.int32, device=Qm.device)
+    if nq and n:
+        _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile, keep, idbits)
+    return int(stats[0])
+
+
+# K8's bf16 body (`rows_mma_kernel`): queries per CTA, dimensions per
+# stage, stages, chain requests of a warp's pass
+_RM_QB, _RM_KC, _RM_STAGES, _RM_CAP = 32, 128, 2, 256
+
+
+def _candidates_layout(dp: int, bf16: int) -> tuple[int, int, int, int]:
+    """K8's layout at width ``dp``, as the kernel's source states it
+    (`rq_scan_candidates_layout`): ``(queries per CTA, dimensions per
+    stage, stages, shared bytes per CTA)``. On bf16 a stage holds 128
+    rows of up to 128 dimensions at ``128 + 8`` bf16 (beyond one d-block
+    the CTA's queries' block too) and the step's ``x2``; at one d-block
+    (dp <= 256) the CTA also keeps its queries whole (``dp + 8`` bf16
+    each), the rows' norms and 8 partial sums of each, the queries'
+    margins and each of its 8 warps' requests for the fmaf chain (an int
+    key and a 16-bit item each). The
+    f32 body holds the 4 x 4-blocked tile of one d-block transposed (129
+    floats a dimension), the queries of that block and the rows'
+    norms."""
+    if not bf16:
+        db = dp if dp <= 256 else 128
+        return 32, db, 1, 4 * (db * (LANES + 1) + 32 * db + LANES)
+    wide = dp > 256
+    stage = 2 * (LANES + (_RM_QB if wide else 0)) * (_RM_KC + 8) + 4 * LANES
+    extra = 0 if wide else (2 * _RM_QB * (dp + 8) + 4 * (9 * LANES + _RM_QB)
+                            + 6 * 8 * _RM_CAP)
+    return _RM_QB, _RM_KC, _RM_STAGES, _RM_STAGES * stage + extra
 
 
 def scan_onepass_plain(Qm, Xd, x2, *, tile: int, r: int, premin: int,
@@ -577,7 +638,8 @@ def scan_onepass(Qm, Xd, x2, *, tile: int, r: int, premin: int,
     query) over the whole base (padded to a multiple of ``tile`` rows):
     the ``r`` smallest keys after the pre-min, ascending, then the
     smallest other key → ``(r + 1, 128, nq)`` int32. Scores exactly as
-    `scan_candidates`. On the card a CTA holds 8 lanes for a block of 32
+    `scan_candidates` at every width (on bf16 rows the tensor-core score
+    and its keys). On the card a CTA holds 8 lanes for a block of 32
     queries (16 x 16 where 32 queries of a wide f32 row do not fit;
     `_topk_layout`), reads each row once per query block and keeps each
     (lane, query)'s buffer in a thread's registers; where those CTAs do

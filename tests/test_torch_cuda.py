@@ -203,7 +203,8 @@ def test_rescue_layout_is_the_kernels(dev, dp, nw):
     tensor-core score) also the step's products (qb rows of 40 floats),
     the queries' margins, the norms of the rows' values and, at one
     d-block, a second step's rows and norms and 64 qb requests for the
-    fmaf chain (an int and a 16-bit item each)."""
+    fmaf chain (an int and a 16-bit item each). K8 on bf16 takes the
+    same score function, so the same layout as K4."""
     cap = getattr(torch.cuda.get_device_properties(dev),
                   "shared_memory_per_block_optin", 232_448)   # H100: 227 KB
     db = dp if dp <= 256 else 128
@@ -220,7 +221,7 @@ def test_rescue_layout_is_the_kernels(dev, dp, nw):
         for name, words, lay in (
                 ("K4", nw, tsc._rescue_layout(dp, nw, 48, bf16, dev)),
                 ("K8", 0, tsp._topk_layout(dp, 48, bf16, dev))):
-            mma = bool(bf16) and name == "K4"
+            mma = bool(bf16)
             qb = 32 if smem(32, words, ob, mma) <= (cap - 1024) // 2 else 16
             assert lay[:2] == (qb, 256 // qb), (name, dp, bf16)
             assert lay[3:] == (db, smem(qb, words, ob, mma)), (name, dp, bf16)
@@ -518,9 +519,10 @@ def test_bf16_onepass_keys_equal_two_pass_keys_on_gaussian_data(dev, nq, d,
 def test_bf16_codes_keys_are_the_fmaf_chains(dev, nq, mprime):
     """Where a row is one d-block (d = 128) the tensor-core scans keep the
     fmaf chain's keys: on Gaussian data K1's candidates and K4's buffers
-    equal K8's (candidates and keep = 0), whose scores are fmaf chains in
-    dimension order, over the same decoded rows and norms (the plain
-    decode, in the kernels' codebook order; the norms byte's x2)."""
+    equal K8's (candidates and keep = 0), which reach the same keys from
+    the rows they read (the margin, and the chain where it decides), over
+    the same decoded rows and norms (the plain decode, in the kernels'
+    codebook order; the norms byte's x2)."""
     n, d = 50_001, 128
     idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=False, kind="gauss",
                                            dtype=torch.bfloat16, n=n, nq=nq,
@@ -537,6 +539,100 @@ def test_bf16_codes_keys_are_the_fmaf_chains(dev, nq, mprime):
     kw4 = dict(tile=2048, r=48, idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
     assert torch.equal(tsc.codes_decode_topk(*args, has_norms=True, **kw4),
                        tsp.scan_onepass(Qm, Xd, x2, premin=0, **kw4))
+
+
+@pytest.mark.parametrize("nq", [33, 100])
+def test_bf16_decoded_keys_equal_codes_keys_at_gist_width(dev, nq):
+    """Beyond one d-block the tensor-core key stands, and it is one
+    function of the rows in every bf16 scan: at d = 960 (dp = 1024) on
+    Gaussian data K8's candidates and keep = 0 buffers equal K1's and
+    K4's over the same decoded rows and norms (one chunk order, one
+    accumulation)."""
+    n, d = 50_001, 960
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=False, kind="gauss",
+                                           dtype=torch.bfloat16, n=n, nq=nq,
+                                           d=d)
+    X, x2 = tsc._decode_x2(Cf, nrm, idx.packed, 7, True)
+    Xd = X.to(torch.bfloat16)
+    assert Xd.shape[1] == 1024
+    args = (Qm, Cf, nrm, idx.packed)
+    for keep in (2, 4):
+        kw = dict(tile=8192, keep=keep,
+                  idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+        c1, d1 = tsc.codes_decode_candidates(*args, has_norms=True, **kw)
+        c8, d8 = tsp.scan_candidates(Qm, Xd, x2, premin=0, **kw)
+        assert torch.equal(c1, c8) and torch.equal(d1, d8), keep
+    kw4 = dict(tile=2048, r=48, idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
+    assert torch.equal(tsc.codes_decode_topk(*args, has_norms=True, **kw4),
+                       tsp.scan_onepass(Qm, Xd, x2, premin=0, **kw4))
+
+
+@pytest.mark.parametrize("nq", [1, 33, 300])
+@pytest.mark.parametrize("d", [104, 128, 256, 264, 960])
+def test_bf16_decoded_kernels_equal_plain_on_integer_data(dev, nq, d):
+    """K8 on bf16 rows (the tensor-core candidates body, and keep = 0 on
+    the same score function) against its plain versions: identical int32
+    buffers on small-integer data at widths that end inside a chunk of
+    16 dimensions (104, 264: the zero-filled tail), at one d-block (128,
+    256: exact scores sit on key boundaries, so most pairs below a
+    buffer's threshold go through the margin to the fmaf chain) and
+    eight, keep 2 and 4, a query block cut short and 300 queries, odd
+    n."""
+    n = 20_001
+    idx, Q, Qm = _decoded_case(dev, "int", torch.bfloat16, n, d, nq)
+    assert idx.Xd.shape[1] == d
+    n8, n1 = tsp.scan_candidates.launches, tsp.scan_onepass.launches
+    for keep in (2, 4):
+        kw = dict(tile=8192, keep=keep, premin=0,
+                  idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+        got = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+        ref = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    kw1 = dict(tile=2048, r=48, premin=0,
+               idbits=tsp._pack_idbits(-(-n // 2048) * 2048))
+    assert torch.equal(tsp.scan_onepass(Qm, idx.Xd, idx.x2, **kw1),
+                       tsp.scan_onepass_plain(Qm, idx.Xd, idx.x2, **kw1))
+    torch.cuda.synchronize()
+    assert (tsp.scan_candidates.launches,
+            tsp.scan_onepass.launches) == (n8 + 2, n1 + 1)
+
+
+@pytest.mark.parametrize("nq", [33, 100])
+@pytest.mark.parametrize("d", [128, 960])
+def test_bf16_decoded_onepass_keys_equal_two_pass_keys_on_gaussian_data(
+        dev, nq, d):
+    """K8's one-pass search equals its two-pass search on the card, on
+    Gaussian data (sums that round): at each plan class of the two-pass
+    scan, the first `keep` keys of K2's merge of K8's candidates equal
+    those of K8 at keep = 0 (the tiles' top keeps hold each lane's
+    global top keep), at one d-block (the chain's keys) and at eight
+    (the tensor-core keys)."""
+    n = 50_001
+    idx, Q, Qm = _decoded_case(dev, "gauss", torch.bfloat16, n, d, nq)
+    for keep, tile, r in ((2, 8192, 16), (4, 8192, 32), (4, 2048, 96)):
+        idbits = tsp._pack_idbits(-(-n // tile) * tile)
+        two = tsp.cand_merge(*tsp.scan_candidates(
+            Qm, idx.Xd, idx.x2, tile=tile, keep=keep, premin=0,
+            idbits=idbits), r)
+        one = tsp.scan_onepass(Qm, idx.Xd, idx.x2, tile=2048, r=48,
+                               premin=0, idbits=idbits)
+        assert torch.equal(one[:keep], two[:keep]), (keep, tile)
+
+
+def test_bf16_decoded_chain_pairs_only_at_one_dblock(dev):
+    """K8 on bf16 rows asks the fmaf chain only where a row is one d-block:
+    on small-integer data (exact scores on key boundaries) it does for
+    many pairs at d = 128 and for none at d = 960; the count takes a
+    launch of its own, which `scan_candidates.launches` does not see, and
+    its buffers are the kernel's."""
+    n, nq = 20_001, 33
+    kw = dict(tile=8192, keep=2, idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+    for d, some in ((128, True), (960, False)):
+        idx, Q, Qm = _decoded_case(dev, "int", torch.bfloat16, n, d, nq)
+        n8 = tsp.scan_candidates.launches
+        got = tsp._chain_pairs(Qm, idx.Xd, idx.x2, **kw)
+        assert tsp.scan_candidates.launches == n8
+        assert (got > 0) == some and 0 <= got <= n * nq, (d, got)
 
 
 @pytest.mark.parametrize("pq", [True, False])
@@ -827,9 +923,9 @@ def test_icm_sweeps_kernel_any_h(dev, h):
 @pytest.mark.parametrize("kind", ["int", "gauss"])
 @pytest.mark.parametrize("h,d", [(512, D), (1000, 64), (H, 960)])
 def test_icm_sweeps_kernel_wide_shapes(dev, kind, h, d):
-    """K11 beyond one register block of labels (h = 512, and 1000 padded
-    to 1024) and at GIST's d = 960 (two warps per CTA) against its plain
-    version: identical on integer data, the K11 bound on Gaussian."""
+    """K11 beyond one block of labels (h = 512, and 1000 padded to 1024)
+    and at GIST's d = 960 (8 vectors a CTA) against its plain version:
+    identical on integer data, the K11 bound on Gaussian."""
     X, C, B, order = _encode_case(dev, kind, 2000, 8, h=h, d=d)
     for icmiter in (0, 2):
         gb, ge = ticm.icm_sweeps(X, C, B, order, icmiter)
@@ -837,6 +933,70 @@ def test_icm_sweeps_kernel_wide_shapes(dev, kind, h, d):
                                         op_dtype=torch.bfloat16)
         assert int(gb.max()) < h
         _icm_close(kind, (gb, ge), (rb, re_))
+
+
+@pytest.mark.parametrize("m,h,d", [(7, 16, 8), (15, 200, 128),
+                                   (7, 1024, 128), (15, 256, 960),
+                                   (7, 200, 2400), (15, 16, 100)])
+def test_icm_kernels_equal_plain_on_integer_data_at_every_layout(dev, m, h,
+                                                                  d):
+    """K11 and K12 (the tensor-core visit) against their plain versions on
+    small-integer data (exact in bf16 and in any f32 sum order): identical
+    codes and energies at m = 7 and 15, h from 16 to 1024 (padded to a
+    multiple of 128 labels), d from 8 to 2400 through every layout (32
+    vectors a CTA at d = 8 to 128, 8 with two CTAs an SM at d = 960, 8
+    with one at d = 2400; d = 8 and 100 end inside a chunk of 16), n not
+    a multiple of any CTA."""
+    n = 999
+    X, C, B, order = _encode_case(dev, "int", n, m, h=h, d=d)
+    for icmiter in (0, 2):
+        got = ticm.icm_sweeps(X, C, B, order, icmiter)
+        ref = ticm.icm_sweeps_plain(X, C, B, order, icmiter,
+                                    op_dtype=torch.bfloat16)
+        assert int(got[0].max()) < h
+        _icm_close("int", got, ref)
+    rng = np.random.default_rng(6)
+    orders = torch.as_tensor(np.stack([rng.permutation(m) for _ in range(2)]),
+                             dtype=torch.int32, device=dev)
+    kw = dict(ilsiter=2, icmiter=2, npert=2)
+    got = ticm.encoding_ils(X, C, B, orders, 12345, **kw)
+    ref = ticm.encoding_ils_plain(X, C, B, orders, 12345,
+                                  op_dtype=torch.bfloat16, **kw)
+    _icm_close("int", got, ref)
+
+
+@pytest.mark.parametrize("m,d", [(15, 128), (7, 960)])
+def test_icm_kernels_on_gaussian_data_at_the_main_widths(dev, m, d):
+    """K11 (icmiter = 4) and K12 (4 rounds) on Gaussian data against their
+    plain versions at SR-D-15+1's m and at GIST's d: at least 99% of codes
+    equal and the mean energy within 1e-4 relative (PERF.md §2)."""
+    X, C, B, order = _encode_case(dev, "gauss", 4096, m, d=d)
+    _icm_close("gauss", ticm.icm_sweeps(X, C, B, order, 4),
+               ticm.icm_sweeps_plain(X, C, B, order, 4,
+                                     op_dtype=torch.bfloat16))
+    rng = np.random.default_rng(7)
+    orders = torch.as_tensor(np.stack([rng.permutation(m) for _ in range(4)]),
+                             dtype=torch.int32, device=dev)
+    kw = dict(ilsiter=4, icmiter=2, npert=2)
+    _icm_close("gauss", ticm.encoding_ils(X, C, B, orders, 99, **kw),
+               ticm.encoding_ils_plain(X, C, B, orders, 99,
+                                       op_dtype=torch.bfloat16, **kw))
+
+
+@pytest.mark.parametrize("d,m", [(8, 7), (100, 8), (128, 7), (128, 16),
+                                 (256, 8), (440, 8), (960, 7), (960, 16),
+                                 (2400, 16), (3600, 8)])
+def test_icm_layout_is_the_kernels(dev, d, m):
+    """K11's and K12's layout comes from their source (`rq_icm_layout`),
+    `ops.icm._icm_layout` states it, and the card holds at least the CTAs
+    an SM the layout was chosen for; a shape no CTA fits raises in both."""
+    lay = query("rq_icm_layout", d, m, size=4, device=dev)
+    assert lay[:3] == ticm._icm_layout(d, m)
+    assert lay[3] >= lay[1], lay
+    with pytest.raises(RuntimeError, match="rq_icm_layout"):
+        query("rq_icm_layout", 4096, 8, size=4, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ticm._icm_layout(4096, 8)
 
 
 def _icm_close(kind, got, ref):
@@ -1020,6 +1180,21 @@ def test_f32_counts_see_k9s_scores(dev, d, dtype, k, r, keep):
     ok = ~fl
     assert int(ok.sum()) >= nq // 2
     assert bool((cnt[0].sum(0)[ok] == k - 1).all())
+
+
+@pytest.mark.parametrize("dp", [104, 128, 256, 264, 960, 2432])
+@pytest.mark.parametrize("bf16", [0, 1])
+def test_decoded_candidates_layout_is_the_kernels(dev, dp, bf16):
+    """K8's layout comes from its source (`rq_scan_candidates_layout`),
+    `scan._candidates_layout` states it, and the card holds two bf16 CTAs
+    an SM at every width (the occupancy its launch bounds ask for), f32
+    ones where two fit."""
+    lay = query("rq_scan_candidates_layout", dp, bf16, size=5, device=dev)
+    assert lay[:4] == tsp._candidates_layout(dp, bf16)
+    cap = getattr(torch.cuda.get_device_properties(dev),
+                  "shared_memory_per_block_optin", 232_448)
+    # the f32 body at dp = 256 holds one CTA an SM (its tile transposed)
+    assert lay[4] == (2 if bf16 or lay[3] <= (cap - 1024) // 2 else 1), lay
 
 
 @pytest.mark.parametrize("keep", [0, 2, 4])
