@@ -253,21 +253,6 @@ __host__ __device__ constexpr int ex_smem() {
   return EX_STAGES * ex_stage<T>();
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Four dimensions [kk, kk + 4) of a staged row, widened to f32.
 __device__ __forceinline__ void row4(const unsigned char* row, int kk,
                                      const float*, float (&v)[4]) {

@@ -115,6 +115,24 @@ __device__ __forceinline__ float round_op<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// 16 bytes from device memory to shared memory, asynchronously (zeros
+// where `full` is false); a commit closes a group, a wait<N> returns once
+// at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ int row_key(float s, int rid, int vmask) {
   int b = __float_as_int(s);
   b = b >= 0 ? b : (b ^ 0x7FFFFFFF);

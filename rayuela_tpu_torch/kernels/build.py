@@ -53,6 +53,7 @@ _SIGNATURES = {
     "rq_codes_lut_f32_candidates": [_P] * 4 + [_I] * 9 + [_P],
     "rq_codes_lut_verify_counts": [_P] * 5 + [_I] * 8 + [_P],
     "rq_lut_layout": [_I] * 3 + [_P],
+    "rq_lut_exact_layout": [_I] * 3 + [_P],
     "rq_pair_merge": [_P] * 4 + [_I] * 3 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
     "rq_tail_layout": [_I] * 3 + [_P],

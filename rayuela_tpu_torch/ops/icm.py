@@ -32,6 +32,13 @@ cores, a CTA of 8, 16 or 32 vectors at a time (`_icm_layout`), each warp
 loading its codebook fragments straight from L1/L2 (`IcmOperands.Cf`);
 see the kernels' header.
 
+`encoding_icm(impl="xla")` is the JAX package's XLA formulation
+(``_encoding_icm_xla``: chunks of vectors, pairwise conditioning tables,
+the MRF energy from the pairwise terms) in torch ops on any device; with
+``impl="auto"`` the card takes it for the shapes the kernels do not
+(`icm_kernel_takes`), as the JAX package's ``auto`` sends what its
+Pallas kernel does not hold to its XLA sweep.
+
 Randomness otherwise comes from a `torch.Generator` on the data's
 device, so the relaunch path's codes do not reproduce the JAX package's
 threefry draws: parity is statistical (mean cost), except for the
@@ -206,19 +213,35 @@ def _icm_smem(d: int, m: int, t: int) -> int:
             + 8 * _ICM_WARPS * v + 8 * v)
 
 
-def _icm_layout(d: int, m: int) -> tuple[int, int, int]:
-    """The layout of K11 and K12 at (d, m), as ``rq_icm_layout`` states
-    it: ``(vectors per CTA, CTAs an SM is meant to hold, shared bytes per
-    CTA)``: the largest CTA (32, 16 or 8 vectors) with which two CTAs fit
-    an SM, else one; a shape no CTA fits raises."""
+def _icm_cta(d: int, m: int) -> tuple[int, int, int] | None:
+    """`_icm_layout`, or None where no CTA fits."""
     for ctas in (2, 1):
         cap = (_MAX_SMEM - 1024) // 2 if ctas == 2 else _MAX_SMEM
         for t in (4, 2, 1):
             smem = _icm_smem(d, m, t)
             if smem <= cap:
                 return 8 * t, ctas, smem
-    raise ValueError(f"d={d}, m={m}: the kernels' per-vector state exceeds "
-                     "shared memory")
+    return None
+
+
+def _icm_layout(d: int, m: int) -> tuple[int, int, int]:
+    """The layout of K11 and K12 at (d, m), as ``rq_icm_layout`` states
+    it: ``(vectors per CTA, CTAs an SM is meant to hold, shared bytes per
+    CTA)``: the largest CTA (32, 16 or 8 vectors) with which two CTAs fit
+    an SM, else one; a shape no CTA fits raises."""
+    layout = _icm_cta(d, m)
+    if layout is None:
+        raise ValueError(f"d={d}, m={m}: the kernels' per-vector state "
+                         "exceeds shared memory")
+    return layout
+
+
+def icm_kernel_takes(m: int, h: int, d: int) -> bool:
+    """Whether K11 and K12 take codebooks ``(m, h, d)`` on the card: h up
+    to 1024 labels and a CTA of `_icm_layout` within shared memory.
+    `encoding_icm(impl="auto")` sends every other shape to the ``xla``
+    path before any launch."""
+    return h <= _MAX_H and _icm_cta(d, m) is not None
 
 
 def _check_codes(ops: IcmOperands, B: torch.Tensor) -> None:
@@ -412,22 +435,44 @@ def encoding_ils(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
 encoding_ils.launches = 0
 
 
+_IMPLS = ("auto", "xla", "pallas", "pallas-ils", "pallas-ils-interpret")
+
+
+def _auto_impl(device, m: int, h: int, d: int) -> str:
+    """What ``impl="auto"`` runs on ``device`` for codebooks ``(m, h,
+    d)``: the kernels' relaunch path (their plain versions on the CPU),
+    on the card ``"xla"`` where the kernels do not take the shape."""
+    if torch.device(device).type == "cuda" and not icm_kernel_takes(m, h, d):
+        return "xla"
+    return "pallas"
+
+
 def encoding_icm(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
                  B0: torch.Tensor, *, ilsiter: int = 8, icmiter: int = 4,
-                 npert: int = 4, randord: bool = True, impl: str = "auto"
-                 ) -> torch.Tensor:
+                 npert: int = 4, randord: bool = True, chunk: int = 8192,
+                 impl: str = "auto") -> torch.Tensor:
     """ILS-over-ICM encoding → improved codes ``(n, m) int32``. ``gen``
     lies on X's device. Defaults are the reference experiment settings.
-    ``impl="auto"`` (or ``"pallas"``) relaunches `icm_sweeps` per round
-    (the kernel on the card, the plain version on the CPU);
-    ``impl="pallas-ils"`` is one `encoding_ils` call (K12 on the card),
-    with the node orders from ``gen`` and one int32 seed drawn after them;
+    ``impl="pallas"`` relaunches `icm_sweeps` per round (the kernel on
+    the card, the plain version on the CPU); ``impl="pallas-ils"`` is one
+    `encoding_ils` call (K12 on the card), with the node orders from
+    ``gen`` and one int32 seed drawn after them;
     ``"pallas-ils-interpret"`` runs its plain version at the kernel's
-    bf16 objective on any device."""
-    if impl not in ("auto", "pallas", "pallas-ils", "pallas-ils-interpret"):
-        raise ValueError(f"impl={impl!r}: 'auto', 'pallas', 'pallas-ils' or "
-                         "'pallas-ils-interpret'")
-    m = C.shape[0]
+    bf16 objective on any device; ``impl="xla"`` is `encoding_icm_xla`
+    (chunks of ``chunk`` vectors). ``impl="auto"`` takes ``"pallas"``,
+    and on the card ``"xla"`` for codebooks the kernels do not take
+    (`icm_kernel_takes`); an explicit ``"pallas"`` or ``"pallas-ils"``
+    there raises. `encoding_icm.routes` counts the calls of each path."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl={impl!r}: one of {_IMPLS}")
+    m, h, d = C.shape
+    if impl == "auto":
+        impl = _auto_impl(X.device, m, h, d)
+    encoding_icm.routes[impl] += 1
+    if impl == "xla":
+        return encoding_icm_xla(gen, X, C, B0, ilsiter=ilsiter,
+                                icmiter=icmiter, npert=npert,
+                                randord=randord, chunk=chunk)
     orders = _ils_schedule(gen, m, ilsiter, randord, X.device)
     B = B0.to(device=X.device, dtype=torch.int32).contiguous()
     if impl.startswith("pallas-ils"):
@@ -448,6 +493,91 @@ def encoding_icm(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
         B = torch.where(keep[:, None], Bt, B)
         E = torch.minimum(Et, E)
     return B
+
+
+encoding_icm.routes = dict.fromkeys(_IMPLS[1:], 0)
+
+
+def _table_dtype(device: torch.device) -> torch.dtype:
+    """The conditioning tables' dtype of the ``xla`` path: bf16 on the
+    card (the JAX package's choice on its accelerator), f32 on the
+    CPU."""
+    return torch.float32 if device.type == "cpu" else torch.bfloat16
+
+
+def _conditioning_tables(C: torch.Tensor, dtype) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """``(Bin, T)``: the pairwise terms ``Bin[i, j] = 2 C_i C_j^T`` (m, m,
+    h, h) f32 with the diagonal zeroed, and node i's conditioning tables
+    ``T[i, j*h + a, b] = Bin[j, i][a, b]`` (m, m*h, h) at ``dtype``."""
+    exact_f32()
+    m, h, _ = C.shape
+    Bin = 2.0 * torch.einsum("ihd,jgd->ijhg", C, C)
+    Bin[torch.arange(m), torch.arange(m)] = 0.0
+    return Bin, Bin.transpose(0, 1).reshape(m, m * h, h).to(dtype)
+
+
+def _chunk_energy(u: torch.Tensor, Bin: torch.Tensor,
+                  B: torch.Tensor) -> torch.Tensor:
+    """MRF energy per vector without ``|x|^2``: ``sum_i u_i(B_i) + sum_{i<j}
+    Bin[i, j][B_i, B_j]``; ``u (m, nc, h)``, ``Bin`` as
+    `_conditioning_tables` gives it, ``B (nc, m)``."""
+    m, _, h = u.shape
+    Bl = B.long()
+    un = u.gather(2, Bl.T[:, :, None])[:, :, 0].sum(0)
+    pair = Bl[:, :, None] * h + Bl[:, None, :]                 # (nc, m, m)
+    nodes = torch.arange(m, device=B.device)
+    g = Bin.reshape(m, m, h * h)[nodes[:, None], nodes[None, :], pair]
+    return un + 0.5 * g.sum((1, 2))
+
+
+def _icm_sweeps(u: torch.Tensor, T: torch.Tensor, B: torch.Tensor, order,
+                icmiter: int) -> torch.Tensor:
+    """``icmiter`` ICM sweeps over the m nodes in ``order`` (the JAX
+    package's ``_icm_sweeps``): node i takes the lowest-index argmin of
+    ``u_i + sum_j T[i, j*h + B_j]``, the table rows summed in f32 (the
+    diagonal block is zero). ``u (m, nc, h)``, ``T (m, m*h, h)``, ``B
+    (nc, m)`` → the new codes (nc, m) int32."""
+    m, _, h = u.shape
+    B = B.long().clone()
+    rows = torch.arange(m, device=B.device) * h
+    for _ in range(icmiter):
+        for i in order:
+            cond = u[i] + T[i][B + rows].float().sum(1)          # (nc, h)
+            B[:, i] = cond.argmin(-1)
+    return B.to(torch.int32)
+
+
+def encoding_icm_xla(gen: torch.Generator, X: torch.Tensor, C: torch.Tensor,
+                     B0: torch.Tensor, *, ilsiter: int = 8, icmiter: int = 4,
+                     npert: int = 4, randord: bool = True,
+                     chunk: int = 8192) -> torch.Tensor:
+    """The JAX package's XLA ILS encoder (``_encoding_icm_xla``) in torch
+    ops on X's device, for any codebook shape: one node order per round
+    from ``gen``, shared by all chunks; per chunk of ``chunk`` vectors the
+    unaries in f32, then per round the energy of the current codes, a
+    perturbation of ``npert`` positions, `_icm_sweeps` over the
+    conditioning tables (`_table_dtype`) and a per-vector strict accept
+    on the energy from the pairwise terms → codes ``(n, m) int32``."""
+    exact_f32()
+    m, h, _ = C.shape
+    orders = _ils_schedule(gen, m, ilsiter, randord, X.device).tolist()
+    Bin, T = _conditioning_tables(C, _table_dtype(X.device))
+    c2 = (C * C).sum(-1)
+    outs = []
+    for s in range(0, X.shape[0], chunk):
+        u = _unaries(X[s:s + chunk], C, c2)
+        B = B0[s:s + chunk].to(device=X.device, dtype=torch.int32)
+        for t in range(ilsiter):
+            prev = _chunk_energy(u, Bin, B)
+            Bt = _icm_sweeps(u, T, _perturb(gen, B, npert, h), orders[t],
+                             icmiter)
+            B = torch.where((_chunk_energy(u, Bin, Bt) < prev)[:, None], Bt,
+                            B)
+        outs.append(B)
+    if not outs:
+        return B0.to(device=X.device, dtype=torch.int32)
+    return torch.cat(outs)
 
 
 def encoding_icm_checkpoints(gen: torch.Generator, X: torch.Tensor,

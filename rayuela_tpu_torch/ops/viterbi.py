@@ -11,9 +11,15 @@ chain-optimal codes.
 
 `viterbi_encode` launches kernel K13 (``csrc/viterbi.cu``) for CUDA
 tensors and runs the plain version `viterbi_encode_plain` for CPU
-tensors. The kernel computes the unaries in its body, as the TPU kernel
-does; the plain version takes them from a full-f32 matmul
-(`_unaries_flat`), so the two sum each dot product in another order.
+tensors; with ``impl="xla"`` it runs the JAX package's XLA formulation
+(``_viterbi_encode_xla``: the chunked min-plus forward pass with argmin
+tables, which is also the plain version). ``impl="auto"`` takes that
+path on the card only for shapes the JAX package's ``auto`` serves on
+the TPU but K13 does not take (`_auto_impl`); elsewhere it is the
+kernel, which raises for a shape it does not take. The kernel computes
+the unaries in its body, as the TPU kernel does; the plain version
+takes them from a full-f32 matmul (`_unaries_flat`), so the two sum
+each dot product in another order.
 """
 
 from __future__ import annotations
@@ -103,13 +109,59 @@ def _smem_bytes(m: int, h: int, d: int) -> int:
     return 4 * (_VB * m * h + ta * h + _VB * d)
 
 
-def viterbi_encode(X: torch.Tensor, C: torch.Tensor,
-                   chunk: int = 2048) -> torch.Tensor:
+def viterbi_kernel_takes(m: int, h: int, d: int) -> bool:
+    """Whether K13 takes codebooks ``(m, h, d)`` on the card: h up to
+    1024 and its forward costs, bin tile and vectors within shared
+    memory (`_smem_bytes`)."""
+    return h <= 1024 and _smem_bytes(m, h, d) <= _MAX_SMEM
+
+
+def _tpu_kernel_vmem(m: int, h: int, d: int, bc: int = 256) -> int:
+    """VMEM bytes of the JAX package's Pallas Viterbi kernel
+    (``viterbi_encode_pallas``): its blocked inputs double-buffered (a
+    (d, bc) block of X^T, the (m h, d) codebook, the (m h, 1) norms
+    padded to 128 lanes, the (max(1, m - 1), h, h) pair terms), its
+    (m, bc) output double-buffered and its (m, h, bc) forward costs."""
+    ins = d * bc + m * h * d + m * h * 128 + max(1, m - 1) * h * h
+    return 4 * (2 * ins + 2 * m * bc + m * h * bc)
+
+
+# the TPU's default scoped-VMEM limit (bytes)
+_TPU_VMEM = 16 << 20
+
+
+def _auto_impl(device, m: int, h: int, d: int) -> str:
+    """What ``impl="auto"`` runs on ``device`` for codebooks ``(m, h,
+    d)``: the kernel (its plain version on the CPU), and on the card
+    ``"xla"`` where K13 does not take the shape but the JAX package's
+    ``auto`` serves it on the TPU: by its XLA path (h not a multiple of
+    8) or by a Pallas kernel within the scoped VMEM (at d = 128 only
+    m = 1 past h = 1024). Where neither kernel holds the shape, the kernel's
+    refusal stands."""
+    if torch.device(device).type == "cuda" \
+            and not viterbi_kernel_takes(m, h, d) \
+            and (h % 8 or _tpu_kernel_vmem(m, h, d) <= _TPU_VMEM):
+        return "xla"
+    return "pallas"
+
+
+# the xla path's (chunk, h, h) min-plus transient at most (bytes)
+_XLA_TRANSIENT = 1 << 29
+
+
+def viterbi_encode(X: torch.Tensor, C: torch.Tensor, chunk: int = 2048,
+                   impl: str = "auto") -> torch.Tensor:
     """Kernel K13: exact chain-optimal codes ``(n, m) int32`` of
-    ``X (n, d)`` f32 under ``C (m, h, d)`` f32. The plain version for
-    CPU tensors (chunked by ``chunk``); on the card the kernel, any h up
-    to 1024 (the JAX wrapper's ``h % 8 == 0`` is not needed here) while
-    its forward-cost stack, bin tile and vectors fit shared memory.
+    ``X (n, d)`` f32 under ``C (m, h, d)`` f32. ``impl="pallas"``: the
+    plain version for CPU tensors (chunked by ``chunk``); on the card the
+    kernel, any h up to 1024 (the JAX wrapper's ``h % 8 == 0`` is not
+    needed here) while its forward-cost stack, bin tile and vectors fit
+    shared memory (`viterbi_kernel_takes`), else it raises.
+    ``impl="xla"``: the chunked min-plus formulation on X's device, its
+    chunk cut so the (chunk, h, h) transient stays within 512 MB.
+    ``impl="auto"``: the kernel, or ``xla`` on the card where the kernel
+    does not take the shape and the JAX package's ``auto`` serves it
+    (`_auto_impl`); `viterbi_encode.routes` counts the calls of each.
     Source: ``rayuela_tpu_torch/csrc/viterbi.cu``."""
     if X.dim() != 2 or C.dim() != 3 or X.shape[1] != C.shape[2]:
         raise ValueError(f"X {tuple(X.shape)} and C {tuple(C.shape)} must "
@@ -118,16 +170,25 @@ def viterbi_encode(X: torch.Tensor, C: torch.Tensor,
         raise ValueError("X and C must be float32")
     if X.device != C.device:
         raise ValueError("X and C must share one device")
-    if X.device.type == "cpu":
-        return viterbi_encode_plain(X, C, chunk)
-    if X.device.type != "cuda":
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"impl={impl!r}: 'auto', 'pallas' or 'xla'")
+    if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {X.device}")
     m, h, d = C.shape
+    if impl == "auto":
+        impl = _auto_impl(X.device, m, h, d)
+    viterbi_encode.routes[impl] += 1
+    if impl == "xla":
+        return viterbi_encode_plain(
+            X, C, max(1, min(chunk, _XLA_TRANSIENT // (4 * h * h))))
+    if X.device.type == "cpu":
+        return viterbi_encode_plain(X, C, chunk)
     smem = _smem_bytes(m, h, d)
-    if h > 1024 or smem > _MAX_SMEM:
+    if not viterbi_kernel_takes(m, h, d):
         raise ValueError(f"m={m}, h={h}, d={d}: the kernel needs h <= 1024 "
                          f"and its {smem} bytes of forward costs, bin tile "
-                         f"and vectors within {_MAX_SMEM}")
+                         f"and vectors within {_MAX_SMEM} (impl='xla' "
+                         f"serves any shape)")
     n = X.shape[0]
     out = torch.empty(n, m, dtype=torch.int32, device=X.device)
     if n == 0:
@@ -147,3 +208,4 @@ def viterbi_encode(X: torch.Tensor, C: torch.Tensor,
 
 
 viterbi_encode.launches = 0
+viterbi_encode.routes = {"pallas": 0, "xla": 0}

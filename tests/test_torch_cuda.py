@@ -32,6 +32,7 @@ import rayuela_tpu_torch.api as tapi
 from rayuela_tpu_torch.kernels.build import query
 from rayuela_tpu_torch.ops import icm as ticm
 from rayuela_tpu_torch.ops import viterbi as tvit
+from rayuela_tpu_torch.ops.qerror import veccost_chunked
 from rayuela_tpu_torch.search import scan as tsp
 from rayuela_tpu_torch.search import scan_codes as tsc
 
@@ -1209,17 +1210,25 @@ def test_exact_layout_is_the_kernels(dev, keep, bf16):
 
 
 @pytest.mark.parametrize("h,pq,nq", [(16, False, 33), (256, False, 1),
-                                     (256, True, 33), (16, True, 1)])
+                                     (256, True, 33), (16, True, 1),
+                                     (256, False, 64)])
 @pytest.mark.parametrize("kind,dtype", [("int", torch.float32),
+                                        ("int", torch.bfloat16),
                                         ("gauss", torch.float32),
                                         ("gauss", torch.bfloat16)])
 @pytest.mark.parametrize("keep", [2, 4])
-def test_lut_f32_kernels_equal_plain(dev, h, pq, nq, kind, dtype, keep):
+@pytest.mark.parametrize("wide", [False, True])
+def test_lut_f32_kernels_equal_plain(dev, h, pq, nq, kind, dtype, keep,
+                                     wide):
     """K6 and K7 sum the table values in the plain versions' order:
     identical pairs and counts on integer and on Gaussian data, f32 and
-    bf16 tables, one and two code words, odd n."""
+    bf16 tables, m' = 8 and 16 (every layout of `_lut_exact_layout` at h
+    = 256: 16 or 8 queries a CTA on f32 tables, 32 or 16 on bf16 ones),
+    one, two and four code words, odd n, nq ragged against the query
+    blocks and against the 16-byte fill (nq = 64: the cp.async fill)."""
     rng = np.random.default_rng(4)
-    n, m, tile, r = 20_001, 8 if pq else 7, 8192, 16
+    m = (16 if pq else 15) if wide else (8 if pq else 7)
+    n, tile, r = 20_001, 8192, 16
     ds = D // m if pq else D
     mk = (lambda *sh: rng.integers(-2, 3, sh)) if kind == "int" \
         else (lambda *sh: rng.standard_normal(sh))
@@ -1539,6 +1548,94 @@ def test_lut_kernels_at_128_bits_equal_plain(dev, mprime, qb, kind):
     assert tsc.codes_lut_candidates.launches == n5 + 1
     assert tsc.codes_lut_f32_candidates.launches == n6 + 1
     assert tsc.codes_verify_counts.launches == n7 + 1
+
+
+@pytest.mark.parametrize("mprime", [8, 14, 15, 16, 29])
+@pytest.mark.parametrize("bf16", [0, 1])
+def test_lut_exact_layout_is_the_kernels(dev, mprime, bf16):
+    """K6/K7's layout comes from their source (`rq_lut_exact_layout`) and
+    `scan_codes._lut_exact_layout` states it; where the tables fit, the
+    card holds at least one CTA an SM."""
+    lay = query("rq_lut_exact_layout", mprime, H, bf16, size=4, device=dev)
+    assert lay[:3] == tsc._lut_exact_layout(mprime, H, bf16)
+    assert (lay[3] >= 1) == bool(lay[0]), lay
+
+
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("keep", [2, 4])
+def test_lut_f32_kernels_beyond_four_words_equal_plain(dev, kind, keep):
+    """bf16 tables of m' = 29 (8 queries a CTA, eight code words: the
+    words past the fourth are read in the step, not a step ahead): K6 and
+    K7 equal their plain versions."""
+    n, nq, tile, r = 20_001, 20, 8192, 16
+    T, packed = _lut_case(dev, 29, H, kind, n, nq)
+    T = T.to(torch.bfloat16).contiguous()
+    cv, ci = tsc.codes_lut_f32_candidates(T, packed, tile=tile, keep=keep)
+    cv0, ci0 = tsc.codes_lut_f32_candidates_plain(T, packed, tile=tile,
+                                                  keep=keep)
+    assert torch.equal(cv, cv0) and torch.equal(ci, ci0)
+    s, i, fl = tsc.scan_codes_topk(T, packed, k=100, r=r, tile=tile,
+                                   keep=keep, lut_dtype=torch.bfloat16,
+                                   pack=False)
+    ov, oi = tsc.codes_lut_topk_f32_plain(T, packed, r=r, tile=tile,
+                                          keep=keep)
+    s0, i0, fl0 = tsp._finish_f32(
+        ov, oi, 100, r, keep, lambda ts, ti: tsc.codes_verify_counts_plain(
+            T, packed, ts, ti, tile=tile))
+    torch.cuda.synchronize()
+    assert torch.equal(s, s0) and torch.equal(i, i0) and torch.equal(fl, fl0)
+
+
+def test_icm_beyond_the_kernels_takes_the_xla_path(dev):
+    """Codebooks of h = 2048 labels: `encoding_icm(impl="auto")` and
+    `api.index_base` of an LSQ model complete through the ``xla`` path,
+    chosen by shape before any launch (K11 and K12 never launch); the ILS
+    codes cost no more than the start codes; an explicit ``"pallas"`` or
+    ``"pallas-ils"`` raises. Viterbi takes its ``xla`` path by shape
+    where the JAX package's ``auto`` serves a shape K13 does not take
+    (m = 1 at h = 1152; h = 1030, not a multiple of 8) and keeps K13's
+    refusal where neither kernel holds it (m = 16 at h = 512), which
+    ``impl="xla"`` serves."""
+    rng = np.random.default_rng(8)
+    n, m, h = 3000, 4, 2048
+    X = torch.as_tensor(rng.standard_normal((n, D)), dtype=torch.float32,
+                        device=dev)
+    C = torch.as_tensor(rng.standard_normal((m, h, D)) * 0.3,
+                        dtype=torch.float32, device=dev)
+    B0 = torch.as_tensor(rng.integers(0, h, (n, m)), dtype=torch.int32,
+                         device=dev)
+    launches = (ticm.icm_sweeps.launches, ticm.encoding_ils.launches)
+    xla = ticm.encoding_icm.routes["xla"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B = ticm.encoding_icm(gen, X, C, B0, ilsiter=4)
+    model = tapi.MCQModel("lsq", C, h=h, train_codes=B0)
+    index = tapi.index_base(model, X, ilsiter=2)
+    dists, ids = tapi.search(index, X[:50], k=5)
+    torch.cuda.synchronize()
+    assert ticm.encoding_icm.routes["xla"] == xla + 2
+    assert (ticm.icm_sweeps.launches, ticm.encoding_ils.launches) == launches
+    cost = lambda codes: veccost_chunked(X, C, codes)
+    assert bool((cost(B) <= cost(B0) + 1e-3).all())
+    assert bool(torch.isfinite(dists).all()) and bool((ids < n).all())
+    for impl in ("pallas", "pallas-ils"):
+        with pytest.raises(ValueError, match="h=2048"):
+            ticm.encoding_icm(gen, X, C, B0, ilsiter=1, impl=impl)
+    Xv = X[:256].contiguous()
+    n13, xv = tvit.viterbi_encode.launches, tvit.viterbi_encode.routes["xla"]
+    for mv, hv in ((1, 1152), (2, 1030)):
+        Cv = torch.as_tensor(rng.standard_normal((mv, hv, D)),
+                             dtype=torch.float32, device=dev)
+        got = tvit.viterbi_encode(Xv, Cv)
+        assert torch.equal(got, tvit.viterbi_encode_plain(Xv, Cv, chunk=64))
+    assert tvit.viterbi_encode.launches == n13
+    assert tvit.viterbi_encode.routes["xla"] == xv + 2
+    Cv = torch.as_tensor(rng.standard_normal((16, 512, D)),
+                         dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="h <= 1024"):
+        tvit.viterbi_encode(Xv, Cv)
+    got = tvit.viterbi_encode(Xv, Cv, impl="xla")
+    assert tvit.viterbi_encode.launches == n13
+    assert torch.equal(got, tvit.viterbi_encode_plain(Xv, Cv, chunk=64))
 
 
 def test_lut_tables_beyond_8_queries_raise(dev):

@@ -1,9 +1,9 @@
-"""The host-side mirrors of the layouts of K8's bf16 candidates body and
-of the ICM kernels K11/K12, on the CPU: the vectors or queries a CTA
-takes, its shared bytes and whether it fits, for every shape the
-wrappers take. `tests/test_torch_cuda.py` holds each mirror to the
-kernel's own answer on the card (`rq_scan_candidates_layout`,
-`rq_icm_layout`)."""
+"""The host-side mirrors of the layouts of K8's bf16 candidates body, of
+the ICM kernels K11/K12 and of the exact-float LUT kernels K6/K7, on the
+CPU: the vectors or queries a CTA takes, its shared bytes and whether it
+fits, for every shape the wrappers take. `tests/test_torch_cuda.py`
+holds each mirror to the kernel's own answer on the card
+(`rq_scan_candidates_layout`, `rq_icm_layout`, `rq_lut_exact_layout`)."""
 
 import numpy as np
 import pytest
@@ -11,6 +11,7 @@ import torch
 
 from rayuela_tpu_torch.ops import icm as ticm
 from rayuela_tpu_torch.search import scan as tsp
+from rayuela_tpu_torch.search import scan_codes as tsc
 
 # shared memory an H100 CTA may opt in to, and what two CTAs an SM leave
 # each (every CTA also takes 1 KB of the SM's)
@@ -136,3 +137,28 @@ def test_fragment_order_of_the_codebook(rng, h, d):
                                         Cb[:, lab, k + 9]], -1)
                     assert torch.equal(Cf[:, g, ks, lane, 4 * t:4 * t + 4],
                                        want)
+
+
+@pytest.mark.parametrize("mprime,h,bf16,qb", [
+    (8, 256, 0, 16), (8, 256, 1, 32), (16, 256, 0, 8), (16, 256, 1, 16),
+    (14, 256, 0, 16), (15, 256, 0, 8), (8, 16, 0, 16), (8, 16, 1, 32),
+    (28, 256, 0, 8), (29, 256, 1, 8), (29, 256, 0, 0), (57, 256, 1, 0)])
+def test_lut_exact_layout_takes_the_most_queries_that_fit(mprime, h, bf16,
+                                                          qb):
+    """K6 and K7 keep the tables of a CTA's queries code-major, each
+    entry's queries contiguous: the most of (32 on bf16 tables), 16 and 8
+    queries whose m' h entries fit the shared memory a CTA may opt in to
+    (m' h = 2048: 16 queries' f32 tables or 32 queries' bf16 ones, 128
+    KB; m' h = 4096: 8 and 16), and 0 where not even 8 fit (the bytes then
+    are 8 queries'). A thread reads 16 bytes of an entry (4 f32 or 8 bf16
+    queries), 128 rows a CTA."""
+    tb = 2 if bf16 else 4
+    got = tsc._lut_exact_layout(mprime, h, bf16)
+    q = qb or 8
+    assert got == (qb, 128 * q * tb // 16, q * mprime * h * tb)
+    if qb:
+        assert got[2] <= CAP
+    # nothing larger fits
+    assert all(c * mprime * h * tb > CAP
+               for c in ((32, 16, 8) if bf16 else (16, 8)) if c > qb)
+    assert got[1] <= 512
