@@ -41,10 +41,11 @@ phases below; any failure exits non-zero.
    Gaussian data K9's scores lie within 1e-5 relative (+ 1e-4: the
    terms reach ~1e2) with >= 99.9% of ids equal by position and equal
    flags, and K6/K7, which add in the plain versions' order, are
-   identical again. K6/K7's layout (`rq_lut_exact_layout`) must be its
-   Python mirror's, and whether the library's sums (`embedding_bag`)
-   equal the kernels' prints. Their times at nq = 1e4 stand with the
-   other kernels' (f32 index and f32 tables: the operands of phase 6).
+   identical again. The LUT body's layout (K5-K7,
+   `rq_lut_exact_layout`) must be its Python mirror's, and whether the
+   library's sums (`embedding_bag`) equal the kernels' prints. Their
+   times at nq = 1e4 stand with the other kernels' (f32 index and f32
+   tables: the operands of phase 6).
 1b. The encode kernels against their plain versions on the card, at
    n = 65,536, d = 128, h = 256, m = 7 and 8: K11 `icm_sweeps` at
    icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`.
@@ -173,17 +174,18 @@ beside `topk` and held against its plain version.
    rescue's K4 and its K2 apart.
 9. 128 bits on phase 3's data (d = 128): `api.train(method="sr_d",
    m=15, ...)` → `index_base(mode="codes")` (m' = 16) → LUT mode with
-   bf16 tables (K5, 16 queries a CTA) and f32 tables (K5, 8 queries a
-   CTA), the `pack=False` LUT search (K6, pair merge, K7) and decode
-   mode (K1 at m = 15), at k = 100 and 1000, recall@1 >= 0.99 through
-   each; then PQ-16 through the f32-table LUT search, recall@1 >= 0.75
-   (BASELINE.md:56: SR-D 1.000, PQ .823). After its counts were read,
-   K5 (both table types), K6 and K7 against their plain versions on its
-   tables, K1 (+K2+K3) and K4 at m = 15 against theirs, and the times of
-   K5-K7 and K1 at m = 15.
+   bf16 tables (K5 on the LUT body, 16 queries a CTA) and f32 tables
+   (K5, 8 queries a CTA), the `pack=False` LUT search (K6, pair merge,
+   K7) and decode mode (K1 at m = 15), at k = 100 and 1000, recall@1
+   >= 0.99 through each; then PQ-16 through the f32-table LUT search,
+   recall@1 >= 0.75 (BASELINE.md:56: SR-D 1.000, PQ .823). After its
+   counts were read, K5 (both table types), K6 and K7 against their
+   plain versions on its tables, K1 (+K2+K3) and K4 at m = 15 against
+   theirs, and the times of K5-K7 and K1 at m = 15.
 Then the two probes at the JAX probes' sizes: the fusion probe (its
 kernel against its plain version for every k and both source forms,
-timed) and the scan-tail probe (K8 alone and the steps after it).
+timed beside `amin` and its bound, its launch's device time apart) and
+the scan-tail probe (K8 alone and the steps after it).
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 5's default
@@ -960,10 +962,10 @@ def phase1d(rng, errs):
         bf16 = int(dtype == torch.bfloat16)
         lay = query("rq_lut_exact_layout", c.idx.mprime, 256, bf16, size=4,
                     device=torch.device(DEV))
-        print(f" K6/K7 RVQ-7+1 {kind} {'bf16' if bf16 else 'f32'} tables; "
+        print(f" K5-K7 RVQ-7+1 {kind} {'bf16' if bf16 else 'f32'} tables; "
               f"layout (queries, threads, shared bytes, CTAs an SM) {lay}")
         check(lay[:3] == tsc._lut_exact_layout(c.idx.mprime, 256, bf16),
-              "K6/K7's layout differs from its mirror")
+              "the LUT body's layout differs from its mirror")
         if kind == "gauss":
             # the library's sums (embedding_bag over the tables' f32
             # values) against the plain version's on the first tile
@@ -2951,11 +2953,9 @@ def phase9_checks(errs, p9, Xq):
           f"events)")
     for dt in (torch.bfloat16, torch.float32):
         bf16 = int(dt == torch.bfloat16)
-        qb, smem = tsc._lut_layout(sc.mprime, 256, bf16, Xq.device)
         qx, threads, smem_x = tsc._lut_exact_layout(sc.mprime, 256, bf16)
-        print(f"  LUT kernels with {dt} tables: K5 {qb} queries a CTA, "
-              f"{smem} bytes of shared memory; K6/K7 {qx} queries and "
-              f"{threads} threads a CTA, {smem_x} bytes")
+        print(f"  LUT body (K5-K7) with {dt} tables: {qx} queries and "
+              f"{threads} threads a CTA, {smem_x} bytes of shared memory")
     T = tsc.build_luts(sc.C, Xq, norms_cbook=sc.norms_cbook)
     t = {}
     for k in (100, 1000):

@@ -22,11 +22,19 @@
 // (0.32 ms at 3.35 TB/s). The chain is 2k f32 ops an element, which at
 // k = 8 is 4.3e9 ops, a fifth of the stream's time at the CUDA cores'
 // issue rate: an extra op should cost nothing until the ops outrun the
-// stream. CTA p takes one contiguous range of rows (a multiple of 8), a
-// thread one float4 column group and every fourth row of the range, 8
-// loads in flight, and keeps the minima of its 2 row classes x 4
-// columns in registers; a second kernel takes the minimum over the CTAs'
-// partial (8, 256) blocks.
+// stream.
+//
+// One launch. A persistent grid, as many CTAs as the card holds at once
+// (`fusion_layout`: the SMs times the CTAs an SM holds), splits the row
+// groups of 8 rows evenly, so no tail wave is left. A thread takes one
+// float4 column group and one row class of its CTA's range, BATCH loads
+// in flight, and keeps that class's 4 minima in registers; the CTA writes
+// its partial (8, 256) block. The minimum across CTAs is taken in the same
+// launch, in two levels so that no single CTA reads every block: the last
+// CTA of each group of `group` CTAs to finish (a ticket after
+// __threadfence) folds its group's blocks into one, and the last of those
+// folds the groups' blocks into out, with all its threads and BATCH loads
+// in flight each.
 
 #include <cuda_runtime.h>
 
@@ -34,8 +42,8 @@ namespace {
 
 constexpr int COLS = 256;
 constexpr int VEC = COLS / 4;       // float4 column groups of a row
-constexpr int TPB = 256;            // threads a CTA: VEC x 4 row phases
-constexpr int BATCH = 4;            // row pairs a thread loads at once
+constexpr int TPB = 8 * VEC;        // threads a CTA: VEC x 8 row classes
+constexpr int BATCH = 8;            // row groups a thread loads at once
 constexpr float MUL = 1.0000001f, ADD = 0.5f;
 
 template <int K> struct Chain {
@@ -65,69 +73,112 @@ __device__ __forceinline__ float fmin_ordered(float a, float b) {
   return b < a ? b : a;
 }
 
-// CTA p: rows [p * rpc, min(rows, (p + 1) * rpc)), rpc a multiple of 8.
-// Thread t: column group t % VEC, rows rp + 4 j of the range (rp = t /
-// VEC): row class rp for even j, rp + 4 for odd j.
-template <int K, bool SPLIT>
-__global__ void __launch_bounds__(TPB)
-    fusion_chain_kernel(const float4* __restrict__ X, float4* __restrict__ part,
-                        int rows, int rpc) {
-  const int cg = threadIdx.x % VEC, rp = threadIdx.x / VEC;
-  const int r0 = blockIdx.x * rpc, r1 = min(rows, r0 + rpc);
-  const float inf = __int_as_float(0x7F800000);
-  float m[2][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) m[a][e] = inf;
-  for (int r = r0 + rp; r < r1; r += 8 * BATCH) {
-    float4 v[BATCH][2];
-#pragma unroll
-    for (int b = 0; b < BATCH; ++b)
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int row = r + 8 * b + 4 * a;
-        v[b][a] = row < r1 ? __ldg(X + (size_t)row * VEC + cg)
-                           : make_float4(inf, inf, inf, inf);
-      }
-#pragma unroll
-    for (int b = 0; b < BATCH; ++b)
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const bool live = r + 8 * b + 4 * a < r1;
-        const float x[4] = {v[b][a].x, v[b][a].y, v[b][a].z, v[b][a].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (live) m[a][e] = fmin_ordered(m[a][e], chain<K, SPLIT>(x[e]));
-      }
+__device__ __forceinline__ float4 fmin4(const float4& a, const float4& b) {
+  return make_float4(fmin_ordered(a.x, b.x), fmin_ordered(a.y, b.y),
+                     fmin_ordered(a.z, b.z), fmin_ordered(a.w, b.w));
+}
+
+// True in every thread of the CTA that arrives last of `count` at
+// `ticket` (which it sets back to 0 for the next launch). Each thread's
+// earlier writes are visible device-wide before its CTA takes a ticket.
+__device__ __forceinline__ bool last_to_arrive(unsigned* ticket,
+                                               unsigned count) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == count - 1;
+    if (last) atomicExch(ticket, 0u);
   }
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-    part[((size_t)blockIdx.x * 8 + rp + 4 * a) * VEC + cg] =
-        make_float4(m[a][0], m[a][1], m[a][2], m[a][3]);
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
-// out[i] = min over the nparts partial blocks of part[p * 8 * COLS + i].
-__global__ void __launch_bounds__(TPB)
-    fusion_min_kernel(const float* __restrict__ part, float* __restrict__ out,
-                      int nparts) {
-  const int i = blockIdx.x * TPB + threadIdx.x;
-  float m = __int_as_float(0x7F800000);
-  for (int p = 0; p < nparts; ++p)
-    m = fmin_ordered(m, part[(size_t)p * 8 * COLS + i]);
-  out[i] = m;
+// dst[t] = min over the count blocks src[i * TPB + t], thread t (blocks
+// written by other CTAs: read through L2), BATCH loads in flight.
+__device__ __forceinline__ void fold_blocks(const float4* src, int count,
+                                            float4* dst) {
+  const float inf = __int_as_float(0x7F800000);
+  float4 m = make_float4(inf, inf, inf, inf);
+  int i = 0;
+  for (; i + BATCH <= count; i += BATCH) {
+    float4 v[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b)
+      v[b] = __ldcg(src + (size_t)(i + b) * TPB + threadIdx.x);
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) m = fmin4(m, v[b]);
+  }
+  for (; i < count; ++i)
+    m = fmin4(m, __ldcg(src + (size_t)i * TPB + threadIdx.x));
+  dst[threadIdx.x] = m;
+}
+
+// grid P = gridDim.x (`fusion_layout`). CTA p: row groups [G p / P,
+// G (p + 1) / P) of the G = rows / 8. Thread t: column group t % VEC, row
+// class t / VEC. part holds P + ceil(P / group) blocks of (8, 256): the
+// CTAs', then the groups'; tickets ceil(P / group) + 1 zeros.
+template <int K, bool SPLIT>
+__global__ void __launch_bounds__(TPB, 2)
+    fusion_chain_kernel(const float4* __restrict__ X, float4* part,
+                        float4* __restrict__ out, unsigned* tickets,
+                        int rows, int group) {
+  const int cg = threadIdx.x % VEC, cls = threadIdx.x / VEC;
+  const int P = gridDim.x, p = blockIdx.x;
+  const long long G = rows / 8;
+  const int g0 = (int)(G * p / P), g1 = (int)(G * (p + 1) / P);
+  const float inf = __int_as_float(0x7F800000);
+  float m[4] = {inf, inf, inf, inf};
+  for (int g = g0; g < g1; g += BATCH) {
+    float4 v[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b)
+      v[b] = g + b < g1 ? __ldcs(X + ((size_t)(g + b) * 8 + cls) * VEC + cg)
+                        : make_float4(inf, inf, inf, inf);
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const float x[4] = {v[b].x, v[b].y, v[b].z, v[b].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (g + b < g1) m[e] = fmin_ordered(m[e], chain<K, SPLIT>(x[e]));
+    }
+  }
+  part[(size_t)p * TPB + threadIdx.x] = make_float4(m[0], m[1], m[2], m[3]);
+
+  const int ngroups = (P + group - 1) / group, grp = p / group;
+  const int first = grp * group, count = min(P, first + group) - first;
+  float4* gpart = part + (size_t)P * TPB;
+  if (!last_to_arrive(tickets + grp, count)) return;
+  fold_blocks(part + (size_t)first * TPB, count, gpart + (size_t)grp * TPB);
+  if (!last_to_arrive(tickets + ngroups, ngroups)) return;
+  fold_blocks(gpart, ngroups, out);
+}
+
+// The persistent grid of (k, split) into out[2]: CTAs (the SMs times the
+// CTAs an SM holds) and CTAs a group.
+template <int K, bool SPLIT> cudaError_t fusion_layout(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fusion_chain_kernel<K, SPLIT>, TPB, 0)) != cudaSuccess)
+    return e;
+  out[0] = sms * per_sm;
+  int group = 1;
+  while (group * group < out[0]) ++group;
+  out[1] = group;
+  return cudaSuccess;
 }
 
 template <int K, bool SPLIT>
-cudaError_t launch_chain(const void* X, void* part, void* out, int rows,
-                         int nparts, cudaStream_t st) {
-  const int rpc = ((rows / 8 + nparts - 1) / nparts) * 8;
+cudaError_t launch_chain(const void* X, void* part, void* out, void* tickets,
+                         int rows, int nparts, int group, cudaStream_t st) {
   fusion_chain_kernel<K, SPLIT><<<nparts, TPB, 0, st>>>(
-      (const float4*)X, (float4*)part, rows, rpc);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  fusion_min_kernel<<<8 * COLS / TPB, TPB, 0, st>>>((const float*)part,
-                                                    (float*)out, nparts);
+      (const float4*)X, (float4*)part, (float4*)out, (unsigned*)tickets,
+      rows, group);
   return cudaGetLastError();
 }
 
@@ -151,9 +202,10 @@ template <int K, bool SPLIT> cudaError_t chain_attrs(int* out) {
   }
 
 template <bool SPLIT>
-static int fusion_chain(const void* X, void* part, void* out, int rows,
-                        int nparts, int k, cudaStream_t st) {
-  RQ_FUSION_K(launch_chain, X, part, out, rows, nparts, st)
+static int fusion_chain(const void* X, void* part, void* out, void* tickets,
+                        int rows, int nparts, int group, int k,
+                        cudaStream_t st) {
+  RQ_FUSION_K(launch_chain, X, part, out, tickets, rows, nparts, group, st)
   return (int)cudaErrorInvalidValue;
 }
 
@@ -162,18 +214,33 @@ template <bool SPLIT> static int fusion_attrs(int k, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool SPLIT> static int fusion_grid(int k, int* out) {
+  RQ_FUSION_K(fusion_layout, out)
+  return (int)cudaErrorInvalidValue;
+}
+
 #undef RQ_FUSION_K
 
 extern "C" {
 
-// X (rows, 256) f32 → out (8, 256) f32 through nparts CTAs, whose
-// partial minima go to part (nparts, 8, 256) f32; k in {0, 1, 2, 4, 8},
-// split: the one-statement-per-op source form.
-int rq_fusion_chain(const void* X, void* part, void* out, int rows,
-                    int nparts, int k, int split, void* stream) {
+// X (rows, 256) f32 → out (8, 256) f32 through nparts CTAs in groups of
+// `group` (`rq_fusion_layout`); part (nparts + ceil(nparts / group), 8,
+// 256) f32 scratch, tickets ceil(nparts / group) + 1 zeroed int32 (left
+// zero); k in {0, 1, 2, 4, 8}, split: the one-statement-per-op source form.
+int rq_fusion_chain(const void* X, void* part, void* out, void* tickets,
+                    int rows, int nparts, int group, int k, int split,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  return split ? fusion_chain<true>(X, part, out, rows, nparts, k, st)
-               : fusion_chain<false>(X, part, out, rows, nparts, k, st);
+  return split ? fusion_chain<true>(X, part, out, tickets, rows, nparts,
+                                    group, k, st)
+               : fusion_chain<false>(X, part, out, tickets, rows, nparts,
+                                     group, k, st);
+}
+
+// The persistent grid at (k, split) into out[2]: CTAs and CTAs a group.
+int rq_fusion_layout(int k, int split, void* out) {
+  return split ? fusion_grid<true>(k, (int*)out)
+               : fusion_grid<false>(k, (int*)out);
 }
 
 // The chain kernel's registers and local (spill) bytes a thread at

@@ -3,10 +3,9 @@
 // keys, and the two scan bodies that K1, K4 (codes_scan.cu) and K8
 // (decoded_scan.cu) instantiate with their own row source (K8's bf16
 // candidates and bf16 K1/K14 have bodies of their own over the same
-// score and keys). K5 (lut_scan.cu) scores differently and shares only the
-// key and the selection. The exact-float scans (K9, K10 in
-// decoded_scan.cu; K6, K7 in lut_scan.cu) share the sinks at the end of
-// this file.
+// score and keys). The exact-float scans (K9, K10 in decoded_scan.cu;
+// K6, K7 in lut_scan.cu) share the sinks at the end of this file, and K5
+// (lut_scan.cu) is K6/K7's LUT body with the packed-key sink there.
 //
 // Logical contract (shared with the plain PyTorch versions in
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
@@ -958,15 +957,15 @@ cudaError_t topk_layout(int dp, int lane_words, int* out) {
 
 // ---------------------------------------------------------------------------
 // The exact-float scans: K9 and K10 (decoded_scan.cu), K6 and K7
-// (lut_scan.cu)
+// (lut_scan.cu); and K5, the packed LUT scan, on K6/K7's body
 // ---------------------------------------------------------------------------
 // They order rows by (untruncated f32 score, global row id), a total
 // order. A thread meets the rows of a (lane, query) pair in ascending
 // gid, so a strict `<` on the scores alone keeps that order: of two
 // equal scores the later one loses. The scan body hands every score to
-// a sink, and the two sinks below make the selecting kernel (K9, K6)
-// and the counting kernel (K10, K7) of one body, so that both see the
-// same scores bit for bit.
+// a sink, and the sinks below make the selecting kernel (K9, K6), the
+// counting kernel (K10, K7) and, on the LUT body, the packed-key kernel
+// (K5) of one body, so that all see the same scores bit for bit.
 //
 // A sink provides
 //   struct State                         per (lane, query), in registers
@@ -1057,5 +1056,77 @@ struct CountSink {
     atomicMax(cnt + (size_t)LANES * nq + off, st.c);
   }
 };
+
+// Packed-key sink: K5 on K6/K7's body (lut_scan.cu). Per (lane, query):
+// the tile's KEEP smallest packed keys (`row_key`: the score's sortable
+// bits above idbits, the row id gid >> 7 below; a pad row arrives as +inf)
+// ascending, and the smallest other key. finish() writes them as
+// cand[(t * KEEP + c), lane, q] and disc[t, lane, q], the buffers K2
+// (cand_merge) reduces, as the candidates bodies above write them.
+template <int KEEP> struct KeySink {
+  int* cand;
+  int* disc;
+  int vmask;  // -(1 << idbits)
+  struct State {
+    int best[KEEP];
+    int rest;
+  };
+  __device__ __forceinline__ void init(State& st, int, int) const {
+#pragma unroll
+    for (int c = 0; c < KEEP; ++c) st.best[c] = INT_MAX;
+    st.rest = INT_MAX;
+  }
+  __device__ __forceinline__ void push(State& st, float s, int,
+                                       int gid) const {
+    insert_sorted<KEEP>(st.best, st.rest, row_key(s, gid / LANES, vmask));
+  }
+  __device__ __forceinline__ void finish(const State& st, int t, int,
+                                         int lane, int q, int nq) const {
+    const size_t plane = (size_t)LANES * nq, off = (size_t)lane * nq + q;
+#pragma unroll
+    for (int c = 0; c < KEEP; ++c)
+      cand[(size_t)(t * KEEP + c) * plane + off] = st.best[c];
+    disc[(size_t)t * plane + off] = st.rest;
+  }
+  // finish() of the V queries [q, q + V) of one lane, q a multiple of 4:
+  // per plane V / 4 16-byte stores where the V lie below nq and the
+  // planes' rows are 16-byte aligned, else one key at a time for the
+  // queries below nq. (With one key a store, a warp's 32 keys land in 32
+  // sectors on bf16 tables, V = 8, and in 16 on f32; 16-byte stores fill
+  // each sector in one or two stores.)
+  static constexpr bool kRunFinish = true;
+  template <int V>
+  __device__ __forceinline__ void finish_run(const State (&st)[V], int t,
+                                             int lane, int q, int nq) const {
+    static_assert(V % 4 == 0, "whole 16-byte runs");
+    if (q + V > nq || nq % 4 ||
+        ((reinterpret_cast<size_t>(cand) | reinterpret_cast<size_t>(disc)) &
+         15)) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (q + v < nq) finish(st[v], t, 0, lane, q + v, nq);
+      return;
+    }
+    const size_t plane = (size_t)LANES * nq, off = (size_t)lane * nq + q;
+#pragma unroll
+    for (int w = 0; w < V / 4; ++w) {
+      const State* s = st + 4 * w;
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c)
+        *reinterpret_cast<int4*>(cand + (size_t)(t * KEEP + c) * plane +
+                                 off + 4 * w) =
+            make_int4(s[0].best[c], s[1].best[c], s[2].best[c], s[3].best[c]);
+      *reinterpret_cast<int4*>(disc + (size_t)t * plane + off + 4 * w) =
+          make_int4(s[0].rest, s[1].rest, s[2].rest, s[3].rest);
+    }
+  }
+};
+
+// Whether a sink writes a thread's V queries of one lane in one call
+// (`finish_run`), as KeySink does.
+template <class Sink, class = void> struct run_finish : std::false_type {};
+template <class Sink>
+struct run_finish<Sink, std::void_t<decltype(Sink::kRunFinish)>>
+    : std::true_type {};
 
 }  // namespace

@@ -10,9 +10,9 @@ Each line is one JSON object (CUDA events, the mean of ``--reps`` calls
 after a warm one; the first line names the card and its power limit).
 Operands: n = 1e6 rows of uniform random code bytes, nq = 1e4 queries'
 Gaussian tables of h = 256 entries, m' = 8 tables (RVQ-7+1 and SR-D-7+1
-with their norms byte) in f32 and in bf16, and m' = 16 (128 bits) in
-f32. For each the card's exact-float plans (`scan._f32_config`: k = 100
-and 1000; m' = 16 at k = 100):
+with their norms byte) and m' = 16 (128 bits), each in f32 and in bf16.
+For each the card's exact-float plans (`scan._f32_config`: k = 100 and
+1000 at m' = 8; k = 100 on f32 tables at m' = 16):
 
 - K6 and K7, and the whole exact-float search (`scan_codes_topk(...,
   pack=False)`: K6, the pair merge, the top-k, K7), beside the bound of
@@ -21,8 +21,9 @@ and 1000; m' = 16 at k = 100):
   (`library_lut`: per 1024 queries one
   `embedding_bag(mode="sum")` over the codes and one `topk`; whether its
   scores equal the plain version's prints);
-- K5 at the packed plan of the same k (`scan._scan_config`), whose body
-  this file's K6/K7 do not share;
+- K5, the same body with the packed-key sink, at the packed plans
+  (`scan._scan_config`) of k = 100, 1000 and 4096 (tile 8192, keep 2 and
+  4; tile 2048, keep 4);
 - the probes: K7 on codes that are all equal (every row reads the same
   entries: no bank conflicts) beside random codes, and K6 at keep = 2
   and keep = 4 (the k = 100 and 1000 plans share tile 8192).
@@ -48,8 +49,11 @@ import sys
 from pathlib import Path
 
 N, NQ, H = 1_000_000, 10_000, 256
-CASES = ((8, "float32", (100, 1000)), (8, "bfloat16", (100, 1000)),
-         (16, "float32", (100,)))
+# (m', table type, K6/K7's k, K5's k)
+CASES = ((8, "float32", (100, 1000), (100, 1000, 4096)),
+         (8, "bfloat16", (100, 1000), (100, 1000, 4096)),
+         (16, "float32", (100,), (100, 1000, 4096)),
+         (16, "bfloat16", (), (100, 1000, 4096)))
 PEAK_F32, HBM = 67e12, 3.35e12
 
 
@@ -145,7 +149,7 @@ def main(argv=None) -> int:
                                     device=dev))
         return taus[0]
 
-    for mprime, dt, ks in CASES:
+    for mprime, dt, ks, ks5 in CASES:
         dtype = getattr(torch, dt)
         nw = -(-mprime // 4)
         T = torch.randn((mprime, H, NQ), generator=gen(mprime),
@@ -212,7 +216,9 @@ def main(argv=None) -> int:
                  {"search": "scan_codes_topk(pack=False)", **shape, **plan,
                   "ms": tw, "queries_per_s": NQ / tw * 1e3,
                   "flagged": int(out[2].sum())}, out)
-            del out
+            del out, ts, ti
+            torch.cuda.empty_cache()
+        for k in ks5:
             r5, keep5, tile5 = tsp._scan_config(k)
             idbits = tsp._pack_idbits(-(-N // tile5) * tile5)
             t5 = ms(lambda: tsc.codes_lut_candidates(
@@ -223,7 +229,7 @@ def main(argv=None) -> int:
                  {"kernel": "codes_lut_candidates", **shape, "k": k,
                   "plan": [r5, keep5, tile5], "ms": t5, **bound(*out)},
                  out)
-            del out, ts, ti
+            del out
             torch.cuda.empty_cache()
         del T, packed, offs
         torch.cuda.empty_cache()

@@ -52,7 +52,6 @@ _SIGNATURES = {
     "rq_exact_layout": [_I] * 2 + [_P],
     "rq_codes_lut_f32_candidates": [_P] * 4 + [_I] * 9 + [_P],
     "rq_codes_lut_verify_counts": [_P] * 5 + [_I] * 8 + [_P],
-    "rq_lut_layout": [_I] * 3 + [_P],
     "rq_lut_exact_layout": [_I] * 3 + [_P],
     "rq_pair_merge": [_P] * 4 + [_I] * 3 + [_P],
     "rq_tail_merge": [_P] * 3 + [_I] * 4 + [_P],
@@ -61,7 +60,8 @@ _SIGNATURES = {
     "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
     "rq_icm_layout": [_I] * 2 + [_P],
     "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
-    "rq_fusion_chain": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_fusion_chain": [_P] * 4 + [_I] * 5 + [_P],
+    "rq_fusion_layout": [_I] * 2 + [_P],
     "rq_fusion_attrs": [_I] * 2 + [_P],
 }
 

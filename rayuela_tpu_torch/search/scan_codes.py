@@ -51,9 +51,9 @@ keeps the fmaf chain's key, scoring again by the chain the pairs whose
 tensor-core score lies near a key boundary. K1 and K14 share each
 decoded step over a cluster of
 query blocks and are bound by the latency of a step (its L2 gathers,
-the stores to the cluster, the cluster barrier), K5–K7 by
-their table reads and adds, K2 by reading its candidates (the kernels'
-headers in ``csrc/`` say more).
+the stores to the cluster, the cluster barrier), K5–K7 (one body with
+three sinks) by their table reads from shared memory, K2 by reading its
+candidates (the kernels' headers in ``csrc/`` say more).
 """
 
 from __future__ import annotations
@@ -609,10 +609,10 @@ def _lut_scores_fn(T, packed, tile: int):
     return scores
 
 
-def _check_lut(T, packed, tile: int, exact: bool = False) -> bool:
-    """Validate the LUT-scan operands of K5 (or, ``exact``, of K6/K7);
-    True when they lie on a CUDA device (launch the kernel), False on the
-    CPU (plain version)."""
+def _check_lut(T, packed, tile: int) -> bool:
+    """Validate the LUT-scan operands of K5, K6 and K7; True when they lie
+    on a CUDA device (launch the kernel), False on the CPU (plain
+    version)."""
     if T.dim() != 3 or packed.dim() != 2 \
             or packed.shape[1] != cdiv(T.shape[0], 4):
         raise ValueError(f"T {tuple(T.shape)} must be (m', h, nq) and "
@@ -631,39 +631,35 @@ def _check_lut(T, packed, tile: int, exact: bool = False) -> bool:
         return False
     if T.device.type != "cuda":
         raise ValueError(f"unsupported device {T.device}")
-    mprime, h, nq = T.shape
+    _check_lut_layout(*T.shape, T.dtype)
+    return True
+
+
+def _check_lut_layout(mprime: int, h: int, nq: int, dtype) -> None:
+    """The limits of the one LUT body (K5-K7) on the card: a code is one
+    byte, the CTA's tables fit its shared memory (`_lut_exact_layout`),
+    and the query count fits the launch."""
     if h > 256:
         raise ValueError(f"h={h} > 256: a code is one byte (and its tables "
                          "must fit the kernels' shared memory)")
-    bf16 = int(T.dtype == torch.bfloat16)
-    qb, smem = (_lut_exact_layout(mprime, h, bf16)[::2] if exact
-                else _lut_layout(mprime, h, bf16, T.device))
+    qb, _, smem = _lut_exact_layout(mprime, h, int(dtype == torch.bfloat16))
     if not qb:
         raise ValueError(f"m'*h={mprime * h} tables of 8 queries ({smem} "
                          "bytes) exceed the kernels' shared memory")
     if nq >= 1 << 20:
         raise ValueError("at most 2**20 queries per call")
-    return True
-
-
-@functools.lru_cache(maxsize=None)
-def _lut_layout(mprime: int, h: int, bf16: int,
-                device: torch.device) -> tuple[int, int]:
-    """K5's ``(queries per CTA, shared bytes per CTA)`` at m' tables
-    of h entries, as the kernels' source chooses them: 16 queries where
-    their tables fit, else 8, else 0 (the bytes then are 8 queries')."""
-    return query("rq_lut_layout", mprime, h, bf16, size=2, device=device)
 
 
 def _lut_exact_layout(mprime: int, h: int, bf16: int) -> tuple[int, int,
                                                                  int]:
-    """K6/K7's ``(queries per CTA, threads per CTA, shared bytes per
-    CTA)`` at m' tables of h entries, as ``rq_lut_exact_layout`` states
-    it: the tables of the CTA's queries, code-major with the queries of
-    an entry contiguous; the most queries of (32 on bf16 tables), 16, 8
-    whose tables fit, 0 where none does (the bytes then are 8 queries');
-    128 rows of ``qb / v`` threads each, a thread reading ``v = 16 /
-    sizeof(T)`` queries' values of an entry."""
+    """The LUT body's (K5, K6, K7) ``(queries per CTA, threads per CTA,
+    shared bytes per CTA)`` at m' tables of h entries, as
+    ``rq_lut_exact_layout`` states it: the tables of the CTA's queries,
+    code-major with the queries of an entry contiguous; the most queries
+    of (32 on bf16 tables), 16, 8 whose tables fit, 0 where none does
+    (the bytes then are 8 queries'); 128 rows of ``qb / v`` threads each,
+    a thread reading ``v = 16 / sizeof(T)`` queries' values of an
+    entry."""
     tb = 2 if bf16 else 4
     qb = next((q for q in ((32, 16, 8) if bf16 else (16, 8))
                if q * mprime * h * tb <= scan._SMEM_CAP), 0)
@@ -735,7 +731,7 @@ def codes_lut_f32_candidates(T, packed, *, tile: int, keep: int):
     and ``candi`` int32, each ``(ntiles * keep, 128, nq)``;
     `scan.pair_merge` is pass 2. Operands as `codes_lut_candidates`.
     Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
-    on_card = _check_lut(T, packed, tile, exact=True)
+    on_card = _check_lut(T, packed, tile)
     scan._check_f32_plan(packed.shape[0], tile, keep)
     if keep < 1:
         raise ValueError("keep=0 has no candidates pass: "
@@ -773,7 +769,7 @@ def codes_lut_topk_f32(T, packed, *, r: int, tile: int, keep: int):
     ``outi (r, 128, nq)`` int32 global ids. ``keep`` as in
     `scan.scan_f32_topk`: the card's kernels need 2 or 4, ``keep=0`` (the
     JAX package's form) has a plain version only."""
-    on_card = _check_lut(T, packed, tile, exact=True)
+    on_card = _check_lut(T, packed, tile)
     scan._check_f32_plan(packed.shape[0], tile, keep)
     if not on_card:
         return codes_lut_topk_f32_plain(T, packed, r=r, tile=tile, keep=keep)
@@ -794,7 +790,7 @@ def codes_verify_counts(T, packed, taus, taui, *, tile: int):
     """Kernel K7, the counting certificate of the exact-float LUT scan:
     `scan.verify_counts` on K6's scores, bit for bit → ``(2, 128, nq)``
     int32. Source: ``rayuela_tpu_torch/csrc/lut_scan.cu``."""
-    on_card = _check_lut(T, packed, tile, exact=True)
+    on_card = _check_lut(T, packed, tile)
     scan._check_f32_plan(packed.shape[0], tile, 0)
     scan._check_tau(taus, taui, T.shape[2], T.device)
     if not on_card:

@@ -786,15 +786,22 @@ def test_decoded_search_on_the_card_equals_the_cpu_search(dev):
 
 
 @pytest.mark.parametrize("h,pq,nq", [(16, False, 33), (256, False, 1),
-                                     (256, True, 33), (16, True, 1)])
+                                     (256, True, 33), (16, True, 1),
+                                     (256, False, 64)])
 @pytest.mark.parametrize("kind,dtype", [("int", torch.float32),
+                                        ("int", torch.bfloat16),
                                         ("gauss", torch.float32),
                                         ("gauss", torch.bfloat16)])
 @pytest.mark.parametrize("keep", [2, 4])
-def test_lut_scan_kernel_equals_plain(dev, h, pq, nq, kind, dtype, keep):
-    """K5 sums the table values in the plain version's order: identical
-    int32 outputs on integer and on Gaussian data, f32 and bf16 tables,
-    one and two code words (m' = 8 and 7 + 1), odd n."""
+@pytest.mark.parametrize("tile", [2048, 8192])
+def test_lut_scan_kernel_equals_plain(dev, h, pq, nq, kind, dtype, keep,
+                                      tile):
+    """K5 (the LUT body with the packed-key sink) sums the table values in
+    the plain version's order: identical int32 outputs on integer and on
+    Gaussian data, f32 and bf16 tables, one and two code words (m' = 8
+    and 7 + 1), odd n, both tiles of the plan (2048: 16 tiles a CTA),
+    nq ragged against the query blocks and the 16-byte fill (64: the
+    cp.async fill)."""
     rng = np.random.default_rng(4)
     n, m = 20_001, 8 if pq else 7
     ds = D // m if pq else D
@@ -808,8 +815,8 @@ def test_lut_scan_kernel_equals_plain(dev, h, pq, nq, kind, dtype, keep):
     nco = None if pq else t(rng.integers(0, h, n), torch.int32)
     T = tsc.build_luts(C, Q, pq=pq, d=D, norms_cbook=ncb).to(dtype)
     packed = tsc.pack_codes(B, nco)
-    kw = dict(tile=8192, keep=keep,
-              idbits=tsp._pack_idbits(-(-n // 8192) * 8192))
+    kw = dict(tile=tile, keep=keep,
+              idbits=tsp._pack_idbits(-(-n // tile) * tile))
     n5 = tsc.codes_lut_candidates.launches
     cand, disc = tsc.codes_lut_candidates(T.contiguous(), packed, **kw)
     torch.cuda.synchronize()
@@ -1520,21 +1527,26 @@ def _lut_case(dev, mprime, h, kind, n, nq, seed=7):
 def test_lut_kernels_at_128_bits_equal_plain(dev, mprime, qb, kind):
     """K5, K6 and K7 with f32 tables of h = 256 entries: 16 queries' tables
     fit up to m' = 14; from 15 (the 128-bit configurations: 15 + the
-    norms byte, PQ-16) a CTA takes 8 queries (`rq_lut_layout`). Either
-    way the sums go in the plain versions' order: identical outputs on
-    any data, nq ragged against both query blocks."""
+    norms byte, PQ-16) a CTA takes 8 queries, and on bf16 tables 16
+    instead of 32 (`rq_lut_exact_layout`, the one layout of the LUT
+    body). Either way the sums go in the plain versions' order: identical
+    outputs on any data, nq ragged against both query blocks."""
     n, nq, tile, r, keep = 20_001, 37, 8192, 16, 2
-    assert tsc._lut_layout(mprime, H, 0, dev)[0] == qb
-    assert tsc._lut_layout(mprime, H, 1, dev)[0] == 16
+    for bf16, want in ((0, qb), (1, 2 * qb)):
+        lay = query("rq_lut_exact_layout", mprime, H, bf16, size=4,
+                    device=dev)
+        assert lay[:3] == tsc._lut_exact_layout(mprime, H, bf16)
+        assert lay[0] == want
     T, packed = _lut_case(dev, mprime, H, kind, n, nq)
     n5, n6, n7 = (tsc.codes_lut_candidates.launches,
                   tsc.codes_lut_f32_candidates.launches,
                   tsc.codes_verify_counts.launches)
     kw = dict(tile=tile, keep=keep,
               idbits=tsp._pack_idbits(-(-n // tile) * tile))
-    got = tsc.codes_lut_candidates(T, packed, **kw)
-    ref = tsc.codes_lut_candidates_plain(T, packed, **kw)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for Tt in (T, T.to(torch.bfloat16).contiguous()):
+        got = tsc.codes_lut_candidates(Tt, packed, **kw)
+        ref = tsc.codes_lut_candidates_plain(Tt, packed, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     s, i, fl = tsc.scan_codes_topk(T, packed, k=100, r=r, tile=tile,
                                    keep=keep, lut_dtype=torch.float32,
                                    pack=False)
@@ -1545,9 +1557,43 @@ def test_lut_kernels_at_128_bits_equal_plain(dev, mprime, qb, kind):
             T, packed, ts, ti, tile=tile))
     torch.cuda.synchronize()
     assert torch.equal(s, s0) and torch.equal(i, i0) and torch.equal(fl, fl0)
-    assert tsc.codes_lut_candidates.launches == n5 + 1
+    assert tsc.codes_lut_candidates.launches == n5 + 2
     assert tsc.codes_lut_f32_candidates.launches == n6 + 1
     assert tsc.codes_verify_counts.launches == n7 + 1
+
+
+@pytest.mark.parametrize("mprime,dtype", [(5, torch.float32),
+                                          (5, torch.bfloat16),
+                                          (8, torch.float32),
+                                          (8, torch.bfloat16),
+                                          (16, torch.float32),
+                                          (16, torch.bfloat16),
+                                          (29, torch.bfloat16)])
+@pytest.mark.parametrize("kind", ["int", "gauss"])
+@pytest.mark.parametrize("keep", [2, 4])
+@pytest.mark.parametrize("tile", [2048, 8192])
+@pytest.mark.parametrize("nq", [1000, 1001])
+def test_lut_scan_kernel_at_every_instance_equals_plain(dev, mprime, dtype,
+                                                        kind, keep, tile,
+                                                        nq):
+    """K5 at every instance of the LUT body: m' = 8 and 16 (the table
+    count compiled in), m' = 5 and 29 (the generic instance; at 29 eight
+    code words, those past the fourth read in the step), f32 and bf16
+    tables, both keeps, both tiles, n ragged against the tile (pad rows),
+    nq ragged against every query block: 1000 (16-byte key stores, one
+    key at a time in the last block), 1001 (one key at a time, and the
+    fill's one-value path): identical to the plain version."""
+    n = 20_001
+    T, packed = _lut_case(dev, mprime, H, kind, n, nq, seed=mprime)
+    T = T.to(dtype).contiguous()
+    kw = dict(tile=tile, keep=keep,
+              idbits=tsp._pack_idbits(-(-n // tile) * tile))
+    n5 = tsc.codes_lut_candidates.launches
+    got = tsc.codes_lut_candidates(T, packed, **kw)
+    ref = tsc.codes_lut_candidates_plain(T, packed, **kw)
+    torch.cuda.synchronize()
+    assert tsc.codes_lut_candidates.launches == n5 + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("mprime", [8, 14, 15, 16, 29])
@@ -1640,14 +1686,24 @@ def test_icm_beyond_the_kernels_takes_the_xla_path(dev):
 
 def test_lut_tables_beyond_8_queries_raise(dev):
     """Where not even 8 queries' tables fit (f32, m' = 29 at h = 256:
-    4 pairs x 8 bytes x 7424 entries) the LUT kernels raise; bf16 tables
-    of that width take 8 queries."""
+    8 queries x 4 bytes x 7424 entries) the LUT kernels raise, K5, K6 and
+    K7 with one message; bf16 tables of that width take 8 queries."""
     T, packed = _lut_case(dev, 29, H, "int", 3000, 4)
-    with pytest.raises(ValueError, match="8 queries"):
-        tsc.codes_lut_candidates(T, packed, tile=8192, keep=2, idbits=8)
-    with pytest.raises(ValueError, match="8 queries"):
-        tsc.codes_lut_f32_candidates(T, packed, tile=8192, keep=2)
-    assert tsc._lut_layout(29, H, 1, dev)[0] == 8
+    taus = torch.zeros(4, dtype=torch.float32, device=dev)
+    taui = torch.zeros(4, dtype=torch.int32, device=dev)
+    msgs = []
+    for call in (lambda: tsc.codes_lut_candidates(T, packed, tile=8192,
+                                                  keep=2, idbits=8),
+                 lambda: tsc.codes_lut_f32_candidates(T, packed, tile=8192,
+                                                      keep=2),
+                 lambda: tsc.codes_verify_counts(T, packed, taus, taui,
+                                                 tile=8192)):
+        with pytest.raises(ValueError, match="8 queries") as err:
+            call()
+        msgs.append(str(err.value))
+    assert len(set(msgs)) == 1
+    assert tsc._lut_exact_layout(29, H, 1)[0] == 8
+    assert query("rq_lut_exact_layout", 29, H, 0, size=4, device=dev)[0] == 0
     Tb = T.to(torch.bfloat16).contiguous()
     kw = dict(tile=8192, keep=2, idbits=8)
     got = tsc.codes_lut_candidates(Tb, packed, **kw)
@@ -1659,10 +1715,14 @@ def test_lut_tables_beyond_8_queries_raise(dev):
 def test_fusion_kernel_equals_plain(dev, split):
     """The fusion probe's kernel (each product and sum rounded apart)
     equals its plain version bit for bit for every k, rows ragged
-    against its CTAs' ranges."""
+    against its persistent grid's CTAs (fewer row groups than CTAs: 8
+    and 8 * 37 rows; some CTAs one group more than others)."""
     from rayuela_tpu_torch.demos import fusion_probe as tfp
     rng = np.random.default_rng(8)
-    for rows in (8 * 1001, 65_536):
+    nparts, group = tfp._layout(8, split, dev)
+    assert nparts >= torch.cuda.get_device_properties(dev) \
+        .multi_processor_count and group * group >= nparts
+    for rows in (8, 8 * 37, 8 * 1001, 65_536, 8 * (nparts * 3 + 5)):
         X = torch.as_tensor(rng.standard_normal((rows, 256),
                                                 dtype=np.float32),
                             device=dev)

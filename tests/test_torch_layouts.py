@@ -1,5 +1,5 @@
 """The host-side mirrors of the layouts of K8's bf16 candidates body, of
-the ICM kernels K11/K12 and of the exact-float LUT kernels K6/K7, on the
+the ICM kernels K11/K12 and of the LUT body of K5, K6 and K7, on the
 CPU: the vectors or queries a CTA takes, its shared bytes and whether it
 fits, for every shape the wrappers take. `tests/test_torch_cuda.py`
 holds each mirror to the kernel's own answer on the card
@@ -145,7 +145,7 @@ def test_fragment_order_of_the_codebook(rng, h, d):
     (28, 256, 0, 8), (29, 256, 1, 8), (29, 256, 0, 0), (57, 256, 1, 0)])
 def test_lut_exact_layout_takes_the_most_queries_that_fit(mprime, h, bf16,
                                                           qb):
-    """K6 and K7 keep the tables of a CTA's queries code-major, each
+    """K5, K6 and K7 keep the tables of a CTA's queries code-major, each
     entry's queries contiguous: the most of (32 on bf16 tables), 16 and 8
     queries whose m' h entries fit the shared memory a CTA may opt in to
     (m' h = 2048: 16 queries' f32 tables or 32 queries' bf16 ones, 128
@@ -162,3 +162,32 @@ def test_lut_exact_layout_takes_the_most_queries_that_fit(mprime, h, bf16,
     assert all(c * mprime * h * tb > CAP
                for c in ((32, 16, 8) if bf16 else (16, 8)) if c > qb)
     assert got[1] <= 512
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mprime,h", [(5, 256), (8, 256), (14, 256),
+                                      (15, 256), (16, 256), (28, 256),
+                                      (29, 256), (56, 256), (57, 256),
+                                      (29, 16), (64, 128)])
+def test_lut_operands_refused_where_no_query_block_fits(mprime, h, dtype):
+    """The card's check of LUT operands (`_check_lut_layout`, the same for
+    K5, K6 and K7: one body, one layout) refuses the tables exactly where
+    `_lut_exact_layout` has no query block (f32 beyond m' h = 7104 at h =
+    256: 8 queries' tables past the shared memory), with one message that
+    names the bytes of 8 queries' tables; a code beyond one byte and
+    2**20 queries are refused on their own."""
+    bf16 = int(dtype == torch.bfloat16)
+    qb, _, smem = tsc._lut_exact_layout(mprime, h, bf16)
+    if qb:
+        tsc._check_lut_layout(mprime, h, 1000, dtype)
+    else:
+        with pytest.raises(ValueError) as err:
+            tsc._check_lut_layout(mprime, h, 1000, dtype)
+        assert str(err.value) == (f"m'*h={mprime * h} tables of 8 queries "
+                                  f"({smem} bytes) exceed the kernels' "
+                                  "shared memory")
+        assert smem == 8 * mprime * h * (2 if bf16 else 4) > CAP
+    with pytest.raises(ValueError, match="h=512 > 256"):
+        tsc._check_lut_layout(mprime, 512, 1000, dtype)
+    with pytest.raises(ValueError, match="2\\*\\*20"):
+        tsc._check_lut_layout(mprime, 16, 1 << 20, dtype)

@@ -72,13 +72,14 @@ def _indexes(C, B, pq, ncb, nco):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("kind,pq,m", [("int", True, 4), ("int", False, 4),
                                        ("gauss", True, 4),
-                                       ("gauss", False, 7)])
+                                       ("gauss", False, 7),
+                                       ("gauss", False, 28)])
 @pytest.mark.parametrize("keep,r", [(2, 14), (4, 28)])
 def test_lut_scan_matches_jax(rng, kind, pq, m, keep, r, dtype):
     """K5's plain version + K2 + K3 (`scan_codes_topk`) == JAX
     `pallas_scan_codes_topk(pack=True)` on the same tables: equal scores
-    and flags, ids under the tie rule; n ragged against the tile, m' = 5
-    and 8 (one and two code words)."""
+    and flags, ids under the tie rule; n ragged against the tile, m' = 5,
+    8 and 29 (one, two and eight code words)."""
     n, nq, k = 5000, 16, 40
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
                 else (jnp.bfloat16, torch.bfloat16))
