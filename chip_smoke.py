@@ -48,7 +48,8 @@ phases below; any failure exits non-zero.
    tables: the operands of phase 6).
 1b. The encode kernels against their plain versions on the card, at
    n = 65,536, d = 128, h = 256, m = 7 and 8: K11 `icm_sweeps` at
-   icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`.
+   icmiter 0, 1 and 4 with a shuffled node order, K13 `viterbi_encode`
+   (also at m = 15 and at d = 960, where its layout differs).
    On {-1, 0, 1} data every value is exact and codes (and K11's
    energies) must be identical; on Gaussian data >= 99% of codes equal,
    K11's mean energy within 1e-4 relative, K13's chain energies within
@@ -271,7 +272,8 @@ SOURCES = {
     "fusion_chain": "rayuela_tpu_torch/csrc/fusion_probe.cu",
 }
 # published peaks of one H100 SXM at its full power limit (per second)
-PEAK = {"bf16 tensor-core": 989e12, "f32 CUDA-core": 67e12, "HBM": 3.35e12}
+PEAK = {"bf16 tensor-core": 989e12, "tf32 tensor-core": 495e12,
+        "f32 CUDA-core": 67e12, "HBM": 3.35e12}
 N1B, NT = 65_536, 100_000     # phase 1b vectors; the timed encode batch
 
 
@@ -320,8 +322,15 @@ def record(times, name, ms, plain_ms, flop, peak, moved, library_ms=None):
     """Keep kernel ``name``'s times beside its bound: the larger of
     ``flop`` over the published peak ``peak`` and ``moved`` bytes over
     the HBM rate (``plain_ms`` None: the plain version was not timed at
-    this shape)."""
-    ops_ms = flop / PEAK[peak] * 1e3
+    this shape). Work on two kinds of unit passes ``peak=None`` and
+    ``flop`` as ``{peak: operations}``: its operations' time is the sum
+    of each kind's over its peak."""
+    if peak is None:
+        ops_ms = sum(f / PEAK[p] for p, f in flop.items()) * 1e3
+        peak = " + ".join(flop)
+        flop = sum(flop.values())
+    else:
+        ops_ms = flop / PEAK[peak] * 1e3
     bytes_ms = moved / PEAK["HBM"] * 1e3
     times[name] = {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
@@ -1027,10 +1036,12 @@ def f32_times(c, Xf, x2, k, lib_ms, errs, t):
     record(t, "scan_f32_candidates", ms, pms, flop, "f32 CUDA-core",
            nbytes(Qm, Xf, x2, cv, ci), lib_ms)
     # the library's top-r of each (lane, query) over the candidate scores
-    # (the pair merge orders equal scores by id as well)
+    # (the pair merge orders equal scores by id as well); its bytes are
+    # the scores and the outputs: an id is read only for a candidate
+    # that enters
     libm_ms, _ = timed(lambda: torch.topk(cv, r, dim=0, largest=False), 2)
     record(t, "pair_merge", mms, mpms, 2.0 * cv.numel(), "f32 CUDA-core",
-           nbytes(cv, ci, ov, oi), libm_ms)
+           nbytes(cv, ov, oi), libm_ms)
     record(t, "verify_counts", vms, vpms, flop, "f32 CUDA-core",
            nbytes(Qm, Xf, x2, *tau, cnt))
     del cv, ci, ov, oi, ov0, oi0, cnt, cnt0, got, ref
@@ -1245,7 +1256,28 @@ def phase1b(rng, errs):
             note(errs, "viterbi_encode", compare_viterbi(
                 f"K13 m={m} {kind}", X, C, got, ref, exact))
             del X, C, B
+    # K13 at the 128-bit chain (m = 15) and at GIST's width: their
+    # layouts differ (one CTA an SM at d = 960)
+    for m, d in ((15, D), (7, 960)):
+        for kind in ("int", "gauss"):
+            X, C = _encode_case(rng, kind, N1B, m, d=d)
+            got = tvit.viterbi_encode(X, C)
+            ref = tvit.viterbi_encode_plain(X, C)
+            note(errs, "viterbi_encode", compare_viterbi(
+                f"K13 m={m} d={d} {kind}", X, C, got, ref, kind == "int"))
+            del X, C, got, ref
     torch.cuda.empty_cache()
+
+
+def viterbi_ops(n, m, h, d):
+    """K13's operations on n vectors by the unit that can do them
+    fastest: the unaries' m h d f32 multiply-adds per vector (2
+    operations each) at the tf32 tensor-core peak three times over (the
+    3xTF32 split, the card's fastest way to f32 accuracy), and the
+    (m - 1) h^2 adds and mins of the min-plus (1 operation each) at the
+    f32 CUDA-core peak."""
+    return {"tf32 tensor-core": 3 * 2.0 * n * m * h * d,
+            "f32 CUDA-core": 2.0 * n * (m - 1) * h * h}
 
 
 def encode_kernel_times(rng, errs):
@@ -1254,9 +1286,7 @@ def encode_kernel_times(rng, errs):
     runs' results held against each other as in phase 1b, with their
     bounds (K11: icmiter * m visits of h * d multiply-adds per vector,
     on bf16 operands with f32 accumulation, so held to the bf16
-    tensor-core peak; K13: m * h * d multiply-adds for the unaries and
-    (m - 1) * h * h add-min pairs per vector on f32 inputs, held to the
-    f32 CUDA-core peak)."""
+    tensor-core peak; K13: `viterbi_ops`)."""
     import torch
 
     from rayuela_tpu_torch.ops import icm as ticm
@@ -1281,9 +1311,8 @@ def encode_kernel_times(rng, errs):
     pms, ref = timed(lambda: tvit.viterbi_encode_plain(X, C), 1)
     note(errs, "viterbi_encode", compare_viterbi("K13 timed", X, C, got,
                                                  ref, exact=False))
-    record(times, "viterbi_encode", ms, pms,
-           NT * (2.0 * m * 256 * D + 2.0 * (m - 1) * 256 * 256),
-           "f32 CUDA-core", nbytes(X, C, got))
+    record(times, "viterbi_encode", ms, pms, viterbi_ops(NT, m, 256, D),
+           None, nbytes(X, C, got))
     del X, C, B
     torch.cuda.empty_cache()
     return times
@@ -2415,8 +2444,7 @@ def encode_checks(rng, errs, tag, model, Xb, vit, label=""):
         tvit.viterbi_encode_plain(X, C), exact=False))
     m, h, d = C.shape
     record(t, "viterbi_encode" + label, ms, None,
-           X.shape[0] * (2.0 * m * h * d + 2.0 * (m - 1) * h * h),
-           "f32 CUDA-core", nbytes(X, C, got))
+           viterbi_ops(X.shape[0], m, h, d), None, nbytes(X, C, got))
     print(f"  {tag}: K11 {t['icm_sweeps' + label]['ms']:.3f} ms "
           f"(bound {t['icm_sweeps' + label]['bound_ms']:.3f}), K13 "
           f"{ms:.3f} ms (bound {t['viterbi_encode' + label]['bound_ms']:.3f})"

@@ -295,15 +295,63 @@ cudaError_t launch_merge(const void* cand, const void* disc, void* out,
 // candidates arrive in ascending gid among equal scores (tile after
 // tile, and ascending within a tile), so a strict `<` on the scores
 // keeps the order (score, gid); a +inf candidate never enters, and an
-// empty slot stays (+inf, NOID). Bound by reading its candidates (8
-// bytes each, coalesced: consecutive threads take consecutive queries);
-// after the first tiles nearly every candidate is rejected by one
-// compare before its id is read.
+// empty slot stays (+inf, NOID).
+//
+// What bounds it on the card: reading the scores, 4 bytes per candidate
+// (coalesced: consecutive threads take consecutive queries), once, and
+// the insertions: one costs ~5 R instructions, and a warp pays one for
+// every row on which any of its 32 (lane, query)s takes a candidate,
+// which at these plans is nearly every row (a row's candidate enters
+// with probability ~R / row). The former form took one row at a time,
+// its score load waited on before the next (one load in flight a
+// thread), and inserted by a bubble pass whose R steps each waited on
+// the last. Now a thread loads a batch of PM_BATCH(R) rows' scores
+// (streaming loads) before it compares any, marks those below its R-th
+// score at the batch's start, loads their ids together, and inserts them
+// in row order, each tested again against the R-th score of the moment:
+// the outputs are the same bits, and a warp pays one insertion per
+// candidate of its busiest thread in the batch instead of one per row
+// that any thread takes. An insertion computes every slot from the old
+// buffer (no step waits on another). At n = 1e6, nq = 1e4 (NVIDIA H100
+// 80GB HBM3, 700 W): 2.149 / 5.891 / 17.390 -> 1.268 / 3.614 / 5.964 ms
+// at the k = 100 / 1000 / 3072 plans, against a bound of 0.425 / 0.850
+// / 0.899 (the scores read once and the outputs written once at 3.35
+// TB/s); on scores that rise row after row (nothing enters after the
+// first rows) it takes 0.539 / 1.293 / 2.461 (demos/probe_minplus.py),
+// so the insertions, not the loads, hold it below half its bound at
+// every plan. Merging each
+// batch by bitonic networks instead (the same work on every lane) was
+// slower at every plan.
+template <int R>
+constexpr int PM_BATCH = R <= 32 ? 16 : 8;
+
+// insert (s, id), s < bv[R - 1], into the ascending buffer, dropping its
+// last pair; among equal scores the buffer's pairs stay ahead
+template <int R>
+__device__ __forceinline__ void pair_insert(float (&bv)[R], int (&bi)[R],
+                                            float s, int id) {
+  // slot i takes its left neighbour where s < bv[i - 1], s where only
+  // s < bv[i], else keeps its own
+  bool below = s < bv[R - 1];
+#pragma unroll
+  for (int i = R - 1; i > 0; --i) {
+    const bool left = s < bv[i - 1];
+    bv[i] = left ? bv[i - 1] : below ? s : bv[i];
+    bi[i] = left ? bi[i - 1] : below ? id : bi[i];
+    below = left;
+  }
+  if (below) {
+    bv[0] = s;
+    bi[0] = id;
+  }
+}
+
 template <int R>
 __global__ void __launch_bounds__(THREADS)
     pair_merge_kernel(const float* __restrict__ candv,
                       const int* __restrict__ candi, float* __restrict__ outv,
                       int* __restrict__ outi, int ncand, int nq) {
+  constexpr int B = PM_BATCH<R>;
   const size_t plane = (size_t)LANES * nq;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= plane) return;
@@ -314,22 +362,38 @@ __global__ void __launch_bounds__(THREADS)
     bv[c] = pos_inf();
     bi[c] = NOID;
   }
-  for (int row = 0; row < ncand; ++row) {
-    const float s = candv[row * plane + idx];
-    if (s < bv[R - 1]) {
-      bv[R - 1] = s;
-      bi[R - 1] = candi[row * plane + idx];
+  int row = 0;
+  for (; row + B <= ncand; row += B) {
+    float s[B];
+    int id[B];
 #pragma unroll
-      for (int i = R - 1; i > 0; --i) {
-        const bool sw = bv[i] < bv[i - 1];
-        const float va = bv[i - 1], vb = bv[i];
-        const int ia = bi[i - 1], ib = bi[i];
-        bv[i - 1] = sw ? vb : va;
-        bv[i] = sw ? va : vb;
-        bi[i - 1] = sw ? ib : ia;
-        bi[i] = sw ? ia : ib;
-      }
+    for (int u = 0; u < B; ++u)
+      s[u] = __ldcs(candv + (size_t)(row + u) * plane + idx);
+    unsigned take = 0;
+#pragma unroll
+    for (int u = 0; u < B; ++u) take |= (s[u] < bv[R - 1] ? 1u : 0u) << u;
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      id[u] = take >> u & 1u ? __ldcs(candi + (size_t)(row + u) * plane + idx)
+                             : NOID;
+    while (take) {
+      const int uu = __ffs(take) - 1;
+      take &= take - 1;
+      float sv = s[0];
+      int iv = id[0];
+#pragma unroll
+      for (int u = 1; u < B; ++u)
+        if (u == uu) {
+          sv = s[u];
+          iv = id[u];
+        }
+      if (sv < bv[R - 1]) pair_insert(bv, bi, sv, iv);
     }
+  }
+  for (; row < ncand; ++row) {
+    const float s = candv[(size_t)row * plane + idx];
+    if (s < bv[R - 1])
+      pair_insert(bv, bi, s, candi[(size_t)row * plane + idx]);
   }
 #pragma unroll
   for (int c = 0; c < R; ++c) {

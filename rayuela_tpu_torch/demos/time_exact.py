@@ -1,9 +1,10 @@
-"""Time K3 `tail_merge` and the exact-float scan kernels K9
-`scan_f32_candidates` and K10 `verify_counts` at the shapes the main path
-gives them, and hold two versions' outputs to each other bit for bit.
+"""Time K3 `tail_merge`, the exact-float scan kernels K9
+`scan_f32_candidates` and K10 `verify_counts` and the pair merge between
+them at the shapes the main path gives them, and hold two versions'
+outputs to each other bit for bit.
 
     python3 rayuela_tpu_torch/demos/time_exact.py [--root DIR]
-        [--out FILE] [--against FILE] [--reps N]
+        [--out FILE] [--against FILE] [--reps N] [--only PART ...]
 
 Each line is one JSON object (CUDA events, the mean of ``--reps`` calls
 after a warm one; the first line names the card and its power limit):
@@ -16,7 +17,16 @@ after a warm one; the first line names the card and its power limit):
   (`scan._f32_config`) over nq = 1e4 Gaussian queries: n = 1e6 rows at
   d = 128 (an f32 and a bf16 index) and n = 5e5 at GIST's d = 960 (f32),
   beside `chip_smoke.library_scan` (`addmm` + `topk` per 1024 queries
-  over the same rows in f32); K10 counts at K9's own k-th pairs.
+  over the same rows in f32); K10 counts at K9's own k-th pairs;
+- the pair merge (`scan.pair_merge`) alone at the k = 100, 1000 and 3072
+  plans of the card's f32 plan, on K9's candidates over n = 1e6 rows at
+  d = 128 (f32), nq = 1e4, beside `torch.topk` along the candidates, with
+  its bound: the candidates' scores read once and the (r, 128, nq)
+  outputs written once at 3.35 TB/s (an id is read only for a candidate
+  that enters).
+
+``--only PART`` (repeatable: ``tail``, ``scans``, ``pair_merge``) runs
+only those parts.
 
 Every output carries a digest (two position-weighted int64 sums of its
 32-bit words, taken on the card). ``--out FILE`` writes them; ``--against
@@ -60,6 +70,9 @@ def digest(*ts):
 SCAN_KS = (100, 1000)
 SCANS = ((128, 1_000_000, ("float32", "bfloat16")),
          (960, 500_000, ("float32",)))
+MERGE_KS, MERGE_N, MERGE_D = (100, 1000, 3072), 1_000_000, 128
+HBM = 3.35e12
+PARTS = ("tail", "scans", "pair_merge")
 
 
 def main(argv=None) -> int:
@@ -68,7 +81,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--against", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", action="append", choices=PARTS)
     args = ap.parse_args(argv)
+    only = set(args.only or PARTS)
     own = Path(__file__).resolve().parents[2]
     root = args.root or str(own)
     sys.path.insert(0, root)
@@ -109,7 +124,7 @@ def main(argv=None) -> int:
         digests[case] = rec["digest"] = digest(*outs)
         print(json.dumps(rec), flush=True)
 
-    for k in TAIL_KS:
+    for k in TAIL_KS if "tail" in only else ():
         r = tsp._scan_config(k)[0]
         rpad = 1 << max(0, (r - 1).bit_length())
         cap = min(1 << (k - 1).bit_length(), rpad * tsp.LANES)
@@ -135,7 +150,7 @@ def main(argv=None) -> int:
         del rows, flat, out, plain
     torch.cuda.empty_cache()
 
-    for d, n, dtypes in SCANS:
+    for d, n, dtypes in SCANS if "scans" in only else ():
         X = torch.randn((n, d), generator=gen(d), device=dev)
         Q = torch.randn((NQ, d), generator=gen(d + 1), device=dev)
         x2 = (X * X).sum(-1)
@@ -181,6 +196,41 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
             del Xd, Qm
         del X, Q, x2, Qf
+        torch.cuda.empty_cache()
+
+    if "pair_merge" in only:
+        X = torch.randn((MERGE_N, MERGE_D), generator=gen(MERGE_D),
+                        device=dev)
+        Q = torch.randn((NQ, MERGE_D), generator=gen(MERGE_D + 1),
+                        device=dev)
+        x2 = (X * X).sum(-1)
+        Qm = tsp._query_operand(Q, MERGE_D, torch.float32)
+        for k in MERGE_KS:
+            r, keep, tile, _ = tsp._f32_config(k, dev)
+            cv, ci = tsp.scan_f32_candidates(Qm, X, x2, tile=tile, keep=keep)
+            t = ms(lambda: tsp.pair_merge(cv, ci, r), 2 * args.reps)
+            lib = ms(lambda: torch.topk(cv, r, dim=0, largest=False),
+                     args.reps)
+            out = tsp.pair_merge(cv, ci, r)
+            plain = tsp.pair_merge_plain(cv, ci, r)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(out[0], plain[0])
+                         and torch.equal(out[1], plain[1]))
+            # the scores read once and the outputs written once: an id is
+            # read only for a candidate that enters
+            nbytes = sum(x.numel() * x.element_size() for x in (cv,) + out)
+            emit(f"pair_merge d={MERGE_D} k={k}",
+                 {"kernel": "pair_merge", "d": MERGE_D, "n": MERGE_N,
+                  "nq": NQ, "k": k, "plan": [r, keep, tile],
+                  "ncand": cv.shape[0], "ms": t, "topk_ms": lib,
+                  "bound_ms": nbytes / HBM * 1e3, "equals_plain": equal},
+                 out)
+            del cv, ci, out, plain
+            torch.cuda.empty_cache()
+            if not equal:
+                print("pair_merge != its plain version", file=sys.stderr)
+                return 1
+        del X, Q, x2, Qm
         torch.cuda.empty_cache()
 
     if args.out:

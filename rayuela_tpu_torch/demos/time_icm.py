@@ -1,27 +1,39 @@
-"""Time the ICM kernels K11 `icm_sweeps` (icmiter = 4) and K12
-`encoding_ils` (8 rounds) at the shapes the main path gives them, and
-hold two versions' outputs to each other bit for bit on integer data.
+"""Time the encode kernels K11 `icm_sweeps` (icmiter = 4), K12
+`encoding_ils` (8 rounds) and K13 `viterbi_encode` at the shapes the main
+path gives them, and hold two versions' outputs to each other bit for bit
+on integer data.
 
     python3 rayuela_tpu_torch/demos/time_icm.py [--root DIR]
-        [--out FILE] [--against FILE] [--reps N]
+        [--out FILE] [--against FILE] [--reps N] [--only NAME ...]
 
 Each line is one JSON object (CUDA events, the mean of ``--reps`` calls
 after a warm one; the first line names the card and its power limit):
 K11 and K12 on n = 1e5 vectors at d = 128 and GIST's d = 960, m = 7 and
 15 codebooks of h = 256 (SR-D-7+1's and SR-D-15+1's encoders), Gaussian
 vectors and codebooks scaled as a trained model's, random start codes;
-K12 with 4 redraws a round and one visit order a round. Each carries the
-bound of the call: its visits' products, 2 n icmiter m h d operations
-(per round for K12), at the bf16 tensor-core peak of an H100 SXM (989
-TFLOP/s). Then both kernels once on small-integer data (n = 9,999, the
-same widths): exact in bf16 and in any f32 sum order, so every version
-must give the same codes and energies.
+K12 with 4 redraws a round and one visit order a round; K13 (the chain
+encoder of ChainQ, SR-D's initialisation) on the same vectors and
+codebooks. Each carries the bound of the call: for K11 and K12 their
+visits' products, 2 n icmiter m h d operations (per round for K12), at
+the bf16 tensor-core peak of an H100 SXM (989 TFLOP/s); for K13, as
+`chip_smoke.py` counts them, its unaries' m h d multiply-adds per vector
+(2 operations) three times over (the 3xTF32 split) at the tf32
+tensor-core peak (495 TFLOP/s) plus its (m - 1) h^2 adds and mins (1
+each) at the f32 peak (67 TFLOP/s), and beside it the floor at the rates
+the kernel's instructions issue: the same unaries plus the min-plus at
+the FMNMX rate, (m - 1) h^2 n mins over 132 SMs x 64 lanes at 1.98 GHz
+(half the FADD rate; `probe_minplus.py` measures both). Then
+the kernels once on small-integer data (n = 9,999, the same widths):
+exact in bf16 and in any f32 sum order, so every version must give the
+same codes (and energies).
 
 Every output carries a digest (`time_exact.digest`). ``--out FILE``
 writes them; ``--against FILE`` asserts that this run's equal those in
 FILE for the integer-data cases (exit 1 otherwise) and reports the
 Gaussian ones, whose f32 sums may round otherwise in another version.
-``--root DIR`` imports ``rayuela_tpu_torch`` from DIR (an unpacked
+``--only NAME`` (repeatable) times only those kernels (``icm_sweeps``,
+``encoding_ils``, ``viterbi_encode``). ``--root DIR`` imports
+``rayuela_tpu_torch`` from DIR (an unpacked
 earlier commit; run the file by its path, not with ``-m``), so two
 versions run on one card in one call, in turns: the parent with
 ``--out``, then this version with ``--against``, then the parent again.
@@ -40,7 +52,11 @@ from pathlib import Path
 
 N, H, ICMITER, ILSITER, NPERT = 100_000, 256, 4, 8, 4
 SHAPES = ((128, 7), (128, 15), (960, 7), (960, 15))   # (d, m)
-PEAK = 989e12
+PEAK, TF32_PEAK, F32_PEAK = 989e12, 495e12, 67e12
+# K13's min-plus floor: SMs x FMNMX lanes (half the FP32 lanes) x clock
+# (H100 SXM)
+FMNMX_RATE = 132 * 64 * 1.98e9
+KERNELS = ("icm_sweeps", "encoding_ils", "viterbi_encode")
 
 
 def _sibling(name: str):
@@ -59,13 +75,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--against", default=None)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", action="append", choices=KERNELS)
     args = ap.parse_args(argv)
+    only = set(args.only or KERNELS)
     root = args.root or str(Path(__file__).resolve().parents[2])
     sys.path.insert(0, root)
     import numpy as np
     import torch
 
     from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.ops import viterbi as tvit
 
     digest = _sibling("time_exact").digest
 
@@ -123,15 +142,30 @@ def main(argv=None) -> int:
             rec11 = {"kernel": "icm_sweeps", "icmiter": ICMITER, **shape}
             rec12 = {"kernel": "encoding_ils", "ilsiter": ILSITER,
                      "icmiter": ICMITER, **shape}
-            if kind == "gauss":
-                reps = args.reps if d <= 256 else 1
+            fn13 = lambda: tvit.viterbi_encode(X, C)
+            rec13 = {"kernel": "viterbi_encode", **shape}
+            reps = args.reps if d <= 256 else 1
+            if kind == "gauss" and "icm_sweeps" in only:
                 rec11.update(ms=ms(fn11, reps), bound_ms=ops / PEAK * 1e3)
+            if kind == "gauss" and "encoding_ils" in only:
                 rec12.update(ms=ms(fn12, reps),
                              bound_ms=ILSITER * ops / PEAK * 1e3)
-            emit(f"icm_sweeps {kind} d={d} m={m}", rec11, fn11(),
-                 kind == "int")
-            emit(f"encoding_ils {kind} d={d} m={m}", rec12, fn12(),
-                 kind == "int")
+            if kind == "gauss" and "viterbi_encode" in only:
+                pairs = (m - 1) * H * H
+                unaries = 3 * 2.0 * n * m * H * d / TF32_PEAK
+                rec13.update(ms=ms(fn13, args.reps),
+                             bound_ms=(unaries + 2.0 * pairs * n / F32_PEAK)
+                             * 1e3,
+                             floor_ms=(unaries + pairs * n / FMNMX_RATE)
+                             * 1e3)
+            for name, rec, fn in (("icm_sweeps", rec11, fn11),
+                                  ("encoding_ils", rec12, fn12),
+                                  ("viterbi_encode", rec13, fn13)):
+                if name in only:
+                    out = fn()
+                    emit(f"{name} {kind} d={d} m={m}", rec,
+                         out if isinstance(out, tuple) else (out,),
+                         kind == "int")
             del X, C, B
             torch.cuda.empty_cache()
 

@@ -59,7 +59,8 @@ _SIGNATURES = {
     "rq_icm_sweeps": [_P] * 8 + [_I] * 5 + [_P],
     "rq_icm_ils": [_P] * 8 + [_I] * 9 + [_P],
     "rq_icm_layout": [_I] * 2 + [_P],
-    "rq_viterbi_encode": [_P] * 6 + [_I] * 4 + [_P],
+    "rq_viterbi_encode": [_P] * 7 + [_I] * 7 + [_P],
+    "rq_viterbi_layout": [_I] * 3 + [_P],
     "rq_fusion_chain": [_P] * 4 + [_I] * 5 + [_P],
     "rq_fusion_layout": [_I] * 2 + [_P],
     "rq_fusion_attrs": [_I] * 2 + [_P],

@@ -17,9 +17,12 @@ tables, which is also the plain version). ``impl="auto"`` takes that
 path on the card only for shapes the JAX package's ``auto`` serves on
 the TPU but K13 does not take (`_auto_impl`); elsewhere it is the
 kernel, which raises for a shape it does not take. The kernel computes
-the unaries in its body, as the TPU kernel does; the plain version
-takes them from a full-f32 matmul (`_unaries_flat`), so the two sum
-each dot product in another order.
+the unaries in its body, as the TPU kernel does (on the tensor cores,
+3xTF32); the plain version takes them from a full-f32 matmul
+(`_unaries_flat`), so the two sum each dot product in another order.
+The kernel's layout by shape is `_viterbi_layout` (``rq_viterbi_layout``
+in the source); the codebooks reach it in mma fragment order
+(`_k13_codebooks`).
 """
 
 from __future__ import annotations
@@ -29,9 +32,15 @@ import torch
 from rayuela_tpu_torch.kernels.build import launch
 from rayuela_tpu_torch.utils import exact_f32
 
-# vectors per K13 CTA, and the bytes of its tile of bin_i rows (both as
-# in csrc/viterbi.cu); the kernel's shared memory limit
+# the shared memory of K13's former layout (the bound of the shapes it
+# takes: `_smem_bytes`): 8 vectors a CTA and a 32 KB tile of bin_i rows;
+# the opt-in shared memory a CTA may use
 _VB, _TILE_BYTES, _MAX_SMEM = 8, 32768, 232448
+# K13's layout (`vt_layout` in csrc/viterbi.cu): labels and dimensions
+# of a codebook tile, bytes of a ring slot, (vectors x labels) a CTA at
+# most
+_LB, _KC = 128, 16
+_SLOT, _SLICES = 4 * _LB * _KC, 8192
 
 
 def chain_binaries(C: torch.Tensor) -> torch.Tensor:
@@ -103,17 +112,66 @@ def viterbi_encode_plain(X: torch.Tensor, C: torch.Tensor,
 
 
 def _smem_bytes(m: int, h: int, d: int) -> int:
-    """K13's dynamic shared memory, as ``rq_viterbi_encode`` computes
-    it: the forward costs, one tile of bin_i and the CTA's vectors."""
+    """The shared memory of K13's former layout (8 vectors and the whole
+    forward-cost stack a CTA, a 32 KB tile of bin_i rows): the bound of
+    the shapes K13 takes (`viterbi_kernel_takes`). The smallest instance
+    of `_viterbi_layout` takes less at every shape."""
     ta = max(1, _TILE_BYTES // (4 * h))
     return 4 * (_VB * m * h + ta * h + _VB * d)
 
 
 def viterbi_kernel_takes(m: int, h: int, d: int) -> bool:
     """Whether K13 takes codebooks ``(m, h, d)`` on the card: h up to
-    1024 and its forward costs, bin tile and vectors within shared
-    memory (`_smem_bytes`)."""
+    1024 and `_smem_bytes` within shared memory (the shapes the former
+    layout held; `_viterbi_layout` fits each of them)."""
     return h <= 1024 and _smem_bytes(m, h, d) <= _MAX_SMEM
+
+
+def _layout_smem(v: int, slots: int, m: int, h: int, d: int) -> int:
+    """Shared bytes of a K13 CTA of ``v`` vectors and ``slots`` ring
+    slots: the ring, f_i and f_{i+1} (one buffer at m = 1), the vectors
+    (rows of d rounded up to 16, + 4) and the mbarriers."""
+    dp = -(-d // _KC) * _KC
+    return (slots * _SLOT + 4 * min(m, 2) * v * h + 4 * v * (dp + 4)
+            + 8 * (2 * slots + 2))
+
+
+def _viterbi_layout(m: int, h: int, d: int) -> tuple[int, int, int, int]:
+    """K13's layout at ``(m, h, d)``, as ``rq_viterbi_layout`` states it:
+    ``(vectors a CTA, ring slots, CTAs an SM is meant to hold, shared
+    bytes a CTA)``. The most vectors (32, 16, 8) with at most 8192
+    (vectors x labels, h rounded up to 4), then two CTAs an SM where they
+    fit, then the deepest ring (4, 3, 2 slots of 8 KB); a shape nothing
+    fits raises."""
+    if 1 <= h <= 1024 and m >= 1 and d >= 1:
+        hp = -(-h // 4) * 4
+        for v in (32, 16, 8):
+            if v * hp > _SLICES:
+                continue
+            for ctas, cap in ((2, (_MAX_SMEM - 1024) // 2), (1, _MAX_SMEM)):
+                for slots in (4, 3, 2):
+                    smem = _layout_smem(v, slots, m, h, d)
+                    if smem <= cap:
+                        return v, slots, ctas, smem
+    raise ValueError(f"m={m}, h={h}, d={d}: no K13 layout fits shared "
+                     f"memory (h <= 1024)")
+
+
+def _k13_codebooks(C: torch.Tensor) -> torch.Tensor:
+    """``C (m, h, d)`` as K13 reads it: per codebook, tiles of 128 labels
+    x 16 dimensions (zero pads past h and d), each in the A-fragment
+    order of mma m16n8k8: (m-tile of 16 labels, k-step of 8 dimensions,
+    lane, 4 values), lane ``4 g + q`` holding labels ``g``, ``g + 8`` of
+    dimensions ``q``, ``q + 4`` as ``(g, q), (g + 8, q), (g, q + 4),
+    (g + 8, q + 4)`` → ``(m, h/128, d/16, 8, 2, 32, 4)`` contiguous."""
+    m, h, d = C.shape
+    nlb, nkc = -(-h // _LB), -(-d // _KC)
+    Cp = C.new_zeros(m, nlb * _LB, nkc * _KC)
+    Cp[:, :h, :d] = C
+    # label = lb 128 + mt 16 + rh 8 + g; dim = kc 16 + ks 8 + ch 4 + q
+    t = Cp.reshape(m, nlb, 8, 2, 8, nkc, 2, 2, 4)
+    return t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3).reshape(
+        m, nlb, nkc, 8, 2, 32, 4).contiguous()
 
 
 def _tpu_kernel_vmem(m: int, h: int, d: int, bc: int = 256) -> int:
@@ -155,8 +213,10 @@ def viterbi_encode(X: torch.Tensor, C: torch.Tensor, chunk: int = 2048,
     ``X (n, d)`` f32 under ``C (m, h, d)`` f32. ``impl="pallas"``: the
     plain version for CPU tensors (chunked by ``chunk``); on the card the
     kernel, any h up to 1024 (the JAX wrapper's ``h % 8 == 0`` is not
-    needed here) while its forward-cost stack, bin tile and vectors fit
-    shared memory (`viterbi_kernel_takes`), else it raises.
+    needed here) at the shapes `viterbi_kernel_takes` names, else it
+    raises; it takes the layout `_viterbi_layout` gives, a persistent grid
+    of CTAs an SM times the SMs, and a scratch for their forward costs
+    (grid x m x h x vectors a CTA, f32).
     ``impl="xla"``: the chunked min-plus formulation on X's device, its
     chunk cut so the (chunk, h, h) transient stays within 512 MB.
     ``impl="auto"``: the kernel, or ``xla`` on the card where the kernel
@@ -183,26 +243,35 @@ def viterbi_encode(X: torch.Tensor, C: torch.Tensor, chunk: int = 2048,
             X, C, max(1, min(chunk, _XLA_TRANSIENT // (4 * h * h))))
     if X.device.type == "cpu":
         return viterbi_encode_plain(X, C, chunk)
-    smem = _smem_bytes(m, h, d)
     if not viterbi_kernel_takes(m, h, d):
         raise ValueError(f"m={m}, h={h}, d={d}: the kernel needs h <= 1024 "
-                         f"and its {smem} bytes of forward costs, bin tile "
-                         f"and vectors within {_MAX_SMEM} (impl='xla' "
-                         f"serves any shape)")
+                         f"and its former {_smem_bytes(m, h, d)} bytes of "
+                         f"forward costs, bin tile and vectors within "
+                         f"{_MAX_SMEM} (impl='xla' serves any shape)")
     n = X.shape[0]
     out = torch.empty(n, m, dtype=torch.int32, device=X.device)
     if n == 0:
         return out
+    v, _, ctas, _ = _viterbi_layout(m, h, d)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    grid = min(-(-n // v), sms * ctas)
+    ldx = -(-d // 4) * 4
     Xc = X.contiguous()
-    Ct = C.transpose(1, 2).contiguous()                     # (m, d, h)
-    c2 = (C * C).sum(-1).reshape(-1).contiguous()
+    if ldx != d:         # the kernel copies rows of 16-byte multiples
+        Xc = torch.nn.functional.pad(Xc, (0, ldx - d))
+    elif Xc.data_ptr() % 16:
+        Xc = Xc.clone()
+    c2 = (C * C).sum(-1).contiguous()
     if m > 1:
-        bins = chain_binaries(C).contiguous()
+        bins = chain_binaries(C)
         binsT = bins.transpose(1, 2).contiguous()
+        hp = -(-h // 4) * 4
+        bins = torch.nn.functional.pad(bins, (0, hp - h)).contiguous()
     else:                        # no pair terms; the kernel reads none
         bins = binsT = torch.zeros(1, dtype=torch.float32, device=X.device)
-    launch("rq_viterbi_encode", Xc, Ct, c2, bins, binsT, out, n, m, h, d,
-           device=X.device)
+    scr = torch.empty(grid * m * h * v, dtype=torch.float32, device=X.device)
+    launch("rq_viterbi_encode", Xc, _k13_codebooks(C), c2, bins, binsT, scr,
+           out, n, m, h, d, ldx, grid, v, device=X.device)
     viterbi_encode.launches += 1
     return out
 

@@ -20,9 +20,11 @@ on any data. The exact-float kernels (K9, K10 on a decoded base; K6,
 K7 on tables; the pair merge) give identical pairs and counts on integer
 data, and K6/K7 on any data; on Gaussian data K9's scores are within
 1e-5 relative (+ 5e-5) of the plain version's with at least 99.9% of ids
-equal by position. Training on the card is reproducible: two runs from one
-seed give bitwise-equal codebooks. A CUDA tensor never takes a plain
-version: where the kernels cannot build, the call raises."""
+equal by position. The pair merge is bit-equal to its plain version,
+equal scores and +inf candidates included. Training on the card is
+reproducible: two runs from one seed give bitwise-equal codebooks. A
+CUDA tensor never takes a plain version: where the kernels cannot build,
+the call raises."""
 
 import numpy as np
 import pytest
@@ -1062,20 +1064,71 @@ def test_whole_ils_encode_runs_one_launch(dev):
 
 
 @pytest.mark.parametrize("kind", ["int", "gauss"])
-@pytest.mark.parametrize("m", [7, 8])
-def test_viterbi_kernel_equals_plain(dev, kind, m):
-    X, C, _, _ = _encode_case(dev, kind, 8192, m)
+@pytest.mark.parametrize("m,h,d", [
+    (7, 256, 128), (8, 256, 128), (15, 256, 128), (7, 256, 960),
+    (16, 256, 128), (11, 512, 128), (4, 1024, 128), (1, 256, 128),
+    (3, 100, 24), (7, 256, 100), (5, 200, 30)])
+def test_viterbi_kernel_equals_plain(dev, kind, m, h, d):
+    """K13 at each of its layouts (32, 16 and 8 vectors a CTA; two CTAs
+    an SM and one at d = 960), h not a multiple of 8, d not a multiple of
+    8 (the vectors' rows padded by the wrapper where d is not a multiple
+    of 4), m = 1 and n = 8191 (a last, partial block of vectors):
+    identical codes on {-1, 0, 1} data; on Gaussian data at least 99% of
+    codes equal and every chain energy within 1e-5 relative + 1e-3 of the
+    plain version's."""
+    X, C, _, _ = _encode_case(dev, kind, 8191, m, h=h, d=d)
     n13 = tvit.viterbi_encode.launches
     got = tvit.viterbi_encode(X, C)
     torch.cuda.synchronize()
     assert tvit.viterbi_encode.launches == n13 + 1
-    ref = tvit.viterbi_encode_plain(X, C)
+    ref = tvit.viterbi_encode_plain(X, C, chunk=max(1, (1 << 28) // (h * h)))
     if kind == "int":
         assert torch.equal(got, ref)
     else:
         eg, er = tvit.chain_energy(X, C, got), tvit.chain_energy(X, C, ref)
         assert bool(((eg - er).abs() <= 1e-5 * er.abs() + 1e-3).all())
         assert float((got == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("m,d", [(7, 16), (7, 128), (15, 128), (7, 960)])
+def test_viterbi_kernel_is_reproducible_across_blocks(dev, m, d):
+    """At n = 1e5 every persistent CTA walks several blocks of vectors,
+    reusing its ring, its vectors' buffer and its scratch: five launches
+    on Gaussian data give the same codes, so no buffer is refilled while
+    a warp still reads it."""
+    X, C, _, _ = _encode_case(dev, "gauss", 100_000, m, d=d)
+    first = tvit.viterbi_encode(X, C)
+    for _ in range(4):
+        assert torch.equal(tvit.viterbi_encode(X, C), first)
+
+
+@pytest.mark.parametrize("m,h,d", [
+    (7, 256, 128), (15, 256, 960), (11, 512, 128), (4, 1024, 128),
+    (1, 256, 128), (3, 100, 24), (8, 256, 1500)])
+def test_viterbi_layout_is_the_kernels(dev, m, h, d):
+    """K13's layout comes from its source (`rq_viterbi_layout`),
+    `ops.viterbi._viterbi_layout` states it, and the card holds at least
+    the CTAs an SM the layout is meant for (the wrapper's persistent grid
+    counts on them); past h = 1024 the query raises."""
+    lay = query("rq_viterbi_layout", m, h, d, size=5, device=dev)
+    assert lay[:4] == tvit._viterbi_layout(m, h, d)
+    assert lay[4] >= lay[2]
+    with pytest.raises(RuntimeError, match="rq_viterbi_layout"):
+        query("rq_viterbi_layout", 2, 1025, 128, size=5, device=dev)
+
+
+def test_viterbi_refuses_a_scratch_of_another_layout(dev, monkeypatch):
+    """The wrapper sizes K13's scratch from `_viterbi_layout` and passes
+    its vectors a CTA; where that count drifts from the kernel's own
+    layout (32 vectors a CTA at m = 7, h = 256) the launch raises
+    rather than write past the scratch."""
+    X, C, _, _ = _encode_case(dev, "gauss", 1000, 7)
+    real = tvit._viterbi_layout(7, H, X.shape[1])
+    assert real[0] == 32
+    monkeypatch.setattr(tvit, "_viterbi_layout",
+                        lambda m, h, d: (16,) + real[1:])
+    with pytest.raises(RuntimeError, match="rq_viterbi_encode"):
+        tvit.viterbi_encode(X, C)
 
 
 def test_encode_kernels_never_fall_back(dev):
@@ -1314,6 +1367,33 @@ def test_f32_searches_on_the_card_equal_the_cpu_searches(dev):
             step = 2.0 ** (tsp._pack_idbits(32768) - 23)
             raw = rd - (t(Q) ** 2).sum(-1, keepdim=True)
             assert bool(((ss[0] - rd).abs() <= step * raw.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("r", [16, 32, 48])
+@pytest.mark.parametrize("ncand,nq", [(246, 33), (47, 5), (9, 130)])
+def test_pair_merge_equals_plain_with_ties_and_inf_rows(dev, r, ncand, nq):
+    """The pair merge at each compiled r against its plain version, bit
+    for bit: scores from a few integers, so many are equal across rows
+    (the earlier row, with the lower gid, stays ahead), rows wholly +inf
+    and scattered +inf candidates (never taken: their slots stay (+inf,
+    NOID)), fewer rows than r, and row counts that are not a multiple of
+    the kernel's batch of loads."""
+    rng = np.random.default_rng(r + ncand)
+    v = rng.integers(0, 40, (ncand, tsp.LANES, nq)).astype(np.float32)
+    v[rng.random(ncand) < 0.2] = np.inf
+    v[rng.random(v.shape) < 0.05] = np.inf
+    gid = (np.arange(ncand)[:, None, None] * tsp.LANES
+           + np.arange(tsp.LANES)[None, :, None])
+    cv = torch.as_tensor(v, device=dev)
+    ci = torch.as_tensor(np.broadcast_to(gid, v.shape).astype(np.int32),
+                         device=dev)
+    nm = tsp.pair_merge.launches
+    ov, oi = tsp.pair_merge(cv, ci, r)
+    torch.cuda.synchronize()
+    assert tsp.pair_merge.launches == nm + 1
+    ov0, oi0 = tsp.pair_merge_plain(cv, ci, r)
+    assert torch.equal(ov, ov0) and torch.equal(oi, oi0)
+    assert bool((oi[ov == float("inf")] == tsp.NOID).all())
 
 
 def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):

@@ -1,15 +1,17 @@
 """The host-side mirrors of the layouts of K8's bf16 candidates body, of
-the ICM kernels K11/K12 and of the LUT body of K5, K6 and K7, on the
-CPU: the vectors or queries a CTA takes, its shared bytes and whether it
-fits, for every shape the wrappers take. `tests/test_torch_cuda.py`
-holds each mirror to the kernel's own answer on the card
-(`rq_scan_candidates_layout`, `rq_icm_layout`, `rq_lut_exact_layout`)."""
+the ICM kernels K11/K12, of the LUT body of K5, K6 and K7 and of the
+Viterbi kernel K13, on the CPU: the vectors or queries a CTA takes, its
+shared bytes and whether it fits, for every shape the wrappers take.
+`tests/test_torch_cuda.py` holds each mirror to the kernel's own answer
+on the card (`rq_scan_candidates_layout`, `rq_icm_layout`,
+`rq_lut_exact_layout`, `rq_viterbi_layout`)."""
 
 import numpy as np
 import pytest
 import torch
 
 from rayuela_tpu_torch.ops import icm as ticm
+from rayuela_tpu_torch.ops import viterbi as tvit
 from rayuela_tpu_torch.search import scan as tsp
 from rayuela_tpu_torch.search import scan_codes as tsc
 
@@ -191,3 +193,95 @@ def test_lut_operands_refused_where_no_query_block_fits(mprime, h, dtype):
         tsc._check_lut_layout(mprime, 512, 1000, dtype)
     with pytest.raises(ValueError, match="2\\*\\*20"):
         tsc._check_lut_layout(mprime, 16, 1 << 20, dtype)
+
+
+def _k13_smem(v, slots, m, h, d):
+    """K13's shared bytes: the ring of 8 KB slots, f_i and f_{i+1} (one
+    buffer at m = 1) as f32 (h, v), the vectors as f32 rows of d rounded
+    up to 16 plus 4, two mbarriers a slot and two for the vectors."""
+    dp = -(-d // 16) * 16
+    return (8192 * slots + 4 * min(m, 2) * h * v + 4 * v * (dp + 4)
+            + 8 * (2 * slots + 2))
+
+
+@pytest.mark.parametrize("m,h,d,vectors,slots,ctas", [
+    (7, 256, 128, 32, 4, 2), (15, 256, 128, 32, 4, 2),
+    (7, 256, 960, 32, 4, 1), (15, 256, 960, 32, 4, 1),
+    (16, 256, 128, 32, 4, 2), (11, 512, 128, 16, 4, 2),
+    (4, 1024, 128, 8, 4, 2), (1, 256, 128, 32, 4, 2),
+    (3, 100, 24, 32, 4, 2), (2, 1024, 128, 8, 4, 2),
+    (8, 256, 1500, 16, 4, 1), (8, 1024, 4000, 8, 4, 1)])
+def test_viterbi_layout_takes_the_largest_instance_that_fits(
+        m, h, d, vectors, slots, ctas):
+    """K13: the most vectors a CTA (32, 16, 8) with at most 8192 (vectors
+    x labels, h rounded up to 4), then two CTAs an SM where they fit,
+    then the deepest ring (4, 3, 2 slots); its forward costs take two
+    stages whatever m, so m changes nothing but at m = 1."""
+    got = tvit._viterbi_layout(m, h, d)
+    assert got == (vectors, slots, ctas, _k13_smem(vectors, slots, m, h, d))
+    hp = -(-h // 4) * 4
+    cap = CAP2 if ctas == 2 else CAP
+    assert got[3] <= cap and vectors * hp <= 8192
+    # no larger instance fits: more vectors (within the label cap) at one
+    # CTA an SM, the same vectors at more CTAs, a deeper ring
+    assert all(_k13_smem(v, 2, m, h, d) > CAP
+               for v in (32, 16) if v > vectors and v * hp <= 8192)
+    if ctas == 1:
+        assert _k13_smem(vectors, 2, m, h, d) > CAP2
+    assert slots == 4 or _k13_smem(vectors, slots + 1, m, h, d) > cap
+
+
+@pytest.mark.parametrize("m,h,d", [
+    (8, 256, 128), (16, 256, 128), (4, 1024, 128), (16, 512, 128),
+    (2, 1152, 128), (2, 2048, 16), (12, 512, 128), (11, 512, 128),
+    (1, 1152, 128), (1, 2048, 128), (2, 1030, 128), (16, 516, 128)])
+def test_viterbi_smallest_instance_within_the_former_bytes(m, h, d):
+    """At every shape of the route test (`test_torch_routes.py::
+    test_viterbi_route_follows_the_kernels_shapes`) K13's smallest
+    instance (8 vectors, one CTA an SM, 2 slots) takes no more shared
+    memory than the former layout (`_smem_bytes`), so the kernel fits
+    every shape `viterbi_kernel_takes` names, and the layout answers
+    there."""
+    assert _k13_smem(8, 2, m, h, d) <= tvit._smem_bytes(m, h, d)
+    if tvit.viterbi_kernel_takes(m, h, d):
+        assert tvit._viterbi_layout(m, h, d)[3] <= CAP
+
+
+@pytest.mark.parametrize("m,h,d", [(2, 1025, 128), (1, 2048, 128),
+                                   (4, 1024, 7000), (2, 256, 60000),
+                                   (0, 256, 128)])
+def test_viterbi_layout_raises_where_nothing_fits(m, h, d):
+    """Past 1024 labels, or where not even 8 vectors' rows fit one CTA,
+    the layout raises."""
+    with pytest.raises(ValueError, match="no K13 layout"):
+        tvit._viterbi_layout(m, h, d)
+
+
+@pytest.mark.parametrize("h,d", [(256, 128), (100, 24), (130, 40)])
+def test_viterbi_codebooks_in_fragment_order(rng, h, d):
+    """The card's wrapper hands K13 the codebooks in the A-fragment order
+    of mma m16n8k8 (`_k13_codebooks`): per codebook, 128-label block and
+    16-dimension chunk, for m-tile t (16 labels) and k-step s (8
+    dimensions) lane ``4 g + q`` holds labels ``g``, ``g + 8`` at
+    dimensions ``q``, ``q + 4``, as (g, q), (g + 8, q), (g, q + 4), (g +
+    8, q + 4); zeros past h and d. Summing lane products over the tiles
+    in that order gives C X^T."""
+    m = 3
+    C = torch.as_tensor(rng.standard_normal((m, h, d)).astype(np.float32))
+    Cf = tvit._k13_codebooks(C)
+    nlb, nkc = -(-h // 128), -(-d // 16)
+    assert Cf.shape == (m, nlb, nkc, 8, 2, 32, 4) and Cf.is_contiguous()
+    Cp = torch.zeros(m, nlb * 128, nkc * 16)
+    Cp[:, :h, :d] = C
+    for lb in range(nlb):
+        for kc in range(nkc):
+            for t in range(8):
+                for s in range(2):
+                    for lane in range(32):
+                        g, q = lane >> 2, lane & 3
+                        lab = 128 * lb + 16 * t + g
+                        k = 16 * kc + 8 * s + q
+                        want = torch.stack([Cp[:, lab, k], Cp[:, lab + 8, k],
+                                            Cp[:, lab, k + 4],
+                                            Cp[:, lab + 8, k + 4]], -1)
+                        assert torch.equal(Cf[:, lb, kc, t, s, lane], want)
