@@ -19,15 +19,25 @@ phases below; any failure exits non-zero.
    and K4 in bf16 at the 1, 2 and 8 flagged queries the main path's
    rescue gives it, where the base is split over CTAs and K2 merges the
    splits; timed at 1 and 8 beside its plain version, its bound and the
-   library's call. On bf16 operands K1, K14 and K4 score on the tensor
-   cores with one score function: at each plan K4's first `keep` keys
-   must equal those of K2's merge of K1's candidates on Gaussian data
+   library's call; each of those K2 merges of K4's splits (sorted runs
+   of 48 keys whose certificates may lie below them, `cut=False`) must
+   equal K2's plain version. K2 (`cand_merge`, with the per-tile cut's
+   `cut=True`) must equal its plain version at the k = 100 and 1000
+   plans and at the deepest plan (r = 96, keep = 4, tile = 2048) on one
+   chunk of the search batch (`scan._query_chunks`: 3,216 queries) of
+   K1's candidates, where it is timed beside its plain version and
+   `torch.topk` along the candidates; its bound counts the bytes these
+   inputs require (`merge_needs`). On bf16 operands K1, K14 and K4 score
+   on the tensor cores with one score function: at each plan K4's first
+   `keep` keys must equal those of K2's merge of K1's candidates on
+   Gaussian data
    (128 queries; phase 8 the same at d = 960 on 32), the ground of the
    one-pass = two-pass gate of phases 7 and 8.
 1c. K8 (`scan_candidates`, and `scan_onepass`, its keep=0 form) and K5
    (`codes_lut_candidates`) against their plain versions at n = 1e6,
    d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
-   data for every (r, keep, tile) the plan uses and keep=0; in bf16 on
+   data for every (r, keep, tile) the plan uses and keep=0 (and K2 on
+   K8's candidates, with `cut=True` and without); in bf16 on
    Gaussian data K8 within the bounds of phase 1 and K5 (which adds its
    table values in the plain version's order) identical again. Then
    their times at nq = 1e4 beside the plain versions', and whether K8
@@ -68,7 +78,8 @@ phases below; any failure exits non-zero.
    K14's time at nq = 1e4 and K12's at 1e5 vectors beside their plain
    versions', held against each other in the same way, and K14's time
    with its row range unsplit beside the splits its wrapper chooses
-   (identical buffers).
+   (identical buffers; K2's merge of those splits equal to its plain
+   version).
 2. Rescue: an index with many exact ties of one query in one lane,
    served through the facade; the rescue kernel must run and the result
    must equal the plain LUT oracle.
@@ -318,6 +329,92 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def merge_needs(cand, disc, out, r, cut, chunk=64):
+    """What K2 (`cand_merge`) must move on these inputs, given its output
+    ``out`` → ``(bytes, keys read)``: the 32-byte sectors of candidates
+    and discards that the data requires, and the outputs written once.
+    The candidates come in runs of ``ncand / ndisc`` rows, each ascending
+    per (lane, query). A run's first member is required; a later member
+    only where the one before lies among the ``r`` smallest of its
+    (lane, query) (at most ``out[r - 1]``: else it and the rest of its
+    run, no smaller, neither enter nor lower the certificate below it);
+    with ``cut``, disc[t] only where the run's last member does (without,
+    every discard). A sector is required where any of its 8 queries
+    requires its key. `nbytes` of the inputs counts every byte."""
+    import torch
+    ncand, lanes, nq = cand.shape
+    ndisc = disc.shape[0]
+    run = ncand // ndisc if ndisc and ncand % ndisc == 0 else 1
+    thr = out[r - 1].reshape(1, 1, -1)
+    sectors = keys = 0
+    nruns = ncand // run
+    for t0 in range(0, nruns, chunk):
+        t1 = min(nruns, t0 + chunk)
+        inn = cand[t0 * run:t1 * run].reshape(t1 - t0, run, -1) <= thr
+        need = torch.ones_like(inn)
+        need[:, 1:] = inn[:, :-1]
+        if cut:
+            need = torch.cat([need, inn[:, -1:]], 1)
+        keys += int(need.sum())
+        sectors += int(need.reshape(t1 - t0, need.shape[1], -1, 8).any(-1)
+                       .sum())
+        del inn, need
+    if not cut:
+        keys += disc.numel()
+        sectors += disc.numel() // 8
+    return 32 * sectors + 4 * out.numel(), keys
+
+
+def record_merge(times, name, ms, plain_ms, cand, disc, out, r, cut,
+                 library_ms):
+    """`record` for K2: its bound counts the bytes and keys these inputs
+    require (`merge_needs`; one compare a key at the CUDA cores' issue
+    rate, half the FMA flop rate); the former bound, every byte of the
+    inputs read, is printed beside it."""
+    moved, keys = merge_needs(cand, disc, out, r, cut)
+    record(times, name, ms, plain_ms, 2.0 * keys, "f32 CUDA-core", moved,
+           library_ms)
+    every = nbytes(cand, disc, out)
+    share = moved / every
+    print(f"    K2 bytes required {moved:.4g} of {every:.4g} ({share:.3f});"
+          f" every byte read once: {every / PEAK['HBM'] * 1e3:.3f} ms")
+
+
+def split_merges_equal_plain(errs, tag, fn):
+    """``fn()`` with K2's merges of one-pass splits (`_merge_onepass`)
+    captured, each then held against K2's plain version → fn's result.
+    Those runs are sorted buffers of r keys whose certificates may lie
+    below them (`cut=False`); the count of such (lane, query)s is
+    printed."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    seen, real = [], tsp._merge_onepass
+
+    def capture(out, cand, disc, r):
+        if disc.shape[0] > 1:
+            seen.append((cand, disc, r))
+        return real(out, cand, disc, r)
+    tsp._merge_onepass = tsc._merge_onepass = capture
+    try:
+        res = fn()
+    finally:
+        tsp._merge_onepass = tsc._merge_onepass = real
+    check(seen, f"{tag}: no split to merge")
+    for cand, disc, r in seen:
+        out, out0 = tsp.cand_merge(cand, disc, r), tsp.cand_merge_plain(
+            cand, disc, r)
+        check(torch.equal(out, out0), f"K2 {tag}, {disc.shape[0]} splits "
+              f"(r={r}): kernel != plain")
+        note(errs, "cand_merge", int_err((out, out0)))
+        below = int((disc < cand.reshape(-1, r, *cand.shape[1:])[:, -1])
+                    .sum())
+        print(f"  {tag}: K2 over {disc.shape[0]} splits (r={r}) identical "
+              f"to plain; {below} certificates below their split's r-th key")
+    return res
+
+
 def record(times, name, ms, plain_ms, flop, peak, moved, library_ms=None):
     """Keep kernel ``name``'s times beside its bound: the larger of
     ``flop`` over the published peak ``peak`` and ``moved`` bytes over
@@ -490,7 +587,7 @@ def phase1(rng, errs):
                     check(torch.equal(cand, cand0)
                           and torch.equal(disc, disc0),
                           f"K1 {c.name} k={k}: kernel != plain")
-                out = tsc.cand_merge(cand, disc, r)
+                out = tsc.cand_merge(cand, disc, r, cut=True)
                 out0 = tsc.cand_merge_plain(cand, disc, r)
                 check(torch.equal(out, out0),
                       f"K2 {c.name} k={k}: kernel != plain")
@@ -582,7 +679,7 @@ def kernel_times(rng, errs):
         t = {}
         record(t, "codes_decode_candidates", ms, pms, flop,
                "bf16 tensor-core", nbytes(*args, cand, disc), scan_lib_ms)
-        ms, out = timed(lambda: tsc.cand_merge(cand, disc, r), 5)
+        ms, out = timed(lambda: tsc.cand_merge(cand, disc, r, cut=True), 5)
         pms, out0 = timed(lambda: tsc.cand_merge_plain(cand, disc, r), 2)
         check(torch.equal(out, out0), f"K2 nq={NQ} k={k}: kernel != plain")
         note(errs, "cand_merge", int_err((out, out0)))
@@ -590,10 +687,8 @@ def kernel_times(rng, errs):
         # K2's buffer without its certificate
         lib2_ms, _ = timed(lambda: torch.topk(cand, r, dim=0, largest=False),
                            2)
-        # one compare per candidate at the least, at the CUDA cores'
-        # issue rate (half the FMA flop rate)
-        record(t, "cand_merge", ms, pms, 2.0 * cand.numel(),
-               "f32 CUDA-core", nbytes(cand, disc, out), lib2_ms)
+        record_merge(t, "cand_merge", ms, pms, cand, disc, out, r, True,
+                     lib2_ms)
         rows, cap = out[:r].contiguous(), 1 << (k - 1).bit_length()
         flat = rows.permute(2, 0, 1).reshape(NQ, -1).contiguous()
         lib_ms, _ = timed(lambda: torch.topk(flat, k, dim=1, largest=False),
@@ -618,6 +713,7 @@ def kernel_times(rng, errs):
             times.update(t)
     del XfT, Qmf
     tail_deep(times, errs)
+    merge_deep(times, errs, c)
     Qr = c.Qm[:128].contiguous()
     r4 = tsc._RESCUE_R
     idb4 = tsp._pack_idbits(-(-N // tsc._RESCUE_TILE) * tsc._RESCUE_TILE)
@@ -655,7 +751,9 @@ def kernel_times(rng, errs):
     for nq in (1, 2, 8):
         Qr = c.Qm[:nq].contiguous()
         for k in (100, 1000):
-            o4 = tsc.codes_decode_topk(Qr, *args[1:], **kw4)
+            o4 = split_merges_equal_plain(
+                errs, f"K4 {nq} queries",
+                lambda: tsc.codes_decode_topk(Qr, *args[1:], **kw4))
             o40 = tsc.codes_decode_topk_plain(Qr, *args[1:], **kw4)
             note(errs, "codes_decode_topk", compare_topk(
                 f"{nq} queries, k={k} K4+K3", plain_topk(o4, r4, k, idb4),
@@ -708,6 +806,56 @@ def tail_deep(times, errs, k=4096):
            "f32 CUDA-core", nbytes(rows, kk, ln), lib_ms)
 
 
+def merge_deep(times, errs, c, k=4096):
+    """K2 at the deepest plan class that a k = 4096 search takes (r = 96,
+    keep = 4, tile = 2048) on one chunk of the main path's batch of
+    K1's candidates over ``c``'s codes (`scan._query_chunks`: 3,216 of
+    nq = 1e4 queries), held against its plain version with the main
+    path's ``cut`` and without, and timed beside it and `torch.topk`
+    along the candidates."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    r, keep, tile = tsp._scan_config(k)
+    ntiles = -(-N // tile)
+    nq = tsp._query_chunks(NQ, ntiles * keep * tsp.LANES * 4)[0][1]
+    kw = dict(tile=tile, keep=keep, has_norms=True,
+              idbits=tsp._pack_idbits(ntiles * tile))
+    cand, disc = tsc.codes_decode_candidates(
+        c.Qm[:nq].contiguous(), c.Cf, c.nrm, c.idx.packed, **kw)
+    print(f" K2 at the k={k} plan (r={r}, keep={keep}, tile={tile}), one "
+          f"chunk of {nq} queries")
+    lib_ms, _ = timed(lambda: torch.topk(cand, r, dim=0, largest=False), 2)
+    ms, out = timed(lambda: tsp.cand_merge(cand, disc, r, cut=True), 5)
+    pms, out0 = timed(lambda: tsp.cand_merge_plain(cand, disc, r), 1)
+    check(torch.equal(out, out0)
+          and torch.equal(tsp.cand_merge(cand, disc, r), out0),
+          f"K2 r={r} nq={nq}: kernel != plain")
+    note(errs, "cand_merge", int_err((out, out0)))
+    record_merge(times, f"cand_merge k={k}", ms, pms, cand, disc, out, r,
+                 True, lib_ms)
+
+
+def deep_merges(fn, *a):
+    """``fn(*a)`` with K2's launches at the deepest plan class (r = 96)
+    counted, at the wrappers' launch → ``(fn's result, launches)``."""
+    from rayuela_tpu_torch.search import scan as tsp
+    real, seen = tsp.launch, [0]
+
+    def count(name, *args, **kw):
+        # rq_cand_merge's arguments: cand, disc, out, ncand, ndisc, nq, r
+        seen[0] += name == "rq_cand_merge" and args[6] == 96
+        return real(name, *args, **kw)
+    tsp.launch = count
+    try:
+        res = fn(*a)
+    finally:
+        tsp.launch = real
+    return res, seen[0]
+
+
 def k4_keys_equal_k1s(args, has_norms, out, keep, idbits, tag, nq=128):
     """K4 (the rescue's one-pass scan) against K1 -> K2 on Gaussian data:
     on bf16 operands the three code-resident scans share one tensor-core
@@ -748,8 +896,8 @@ def decoded_lut_times(c, Xf, x2, k, cand1, disc1, lib_ms, errs, t):
     record(t, "scan_candidates", ms, pms, 2.0 * N * NQ * D,
            "bf16 tensor-core", nbytes(c.Qm, Xd, x2, cand, disc), lib_ms)
     note(errs, "scan_candidates", compare_topk(
-        f"k={k} K8+K2+K3", plain_topk(tsp.cand_merge(cand, disc, r), r, k,
-                                      idbits),
+        f"k={k} K8+K2+K3", plain_topk(tsp.cand_merge(cand, disc, r,
+                                                     cut=True), r, k, idbits),
         plain_topk(tsp.cand_merge_plain(cand0, disc0, r), r, k, idbits),
         idbits, exact=False))
     same = float(((cand == cand1).float().mean()
@@ -1126,9 +1274,11 @@ def phase1c(rng, errs):
                 check(torch.equal(cand, cand0)
                       and torch.equal(disc, disc0),
                       f"{name} {tag}: kernel != plain")
-            out = tsp.cand_merge(cand, disc, r)
+            out = tsp.cand_merge(cand, disc, r, cut=True)
             out0 = tsp.cand_merge_plain(cand, disc, r)
-            check(torch.equal(out, out0), f"K2 {name} {tag}: kernel != plain")
+            check(torch.equal(out, out0)
+                  and torch.equal(tsp.cand_merge(cand, disc, r), out0),
+                  f"K2 {name} {tag}: kernel != plain")
             note(errs, "cand_merge", int_err((out, out0)))
             del cand, disc, out
             # a k in the plan's class: K3 then merges its deepest lists
@@ -2169,6 +2319,10 @@ def onepass_ils_times(rng, errs):
             tsc._onepass_tiles_per = rule
         check(torch.equal(out1, out), f"K14 k={k}: one split != "
               f"{-(-ntiles // tp)} splits")
+        check(torch.equal(split_merges_equal_plain(
+            errs, f"K14 k={k}", lambda: tsc.codes_decode_onepass(*args,
+                                                                 **kw)),
+            out), f"K14 k={k}: two calls differ")
         print(f"  K14 at {-(-ntiles // tp)} splits ({tp} of {ntiles} tiles "
               f"per CTA, {slots}) {ms:.3f} ms; unsplit "
               f"{ms1:.3f} ms; the same buffers")
@@ -2701,7 +2855,7 @@ def wide_kernels_vs_plain(errs, p8, Q, dec):
                  tsc.codes_decode_candidates_plain, args)):
             extra = dict(premin=0) if name == "scan_candidates" else \
                 dict(has_norms=True)
-            got = tsp.cand_merge(*fn(*a, **kw, **extra), r)
+            got = tsp.cand_merge(*fn(*a, **kw, **extra), r, cut=True)
             ref = tsp.cand_merge_plain(*plain(*a, **kw, **extra), r)
             note(errs, name, compare_topk(
                 f"{name} d={D8} k={k} (+K2+K3) vs plain",
@@ -3012,7 +3166,8 @@ def phase9_checks(errs, p9, Xq):
         r, keep, tile = tsp._scan_config(k)
         idb = tsp._pack_idbits(-(-N // tile) * tile)
         kw = dict(tile=tile, keep=keep, idbits=idb, has_norms=True)
-        got = tsp.cand_merge(*tsc.codes_decode_candidates(Qs, *args, **kw), r)
+        got = tsp.cand_merge(*tsc.codes_decode_candidates(Qs, *args, **kw), r,
+                             cut=True)
         ref = tsp.cand_merge_plain(*tsc.codes_decode_candidates_plain(
             Qs, *args, **kw), r)
         note(errs, "codes_decode_candidates", compare_topk(
@@ -3294,12 +3449,17 @@ def main() -> int:
         run("phase 5 checks", phase5_checks, Xq, served["sr_d"], res5)
         del res5
         run("diagnostics", diagnostics, served, Xq)
-        run("diagnostics 5", diagnostics5, index5, served["sr_d"], Xq)
+        _, deep = run("diagnostics 5", deep_merges, diagnostics5, index5,
+                      served["sr_d"], Xq)
         run("phase 6 checks", phase6_checks, Xq, served["sr_d"], index6, res6)
         del res6, index6
         run("phase 7 checks", phase7_checks, Xq, Xb, served["sr_d"], res7)
         del res7, Xb
-        run("plan sweep", plan_sweep, index5, served["sr_d"], Xq)
+        deep += run("plan sweep", deep_merges, plan_sweep, index5,
+                    served["sr_d"], Xq)[1]
+        print(f"K2 launches at r = 96 (the k = 4096 and 8192 plans) in the "
+              f"diagnostics and the plan sweep: {deep}")
+        times["cand_merge k=4096"]["launches"] = deep
         del index5, served, Xq
         torch.cuda.empty_cache()
         zero()

@@ -40,8 +40,9 @@
 // stated there. K2 and K4's selection is register insertion into a
 // sorted array: after the first few rows nearly every key is rejected by
 // one compare. K2 is bound by reading its candidate array (coalesced:
-// consecutive threads take consecutive queries); with few queries (a few
-// hundred threads) by the latency of its loads, one per candidate row.
+// consecutive threads take consecutive queries) and at deep buffers by
+// its insertions; it says below how it uses the ascending runs its
+// callers write.
 // K4 scores K1's products for the flagged queries and decodes every row
 // once per query block of its CTA (32 queries; 16 where a wide f32 row
 // needs it), 32 rows of a lane group at a time (`decode_lanes`; the
@@ -257,24 +258,385 @@ template <typename T> struct CodesSrc {
 };
 
 // K2: one thread per (lane, query). The R smallest candidate keys
-// ascending to out[0..R), then min(every discard minimum, every
-// candidate not kept) to out[R].
+// ascending to out[0..R), then min(every discard, every candidate not
+// kept) to out[R].
+//
+// The candidates arrive in runs, each ascending per (lane, query): a
+// tile's keep smallest keys (the two-pass scans' per-tile cut) or a
+// split's sorted buffer (the one-pass kernels' splits), which the wrapper
+// hands over as runs of `run` = 4, 2 or 1 of its rows (`scan._merge_runs`:
+// the pieces of an ascending run ascend). With `cut`, disc[t] is the next
+// key of run t's tile, never below the run's last key; without, it is
+// any certificate.
+//
+// What bounds it on the card: reading the candidates (coalesced:
+// consecutive threads take consecutive queries) with enough loads in
+// flight, and, at deep buffers, the insertions: after the first R
+// candidates a (lane, query) takes about R ln(ncand / R) more, and a warp
+// pays for the busiest of its 32. So:
+// - the first R candidates, which always enter, are loaded together and
+//   sorted once by a network (`sort_keys`), skipping the merges that the
+//   runs' ascending blocks make needless;
+// - a run's next member is loaded only where the member before may enter
+//   (is below the buffer's R-th key when tested): once a member fails,
+//   the rest of its run, no smaller, can neither enter nor lower `rest`
+//   below it. With `cut`, disc[t] is read only where the whole run may
+//   have entered (else `rest` is at most the member that failed, at most
+//   disc[t]); without, every discard row is read at the end;
+// - the runs go in batches of CM_BATCH, each member's loads issued
+//   before the insertions of the one before, so that their latencies hide
+//   under them. Runs of 4 go batch by batch, member after member
+//   ("rounds"), the next batch's first members loaded ahead where
+//   CM_AHEAD(R) and each batch's discards taken in the next; runs of 2
+//   or 1 as a wavefront (`wave_step`), in which each step merges the
+//   first members of one batch, the second of the batch before and the
+//   discards of the one before that, so that a step waits on its loads
+//   once. For runs of 4 the wavefront's deeper lag let more keys past a
+//   staler threshold and was slower;
+// - an insertion computes every slot from the old buffer by one min and
+//   one max (`key_insert`): no step waits on another. At R = 96 a thread
+//   stages up to 16 keys and the warp merges them into its buffers
+//   together by a bitonic merge (`merge_staged`): about two fifths of
+//   the min / max operations of inserting each key on its own, at the
+//   price of one CTA an SM (2.93 against 3.84 ms on the k = 4096 plan's
+//   chunk); at R = 48 the two CTAs an SM of plain insertions were faster
+//   (2.32 against 2.76 ms at the k = 3072 plan).
+// The outputs are the same bits whatever the order of the insertions.
+// At n = 1e6, nq = 1e4 (NVIDIA H100 80GB HBM3, 700 W; demos/time_exact.py
+// --only cand_merge): 0.76 / 1.60 / 2.29 ms at the k = 100 / 1000 / 3072
+// plans and 2.69 on the k = 4096 plan's chunk of 3,216 queries (a design
+// that took one row at a time: 1.04 / 2.32 / 3.85 / 7.72), against a
+// bound of 0.337 / 0.428 / 0.503 / 0.459 (the bytes these inputs require
+// at 3.35 TB/s, `chip_smoke.merge_needs`). On keys that rise row after
+// row, where only the runs' first members are read and none enters, it
+// takes 0.34 / 0.44 / 0.52 / 0.76 against 0.238 / 0.287 / 0.336 / 0.335:
+// the later members' dependent loads and the insertions cost the rest.
+constexpr int CM_BATCH = 8;
+// whether the next batch's first members are loaded before a batch is
+// merged, and the CTAs an SM must hold (`__launch_bounds__`)
 template <int R>
-__global__ void __launch_bounds__(THREADS)
+constexpr bool CM_AHEAD = R <= 32;
+template <int R>
+constexpr int CM_CTAS = R > 48 ? 1 : 2;
+// keys a thread stages before it merges them into its buffer together
+// (`merge_staged`; 0: each key is inserted on its own)
+template <int R>
+constexpr int CM_STAGE = R > 48 ? 16 : 0;
+
+__host__ __device__ constexpr int log2_ceil(int x) {
+  int lg = 0;
+  while ((1 << lg) < x) ++lg;
+  return lg;
+}
+
+__device__ __forceinline__ void cas_keys(int& a, int& b) {
+  const int lo = min(a, b), hi = max(a, b);
+  a = lo;
+  b = hi;
+}
+
+// Sort buf ascending: a bitonic network whose merges all compare upward
+// (a merge's first step pairs slot i with its mirror in the block), over
+// the R keys padded with +inf to a power of two, so that a comparator
+// reaching past R - 1 would do nothing and is left out. Aligned blocks of
+// `sorted` keys (a power of two) that arrive ascending skip the merges up
+// to that size.
+template <int R>
+__device__ __forceinline__ void sort_keys(int (&buf)[R], int sorted) {
+#pragma unroll
+  for (int lg = 1; lg <= log2_ceil(R); ++lg) {
+    if ((1 << lg) <= sorted) continue;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int j = i ^ ((1 << lg) - 1);
+      if (j > i && j < R) cas_keys(buf[i], buf[j]);
+    }
+#pragma unroll
+    for (int ls = lg - 2; ls >= 0; --ls)
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = i ^ (1 << ls);
+        if (j > i && j < R) cas_keys(buf[i], buf[j]);
+      }
+  }
+}
+
+// Insert x, x < buf[R - 1], into the ascending buffer; its last key joins
+// `rest`. Slot i takes the middle of (buf[i - 1], x, buf[i]).
+template <int R>
+__device__ __forceinline__ void key_insert(int (&buf)[R], int& rest, int x) {
+  rest = min(rest, buf[R - 1]);
+#pragma unroll
+  for (int i = R - 1; i > 0; --i) buf[i] = max(buf[i - 1], min(x, buf[i]));
+  buf[0] = min(x, buf[0]);
+}
+
+// Slot i of the bitonic sequence that `merge_staged` sorts: P - R - S
+// slots of -inf (left out: no comparator moves them), the buffer
+// ascending, the staged keys descending.
+template <int R, int S>
+__device__ __forceinline__ int& staged_slot(int (&buf)[R], int (&stg)[S],
+                                            int i) {
+  constexpr int P = 1 << log2_ceil(R + S), o = P - R - S;
+  return i < o + R ? buf[i < o ? 0 : i - o] : stg[i < P ? P - 1 - i : 0];
+}
+
+// Merge the S ascending staged keys into the ascending buffer by a
+// bitonic merge: the R smallest stay in buf, the smallest of the others
+// joins `rest`, and the stage empties (INT_MAX).
+template <int R, int S>
+__device__ __forceinline__ void merge_staged(int (&buf)[R], int (&stg)[S],
+                                             int& rest) {
+  constexpr int LG = log2_ceil(R + S), P = 1 << LG, o = P - R - S;
+#pragma unroll
+  for (int ls = LG - 1; ls >= 0; --ls)
+#pragma unroll
+    for (int i = o; i < P; ++i) {
+      const int j = i + (1 << ls);
+      // two buffer keys meet only in order in the first step
+      if (!(i >> ls & 1) && j < P && (ls < LG - 1 || j >= o + R))
+        cas_keys(staged_slot(buf, stg, i), staged_slot(buf, stg, j));
+    }
+  rest = min(rest, stg[S - 1]);
+#pragma unroll
+  for (int c = 0; c < S; ++c) stg[c] = INT_MAX;
+}
+
+// min over rows [a, b) of p[row * plane], B loads in flight
+template <int B>
+__device__ __forceinline__ int min_rows(const int* p, size_t plane, int a,
+                                        int b) {
+  int m = INT_MAX;
+  for (int row = a; row < b; row += B) {
+    int v[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      v[u] = row + u < b ? __ldcs(p + (size_t)(row + u) * plane) : INT_MAX;
+#pragma unroll
+    for (int u = 0; u < B; ++u) m = min(m, v[u]);
+  }
+  return m;
+}
+
+// The members x of a batch of runs that may enter the buffer (below its
+// R-th key); the others join `rest`.
+template <int R, int B>
+__device__ __forceinline__ unsigned may_enter(const int (&x)[B],
+                                              const int (&buf)[R],
+                                              int& rest) {
+  const int thr = buf[R - 1];
+  unsigned take = 0;
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    if (x[u] < thr)
+      take |= 1u << u;
+    else
+      rest = min(rest, x[u]);
+  }
+  return take;
+}
+
+// Insert the members `take` of x in order, each tested again against the
+// buffer's R-th key (with a stage: staged, after the warp has merged its
+// stages together where one could overflow) → the members that entered.
+template <int R, int B, int S>
+__device__ __forceinline__ unsigned enter(const int (&x)[B], unsigned take,
+                                          int (&buf)[R],
+                                          int (&stg)[S > 0 ? S : 1],
+                                          int& nstg, int& rest) {
+  if constexpr (S > 0) {
+    if (__any_sync(~0u, nstg + __popc(take) > S)) {
+      merge_staged(buf, stg, rest);
+      nstg = 0;
+    }
+  }
+  unsigned in = 0;
+  for (unsigned rem = take; rem; rem &= rem - 1) {
+    const int uu = __ffs(rem) - 1;
+    int v = x[0];
+#pragma unroll
+    for (int u = 1; u < B; ++u)
+      if (u == uu) v = x[u];
+    if (v >= buf[R - 1]) {
+      rest = min(rest, v);
+      continue;
+    }
+    if constexpr (S > 0) {
+      key_insert<S>(stg, rest, v);
+      ++nstg;
+    } else {
+      key_insert<R>(buf, rest, v);
+    }
+    in |= 1u << uu;
+  }
+  return in;
+}
+
+// Stage M of a step of K2's wavefront, then the stages below it (see the
+// kernel): stage M < run holds member M of the batch of runs t0 - M B,
+// stage `run` their discards.
+template <int M, int R, int B, int S>
+__device__ __forceinline__ void wave_step(int (&v)[3][B], int (&buf)[R],
+                                          int (&stg)[S > 0 ? S : 1],
+                                          int& nstg, int& rest, const int* cp,
+                                          const int* dp, size_t plane,
+                                          size_t rstride, int run, int cut,
+                                          int t0) {
+  if constexpr (M >= 0) {
+    if (M == run) {  // discards, where a whole run may have entered
+#pragma unroll
+      for (int u = 0; u < B; ++u) rest = min(rest, v[M][u]);
+    } else if (M < run) {
+      const int tb = t0 - M * B;
+      const unsigned take = may_enter(v[M], buf, rest);
+      if constexpr (M < 2) {
+        const bool last = M + 1 == run;
+#pragma unroll
+        for (int u = 0; u < B; ++u)
+          v[M + 1][u] =
+              (take >> u & 1) && (cut || !last)
+                  ? __ldcs(last ? dp + (size_t)(tb + u) * plane
+                                : cp + (tb + u) * rstride +
+                                      (size_t)(M + 1) * plane)
+                  : INT_MAX;
+      }
+      enter<R, B, S>(v[M], take, buf, stg, nstg, rest);
+    }
+    wave_step<M - 1, R, B, S>(v, buf, stg, nstg, rest, cp, dp, plane,
+                              rstride, run, cut, t0);
+  }
+}
+
+template <int R, bool WAVE>
+__global__ void __launch_bounds__(THREADS, CM_CTAS<R>)
     cand_merge_kernel(const int* __restrict__ cand,
                       const int* __restrict__ disc, int* __restrict__ out,
-                      int ncand, int ndisc, int nq) {
+                      int ncand, int ndisc, int nq, int run, int cut) {
+  constexpr int B = CM_BATCH, S = CM_STAGE<R>;
+  static_assert(S == 0 || S >= B, "a stage takes up to B keys at once");
   const size_t plane = (size_t)LANES * nq;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= plane) return;
+  const int* cp = cand + idx;
+  const int* dp = disc + idx;
+  const size_t rstride = (size_t)run * plane;
+  const int fill = min(R, ncand);
   int buf[R];
 #pragma unroll
-  for (int c = 0; c < R; ++c) buf[c] = INT_MAX;
+  for (int c = 0; c < R; ++c)
+    buf[c] = c < fill ? __ldcs(cp + (size_t)c * plane) : INT_MAX;
+  // the fill is a prefix of one run, or aligned blocks of the largest
+  // power of two that divides the run length, each ascending
+  sort_keys<R>(buf, fill <= run ? 1 << 30 : run & -run);
   int rest = INT_MAX;
-  for (int row = 0; row < ncand; ++row)
-    insert_sorted<R>(buf, rest, cand[row * plane + idx]);
-  for (int row = 0; row < ndisc; ++row)
-    rest = min(rest, disc[row * plane + idx]);
+  int t = fill / run;  // runs wholly in the fill
+  if (cut) rest = min_rows<B>(dp, plane, 0, t);
+  int j = fill - t * run;  // members of run t in the fill
+  if (j) {
+    for (; j < run; ++j) {
+      const int x = __ldcs(cp + t * rstride + (size_t)j * plane);
+      if (x >= buf[R - 1]) {
+        rest = min(rest, x);
+        break;
+      }
+      key_insert<R>(buf, rest, x);
+    }
+    if (cut && j == run) rest = min(rest, __ldcs(dp + (size_t)t * plane));
+    ++t;
+  }
+  const int nruns = ncand / run;
+  // the first members of the batch of runs at t0 (INT_MAX: none)
+  auto firsts = [&](int (&v)[B], int t0) {
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      v[u] = t0 + u < nruns ? __ldcs(cp + (t0 + u) * rstride) : INT_MAX;
+  };
+  int stg[S ? S : 1];  // the staged keys, ascending (INT_MAX: none)
+  int nstg = 0;
+#pragma unroll
+  for (int c = 0; c < (S ? S : 1); ++c) stg[c] = INT_MAX;
+  // The wavefront: at the step of batch t0, stage m < run holds member m
+  // of the batch t0 - m B and stage `run` its discards, each loaded in
+  // the step before. The stages go from the top down: each folds into
+  // `rest` what cannot enter, loads the next member (or the discard) of
+  // the runs whose member may enter into the stage above, which it has
+  // just emptied, then inserts its keys; stage 0 then takes the next
+  // batch's first members. A member that turns out not to enter leaves
+  // the one loaded after it no smaller, to fold into `rest` in its turn.
+  if constexpr (WAVE) {
+    int v[3][B];
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int u = 0; u < B; ++u) v[m][u] = INT_MAX;
+    firsts(v[0], t);
+    for (int t0 = t; t0 - run * B < nruns; t0 += B) {
+      int xn[B];
+      if constexpr (CM_AHEAD<R>) firsts(xn, t0 + B);
+      wave_step<2, R, B, S>(v, buf, stg, nstg, rest, cp, dp, plane,
+                            rstride, run, cut, t0);
+      if constexpr (CM_AHEAD<R>) {
+#pragma unroll
+        for (int u = 0; u < B; ++u) v[0][u] = xn[u];
+      } else {
+        firsts(v[0], t0 + B);
+      }
+    }
+  } else {
+    int x[B];  // member j of each run of the batch (INT_MAX: none)
+    firsts(x, t);
+    // the discards of the batch before's runs that entered whole, loaded
+    // there and taken here, so that no batch waits on its own
+    int dv[B] = {};
+    unsigned din = 0;
+    for (; t < nruns; t += B) {
+      const int* c0 = cp + t * rstride;
+      int xn[B];
+      if constexpr (CM_AHEAD<R>) firsts(xn, t + B);
+      for (int j = 0;; ++j) {
+        const unsigned take = may_enter(x, buf, rest);
+        // with a stage, the warp goes through the rounds together
+        if (S ? !__any_sync(~0u, take) : !take) break;
+        // the next member of the runs that may enter (after the last one,
+        // their discards), in flight under the insertions
+        const bool last = j + 1 == run;
+        int y[B];
+        if (!last) {
+#pragma unroll
+          for (int u = 0; u < B; ++u)
+            y[u] = take >> u & 1 ? __ldcs(c0 + u * rstride +
+                                          (size_t)(j + 1) * plane)
+                                 : INT_MAX;
+        } else if (cut) {
+#pragma unroll
+          for (int u = 0; u < B; ++u)
+            if (din >> u & 1) rest = min(rest, dv[u]);
+#pragma unroll
+          for (int u = 0; u < B; ++u)
+            dv[u] = take >> u & 1 ? __ldcs(dp + (size_t)(t + u) * plane)
+                                  : INT_MAX;
+        }
+        const unsigned in = enter<R, B, S>(x, take, buf, stg, nstg, rest);
+        if (last) {
+          if (cut) din = in;
+          break;
+        }
+#pragma unroll
+        for (int u = 0; u < B; ++u) x[u] = in >> u & 1 ? y[u] : INT_MAX;
+      }
+      if constexpr (CM_AHEAD<R>) {
+#pragma unroll
+        for (int u = 0; u < B; ++u) x[u] = xn[u];
+      } else {
+        firsts(x, t + B);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      if (din >> u & 1) rest = min(rest, dv[u]);
+  }
+  if constexpr (S > 0) merge_staged(buf, stg, rest);
+  if (!cut) rest = min(rest, min_rows<B>(dp, plane, 0, ndisc));
 #pragma unroll
   for (int c = 0; c < R; ++c) out[c * plane + idx] = buf[c];
   out[R * plane + idx] = rest;
@@ -282,11 +644,18 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int R>
 cudaError_t launch_merge(const void* cand, const void* disc, void* out,
-                         int ncand, int ndisc, int nq, cudaStream_t st) {
+                         int ncand, int ndisc, int nq, int run, int cut,
+                         cudaStream_t st) {
   const size_t plane = (size_t)LANES * nq;
-  cand_merge_kernel<R><<<(unsigned)((plane + THREADS - 1) / THREADS),
-                         THREADS, 0, st>>>(
-      (const int*)cand, (const int*)disc, (int*)out, ncand, ndisc, nq);
+  const unsigned grid = (unsigned)((plane + THREADS - 1) / THREADS);
+  if (run <= 2)
+    cand_merge_kernel<R, true><<<grid, THREADS, 0, st>>>(
+        (const int*)cand, (const int*)disc, (int*)out, ncand, ndisc, nq, run,
+        cut);
+  else
+    cand_merge_kernel<R, false><<<grid, THREADS, 0, st>>>(
+        (const int*)cand, (const int*)disc, (int*)out, ncand, ndisc, nq, run,
+        cut);
   return cudaGetLastError();
 }
 
@@ -1167,17 +1536,24 @@ int rq_codes_onepass_layout(int r, int keep, int dp, int nw, int bf16,
 }
 
 int rq_cand_merge(const void* cand, const void* disc, void* out, int ncand,
-                  int ndisc, int nq, int r, void* stream) {
+                  int ndisc, int nq, int r, int run, int cut, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (run < 1 || run > 4 || ncand % run || (cut && ncand != run * ndisc))
+    return (int)cudaErrorInvalidValue;
+#define RQ_K2(R)                                                           \
+  case R:                                                                  \
+    return (int)launch_merge<R>(cand, disc, out, ncand, ndisc, nq, run, cut, \
+                                st)
   switch (r) {
-    case 12: return (int)launch_merge<12>(cand, disc, out, ncand, ndisc, nq, st);
-    case 14: return (int)launch_merge<14>(cand, disc, out, ncand, ndisc, nq, st);
-    case 28: return (int)launch_merge<28>(cand, disc, out, ncand, ndisc, nq, st);
-    case 16: return (int)launch_merge<16>(cand, disc, out, ncand, ndisc, nq, st);
-    case 32: return (int)launch_merge<32>(cand, disc, out, ncand, ndisc, nq, st);
-    case 48: return (int)launch_merge<48>(cand, disc, out, ncand, ndisc, nq, st);
-    case 96: return (int)launch_merge<96>(cand, disc, out, ncand, ndisc, nq, st);
+    RQ_K2(12);
+    RQ_K2(14);
+    RQ_K2(16);
+    RQ_K2(28);
+    RQ_K2(32);
+    RQ_K2(48);
+    RQ_K2(96);
   }
+#undef RQ_K2
   return (int)cudaErrorInvalidValue;
 }
 

@@ -102,9 +102,9 @@ def main(argv=None) -> dict:
                     for t in (Qm, Xd, x2, cand, disc))
         bound = max(2.0 * args.n * nq * Xd.shape[1] / peak, moved / 3.35e12)
         ms["K2+K3+flags"] = best_ms(lambda: scan._finish(
-            scan.cand_merge(cand, disc, r), nq, r, k, idbits), args.reps,
-            on_card)
-        outp = scan.cand_merge(cand, disc, r)
+            scan.cand_merge(cand, disc, r, cut=True), nq, r, k, idbits),
+            args.reps, on_card)
+        outp = scan.cand_merge(cand, disc, r, cut=True)
         keys = outp[:r].reshape(r * scan.LANES, nq).T.contiguous()
         ms["topk"] = best_ms(lambda: torch.topk(keys, k, dim=1,
                                                  largest=False),

@@ -1,7 +1,7 @@
 """Time K3 `tail_merge`, the exact-float scan kernels K9
 `scan_f32_candidates` and K10 `verify_counts` and the pair merge between
-them at the shapes the main path gives them, and hold two versions'
-outputs to each other bit for bit.
+them, and K2 `cand_merge`, at the shapes the main path gives them, and
+hold two versions' outputs to each other bit for bit.
 
     python3 rayuela_tpu_torch/demos/time_exact.py [--root DIR]
         [--out FILE] [--against FILE] [--reps N] [--only PART ...]
@@ -25,8 +25,22 @@ after a warm one; the first line names the card and its power limit):
   outputs written once at 3.35 TB/s (an id is read only for a candidate
   that enters).
 
-``--only PART`` (repeatable: ``tail``, ``scans``, ``pair_merge``) runs
-only those parts.
+- K2 (`scan.cand_merge`) alone at the k = 100, 1000 and 3072 plans on
+  K1's candidates over nq = 1e4 queries, and at the k = 4096 plan (r = 96,
+  keep = 4, tile = 2048) on one chunk of them (`scan._query_chunks`:
+  3,216 queries), K1 over `chip_smoke.Phase1`'s bf16 RVQ-7+1 codes
+  (n = 1e6, d = 128, Gaussian), beside `torch.topk` along the
+  candidates, with two bounds: the bytes the data requires
+  (`chip_smoke.merge_needs`: a run's later member, or its discard, only
+  where the member before lies among the r smallest) and the former
+  count, every candidate and discard read once, both with the outputs
+  written once at 3.35 TB/s; then at the same shapes on keys that rise
+  row after row (each tile's above the one before, so that after the
+  first r candidates only the runs' first members are read and none
+  enters): the cost of streaming the runs without insertions.
+
+``--only PART`` (repeatable: ``tail``, ``scans``, ``pair_merge``,
+``cand_merge``) runs only those parts.
 
 Every output carries a digest (two position-weighted int64 sums of its
 32-bit words, taken on the card). ``--out FILE`` writes them; ``--against
@@ -42,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -72,7 +87,8 @@ SCANS = ((128, 1_000_000, ("float32", "bfloat16")),
          (960, 500_000, ("float32",)))
 MERGE_KS, MERGE_N, MERGE_D = (100, 1000, 3072), 1_000_000, 128
 HBM = 3.35e12
-PARTS = ("tail", "scans", "pair_merge")
+MERGE2_KS = (100, 1000, 3072, 4096)
+PARTS = ("tail", "scans", "pair_merge", "cand_merge")
 
 
 def main(argv=None) -> int:
@@ -233,6 +249,10 @@ def main(argv=None) -> int:
         del X, Q, x2, Qm
         torch.cuda.empty_cache()
 
+    if "cand_merge" in only and cand_merge_part(tsp, smoke, ms, emit,
+                                                args.reps):
+        return 1
+
     if args.out:
         Path(args.out).write_text(json.dumps(digests, indent=1))
     if args.against:
@@ -246,6 +266,76 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
     return 0
+
+
+def cand_merge_part(tsp, smoke, ms, emit, reps) -> bool:
+    """K2 at the k = 100, 1000 and 4096 plans (see the module's
+    docstring) → True where an output differs from the plain version's.
+    A version whose K2 takes no ``cut`` reads every discard."""
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    cut = ({"cut": True} if "cut" in
+           inspect.signature(tsp.cand_merge).parameters else {})
+    c = smoke.Phase1(np.random.default_rng(0), False, "gauss",
+                     torch.bfloat16, NQ)
+    n = c.idx.packed.shape[0]
+    for k in MERGE2_KS:
+        r, keep, tile = tsp._scan_config(k)
+        ntiles = -(-n // tile)
+        nq = tsp._query_chunks(NQ, ntiles * keep * tsp.LANES * 4)[0][1]
+        kw = dict(tile=tile, keep=keep, has_norms=True,
+                  idbits=tsp._pack_idbits(ntiles * tile))
+        cand, disc = tsc.codes_decode_candidates(
+            c.Qm[:nq].contiguous(), c.Cf, c.nrm, c.idx.packed, **kw)
+        t = ms(lambda: tsp.cand_merge(cand, disc, r, **cut), 2 * reps)
+        lib = ms(lambda: torch.topk(cand, r, dim=0, largest=False), reps)
+        out = tsp.cand_merge(cand, disc, r, **cut)
+        plain = tsp.cand_merge_plain(cand, disc, r)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, plain))
+        need, keys = smoke.merge_needs(cand, disc, out, r, True)
+        every = smoke.nbytes(cand, disc, out)
+        # one compare per key read at the least, at the CUDA cores' issue
+        # rate (half the FMA flop rate)
+        ops_ms = 2.0 * keys / smoke.PEAK["f32 CUDA-core"] * 1e3
+        emit(f"cand_merge k={k}",
+             {"kernel": "cand_merge", "k": k, "plan": [r, keep, tile],
+              "n": n, "nq": nq, "ncand": cand.shape[0],
+              "ndisc": disc.shape[0], "cut": bool(cut), "ms": t,
+              "topk_ms": lib,
+              "bound_ms": max(ops_ms, need / HBM * 1e3),
+              "bytes_needed": need, "keys_needed": keys,
+              "bound_all_ms": every / HBM * 1e3, "equals_plain": equal},
+             (out,))
+        del cand, disc, out, plain
+        torch.cuda.empty_cache()
+        if not equal:
+            print("cand_merge != its plain version", file=sys.stderr)
+            return True
+        # the same shapes on rising keys: run t's members t * keep + c,
+        # its discard the next tile's first
+        rows = torch.arange(ntiles * keep + 1, dtype=torch.int32,
+                            device=c.Qm.device)
+        cand = rows[:-1, None, None].expand(-1, tsp.LANES, nq).contiguous()
+        disc = rows[keep::keep, None, None].expand(-1, tsp.LANES,
+                                                   nq).contiguous()
+        t = ms(lambda: tsp.cand_merge(cand, disc, r, **cut), 2 * reps)
+        out = tsp.cand_merge(cand, disc, r, **cut)
+        need, keys = smoke.merge_needs(cand, disc, out, r, True)
+        equal = bool(torch.equal(out, tsp.cand_merge_plain(cand, disc, r)))
+        emit(f"cand_merge k={k} rising",
+             {"kernel": "cand_merge", "data": "rising", "k": k, "nq": nq,
+              "ms": t, "bound_ms": need / HBM * 1e3, "bytes_needed": need,
+              "equals_plain": equal}, (out,))
+        del cand, disc, out
+        torch.cuda.empty_cache()
+        if not equal:
+            print("cand_merge != its plain version", file=sys.stderr)
+            return True
+    return False
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ the shapes the main path gives them, hold two versions' outputs to each
 other, and sweep K4's row splits.
 
     python rayuela_tpu_torch/demos/time_onepass.py [--root DIR]
-        [--out FILE] [--against FILE] [--sweep]
+        [--out FILE] [--against FILE] [--sweep] [--f32]
 
 The bases are the RVQ-7+1 layout of `chip_smoke.py` (h = 256, Gaussian
 codebooks and queries from ``default_rng(0)``, bf16 operands): n = 1e6 at
@@ -24,7 +24,12 @@ K4's milliseconds at nq = 1, 2, 5, 8, 16, 32 and 128 at the rescue's
 plan (r = 48, tile 2048) and K8's at nq = 128 over the decoded rows at
 d = 128, the mean of ``--reps`` calls after a warm one (CUDA events; the
 wrappers' time, K2's merge of K14's and K4's splits included). The first
-line names the card and its power limit.
+line names the card and its power limit. ``--f32`` times instead the f32
+instances of K1, K14 and K8 alone, at d = 128 on the same codes (f32
+operands; K8 over the rows decoded to f32) at both plans, nq = 1e4, each
+beside its plain version (one call), `chip_smoke.library_scan` and its
+bound: the products at the f32 CUDA-core peak (67 TFLOP/s), or the
+bytes (each input read, each output written once) at 3.35 TB/s.
 
 Every output carries a digest (`time_exact.digest`). ``--out FILE``
 writes them; ``--against FILE`` asserts that this run's equal those in
@@ -64,6 +69,7 @@ def main(argv=None) -> int:
     ap.add_argument("--against", default=None)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--f32", action="store_true")
     args = ap.parse_args(argv)
     own = Path(__file__).resolve().parents[2]
     root = args.root or str(own)
@@ -91,9 +97,9 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(json.dumps({"root": root, "card": smi}), flush=True)
 
-    def base(rng, d, n, nq):
+    def base(rng, d, n, nq, dtype=torch.bfloat16):
         """Codes of n rows (7 codebooks + the norms byte) and nq queries
-        at width d → (index, bf16 decode operands, -2Q)."""
+        at width d → (index, decode operands at dtype, -2Q)."""
         C = torch.as_tensor(rng.standard_normal((M, H, d)).astype("float32"),
                             device=dev)
         Q = torch.as_tensor(rng.standard_normal((nq, d)).astype("float32"),
@@ -106,9 +112,8 @@ def main(argv=None) -> int:
                               device=dev)
         idx = tsc.build_codes_index(C, B, pq=False, d=d, norms_cbook=ncb,
                                     norms_codes=nco)
-        Cf, nrm = idx.decode_operands(d, torch.bfloat16)
-        return idx, Cf, nrm, tsc._query_operand(Q, Cf.shape[1],
-                                                torch.bfloat16)
+        Cf, nrm = idx.decode_operands(d, dtype)
+        return idx, Cf, nrm, tsc._query_operand(Q, Cf.shape[1], dtype)
 
     def ms(fn, reps=args.reps):
         fn()
@@ -138,6 +143,10 @@ def main(argv=None) -> int:
                                                            .long()])
         return (Xf.to(torch.bfloat16), Xf.T.contiguous(), x2,
                 Qm[:, :d].contiguous())
+
+    if args.f32:
+        f32_times(base, ms, emit, smoke, tsp, tsc)
+        return report(args, root, digests, exact)
 
     for d, n in SCANS:
         idx, Cf, nrm, Qm = base(np.random.default_rng(0), d, n, NQ)
@@ -236,23 +245,9 @@ def main(argv=None) -> int:
                                  "ms": t},
          (tsp.scan_onepass(Qr, Xd, x2, **kw8),))
     del Xd
-    if args.out:
-        Path(args.out).write_text(json.dumps(digests, indent=1))
-    if args.against:
-        ref = json.loads(Path(args.against).read_text())
-        both = [c for c in digests if c in ref]
-        diff = sorted(c for c in both if ref[c] != digests[c])
-        bad = [c for c in diff if exact[c]]
-        print(json.dumps({"root": root, "against": args.against,
-                          "identical": sorted(set(both) - set(diff)),
-                          "different": diff, "different_exact": bad}),
-              flush=True)
-        if bad or not both:
-            print(f"outputs differ from {args.against}: {bad}",
-                  file=sys.stderr)
-            return 1
-    if not args.sweep:
-        return 0
+    code = report(args, root, digests, exact)
+    if code or not args.sweep:
+        return code
     rule = tsp._onepass_rows
     nrows = -(-N // tile) * tile // tsp.LANES
     layout = tsc._rescue_layout(D, idx.packed.shape[1], r, 1,
@@ -281,6 +276,76 @@ def main(argv=None) -> int:
     finally:
         tsp._onepass_rows = rule
     return 0
+
+
+def report(args, root, digests, exact) -> int:
+    """Write the digests (``--out``) or hold them against a file's
+    (``--against``) → the exit code."""
+    if args.out:
+        Path(args.out).write_text(json.dumps(digests, indent=1))
+    if args.against:
+        ref = json.loads(Path(args.against).read_text())
+        both = [c for c in digests if c in ref]
+        diff = sorted(c for c in both if ref[c] != digests[c])
+        bad = [c for c in diff if exact[c]]
+        print(json.dumps({"root": root, "against": args.against,
+                          "identical": sorted(set(both) - set(diff)),
+                          "different": diff, "different_exact": bad}),
+              flush=True)
+        if bad or not both:
+            print(f"outputs differ from {args.against}: {bad}",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
+def f32_times(base, ms, emit, smoke, tsp, tsc):
+    """The f32 instances of K1, K14 and K8 at d = 128 at both plans (see
+    the module's docstring)."""
+    import numpy as np
+    import torch
+
+    idx, Cf, nrm, Qm = base(np.random.default_rng(0), D, N, NQ,
+                            torch.float32)
+    args4 = (Qm, Cf, nrm, idx.packed)
+    codes = tsc.unpack_codes(idx.packed, idx.mprime)
+    Xd, x2 = tsp.decode_base(idx.C, codes[:, :-1],
+                             norm_term=idx.norms_cbook[codes[:, -1].long()])
+    del codes
+    XT, Q8 = Xd.T.contiguous(), Qm[:, :D].contiguous()
+    peak, hbm = smoke.PEAK["f32 CUDA-core"], smoke.PEAK["HBM"]
+
+    def bound(*tensors):
+        return max(2.0 * N * NQ * D / peak,
+                   smoke.nbytes(*tensors) / hbm) * 1e3
+
+    for k in (100, 1000):
+        lib = ms(lambda: smoke.library_scan(Q8, XT, x2, k), 3)
+        _, r2, keep, tile = tsc._codes_config(k)
+        r1, keep1, tile1 = tsc._onepass_config(k, idx.mprime)
+        runs = (
+            ("codes_decode_candidates", [r2, keep, tile],
+             tsc.codes_decode_candidates, tsc.codes_decode_candidates_plain,
+             args4, dict(tile=tile, keep=keep, has_norms=True)),
+            ("codes_decode_onepass", [r1, keep1, tile1],
+             tsc.codes_decode_onepass, tsc.codes_decode_onepass_plain,
+             args4, dict(tile=tile1, r=r1, keep=keep1, has_norms=True)),
+            ("scan_candidates", [r2, keep, tile], tsp.scan_candidates,
+             tsp.scan_candidates_plain, (Q8, Xd, x2),
+             dict(tile=tile, keep=keep, premin=0)))
+        for name, plan, fn, plain, a, kw in runs:
+            kw["idbits"] = tsp._pack_idbits(-(-N // kw["tile"])
+                                            * kw["tile"])
+            t = ms(lambda: fn(*a, **kw), 3)
+            out = fn(*a, **kw)
+            out = out if isinstance(out, tuple) else (out,)
+            pt = ms(lambda: plain(*a, **kw), 1)
+            emit(f"{name} f32 d={D} k={k}",
+                 {"kernel": name, "dtype": "float32", "d": D, "n": N,
+                  "nq": NQ, "k": k, "plan": plan, "ms": t, "plain_ms": pt,
+                  "library_ms": lib, "bound_ms": bound(*a, *out)}, out)
+            del out
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -36,7 +36,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # points to)
 _SIGNATURES = {
     "rq_codes_decode_candidates": [_P] * 6 + [_I] * 12 + [_P],
-    "rq_cand_merge": [_P] * 3 + [_I] * 4 + [_P],
+    "rq_cand_merge": [_P] * 3 + [_I] * 6 + [_P],
     "rq_codes_decode_topk": [_P] * 6 + [_I] * 13 + [_P],
     "rq_codes_topk_layout": [_I] * 4 + [_P],
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],

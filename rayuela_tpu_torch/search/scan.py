@@ -339,12 +339,40 @@ def cand_merge_plain(cand, disc, r: int):
     return out
 
 
-def cand_merge(cand, disc, r: int):
+def _merge_runs(ncand: int, ndisc: int, cut: bool) -> tuple[int, bool]:
+    """How K2's kernel reads its candidates → ``(rows a run, cut)``. A
+    run of ``ncand / ndisc`` rows (one row where ndisc does not divide
+    ncand) is read as runs of 4, 2 or 1 of its rows, the largest that
+    divides it (the pieces of an ascending run ascend); ``cut`` holds
+    only where those are the runs themselves, and needs ncand a multiple
+    of ndisc."""
+    whole = ndisc > 0 and ncand % ndisc == 0
+    if cut and not whole:
+        raise ValueError(f"cut: ncand={ncand} must be a multiple of "
+                         f"ndisc={ndisc}")
+    length = ncand // ndisc if whole else 1
+    run = next(w for w in (4, 2, 1) if length % w == 0)
+    return run, cut and run == length
+
+
+def cand_merge(cand, disc, r: int, cut: bool = False):
     """Kernel K2, pass 2 of every two-pass scan. Per (lane, query): the
     ``r`` smallest keys of ``cand (ncand, 128, nq)``, ascending, then one
     certificate row, ``min(every discard minimum in disc (ndisc, 128,
     nq), every candidate not kept)`` → ``(r + 1, 128, nq)`` int32.
-    Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+
+    The candidates come in runs of ``ncand / ndisc`` rows, each
+    ascending per (lane, query): a tile's ``keep`` smallest keys, or a
+    one-pass split's sorted buffer. ``cut`` states that ``disc[t]`` is
+    the next key of run t's tile (the per-tile cut of K1, K8 and K5
+    without pre-min), never below the run's last key. On the card a run
+    (a split's in pieces of 4 or 2 rows, `_merge_runs`) is read only as
+    far as its members may enter the buffer and, with ``cut``,
+    ``disc[t]`` only where the whole run may have entered; a one-pass
+    split's certificate can lie below its r-th key, so those merges pass
+    ``cut=False`` and every discard is read. The result does not depend
+    on ``cut`` where its statement holds. Source:
+    ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     for t in (cand, disc):
         if t.dtype != torch.int32 or t.dim() != 3 \
                 or t.shape[1] != LANES or not t.is_contiguous():
@@ -352,6 +380,7 @@ def cand_merge(cand, disc, r: int):
                              "(rows, 128, nq) int32")
     if cand.device != disc.device or cand.shape[2] != disc.shape[2]:
         raise ValueError("cand and disc disagree in device or nq")
+    run, cut = _merge_runs(cand.shape[0], disc.shape[0], cut)
     if cand.device.type == "cpu":
         return cand_merge_plain(cand, disc, r)
     if cand.device.type != "cuda":
@@ -363,7 +392,7 @@ def cand_merge(cand, disc, r: int):
                       device=cand.device)
     if nq:
         launch("rq_cand_merge", cand, disc, out, cand.shape[0],
-               disc.shape[0], nq, r, device=cand.device)
+               disc.shape[0], nq, r, run, int(cut), device=cand.device)
         cand_merge.launches += 1
     return out
 
@@ -442,8 +471,10 @@ def _alloc_onepass(n: int, nq: int, tile: int, r: int, device, layout,
 
 def _merge_onepass(out, cand, disc, r: int):
     """The one-pass kernel's final buffer: ``out`` when it wrote there,
-    else K2 over its splits."""
-    return out if disc.shape[0] == 1 else cand_merge(cand, disc, r)
+    else K2 over its splits (sorted runs of ``r`` keys whose
+    certificates are no per-tile cut: ``cut=False``)."""
+    return out if disc.shape[0] == 1 else cand_merge(cand, disc, r,
+                                                     cut=False)
 
 
 # ---------------------------------------------------------------------------
@@ -713,7 +744,7 @@ def scan_topk_packed(Q, Xd, x2, *, k: int, r: int = 32, tile: int = _TILE,
     if keep and keep < rows_eff:
         cand, disc = scan_candidates(Qm, Xd, x2, tile=tile, keep=keep,
                                      premin=premin, idbits=idbits)
-        outp = cand_merge(cand, disc, r)
+        outp = cand_merge(cand, disc, r, cut=not premin)
     else:
         outp = scan_onepass(Qm, Xd, x2, tile=tile, r=r, premin=premin,
                             idbits=idbits)

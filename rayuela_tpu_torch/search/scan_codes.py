@@ -834,7 +834,7 @@ def scan_codes_decode_topk_2p(Q, Cflat, nrm, packed, *, k: int, pq: bool,
     cand, disc = codes_decode_candidates(Qm, Cflat, nrm, packed, tile=tile,
                                          keep=keep, idbits=idbits,
                                          has_norms=not pq)
-    outp = cand_merge(cand, disc, r)
+    outp = cand_merge(cand, disc, r, cut=True)
     return _finish(outp, Q.shape[0], r, min(k, packed.shape[0]), idbits)
 
 
@@ -921,7 +921,7 @@ def scan_codes_topk(T, packed, *, k: int, r: int = 32, tile: int = _TILE,
                          f"({_DECODE_SEG} rows per call); segment the base")
     cand, disc = codes_lut_candidates(Tq, packed, tile=tile, keep=keep,
                                       idbits=idbits)
-    outp = cand_merge(cand, disc, r)
+    outp = cand_merge(cand, disc, r, cut=True)
     return _finish(outp, nq, r, min(k, n), idbits)
 
 

@@ -1396,6 +1396,74 @@ def test_pair_merge_equals_plain_with_ties_and_inf_rows(dev, r, ncand, nq):
     assert bool((oi[ov == float("inf")] == tsp.NOID).all())
 
 
+def _tile_cut(rng, ntiles, keep, nq, descending=False, pad=False):
+    """K2's input as a per-tile cut writes it: per tile of 16 row ids
+    and (lane, query) the keep smallest distinct keys, ascending, then
+    the next one → (cand (ntiles * keep, 128, nq), disc (ntiles, 128,
+    nq)) int32. ``descending``: each tile's keys lie below the tile
+    before's, so every candidate enters; ``pad``: the last tile holds
+    one key, the rest INT_MAX (runs and discards padded)."""
+    rows = 16
+    span = 64 if descending else 1 << 14
+    hi = rng.integers(0, span, (ntiles, rows, tsp.LANES, nq))
+    if descending:
+        hi += (span * (ntiles - 1 - np.arange(ntiles)))[:, None, None, None]
+    rid = np.arange(ntiles * rows).reshape(ntiles, rows, 1, 1)
+    keys = np.sort(hi * 65536 + rid - (1 << 30), axis=1)
+    if pad:
+        keys[-1, 1:] = tsp.IMAX
+    return (keys[:, :keep].reshape(ntiles * keep, tsp.LANES, nq)
+            .astype(np.int32), keys[:, keep].astype(np.int32))
+
+
+@pytest.mark.parametrize("r", tsp._RS)
+def test_cand_merge_equals_plain_at_every_r(dev, r):
+    """K2 at each compiled r against its plain version, bit for bit, with
+    the per-tile cut's statement (`cut=True`: a discard read only where
+    its whole run entered) and without: nq ragged against 32 and 4, run
+    counts that are no multiple of the kernel's batch; fewer candidates
+    than r with a run and its discard padded with INT_MAX; tiles in
+    descending order, so that every candidate enters; launches counted."""
+    rng = np.random.default_rng(r)
+    cases = []
+    for keep in (2, 4):
+        cases += [_tile_cut(rng, 123, keep, 37),
+                  _tile_cut(rng, max(1, (r - 1) // keep), keep, 6, pad=True),
+                  _tile_cut(rng, 61, keep, 9, descending=True)]
+    assert cases[1][0].shape[0] < r and cases[4][0].shape[0] < r
+    n2 = tsp.cand_merge.launches
+    for cand, disc in cases:
+        c, d = torch.as_tensor(cand, device=dev), torch.as_tensor(disc,
+                                                                  device=dev)
+        ref = tsp.cand_merge_plain(c, d, r)
+        for cut in (True, False):
+            assert torch.equal(tsp.cand_merge(c, d, r, cut=cut), ref)
+    torch.cuda.synchronize()
+    assert tsp.cand_merge.launches == n2 + 2 * len(cases)
+
+
+@pytest.mark.parametrize("r", tsp._RS)
+def test_cand_merge_of_splits_equals_plain(dev, r):
+    """K2 over one-pass splits (`cut=False`) against its plain version,
+    bit for bit: runs of r sorted keys, some ending in INT_MAX, whose
+    certificates lie below their run's r-th key, as a split's can."""
+    rng = np.random.default_rng(100 + r)
+    for splits, nq in ((2, 5), (13, 33)):
+        keys = rng.integers(-(1 << 30), 1 << 30, (splits, r, tsp.LANES, nq))
+        keys[rng.random(keys.shape) < 0.1] = tsp.IMAX
+        keys = np.sort(keys, axis=1).reshape(splits * r, tsp.LANES, nq)
+        cert = rng.integers(-(1 << 30), 1 << 30, (splits, tsp.LANES, nq))
+        cert[rng.random(cert.shape) < 0.3] = tsp.IMAX
+        c = torch.as_tensor(keys.astype(np.int32), device=dev)
+        d = torch.as_tensor(cert.astype(np.int32), device=dev)
+        assert bool((d < c.reshape(splits, r, tsp.LANES, nq)[:, -1]).any())
+        n2 = tsp.cand_merge.launches
+        out = tsp.cand_merge(c, d, r)
+        torch.cuda.synchronize()
+        assert tsp.cand_merge.launches == n2 + 1
+        assert torch.equal(out, tsp.cand_merge_plain(c, d, r))
+
+
 def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
     """What the exact-float kernels do not take raises on CUDA tensors
     (keep=0, the JAX form, is a plain version only; the pair merge is

@@ -325,8 +325,8 @@ def test_query_batch_runs_in_chunks_with_the_same_result(rng, monkeypatch,
                                                 (200, 300)]
     calls = []
     real = tsp.cand_merge
-    monkeypatch.setattr(tsp, "cand_merge", lambda *a: calls.append(1)
-                        or real(*a))
+    monkeypatch.setattr(tsp, "cand_merge", lambda *a, **kw: calls.append(1)
+                        or real(*a, **kw))
     monkeypatch.setattr(tsc, "cand_merge", tsp.cand_merge)
     chunked = run()
     assert len(calls) == 3
