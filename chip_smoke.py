@@ -32,7 +32,9 @@ phases below; any failure exits non-zero.
    `keep` keys must equal those of K2's merge of K1's candidates on
    Gaussian data
    (128 queries; phase 8 the same at d = 960 on 32), the ground of the
-   one-pass = two-pass gate of phases 7 and 8.
+   one-pass = two-pass gate of phases 7 and 8; on f32 operands (the
+   cluster fmaf body) the same on Gaussian f32 data of both layouts at
+   both plans, the ground of phase 4f's gate.
 1c. K8 (`scan_candidates`, and `scan_onepass`, its keep=0 form) and K5
    (`codes_lut_candidates`) against their plain versions at n = 1e6,
    d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
@@ -80,6 +82,13 @@ phases below; any failure exits non-zero.
    with its row range unsplit beside the splits its wrapper chooses
    (identical buffers; K2's merge of those splits equal to its plain
    version).
+1f. The f32 instances of K1 and K14 (`codes_f32_kernel`, one body over
+   clusters of 8 CTAs) against their plain versions on small-integer
+   data at the main path's layout, at GIST's d = 960 (the queries
+   reloaded a piece of 128 dimensions at a time) and at m = 15 + the
+   norms byte at d = 128, n = 2e5, nq = 1124 (one whole cluster of 8 x
+   128 queries, then a part of a query block), the k = 100 and 1000
+   plans of each: identical int32 outputs.
 2. Rescue: an index with many exact ties of one query in one lane,
    served through the facade; the rescue kernel must run and the result
    must equal the plain LUT oracle.
@@ -100,6 +109,18 @@ phases below; any failure exits non-zero.
    take the ported ``xla`` ICM path alone (no K11 or K12 launch),
    improve on the greedy codes and serve a search; an explicit
    ``impl="pallas"`` there must raise.
+4f. Phase 4's codes index searched on f32 operands through the facade,
+   `api.search(..., op_dtype=torch.float32)`, two-pass (f32 K1 → K2 →
+   K3) and `twopass=False` (f32 K14 → K3), at k = 100 and 1000, with
+   recall@1 and queries/s, counts of their own. After the counts were
+   read: recall@1 >= 0.99 through each; the one-pass result equal to the
+   two-pass one on every query that did not reach the LUT oracle; on the
+   first 256 queries each search against the exact scan of its own
+   scores (the rows decoded in f32, -2q in f32: the plain version's), to
+   one truncation step; each search's device time by kernel; then f32
+   K1 and K14 timed at both plans beside their plain versions (at least
+   99.9% of the keys equal: cuBLAS rounds the plain matmul apart from
+   the fmaf chains), the library's scan and their bound.
 
 5. The decoded-index and LUT-mode main path on phase 4's model:
    `api.index_base(model, Xb)` with the default mode (decoded, bf16) →
@@ -183,7 +204,10 @@ beside `topk` and held against its plain version.
    call; then K4 on the rescue's own batch (the queries decode mode's
    two-pass scan flags at k = 100), timed and held against its plain
    version, and decode mode's k = 100 search profiled by kernel, the
-   rescue's K4 and its K2 apart.
+   rescue's K4 and its K2 apart; then one decode-mode search on f32
+   operands (f32 K1, the norms table in f32) at k = 100 on the first 256
+   queries, its recall@1 beside the bf16 codes search's and the decoded
+   index's on the same queries: a report, not a gate.
 9. 128 bits on phase 3's data (d = 128): `api.train(method="sr_d",
    m=15, ...)` → `index_base(mode="codes")` (m' = 16) → LUT mode with
    bf16 tables (K5 on the LUT body, 16 queries a CTA) and f32 tables
@@ -200,10 +224,14 @@ timed beside `amin` and its bound, its launch's device time apart) and
 the scan-tail probe (K8 alone and the steps after it).
 
 The launch counters are set to 0 just before phase 3 and read right
-after its facade searches, and again for phase 4, for phase 5's default
-calls and for its one-pass call, for phases 6 to 9 and for the probes:
+after its facade searches, and again for phase 4, for phase 4f, for
+phase 5's default calls and for its one-pass call, for phases 6 to 9
+and for the probes; K1's and K14's counts of their f32 instance's
+launches are set to 0 with them, and again just before phase 8's f32
+search, and read after phase 4f, that search and phase 9:
 every kernel of the search path must have launched in each, K11 and K13
-in phase 4, K8, K5, K2 and K3 in phase 5, K8's keep=0 form in the
+in phase 4, f32 K1, f32 K14, K2 and K3 in phase 4f, K8, K5, K2 and K3
+in phase 5, K8's keep=0 form in the
 one-pass call, K9, K10, K6, K7 and the pair merge in phase 6, K12
 (once) and K14 in phase 7, K11, K13, K8, K1, K14, K5, K9, the pair
 merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
@@ -218,7 +246,8 @@ phase 7's codes and is held against its plain version there in the same
 way. The
 flag counts and the profiler pass run after those reads. The line before
 the last is a JSON summary of the kernels (launches from the phase
-named beside them); the last line is the device record.
+named beside them; the f32 instances of K1 and K14 as entries of their
+own, their launches phase 4f's); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -570,9 +599,27 @@ def phase1(rng, errs):
     print(f"== phase 1: kernels vs plain, n={N}, d={D}, nq={NQ1}")
     for pq in (False, True):
         for kind, dtype in (("int", torch.float32),
-                            ("gauss", torch.bfloat16)):
+                            ("gauss", torch.bfloat16),
+                            ("gauss", torch.float32)):
             c = Phase1(rng, pq, kind, dtype, NQ1)
             exact = kind == "int"
+            # Gaussian f32: the cluster fmaf body's keys against K4's
+            # (the one-pass = two-pass gate of phase 4f); the other
+            # kernels are held on the bf16 Gaussian case
+            if kind == "gauss" and dtype == torch.float32:
+                print(f" {c.name}")
+                args = (c.Qm, c.Cf, c.nrm, c.idx.packed)
+                for k in (100, 1000):
+                    _, r, keep, _ = tsc._codes_config(k)
+                    idbits = tsp._pack_idbits(-(-N // 8192) * 8192)
+                    out = tsc.cand_merge(*tsc.codes_decode_candidates(
+                        *args, tile=8192, keep=keep, idbits=idbits,
+                        has_norms=not pq), r, cut=True)
+                    k4_keys_equal_k1s(args, not pq, out, keep, idbits,
+                                      f"k={k} plan, f32")
+                del c, args, out
+                torch.cuda.empty_cache()
+                continue
             print(f" {c.name}")
             for k in (100, 1000):
                 _, r, keep, _ = tsc._codes_config(k)
@@ -587,6 +634,8 @@ def phase1(rng, errs):
                     check(torch.equal(cand, cand0)
                           and torch.equal(disc, disc0),
                           f"K1 {c.name} k={k}: kernel != plain")
+                    note(errs, "codes_decode_candidates f32",
+                         int_err((cand, cand0), (disc, disc0)))
                 out = tsc.cand_merge(cand, disc, r, cut=True)
                 out0 = tsc.cand_merge_plain(cand, disc, r)
                 check(torch.equal(out, out0),
@@ -1687,6 +1736,162 @@ def phase4(seed, card, ds, Xq):
     return index, Xb, t2 - t1
 
 
+def oracle_flags(Xq, Cf, nrm, si, k):
+    """The flags of the one-pass and the two-pass plans at ``k`` over the
+    codes index ``si`` (decode operands ``Cf``, ``nrm``), and the queries
+    that reach the LUT oracle: those either plan flags that the rescue's
+    K4 pass flags again → ``(one-pass flags, two-pass flags, oracle)``."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    r, keep, tile = tsc._onepass_config(k, si.mprime)
+    fl1 = tsc.scan_codes_decode_topk(Xq, Cf, nrm, si.packed, k=k, pq=si.pq,
+                                     r=r, keep=keep, tile=tile)[2]
+    r2, keep2, tile2 = tsc._codes_config(k)[1:]
+    fl2 = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, si.packed, k=k,
+                                        pq=si.pq, r=r2, keep=keep2,
+                                        tile=tile2)[2]
+    either = torch.nonzero(fl1 | fl2).flatten()
+    oracle = torch.zeros_like(fl1)
+    if either.numel():     # the rescue's K4 pass: its flags go on
+        oracle[either] = tsc.scan_codes_decode_topk(
+            Xq[either], Cf, nrm, si.packed, k=k, pq=si.pq)[2]
+    return fl1, fl2, oracle
+
+
+def phase4f(card, ds, Xq, index4):
+    """Phase 4's SR-D-7+1 codes index searched on f32 operands (the
+    cluster fmaf body: f32 K1, or K14 one-pass, then K2, K3 and the
+    rescue) through the facade, `api.search(..., op_dtype=float32)`
+    two-pass and `twopass=False` at k = 100 and 1000: recall@1 and
+    queries/s (host clock, median of 3 warm calls) → the results."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print(f"== phase 4f: the codes search on f32 operands, SR-D-7+1, {N} "
+          f"base, {NQ} queries ({card})")
+    res = {}
+    for k in (100, 1000):
+        for tag, kw in (("two-pass", {}), ("one-pass", {"twopass": False})):
+            kw = dict(kw, op_dtype=torch.float32)
+            k4 = tsc.codes_decode_topk.launches
+            dists, ids = rq.search(index4, Xq, k=k, **kw)
+            torch.cuda.synchronize()
+            rescues = tsc.codes_decode_topk.launches - k4
+            check_search(dists, ids, k)
+            r1 = float(eval_recall(ids, ds.gt, verbose=False)[0])
+            walls = warm_walls(lambda: rq.search(index4, Xq, k=k, **kw))
+            wall = float(np.median(walls))
+            print(f"  f32 {tag} k={k}: recall@1 {r1:.4f}; {NQ / wall:,.0f} "
+                  f"queries/s (median of "
+                  f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms); rescue "
+                  f"launches {rescues}")
+            res[(tag, k)] = (dists, ids, r1)
+    return res
+
+
+def phase4f_checks(Xq, index4, res):
+    """After phase 4f's counts were read: recall@1 >= 0.99 through each
+    search; the one-pass result equal to the two-pass one on every query
+    that did not reach the LUT oracle; on the first `NSUB` queries each
+    search against the exact scan of its own scores (the plain version's
+    rows decoded in f32 and -2q in f32; a query that reached the LUT
+    oracle took the oracle's scores and is left out), to one truncation
+    step; each search's device time by kernel → f32 K1's and K14's times
+    at the k = 1000 plans beside their plain versions, the library's
+    scan and their bound."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print("== phase 4f results: recall, one-pass against two-pass, the "
+          f"first {NSUB} queries against the exact scan of their scores")
+    for (tag, k), (_, _, r1) in res.items():
+        check(r1 >= 0.99, f"f32 {tag} k={k}: recall@1 {r1:.4f} < 0.99")
+    si = index4.scan_index
+    Cf, nrm = si.decode_operands(D, torch.float32)
+    has_norms = not si.pq
+    Q = Xq[:NSUB].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    Qm = tsc._query_operand(Q, Cf.shape[1], torch.float32)
+    X, x2 = tsc._decode_x2(Cf, nrm, si.packed, si.mprime - has_norms,
+                           has_norms)
+    best = exact64(Qm, X, x2, 1000)
+    for k in (100, 1000):
+        fl1, fl2, oracle = oracle_flags(Xq, Cf, nrm, si, k)
+        one, two = res[("one-pass", k)], res[("two-pass", k)]
+        same = (one[0] == two[0]).all(1) & (one[1] == two[1]).all(1)
+        bad = int((~same & ~oracle).sum())
+        print(f"  f32 k={k}: flagged one-pass {int(fl1.sum())}, two-pass "
+              f"{int(fl2.sum())} of {NQ}; {int(oracle.sum())} reach the LUT "
+              f"oracle; one-pass identical to two-pass on "
+              f"{int(same.sum())} of {NQ} queries")
+        check(bad == 0, f"f32 k={k}: {bad} queries differ from the two-pass "
+              "search outside the LUT oracle's")
+        sel = ~oracle[:NSUB]
+        for tag, t in (("two-pass", tsc._codes_config(k)[3]),
+                       ("one-pass", tsc._onepass_config(k, si.mprime)[2])):
+            d, i = res[(tag, k)][:2]
+            step = 2.0 ** (tsp._pack_idbits(-(-N // t) * t) - 23)
+            if bool(sel.any()):
+                check_topk(f"f32 {tag} k={k}", (d[:NSUB][sel], i[:NSUB][sel]),
+                           q2[sel], Qm[sel], X, x2, best[sel][:, :k], step)
+    del best
+    for k in (100, 1000):
+        for kw in ({}, {"twopass": False}):
+            print(f"  device time of the f32 search at k={k} {kw}")
+            profile(lambda: rq.search(index4, Xq, k=k, op_dtype=torch.float32,
+                                      **kw))
+    # the kernels at the main path's shapes (this index, nq = 1e4)
+    times = {}
+    Qf = tsc._query_operand(Xq, Cf.shape[1], torch.float32)
+    args = (Qf, Cf, nrm, si.packed)
+    XT = X.T.contiguous()
+    del X
+    flop = 2.0 * N * NQ * D
+    for k in (100, 1000):
+        keep, tile = tsc._codes_config(k)[2:]
+        r1, keep1, tile1 = tsc._onepass_config(k, si.mprime)
+        lib_ms, _ = timed(lambda: library_scan(Qf, XT, x2, k), 1)
+        t = {}
+        for name, kernel, plain, kw in (
+                ("codes_decode_candidates", tsc.codes_decode_candidates,
+                 tsc.codes_decode_candidates_plain,
+                 dict(tile=tile, keep=keep)),
+                ("codes_decode_onepass", tsc.codes_decode_onepass,
+                 tsc.codes_decode_onepass_plain,
+                 dict(tile=tile1, r=r1, keep=keep1))):
+            kw.update(has_norms=has_norms,
+                      idbits=tsp._pack_idbits(-(-N // kw["tile"])
+                                              * kw["tile"]))
+            ms, out = timed(lambda: kernel(*args, **kw), 2)
+            pms, ref = timed(lambda: plain(*args, **kw), 1, warm=False)
+            out = out if isinstance(out, tuple) else (out,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            # Gaussian-like data: cuBLAS rounds the plain version's matmul
+            # apart from the fmaf chains; the keys agree but near a step
+            same = min(float((a == b).float().mean())
+                       for a, b in zip(out, ref))
+            print(f"  f32 {name} k={k}: keys equal to the plain version's "
+                  f"{same:.6f}")
+            check(same >= 0.999, f"f32 {name} k={k}: {same:.6f} of the keys "
+                  "equal to the plain version's")
+            record(t, f"{name} f32", ms, pms, flop, "f32 CUDA-core",
+                   nbytes(*args, *out), lib_ms)
+            del out, ref
+        if k == 1000:
+            times.update(t)
+    del XT, Qf, args
+    torch.cuda.empty_cache()
+    return times
+
+
 def c5_check(ds, Xq, n=20_000):
     """An LSQ-family model at h = 2048 (RVQ-trained codebooks, m = 4,
     served as an LSQ model) encodes a base through `api.index_base`: the
@@ -2260,12 +2465,68 @@ def phase1e(rng, errs):
                 if exact:
                     check(torch.equal(out, ref),
                           f"K14 {c.name} k={k}: kernel != plain")
+                    note(errs, "codes_decode_onepass f32",
+                         int_err((out, ref)))
                 note(errs, "codes_decode_onepass", compare_topk(
                     f"k={k} K14+K3 (r={r}, keep={keep}, tile={tile})",
                     plain_topk(out, r, k, idbits),
                     plain_topk(ref, r, k, idbits), idbits, exact))
             del c
             torch.cuda.empty_cache()
+
+
+def phase1f(rng, errs, n=200_000, nq=NQ1 + 100):
+    """The f32 instances of K1 and K14 (the cluster fmaf body) against
+    their plain versions on small-integer data: the main path's layout
+    (d = 128, 7 codebooks + the norms byte), GIST's d = 960 (dp = 1024:
+    the queries reloaded a piece at a time) and m = 15 (+ the norms
+    byte: four code words a row) at d = 128, n = 2e5, the k = 100 and
+    1000 plans of each: identical int32 outputs. nq = 1124 fills one
+    cluster of 8 x 128 queries and then a part of one query block, so
+    the padded query blocks and the partial block's guards are held
+    exactly here (phase 1 runs a whole cluster)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print(f"== phase 1f: f32 K1 and K14 vs plain on integer data, n={n}, "
+          f"nq={nq}")
+    for d, m in ((D, 7), (960, 7), (D, 15)):
+        t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,
+                                                        device=DEV)
+        C = t(rng.integers(-2, 3, (m, 256, d)))
+        Q = t(rng.integers(-3, 4, (nq, d)))
+        idx = tsc.build_codes_index(
+            C, t(rng.integers(0, 256, (n, m)), torch.int32), pq=False, d=d,
+            norms_cbook=t(rng.integers(0, 500, 256)),
+            norms_codes=t(rng.integers(0, 256, n), torch.int32))
+        Cf, nrm = idx.decode_operands(d, torch.float32)
+        args = (tsc._query_operand(Q, Cf.shape[1], torch.float32), Cf, nrm,
+                idx.packed)
+        for k in (100, 1000):
+            _, _, keep, tile = tsc._codes_config(k)
+            kw = dict(tile=tile, keep=keep, has_norms=True,
+                      idbits=tsp._pack_idbits(-(-n // tile) * tile))
+            got = tsc.codes_decode_candidates(*args, **kw)
+            ref = tsc.codes_decode_candidates_plain(*args, **kw)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"f32 K1 d={d} m={m} k={k}: kernel != plain")
+            note(errs, "codes_decode_candidates f32",
+                 int_err((got[0], ref[0]), (got[1], ref[1])))
+            r1, keep1, tile1 = tsc._onepass_config(k, idx.mprime)
+            kw14 = dict(tile=tile1, r=r1, keep=keep1, has_norms=True,
+                        idbits=tsp._pack_idbits(-(-n // tile1) * tile1))
+            got = tsc.codes_decode_onepass(*args, **kw14)
+            ref = tsc.codes_decode_onepass_plain(*args, **kw14)
+            check(torch.equal(got, ref),
+                  f"f32 K14 d={d} m={m} k={k}: kernel != plain")
+            note(errs, "codes_decode_onepass f32", int_err((got, ref)))
+            print(f"  d={d} (dp={Cf.shape[1]}) m={m}+1 k={k}: K1 (keep={keep}"
+                  f", tile={tile}) and K14 (r={r1}, keep={keep1}, "
+                  f"tile={tile1}) identical to their plain versions")
+        del idx, Cf, nrm, args, got, ref
+        torch.cuda.empty_cache()
 
 
 def onepass_ils_times(rng, errs):
@@ -2311,7 +2572,7 @@ def onepass_ils_times(rng, errs):
         _, tp = tsc._onepass_grid(NQ, ntiles, lay)
         slots = f"{lay[6]} slots of {lay[5]}-CTA clusters"
         rule = tsc._onepass_tiles_per
-        tsc._onepass_tiles_per = lambda nqb, ntiles, slots: ntiles
+        tsc._onepass_tiles_per = lambda nqb, ntiles, *a: ntiles
         try:
             ms1, out1 = timed(lambda: tsc.codes_decode_onepass(*args, **kw),
                               2)
@@ -2448,7 +2709,6 @@ def phase7_checks(Xq, Xb, index4, res):
     import torch
 
     import rayuela_tpu_torch.api as rq
-    from rayuela_tpu_torch.search import scan_codes as tsc
 
     print("== phase 7 results against the two-pass search (phase 4's)")
     si = index4.scan_index
@@ -2458,19 +2718,7 @@ def phase7_checks(Xq, Xb, index4, res):
         if k not in ref:
             ref[k] = rq.search(index4, Xq, k=k)
         rd, ri = ref[k]
-        r2, keep2, tile2 = tsc._codes_config(k)[1:]
-        fl2 = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, si.packed, k=k,
-                                            pq=si.pq, r=r2, keep=keep2,
-                                            tile=tile2)[2]
-        r, keep, tile = tsc._onepass_config(k, si.mprime)
-        fl1 = tsc.scan_codes_decode_topk(Xq, Cf, nrm, si.packed, k=k,
-                                         pq=si.pq, r=r, keep=keep,
-                                         tile=tile)[2]
-        either = torch.nonzero(fl1 | fl2).flatten()
-        oracle = torch.zeros_like(fl1)
-        if either.numel():     # the rescue's K4 pass: its flags go on
-            oracle[either] = tsc.scan_codes_decode_topk(
-                Xq[either], Cf, nrm, si.packed, k=k, pq=si.pq)[2]
+        fl1, fl2, oracle = oracle_flags(Xq, Cf, nrm, si, k)
         same = (dists == rd).all(1) & (ids == ri).all(1)
         bad = int((~same & ~oracle).sum())
         print(f"  {tag}: flagged one-pass {int(fl1.sum())}, two-pass "
@@ -2679,6 +2927,36 @@ def phase8(seed, card):
     return out
 
 
+def phase8_f32(p8):
+    """One decode-mode search on f32 operands at d = 960, k = 100, on the
+    first `NSUB` queries (the cluster fmaf body over 8 pieces of 128
+    dimensions, the queries reloaded a piece at a time, the norms table
+    in f32): its recall@1 beside the bf16 codes search's and the decoded
+    index's on the same queries. A report (how much of decode mode's gap
+    to the decoded index the bf16 norms table makes, PERF.md §7), not a
+    gate."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    Q, gt = p8["Xq"][:NSUB].contiguous(), p8["gt"][:NSUB]
+    print(f"== phase 8 f32: decode mode on f32 operands, d={D8}, k=100, "
+          f"{NSUB} queries")
+    rec = {}
+    for tag, which, kw in (("decode mode, f32 operands", "codes",
+                            {"op_dtype": torch.float32}),
+                           ("decode mode, bf16 operands", "codes", {}),
+                           ("decoded index", "index", {})):
+        dists, ids = rq.search(p8[which], Q, k=100, **kw)
+        check(bool(torch.isfinite(dists).all())
+              and bool(((ids >= 0) & (ids < N8)).all()),
+              f"phase 8 {tag}: non-finite dists or ids out of range")
+        rec[tag] = float(eval_recall(ids, gt, verbose=False)[0])
+    print("  recall@1 on the same queries: " + ", ".join(
+        f"{tag} {r:.4f}" for tag, r in rec.items()))
+
+
 def phase8_checks(errs, p8):
     """After phase 8's launch counts were read: recall of decode mode
     against the decoded index; one-pass against two-pass on every query;
@@ -2725,21 +3003,9 @@ def phase8_checks(errs, p8):
     oracle_by_k = {}
     for k in (100, 1000):
         one, two = res[("one-pass", k)], res[("decode mode", k)]
-        r, keep, tile = tsc._onepass_config(k, sc.mprime)
-        fl1 = tsc.scan_codes_decode_topk(Xq, Cf, nrm, sc.packed, k=k,
-                                         pq=False, r=r, keep=keep,
-                                         tile=tile)[2]
-        r2, keep2, tile2 = tsc._codes_config(k)[1:]
-        fl2 = tsc.scan_codes_decode_topk_2p(Xq, Cf, nrm, sc.packed, k=k,
-                                            pq=False, r=r2, keep=keep2,
-                                            tile=tile2)[2]
+        fl1, fl2, oracle = oracle_flags(Xq, Cf, nrm, sc, k)
         if k == 100:
             p8["flagged"] = fl2     # decode mode's rescue batch at k = 100
-        either = torch.nonzero(fl1 | fl2).flatten()
-        oracle = torch.zeros_like(fl1)
-        if either.numel():
-            oracle[either] = tsc.scan_codes_decode_topk(
-                Xq[either], Cf, nrm, sc.packed, k=k, pq=False)[2]
         same = (one[0] == two[0]).all(1) & (one[1] == two[1]).all(1)
         bad = int((~same & ~oracle).sum())
         print(f"  one-pass k={k}: flagged {int(fl1.sum())}, two-pass "
@@ -3300,10 +3566,13 @@ def main() -> int:
         print(f"  layouts at dp={dp}, bf16, 2 packed words a row (queries "
               f"per CTA, scratch ints per CTA, CTAs per SM, d-block, shared "
               f"bytes, CTAs per cluster, clusters the card holds, step "
-              f"buffers): K1 keep=4 {tsc._candidates_layout(4, dp, 2, 1, cuda)}"
+              f"buffers, lanes per CTA): K1 keep=4 {tsc._candidates_layout(4, dp, 2, 1, cuda)}"
               f", K14 (28, 4) {tsc._onepass_layout(28, 4, dp, 2, 1, cuda)}; "
               f"K4 (queries, lanes per CTA, CTAs per SM, d-block, shared "
               f"bytes) {tsc._rescue_layout(dp, 2, 48, 1, cuda)}")
+        print(f"  layouts at dp={dp}, f32 (the same fields, then lanes per "
+              f"CTA): K1 keep=4 {tsc._candidates_layout(4, dp, 2, 0, cuda)}"
+              f", K14 (28, 4) {tsc._onepass_layout(28, 4, dp, 2, 0, cuda)}")
 
     rng = np.random.default_rng(args.seed)
     search_wrappers = {
@@ -3312,6 +3581,10 @@ def main() -> int:
         "codes_decode_topk": tsc.codes_decode_topk}
     path4 = dict(search_wrappers, icm_sweeps=ticm.icm_sweeps,
                  viterbi_encode=tvit.viterbi_encode)
+    # the f32-operand codes search (phase 4f): f32 K1, K14, then K2, K3
+    path4f = {"codes_decode_candidates": tsc.codes_decode_candidates,
+              "codes_decode_onepass": tsc.codes_decode_onepass,
+              "cand_merge": tsc.cand_merge, "tail_merge": tsp.tail_merge}
     path5 = {"scan_candidates": tsp.scan_candidates,
              "codes_lut_candidates": tsc.codes_lut_candidates,
              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
@@ -3354,9 +3627,15 @@ def main() -> int:
         print(f"-- {name}: {phase_t[name]:.1f} s")
         return r
 
+    # the wrappers that also count their f32 instance's launches
+    f32_wrappers = {n: w for n, w in wrappers.items()
+                    if hasattr(w, "launches_f32")}
+
     def zero():
         for w in wrappers.values():
             w.launches = 0
+        for w in f32_wrappers.values():
+            w.launches_f32 = 0
 
     try:
         run("phase 1", phase1, rng, errs)
@@ -3367,6 +3646,7 @@ def main() -> int:
         times.update(run("encode kernel times", encode_kernel_times, rng,
                          errs))
         run("phase 1e", phase1e, rng, errs)
+        run("phase 1f", phase1f, rng, errs)
         times.update(run("K14 and K12 times", onepass_ils_times, rng, errs))
         run("phase 2", phase2, rng)
         zero()
@@ -3385,6 +3665,18 @@ def main() -> int:
         run("base encode check", base_encode_check, rng, errs,
             served["sr_d"].model, Xb)
         run("C5 check", c5_check, ds, Xq)
+        zero()
+        res4f = run("phase 4f", phase4f, smi, ds, Xq, served["sr_d"])
+        launches4f = {n: w.launches for n, w in path4f.items()}
+        launches4f32 = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        print(f"phase-4f launches: {launches4f}; of the f32 instances: "
+              f"{launches4f32}")
+        check(all(launches4f.values()) and all(launches4f32.values()),
+              "a kernel of the f32-operand search never launched in phase "
+              "4f")
+        times.update(run("phase 4f checks", phase4f_checks, Xq,
+                         served["sr_d"], res4f))
+        del res4f
         zero()
         index5, res5 = run("phase 5", phase5, smi, ds, Xq, Xb,
                            served["sr_d"])
@@ -3421,7 +3713,9 @@ def main() -> int:
         zero()
         p9 = run("phase 9", phase9, args.seed, smi, ds, Xq)
         launches9 = {n: w.launches for n, w in path9.items()}
-        print(f"phase-9 launches: {launches9}")
+        launches9f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        print(f"phase-9 launches: {launches9}; of the f32 instances: "
+              f"{launches9f}")
         check(all(launches9.values()), "a kernel of the path never launched "
               "in phase 9")
         wide = run("phase 9 checks", phase9_checks, errs, p9, Xq)
@@ -3473,6 +3767,13 @@ def main() -> int:
                         f"d={D8}", p8["model"], p8["Xb"], p8["vit"]))
         wide.update(run("d=960 kernel times", wide_times, p8))
         wide.update(run("phase 8 rescue", rescue8, errs, p8))
+        for w in f32_wrappers.values():
+            w.launches_f32 = 0
+        run("phase 8 f32", phase8_f32, p8)
+        launches8f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        print(f"phase-8 f32 launches of the f32 instances: {launches8f}")
+        check(launches8f["codes_decode_candidates"] > 0,
+              "phase 8's f32 search never launched f32 K1")
         del p8
         torch.cuda.empty_cache()
         zero()
@@ -3503,6 +3804,16 @@ def main() -> int:
     for label, rec in wide.items():
         wide_by.setdefault(label.split(" ")[0], {})[
             label if " " in label else f"{label} d={D8}"] = rec
+    # the f32 instances of K1 and K14 (the cluster fmaf body): launches of
+    # phase 4f, times at its shapes
+    f32 = [{"name": f"{n} (f32 operands)", "route": "cuda",
+            "source": SOURCES[n], "replaces": REPLACES[n],
+            "launches": launches4f32[n], "launches_in": "phase 4f",
+            "max_abs_err": errs[f"{n} f32"], **times[f"{n} f32"],
+            "launches_wide": {"phase 8": launches8f[n],
+                              "phase 9": launches9f[n]},
+            "wide": {}}
+           for n in ("codes_decode_candidates", "codes_decode_onepass")]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n],
          "replaces": REPLACES[n], "launches": on_path[n][1],
@@ -3510,7 +3821,7 @@ def main() -> int:
          "launches_wide": {"phase 8": launches8.get(n, 0),
                            "phase 9": launches9.get(n, 0)},
          "wide": wide_by.get(n, {})}
-        for n in wrappers]}))
+        for n in wrappers] + f32}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -16,28 +16,28 @@
 //                                  _codes_scan_kernel: its merge across
 //                                  the sequential tile axis
 //
-// On f32 operands K1 and K4 are two scan bodies of scan_common.cuh
-// (which states the key and selection contract) over the row source of
-// this file, and K14 is K1's body with a loop over the tiles inside the
-// CTA: K1 -> K2's function at (r, keep, tile) in one pass, with no
-// candidate array in device memory. A row decodes to x_hat = sum_j
-// Cflat[j*h + code_j] (f32, codebook order), rounded to the operand
-// type; its norm x2 is |x_hat|^2 of the f32 row (PQ) or nrm[norm_code]
-// (additive models). Beyond dp = 256 a row decodes and scores in d-blocks
-// of 128 (scan_common.cuh), the codebook rows summed in codebook order
-// within each block. On bf16 operands K1 and K14 are one tensor-core body
-// shared over a cluster of CTAs (`codes_mma_kernel`, below, which says
-// why), and K4 takes its score function: the three give the same keys.
+// K4 is the one-pass body of scan_common.cuh (which states the key and
+// selection contract) over the row source of this file. K1 and K14 are
+// one body per operand type, shared over a cluster of CTAs
+// (`codes_mma_kernel` on bf16, `codes_f32_kernel` on f32, below, which
+// say why), K14 being K1 with a loop over the tiles inside the CTA: K1 ->
+// K2's function at (r, keep, tile) in one pass, with no candidate array
+// in device memory. A row decodes to x_hat = sum_j Cflat[j*h + code_j]
+// (f32, codebook order), rounded to the operand type; its norm x2 is
+// |x_hat|^2 of the f32 row (PQ) or nrm[norm_code] (additive models).
+// Beyond dp = 256 a row decodes and scores in d-blocks of 128, the
+// codebook rows summed in codebook order within each block. K4 takes the
+// score function of K1 and K14 on either operand type: the three give the
+// same keys.
 //
-// What bounds them on the card. The f32 bodies do n*nq*dp multiply-adds
-// on the CUDA cores, and before that decode every row once per 32-query
-// block: m codebook rows of dp values gathered from Cflat, which sits in
-// L2 (m*h*dp operands, too large for L1 beside the tile). The decode
-// reads Cflat 16 bytes per thread, coalesced, with several codebook
-// loads in flight per thread: a decode that waited on one 2-byte load at
-// a time was latency-bound. The bf16 body scores on the tensor cores and
-// decodes a row once per cluster of query blocks; what bounds it is
-// stated there. K2 and K4's selection is register insertion into a
+// What bounds them on the card. K1 and K14 do n*nq*dp multiply-adds (on
+// the tensor cores for bf16, in fmaf chains on the CUDA cores for f32) and
+// decode every row once per cluster of query blocks: m codebook rows of dp
+// values gathered from Cflat, which sits in L2 (m*h*dp operands, too large
+// for L1 beside the rows). The decode reads Cflat 16 bytes per thread,
+// coalesced, with several codebook loads in flight per thread: a decode
+// that waited on one 2-byte load at a time was latency-bound. Each body
+// says what bounds it. K2 and K4's selection is register insertion into a
 // sorted array: after the first few rows nearly every key is rejected by
 // one compare. K2 is bound by reading its candidate array (coalesced:
 // consecutive threads take consecutive queries) and at deep buffers by
@@ -49,10 +49,10 @@
 // one-pass body of scan_common.cuh says why); with few queries its row
 // range is split over CTAs, and the splits trade its waves against K2's
 // merge of them (`rq_codes_topk_layout` reports the layout the wrapper
-// splits from). K14's CTAs (clusters, on bf16) walk whole tile ranges,
-// so the wrapper splits the rows until the waves fill the card's CTA
-// (cluster) slots (`rq_codes_onepass_layout` reports them), or a last
-// wave part-empty would cost as much as a full one.
+// splits from). K14's clusters walk whole tile ranges, so the wrapper
+// splits the rows until the waves fill the card's cluster slots
+// (`rq_codes_onepass_layout` reports them), or a last wave part-empty
+// would cost as much as a full one.
 #include "scan_common.cuh"
 
 namespace {
@@ -85,59 +85,6 @@ __device__ __forceinline__ void decode_chunk(const T* __restrict__ Cflat,
     for (int u = 0; u < BATCH; ++u)
       if (j0 + u < m) Vec16<T>::add(v[u], acc);
   }
-}
-
-// Decode dimensions [b0, b0 + nb) of the 128 rows of row id `rid` (dp
-// values each) into XsT[kk * LP + lane] (values rounded to T) and their
-// norms into x2s[lane]: the norms byte's entry, or |x_hat|^2 of the f32
-// row (the PQ layout), which a block at b0 > 0 adds to the earlier
-// blocks' sum. The codes load at b0 = 0 and stay for the row's later
-// blocks. G threads share a row, each 16 bytes of it at a time, so a
-// warp's loads are coalesced; each thread issues up to DEC_BATCH
-// codebook loads before it adds any, so their L2 latencies overlap.
-// Ends with a barrier.
-template <typename T>
-__device__ void decode_rows(const T* __restrict__ Cflat,
-                            const T* __restrict__ nrm,
-                            const int* __restrict__ packed, int n, int rid,
-                            int m, int h, int nw, int b0, int nb, int dp,
-                            int has_norms, float* XsT, float* x2s,
-                            int* words) {
-  constexpr int V = Vec16<T>::N;
-  const int tid = threadIdx.x;
-  const long long g0 = (long long)rid * LANES;
-  if (b0 == 0) {
-    for (int i = tid; i < LANES * nw; i += blockDim.x) {
-      const long long gid = g0 + i / nw;
-      words[i] = gid < n ? packed[gid * nw + i % nw] : 0;
-    }
-    __syncthreads();
-  }
-  const int cpr = nb / V;              // 16-byte chunks per row
-  const int G = cpr < 32 ? cpr : 32;   // threads per row (a power of 2)
-  const int t = tid & 31, per_warp = 32 / G;
-  const int row_step = (blockDim.x >> 5) * per_warp;
-  for (int lane = (tid >> 5) * per_warp + t / G; lane < LANES;
-       lane += row_step) {
-    const int* wl = words + lane * nw;
-    float part = 0.f;
-    for (int c = t % G; c < cpr; c += G) {
-      float acc[V];
-      decode_chunk<T>(Cflat, wl, m, h, dp, b0 + c * V, acc);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        XsT[(c * V + e) * LP + lane] = round_op<T>(acc[e]);
-        part += acc[e] * acc[e];
-      }
-    }
-    for (int o = G >> 1; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (t % G == 0)
-      x2s[lane] = has_norms
-                      ? to_f32(nrm[(size_t)code_of(wl, m) * LANES])
-                      : (b0 == 0 ? part : x2s[lane] + part);
-  }
-  __syncthreads();
 }
 
 // Sixteen bytes of T holding the values of acc[0..N) rounded to T (round
@@ -183,13 +130,16 @@ __device__ __forceinline__ float decode_row(const T* __restrict__ Cflat,
   return part;
 }
 
-// decode_rows for the NL lanes [l0, l0 + NL) of the NR row ids rid ..
-// rid + NR - 1, stored row by row at the operand type: row j < NR * NL
-// (row id rid + j / NL, lane l0 + j % NL) at Xs[j * xs + kk], its norm at
-// x2s[j] (the one-pass body's layout). The same threads per row, chunks
-// and sums as decode_rows, so the values and norms are bit for bit the
-// same. With xns, a row of one d-block also gives the norm of its f32
-// values at xns[j] (`score_slack`). Ends with a barrier.
+// Decode dimensions [b0, b0 + nb) of the NL lanes [l0, l0 + NL) of the
+// NR row ids rid .. rid + NR - 1 (dp values a row), stored row by row at
+// the operand type: row j < NR * NL (row id rid + j / NL, lane l0 + j %
+// NL) at Xs[j * xs + kk], its norm at x2s[j]: the norms byte's entry, or
+// |x_hat|^2 of the f32 row (the PQ layout), which a block at b0 > 0 adds
+// to the earlier blocks' sum (the one-pass body's layout). The codes load
+// at b0 = 0 and stay for the row's later blocks. G threads share a row
+// (`decode_row`), so a warp's loads are coalesced. With xns, a row of one
+// d-block also gives the norm of its f32 values at xns[j]
+// (`score_slack`). Ends with a barrier.
 template <typename T, int NL, int NR>
 __device__ void decode_lanes(const T* __restrict__ Cflat,
                              const T* __restrict__ nrm,
@@ -228,7 +178,9 @@ __device__ void decode_lanes(const T* __restrict__ Cflat,
   __syncthreads();
 }
 
-// Row source of K1, K4 and K14: rows decoded from their packed codes.
+// Row source of K4 (the one-pass body of scan_common.cuh) and the
+// operands of K1 and K14 (their own bodies, below): rows decoded from
+// their packed codes.
 template <typename T> struct CodesSrc {
   using Op = T;
   static constexpr bool kQueryFastest = false;
@@ -239,14 +191,7 @@ template <typename T> struct CodesSrc {
   const T* nrm;
   const int* packed;
   int m, h, nw, has_norms;
-  __host__ __device__ int words() const { return LANES * nw; }
   __host__ __device__ int lane_words() const { return nw; }
-  __device__ __forceinline__ void load(int n, int rid, int b0, int nb,
-                                       int dp, float* XsT, float* x2s,
-                                       int* words) const {
-    decode_rows<T>(Cflat, nrm, packed, n, rid, m, h, nw, b0, nb, dp,
-                   has_norms, XsT, x2s, words);
-  }
   template <int NL, int NR>
   __device__ __forceinline__ void load_lanes(int n, int rid, int l0, int b0,
                                              int nb, int dp, T* Xs, int xs,
@@ -823,135 +768,25 @@ __device__ __forceinline__ void merge_survivors(int (&carry)[KEEP], int& rest,
   rest = min(rest, carry[0]);
 }
 
-// K14: the one-pass scan with a per-tile cut. Grid (query blocks of 32,
-// splits). CTA (qb, s) decodes each 128-row step of tiles [s*tiles_per,
-// (s+1)*tiles_per) once into shared memory and scores it for its 32
-// queries, K1's blocking: a thread owns 4 lanes x 4 queries. Per
-// (lane, query) the tile's KEEP smallest keys stay in registers and the
-// rest go to the certificate `rest`, as in K1; at the tile's end the
-// survivors merge into the running R-key buffer, which lives in `scratch`
-// (per CTA R x 16 x 256 ints, laid out [c][pair][thread] so that a warp's
-// loads are coalesced). The buffers of the resident CTAs (264 x 458 KB
-// at R = 28) outgrow the 50 MB L2, so they stream between device memory
-// and L2; what a tile's end reads for most pairs is the one load of
-// buf[R-1] that rejects its survivors. At the end the
-// buffer goes to cand[s*R .. s*R + R) and the certificate to disc[s],
-// with one split the final (R+1)-row buffer; with more K2 merges the
-// splits (every key not kept is some split's rejected key or a merge
-// loser, so the certificate stays exact). WIDE: the d-blocks of
-// `step_scores`.
-template <class Src, int R, int KEEP, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2)
-    scan_onepass_cut_kernel(const Src src,
-                            const typename Src::Op* __restrict__ Qm,
-                            int* __restrict__ cand, int* __restrict__ disc,
-                            int* __restrict__ scratch, int n, int nq, int dp,
-                            int rows, int ntiles, int tiles_per, int idbits) {
-  using T = typename Src::Op;
-  extern __shared__ __align__(16) float smem[];
-  const int db = WIDE ? DBLK : dp;
-  float* XsT = smem;                  // db * LP
-  float* Qs = XsT + db * LP;          // K1_QB * db
-  float* x2s = Qs + K1_QB * db;       // LANES
-  int* words = (int*)(x2s + LANES);   // src.words()
-  const int q0 = blockIdx.x * K1_QB, s = blockIdx.y;
-  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
-  const int vmask = -(1 << idbits);
-  constexpr int STRIDE = K14_PAIRS * THREADS;
-  int* buf = scratch +
-             ((size_t)s * gridDim.x + blockIdx.x) * R * STRIDE + threadIdx.x;
-  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
-  for (int c = 0; c < R * K14_PAIRS; ++c) buf[(size_t)c * THREADS] = INT_MAX;
-
-  int best[4][4][KEEP];
-  int rest[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) rest[i][j] = INT_MAX;
-
-  const int t1 = min(ntiles, (s + 1) * tiles_per);
-  for (int t = s * tiles_per; t < t1; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < KEEP; ++c) best[i][j][c] = INT_MAX;
-    for (int step = 0; step < rows; ++step) {
-      const int rid = t * rows + step;
-      float acc[4][4];
-      step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
-                        acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int lane = lg + 32 * i;
-        const bool pad = (long long)rid * LANES + lane >= n;
-        const float x2 = x2s[lane];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float sc = pad ? __int_as_float(0x7F800000) : acc[i][j] + x2;
-          insert_sorted<KEEP>(best[i][j], rest[i][j], row_key(sc, rid, vmask));
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        merge_survivors<R, KEEP>(best[i][j], rest[i][j],
-                                 buf + (size_t)(i * 4 + j) * THREADS, STRIDE);
-  }
-
-  const size_t plane = (size_t)LANES * nq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = q0 + qg * 4 + j;
-      if (q >= nq) continue;
-      const size_t off = (size_t)(lg + 32 * i) * nq + q;
-      const int* b = buf + (size_t)(i * 4 + j) * THREADS;
-      for (int c = 0; c < R; ++c)
-        cand[((size_t)s * R + c) * plane + off] = b[(size_t)c * STRIDE];
-      disc[(size_t)s * plane + off] = rest[i][j];
-    }
-}
-
-template <class Src, int R, int KEEP>
-cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
-                               void* disc, void* scratch, int n, int nq,
-                               int dp, int rows, int ntiles, int tiles_per,
-                               int idbits, cudaStream_t st) {
-  const dim3 grid((nq + K1_QB - 1) / K1_QB,
-                  (ntiles + tiles_per - 1) / tiles_per);
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = dp > NARROW_DP ? scan_onepass_cut_kernel<Src, R, KEEP, true>
-                             : scan_onepass_cut_kernel<Src, R, KEEP, false>;
-  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
-                     (int*)cand, (int*)disc, (int*)scratch, n, nq, dp, rows,
-                     ntiles, tiles_per, idbits);
-}
-
 // ---------------------------------------------------------------------------
 // K1 and K14 on bf16 operands: the tensor-core body shared over a cluster
 // ---------------------------------------------------------------------------
 //
-// What bounds the fmaf body above. Its CTA of 32 queries decodes each
-// 128-row step itself (m codebook rows gathered from L2 for every row:
-// 1.8 GB of L2 reads per query block at n = 1e6, d = 128, m = 7) and
-// scores it on the CUDA cores (20 shared loads per 64 FMAs); both halves
-// grow with n * nq * d. Here the products go to the tensor cores
-// (`tile_scores`, the score function K4 shares), and a cluster of
-// MMA_CL CTAs on neighbouring query blocks shares each decoded step: each
-// CTA decodes 128 / MMA_CL of the step's rows and writes them, with their
-// norms, into the shared memory of every CTA of the cluster (distributed
-// shared memory), then a cluster barrier publishes the step. A row is
-// decoded once per MMA_CL * 32 queries. With two step buffers (where two
-// CTAs an SM still fit) the next step's decode goes into the other
-// buffer, so one cluster barrier a step serves both directions; with one
-// a second barrier keeps the writers out until every CTA has scored. The
-// codes of a CTA's rows are fetched a step ahead.
+// A CTA that decodes its rows itself gathers m codebook rows from L2 for
+// every row it scores (1.8 GB of L2 reads per 32-query block at n = 1e6,
+// d = 128, m = 7, bf16), and that grows with n * nq * d. Here the products
+// go to the tensor cores (`tile_scores`, the score function K4 shares),
+// and a cluster of MMA_CL CTAs on neighbouring query blocks shares each
+// decoded step: each CTA decodes 128 / MMA_CL of the step's rows and
+// writes them, with their norms, into the shared memory of every CTA of
+// the cluster (distributed shared memory), then a cluster barrier
+// publishes the step. A row is decoded once per MMA_CL * 32 queries. With
+// two step buffers (where two CTAs an SM still fit) the next step's decode
+// goes into the other buffer, so one cluster barrier a step serves both
+// directions; with one a second barrier keeps the writers out until every
+// CTA has scored. The codes of a CTA's rows are fetched a step ahead. The
+// f32 instances share their decoded rows the same way (`codes_f32_kernel`,
+// below), over a layout of their own.
 //
 // A CTA holds 32 queries and 256 threads; warp w scores queries [16 (w %
 // 2), +16) against lanes [32 (w / 2), +32), four m16n8 tiles, and its
@@ -962,7 +797,7 @@ cudaError_t launch_onepass_cut(const Src& src, const void* Qm, void* cand,
 // the PQ layout's norms sum in K4's order). The grid is (query blocks
 // padded to a multiple of MMA_CL, splits): K1 is one tile a CTA (R = 0),
 // K14 walks its split's tiles and merges the survivors at each tile's end
-// as the fmaf body does, its loads MERGE_BATCH at a time.
+// into its running buffer in `scratch` (`merge_survivors`).
 //
 // Clusters of 8 CTAs, the largest portable size: a row is then decoded
 // once per 256 queries. The cluster size, the loads a decoding thread
@@ -1297,14 +1132,15 @@ auto mma_kernel(int dp) -> decltype(&codes_mma_kernel<KEEP, R, false>) {
                         : codes_mma_kernel<KEEP, R, false>;
 }
 
-// A launch configuration of THREADS threads a CTA in clusters of MMA_CL
-// CTAs along x.
+// A launch configuration of THREADS threads a CTA in clusters of
+// `cluster` CTAs along x.
 struct ClusterConfig {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  ClusterConfig(dim3 grid, size_t smem, cudaStream_t st) : attr{}, cfg{} {
+  ClusterConfig(dim3 grid, size_t smem, cudaStream_t st, int cluster)
+      : attr{}, cfg{} {
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = MMA_CL;
+    attr[0].val.clusterDim.x = cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.gridDim = grid;
@@ -1333,7 +1169,7 @@ cudaError_t launch_mma(const CodesSrc<__nv_bfloat16>& src, const void* Qm,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   ClusterConfig c(dim3(ncl * MMA_CL, (ntiles + tiles_per - 1) / tiles_per),
-                  smem, st);
+                  smem, st, MMA_CL);
   e = cudaLaunchKernelEx(&c.cfg, kern, src, (const __nv_bfloat16*)Qm,
                          (int*)cand, (int*)disc, (int*)scratch, n, nq, dp,
                          rows, ntiles, tiles_per, nbuf, idbits);
@@ -1341,21 +1177,23 @@ cudaError_t launch_mma(const CodesSrc<__nv_bfloat16>& src, const void* Qm,
   return cudaGetLastError();
 }
 
-// The layout of a K1 or K14 kernel `kern` into out[8]: queries per CTA,
+// The layout of a K1 or K14 kernel `kern` into out[9]: queries per CTA,
 // ints of scratch per CTA, CTAs per SM, the d-block, shared bytes per CTA,
-// CTAs per cluster, the clusters the card holds at once, step buffers.
-inline cudaError_t codes_layout(const void* kern, int dp, size_t smem,
+// CTAs per cluster, the clusters the card holds at once, step buffers,
+// lanes per CTA.
+inline cudaError_t codes_layout(const void* kern, int dblock, size_t smem,
                                 int scratch, int qb, int cluster, int nbuf,
-                                int* out) {
+                                int lanes, int* out) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   out[0] = qb;
   out[1] = scratch;
-  out[3] = scan_dblock(dp);
+  out[3] = dblock;
   out[4] = (int)smem;
   out[5] = cluster;
   out[7] = nbuf;
+  out[8] = lanes;
   int dev = 0, sms = 0;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &out[2], kern, THREADS, smem)) != cudaSuccess ||
@@ -1367,7 +1205,7 @@ inline cudaError_t codes_layout(const void* kern, int dp, size_t smem,
     out[6] = out[2] * sms;
     return cudaSuccess;
   }
-  ClusterConfig c(dim3(cluster * sms), smem, 0);
+  ClusterConfig c(dim3(cluster * sms), smem, 0, cluster);
   return cudaOccupancyMaxActiveClusters(&out[6], kern, &c.cfg);
 }
 
@@ -1376,9 +1214,411 @@ template <int KEEP, int R>
 cudaError_t mma_layout(int dp, int nw, int* out) {
   const int nbuf = mma_nbuf(dp, nw);
   if (!nbuf) return cudaErrorInvalidValue;
-  return codes_layout((const void*)mma_kernel<KEEP, R>(dp), dp,
+  return codes_layout((const void*)mma_kernel<KEEP, R>(dp), scan_dblock(dp),
                       mma_smem(dp, nw, nbuf), R * K14_PAIRS * THREADS, MMA_QB,
-                      MMA_CL, nbuf, out);
+                      MMA_CL, nbuf, LANES, out);
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K14 on f32 operands: the fmaf body shared over a cluster
+// ---------------------------------------------------------------------------
+//
+// The f32 instances keep the fmaf chain's score (scan_common.cuh) and K4's
+// f32 instance keeps it too, so their keys stay the former body's bit for
+// bit on any data: the rows decode through `decode_chunk` (the codebook
+// rows summed in codebook order), the PQ layout's norms sum in the former
+// body's order, and a score is one fmaf chain in dimension order from zero
+// across the d-blocks, then + x2.
+//
+// What bounded the former body (scan_common.cuh's 4 x 4 candidates blocks
+// over a CTA of 32 queries and all 128 lanes). Every CTA decoded each
+// 128-row step itself: m codebook rows of dp f32 values gathered from L2
+// for every row, about 1.1 TB of L2 reads a search at n = 1e6, nq = 1e4,
+// d = 128, m = 7, against the 2.56e12 operations of its scores. And a
+// thread's 4 x 4 block took 20 shared loads (one value each per thread) per
+// 64 FMAs, where an SM delivers 32 such values a clock against 128 FMAs.
+//
+// The layout. A CTA scores F_QB = 128 queries against F_LC = 16 lanes, and
+// the grid is (query blocks padded to whole clusters, 128 / F_LC lane
+// blocks, tiles for K1 or splits for K14): a cluster of F_CL = 8 CTAs runs
+// neighbouring query blocks of one lane block over the same rows. It walks
+// its rows in groups of F_RG = 8 row ids (F_GR = 128 rows), each decoded
+// once per cluster: CTA `rank` decodes rows [rank * F_RPC, +F_RPC) of the
+// group and writes them, with their norms, into the shared memory of every
+// CTA of the cluster (`decode_f32_share`, as the bf16 body's
+// `decode_share`), and a cluster barrier publishes them. So a row is
+// decoded once per F_CL * F_QB = 1024 queries: about 72 GB of L2 gathers a
+// search at the shape above (n * ceil(nq / 1024) rows of m * dp * 4
+// bytes). A thread owns one lane and F_QT = 8 queries (query group qg,
+// queries qg + 4 j) and scores the group's F_RG row ids of its lane against
+// them: 64 fmaf chains in registers, 16 16-byte shared loads per 256 FMAs
+// (one value per four FMAs, the SM's own ratio), while its selection state
+// stays that of its 8 (lane, query) pairs. Rows and queries sit row-major
+// in shared memory, 16 bytes of padding a row, so the 8 rows or 4 queries
+// that a warp's load instruction reads fall in distinct banks.
+//
+// Every group goes through in pieces of DBLK dimensions, ascending, the
+// chains staying in registers, so any dp takes this one body. The queries
+// stay resident where they fit beside two group buffers (dp = 128); else
+// each piece brings its block of the CTA's queries (cp.async, in flight
+// under the decode), a reload per piece. A row of one d-block (dp <=
+// NARROW_DP) sums its squares per thread across the pieces and reduces
+// once; a wider row reduces per piece and adds the pieces: the former
+// body's sums either way. Two group buffers: the next piece's decode goes
+// into the other buffer, one cluster barrier a piece. The codes of a CTA's
+// rows are fetched a group ahead. One CTA an SM: the 64 chains, the pairs'
+// state and the decode's loads want more than the 128 registers of two,
+// and two group buffers with the queries take 204 KB (at most 206 KB with
+// the queries reloaded, within the card's 227 KB at every dp).
+// The grid's CTAs, layout and shared bytes come from the kernel's source
+// (`rq_codes_candidates_layout`, `rq_codes_onepass_layout`).
+//
+// What bounds it at d = 128: the scores, which keep the FMA pipes and the
+// shared-memory loads both busy at once (a load instruction of 16 bytes a
+// thread takes four of the SM's 128-byte cycles, so a thread's 16 loads
+// per 256 FMAs are the SM's 32 values against its 128 FMAs a clock), and
+// beside them, with no other CTA on the SM to fill the gaps, each group's
+// decode, peer stores, cluster barrier and key selection. Variants timed
+// on an H100 (PERF.md §6, `demos/time_onepass.py --f32 --codes-only` on
+// copies of this package): two CTAs an SM with 8 x 4 tiles and one group
+// buffer, and the next group's codebook loads held in registers across
+// the key selection (which spilled), were both slower.
+
+constexpr int F_QT = 8;                      // queries a thread scores
+constexpr int F_RG = 8;                      // row ids of a group
+constexpr int F_LC = 16;                     // lanes per CTA
+constexpr int F_QB = THREADS * F_QT / F_LC;  // queries per CTA (128)
+constexpr int F_GR = F_RG * F_LC;            // rows of a group (128)
+constexpr int F_CL = 8;            // CTAs per cluster, along the query blocks
+constexpr int F_RPC = F_GR / F_CL;  // rows a CTA decodes a group (16)
+constexpr int F_PAD = 4;            // floats of padding a staged row
+constexpr int F_XS = DBLK + F_PAD;  // row stride of a group buffer
+constexpr int F_NBUF = 2;           // group buffers
+static_assert(F_LC % 8 == 0 && (F_LC / 8) * (F_QB / (4 * F_QT)) == 8,
+              "eight warps of 8 lanes x 4 query groups");
+static_assert(F_RPC % 8 == 0, "whole rows for each of the eight warps");
+
+// This CTA's share of a group: rows [rank * F_RPC, +F_RPC) (row i: row id
+// rid0 + i / F_LC, lane l0 + i % F_LC, its codes at words[(i - rank *
+// F_RPC) * nw]), dimensions [b0, b0 + DBLK) of dp, decoded by a warp a row
+// (thread t: 16 bytes at b0 + 4 t, the former body's chunk of that thread;
+// DEC_BATCH codebook loads in flight) and written to Xb[i * F_XS + kk] of
+// every CTA of the cluster. part[k] carries a thread's sum of squares of
+// its row k across the pieces of a row of one d-block; a wider row sums a
+// piece at a time, and x2own keeps its running norm. At the row's last
+// piece its norm goes to x2b[i] of every CTA. No barrier at the end: the
+// caller's cluster barrier publishes the piece.
+__device__ __forceinline__ void decode_f32_share(
+    const CodesSrc<float>& src, int rank, int b0, int dp, bool one_block,
+    bool last, float* Xb, float* x2b, float* x2own,
+    float (&part)[F_RPC / 8], const int* words) {
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const unsigned xa = smem_addr(Xb), x2a = smem_addr(x2b);
+#pragma unroll
+  for (int k = 0; k < F_RPC / 8; ++k) {
+    const int j = warp + 8 * k, i = rank * F_RPC + j;
+    const int* wl = words + j * src.nw;
+    float acc[4];
+    decode_chunk<float>(src.Cflat, wl, src.m, src.h, dp, b0 + 4 * t, acc);
+    const unsigned a = xa + 4u * (unsigned)(i * F_XS + 4 * t);
+    const uint4 v = pack16(acc);
+#pragma unroll
+    for (int p = 0; p < F_CL; ++p) st_cluster(peer_addr(a, p), v);
+    float pt = one_block && b0 > 0 ? part[k] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pt += acc[e] * acc[e];
+    part[k] = pt;
+    if (one_block && !last) continue;
+    for (int o = 16; o > 0; o >>= 1)
+      pt += __shfl_xor_sync(0xffffffffu, pt, o);
+    if (t == 0) {
+      const float x =
+          src.has_norms ? src.nrm[(size_t)code_of(wl, src.m) * LANES]
+                        : (one_block || b0 == 0 ? pt : x2own[j] + pt);
+      x2own[j] = x;
+      if (last) {
+#pragma unroll
+        for (int p = 0; p < F_CL; ++p)
+          st_cluster(peer_addr(x2a + 4u * (unsigned)i, p), x);
+      }
+    }
+  }
+}
+
+// acc[r][j] += row r of the thread's lane . its query j over one piece of
+// DBLK dimensions, fmaf chains in dimension order: rows at xb + r * F_LC *
+// F_XS, queries at qb + 4 j * qs.
+__device__ __forceinline__ void score_f32_piece(const float* xb,
+                                                const float* qb, int qs,
+                                                float (&acc)[F_RG][F_QT]) {
+#pragma unroll 2
+  for (int kk = 0; kk < DBLK; kk += 4) {
+    float4 qv[F_QT];
+#pragma unroll
+    for (int j = 0; j < F_QT; ++j)
+      qv[j] = *reinterpret_cast<const float4*>(qb + 4 * j * qs + kk);
+#pragma unroll
+    for (int r = 0; r < F_RG; ++r) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(xb + r * F_LC * F_XS + kk);
+#pragma unroll
+      for (int j = 0; j < F_QT; ++j) {
+        acc[r][j] = fmaf(x.x, qv[j].x, acc[r][j]);
+        acc[r][j] = fmaf(x.y, qv[j].y, acc[r][j]);
+        acc[r][j] = fmaf(x.z, qv[j].z, acc[r][j]);
+        acc[r][j] = fmaf(x.w, qv[j].w, acc[r][j]);
+      }
+    }
+  }
+}
+
+// K1 (R = 0: tile blockIdx.z, its KEEP smallest keys and certificate per
+// (lane, query) to cand/disc) and K14 (R > 0: tiles [s * tiles_per,
+// +tiles_per) of split s = blockIdx.z, the running R-key buffer in
+// `scratch`, the survivors merged at each tile's end) on f32 operands.
+// CTA (query block x, lane block y); launched in clusters of F_CL CTAs
+// along x, which walk the same rows. RES: the queries resident.
+template <int KEEP, int R, bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+    codes_f32_kernel(const CodesSrc<float> src, const float* __restrict__ Qm,
+                     int* __restrict__ cand, int* __restrict__ disc,
+                     int* __restrict__ scratch, int n, int nq, int dp,
+                     int rows, int ntiles, int tiles_per, int idbits) {
+  extern __shared__ __align__(16) float fsm[];
+  const int qs = (RES ? dp : DBLK) + F_PAD;     // query stride
+  float* Qs = fsm;                              // F_QB * qs
+  float* Xs = Qs + F_QB * qs;                   // F_NBUF * F_GR * F_XS
+  float* x2s = Xs + F_NBUF * F_GR * F_XS;       // F_NBUF * F_GR
+  float* x2own = x2s + F_NBUF * F_GR;           // F_RPC
+  int* words = reinterpret_cast<int*>(x2own + F_RPC);  // 2 * F_RPC * nw
+  const int rank = cluster_rank();
+  const int q0 = blockIdx.x * F_QB, l0 = blockIdx.y * F_LC, s = blockIdx.z;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  // the thread's lane in the CTA and its first query (then every 4th)
+  const int ll = (warp % (F_LC / 8)) * 8 + (t & 7);
+  const int qt0 = (warp / (F_LC / 8)) * 4 * F_QT + (t >> 3);
+  const int lane = l0 + ll;
+  const int vmask = -(1 << idbits);
+  const int nblk = dp / DBLK;
+  const bool one_block = dp <= NARROW_DP;
+  if constexpr (RES) {
+    const int c4 = dp / 4;
+    for (int i = threadIdx.x; i < F_QB * c4; i += THREADS) {
+      const int qq = i / c4, c = i % c4;
+      *reinterpret_cast<float4*>(Qs + qq * qs + 4 * c) =
+          q0 + qq < nq ? *reinterpret_cast<const float4*>(
+                             Qm + (size_t)(q0 + qq) * dp + 4 * c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  constexpr int STRIDE = F_QT * THREADS;
+  int* buf = nullptr;
+  if constexpr (R > 0) {
+    buf = scratch +
+          (((size_t)s * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
+              R * STRIDE +
+          threadIdx.x;
+    for (int c = 0; c < R * F_QT; ++c) buf[(size_t)c * THREADS] = INT_MAX;
+  }
+  int best[F_QT][KEEP];
+  int rest[F_QT];
+#pragma unroll
+  for (int j = 0; j < F_QT; ++j) rest[j] = INT_MAX;
+  const int t0 = R > 0 ? s * tiles_per : s;
+  const int t1 = R > 0 ? min(ntiles, t0 + tiles_per) : s + 1;
+  const int ng = (rows + F_RG - 1) / F_RG;  // groups a tile
+  const int nunits = (t1 - t0) * ng;
+  // thread i < nword fetches word i % nw of row i / nw of this CTA's share
+  // of group u (u = (tile - t0) * ng + group), a group before the decode
+  // reads it (words[u % 2]); zero past the tile and past n
+  const int nword = F_RPC * src.nw;
+  auto fetch = [&](int u) {
+    if (threadIdx.x >= nword || u >= nunits) return 0;
+    const int g = u % ng, i = rank * F_RPC + threadIdx.x / src.nw;
+    const int r = g * F_RG + i / F_LC;
+    const long long gid =
+        (long long)((t0 + u / ng) * rows + r) * LANES + l0 + i % F_LC;
+    return r < rows && gid < n ? src.packed[gid * src.nw + threadIdx.x %
+                                            src.nw]
+                               : 0;
+  };
+  if (threadIdx.x < nword) words[threadIdx.x] = fetch(0);
+  // every CTA of the cluster has started (its shared memory may be
+  // written) and the queries and the first codes are in place
+  cluster_sync();
+
+  float part[F_RPC / 8];
+  int piece = 0;  // pieces decoded so far
+  for (int u = 0; u < nunits; ++u) {
+    const int g = u % ng;
+    const int rid0 = (t0 + u / ng) * rows + g * F_RG;
+    const int nr = min(F_RG, rows - g * F_RG);
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < F_QT; ++j)
+#pragma unroll
+        for (int c = 0; c < KEEP; ++c) best[j][c] = INT_MAX;
+    }
+    const int* wcur = words + (u & 1) * nword;
+    const int wnext = fetch(u + 1);
+    float acc[F_RG][F_QT];
+#pragma unroll
+    for (int r = 0; r < F_RG; ++r)
+#pragma unroll
+      for (int j = 0; j < F_QT; ++j) acc[r][j] = 0.f;
+    int bi = 0;
+    for (int b = 0; b < nblk; ++b, ++piece) {
+      // the buffer of the piece before last, which every CTA of the
+      // cluster had scored before it passed the last cluster barrier
+      bi = piece & 1;
+      if constexpr (!RES) {
+        // the piece's block of the queries, in flight under the decode,
+        // once the CTA's readers of the last one are done
+        __syncthreads();
+        for (int i = threadIdx.x; i < F_QB * (DBLK / 4); i += THREADS) {
+          const int qq = i / (DBLK / 4), c = i % (DBLK / 4);
+          const bool ok = q0 + qq < nq;
+          cp_async16(Qs + qq * qs + 4 * c,
+                     ok ? Qm + (size_t)(q0 + qq) * dp + b * DBLK + 4 * c
+                        : Qm,
+                     ok);
+        }
+        cp_async_commit();
+      }
+      decode_f32_share(src, rank, b * DBLK, dp, one_block, b == nblk - 1,
+                       Xs + bi * F_GR * F_XS, x2s + bi * F_GR, x2own, part,
+                       wcur);
+      // the next group's codes, to the buffer its decode reads (the last
+      // readers of that buffer, a group ago, passed a barrier since)
+      if (b == nblk - 1 && threadIdx.x < nword)
+        words[((u + 1) & 1) * nword + threadIdx.x] = wnext;
+      if constexpr (!RES) cp_async_wait<0>();
+      cluster_sync();
+      score_f32_piece(Xs + bi * F_GR * F_XS + ll * F_XS,
+                      Qs + qt0 * qs + (RES ? b * DBLK : 0), qs, acc);
+    }
+    const float* x2 = x2s + bi * F_GR;
+#pragma unroll
+    for (int r = 0; r < F_RG; ++r) {
+      if (r >= nr) break;
+      const int rid = rid0 + r;
+      const bool pad = (long long)rid * LANES + lane >= n;
+      const float xx = x2[r * F_LC + ll];
+#pragma unroll
+      for (int j = 0; j < F_QT; ++j) {
+        const float sc = pad ? __int_as_float(0x7F800000) : acc[r][j] + xx;
+        insert_sorted<KEEP>(best[j], rest[j], row_key(sc, rid, vmask));
+      }
+    }
+    if constexpr (R > 0) {
+      if (g == ng - 1) {
+        // the tile's end: the R-th key of each pair's buffer, all loaded
+        // before any merge (most tiles bring nothing below it)
+        int thr[F_QT];
+#pragma unroll
+        for (int j = 0; j < F_QT; ++j)
+          thr[j] = buf[(size_t)j * THREADS + (size_t)(R - 1) * STRIDE];
+#pragma unroll
+        for (int j = 0; j < F_QT; ++j) {
+          if (best[j][0] < thr[j])
+            merge_survivors<R, KEEP>(best[j], rest[j],
+                                     buf + (size_t)j * THREADS, STRIDE);
+          else
+            rest[j] = min(rest[j], best[j][0]);
+        }
+      }
+    }
+  }
+  // the last remote writes came before the last cluster barrier: no CTA
+  // of the cluster touches another's shared memory after this point
+
+  const size_t plane = (size_t)LANES * nq;
+#pragma unroll
+  for (int j = 0; j < F_QT; ++j) {
+    const int q = q0 + qt0 + 4 * j;
+    if (q >= nq) continue;
+    const size_t off = (size_t)lane * nq + q;
+    if constexpr (R == 0) {
+#pragma unroll
+      for (int c = 0; c < KEEP; ++c)
+        cand[(size_t)(t0 * KEEP + c) * plane + off] = best[j][c];
+      disc[(size_t)t0 * plane + off] = rest[j];
+    } else {
+      const int* bp = buf + (size_t)j * THREADS;
+      for (int c = 0; c < R; ++c)
+        cand[((size_t)s * R + c) * plane + off] = bp[(size_t)c * STRIDE];
+      disc[(size_t)s * plane + off] = rest[j];
+    }
+  }
+}
+
+// Shared bytes of an f32 K1/K14 CTA: its queries (whole where `resident`,
+// else one piece of DBLK), F_NBUF group buffers of F_GR rows of DBLK
+// values and their norms, the running norms and the codes (two groups) of
+// its share of a group.
+inline size_t f32_smem(int dp, int nw, bool resident) {
+  const size_t qd = resident ? dp : DBLK;
+  return 4 * ((size_t)F_QB * (qd + F_PAD) +
+              (size_t)F_NBUF * F_GR * (F_XS + 1) + F_RPC +
+              2 * (size_t)F_RPC * nw);
+}
+
+// Whether the f32 body keeps its queries resident at (dp, nw): 1 where
+// they fit beside the group buffers (dp = 128 on an H100), 0 where they
+// are reloaded a piece at a time, -1 where a thread would fetch more than
+// one word of a group's codes or no CTA fits.
+inline int f32_resident(int dp, int nw) {
+  int dev = 0, cap = 0;
+  if (F_RPC * nw > THREADS || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  if (f32_smem(dp, nw, true) <= (size_t)cap) return 1;
+  return f32_smem(dp, nw, false) <= (size_t)cap ? 0 : -1;
+}
+
+template <int KEEP, int R>
+auto f32_kernel(bool resident)
+    -> decltype(&codes_f32_kernel<KEEP, R, true>) {
+  return resident ? codes_f32_kernel<KEEP, R, true>
+                  : codes_f32_kernel<KEEP, R, false>;
+}
+
+// K1 (R = 0, tiles_per = 1) or K14 on f32 operands over nq queries: grid
+// (query blocks padded to a multiple of F_CL, lane blocks, tiles or
+// splits); a padded block decodes its share of each group and writes
+// nothing.
+template <int KEEP, int R>
+cudaError_t launch_f32(const CodesSrc<float>& src, const void* Qm,
+                       void* cand, void* disc, void* scratch, int n, int nq,
+                       int dp, int rows, int ntiles, int tiles_per,
+                       int idbits, cudaStream_t st) {
+  const int res = f32_resident(dp, src.nw);
+  if (res < 0) return cudaErrorInvalidValue;
+  const int ncl = (nq + F_QB * F_CL - 1) / (F_QB * F_CL);
+  const size_t smem = f32_smem(dp, src.nw, res);
+  auto kern = f32_kernel<KEEP, R>(res);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  ClusterConfig c(dim3(ncl * F_CL, LANES / F_LC,
+                       R > 0 ? (ntiles + tiles_per - 1) / tiles_per : ntiles),
+                  smem, st, F_CL);
+  e = cudaLaunchKernelEx(&c.cfg, kern, src, (const float*)Qm, (int*)cand,
+                         (int*)disc, (int*)scratch, n, nq, dp, rows, ntiles,
+                         tiles_per, idbits);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The layout of K1 (R = 0) or K14 on f32 operands at (dp, nw).
+template <int KEEP, int R>
+cudaError_t f32_layout(int dp, int nw, int* out) {
+  const int res = f32_resident(dp, nw);
+  if (res < 0) return cudaErrorInvalidValue;
+  return codes_layout((const void*)f32_kernel<KEEP, R>(res), DBLK,
+                      f32_smem(dp, nw, res), R * F_QT * THREADS, F_QB, F_CL,
+                      F_NBUF, F_LC, out);
 }
 
 }  // namespace
@@ -1414,33 +1654,26 @@ int rq_codes_decode_candidates(const void* Qm, const void* Cflat,
   const CodesSrc<float> src{(const float*)Cflat, (const float*)nrm,
                             (const int*)packed, m, h, nw, has_norms};
   switch (keep) {
-    case 2: return (int)launch_candidates<CodesSrc<float>, 2>(
-        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
-    case 4: return (int)launch_candidates<CodesSrc<float>, 4>(
-        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
+    case 2: return (int)launch_f32<2, 0>(src, Qm, cand, disc, nullptr, n, nq,
+                                         dp, rows, ntiles, 1, idbits, st);
+    case 4: return (int)launch_f32<4, 0>(src, Qm, cand, disc, nullptr, n, nq,
+                                         dp, rows, ntiles, 1, idbits, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K1's layout at (keep, dp, nw) into out[8]: queries per CTA, ints of
+// K1's layout at (keep, dp, nw) into out[9]: queries per CTA, ints of
 // scratch per CTA (none), CTAs per SM, the d-block, shared bytes per CTA,
-// CTAs per cluster, the clusters the card holds at once, step buffers.
+// CTAs per cluster, the clusters the card holds at once, step buffers,
+// lanes per CTA.
 int rq_codes_candidates_layout(int keep, int dp, int nw, int bf16,
                                void* out) {
   if (keep != 2 && keep != 4) return (int)cudaErrorInvalidValue;
   if (bf16)
     return (int)(keep == 2 ? mma_layout<2, 0>(dp, nw, (int*)out)
                            : mma_layout<4, 0>(dp, nw, (int*)out));
-  using S = CodesSrc<float>;
-  const void* kern =
-      keep == 2 ? (dp > NARROW_DP
-                       ? (const void*)scan_candidates_kernel<S, 2, true>
-                       : (const void*)scan_candidates_kernel<S, 2, false>)
-                : (dp > NARROW_DP
-                       ? (const void*)scan_candidates_kernel<S, 4, true>
-                       : (const void*)scan_candidates_kernel<S, 4, false>);
-  return (int)codes_layout(kern, dp, scan_smem(dp, K1_QB, LANES * nw), 0,
-                           K1_QB, 1, 1, (int*)out);
+  return (int)(keep == 2 ? f32_layout<2, 0>(dp, nw, (int*)out)
+                         : f32_layout<4, 0>(dp, nw, (int*)out));
 }
 
 // K4 at qb queries a CTA (the layout's) over row ids split rows_per a CTA
@@ -1497,10 +1730,9 @@ int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
   }
   const CodesSrc<float> src{(const float*)Cflat, (const float*)nrm,
                             (const int*)packed, m, h, nw, has_norms};
-#define RQ_K14(R, K)                                                        \
-  return (int)launch_onepass_cut<CodesSrc<float>, R, K>(                    \
-      src, Qm, cand, disc, scratch, n, nq, dp, rows, ntiles, tiles_per,     \
-      idbits, st)
+#define RQ_K14(R, K)                                                       \
+  return (int)launch_f32<K, R>(src, Qm, cand, disc, scratch, n, nq, dp,    \
+                               rows, ntiles, tiles_per, idbits, st)
   if (r == 14 && keep == 2) RQ_K14(14, 2);
   if (r == 12 && keep == 4) RQ_K14(12, 4);
   if (r == 28 && keep == 4) RQ_K14(28, 4);
@@ -1508,26 +1740,18 @@ int rq_codes_decode_onepass(const void* Qm, const void* Cflat,
   return (int)cudaErrorInvalidValue;
 }
 
-// K14's layout at (r, keep, dp, nw) into out[8]: queries per CTA, ints of
+// K14's layout at (r, keep, dp, nw) into out[9]: queries per CTA, ints of
 // scratch per CTA (`scratch` holds one such block per CTA of the grid),
 // CTAs per SM, the d-block, shared bytes per CTA, CTAs per cluster, the
-// clusters the card holds at once, step buffers. The wrapper pads the
+// clusters the card holds at once, step buffers, lanes per CTA (the grid
+// has 128 / lanes CTAs per query block and split). The wrapper pads the
 // query blocks to whole clusters and sizes its scratch and its splits
 // from these.
 int rq_codes_onepass_layout(int r, int keep, int dp, int nw, int bf16,
                             void* out) {
-  using S = CodesSrc<float>;
-  const size_t smem = scan_smem(dp, K1_QB, LANES * nw);
-#define RQ_K14L(R, K)                                                        \
-  return (int)(bf16 ? mma_layout<K, R>(dp, nw, (int*)out)                    \
-                    : codes_layout(                                          \
-                          dp > NARROW_DP                                     \
-                              ? (const void*)scan_onepass_cut_kernel<S, R, K, \
-                                                                    true>    \
-                              : (const void*)scan_onepass_cut_kernel<S, R, K, \
-                                                                    false>,  \
-                          dp, smem, R * K14_PAIRS * THREADS, K1_QB, 1, 1,    \
-                          (int*)out))
+#define RQ_K14L(R, K)                                                 \
+  return (int)(bf16 ? mma_layout<K, R>(dp, nw, (int*)out)             \
+                    : f32_layout<K, R>(dp, nw, (int*)out))
   if (r == 14 && keep == 2) RQ_K14L(14, 2);
   if (r == 12 && keep == 4) RQ_K14L(12, 4);
   if (r == 28 && keep == 4) RQ_K14L(28, 4);

@@ -1,11 +1,12 @@
 // Shared device code of the packed-key scans for Hopper (sm_90a): the
 // key format, the register selection, the tensor-core score and its
-// keys, and the two scan bodies that K1, K4 (codes_scan.cu) and K8
+// keys, and the two scan bodies that K4 (codes_scan.cu) and K8
 // (decoded_scan.cu) instantiate with their own row source (K8's bf16
-// candidates and bf16 K1/K14 have bodies of their own over the same
-// score and keys). The exact-float scans (K9, K10 in decoded_scan.cu;
-// K6, K7 in lut_scan.cu) share the sinks at the end of this file, and K5
-// (lut_scan.cu) is K6/K7's LUT body with the packed-key sink there.
+// candidates, and K1/K14 on either operand type, have bodies of their
+// own over the same score and keys). The exact-float scans (K9, K10 in
+// decoded_scan.cu; K6, K7 in lut_scan.cu) share the sinks at the end of
+// this file, and K5 (lut_scan.cu) is K6/K7's LUT body with the packed-key
+// sink there.
 //
 // Logical contract (shared with the plain PyTorch versions in
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
@@ -66,7 +67,7 @@
 // (`margin_keys`). A d not a multiple of 16 scores with its last chunk
 // zero-filled in shared memory (the rows' and the queries' pads), so any
 // dp a multiple of 8 takes the same function. The f32 instances keep the
-// fmaf chain.
+// fmaf chain (f32 K1 and K14: `codes_f32_kernel` in codes_scan.cu).
 
 #pragma once
 
@@ -247,8 +248,8 @@ __device__ __forceinline__ void block_scores(const float* XsT,
   }
 }
 
-// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K1, K14 and
-// K8; K9 and K10 have a body of their own in decoded_scan.cu): its 128
+// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K8; K9 and
+// K10 have a body of their own in decoded_scan.cu): its 128
 // rows into shared memory, the thread's 4 lanes x 4
 // queries to acc, the rows' norms to x2s. Narrow (dp <= NARROW_DP): one
 // block, the queries already in Qs (the kernel loaded them once). WIDE:
@@ -276,7 +277,7 @@ __device__ __forceinline__ void step_scores(
   }
 }
 
-// The candidates body (f32 K1 and K8): CTA (t, qb) scans tile t (rows
+// The candidates body (f32 K8): CTA (t, qb) scans tile t (rows
 // row ids) for 32 queries and writes, per (lane, query), the KEEP
 // smallest keys ascending to cand[t*KEEP + c] and the smallest other key
 // to disc[t] (INT_MAX when nothing was dropped). Each thread scores a

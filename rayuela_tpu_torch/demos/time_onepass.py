@@ -5,7 +5,7 @@ the shapes the main path gives them, hold two versions' outputs to each
 other, and sweep K4's row splits.
 
     python rayuela_tpu_torch/demos/time_onepass.py [--root DIR]
-        [--out FILE] [--against FILE] [--sweep] [--f32]
+        [--out FILE] [--against FILE] [--sweep] [--f32 [--codes-only]]
 
 The bases are the RVQ-7+1 layout of `chip_smoke.py` (h = 256, Gaussian
 codebooks and queries from ``default_rng(0)``, bf16 operands): n = 1e6 at
@@ -25,11 +25,19 @@ plan (r = 48, tile 2048) and K8's at nq = 128 over the decoded rows at
 d = 128, the mean of ``--reps`` calls after a warm one (CUDA events; the
 wrappers' time, K2's merge of K14's and K4's splits included). The first
 line names the card and its power limit. ``--f32`` times instead the f32
-instances of K1, K14 and K8 alone, at d = 128 on the same codes (f32
-operands; K8 over the rows decoded to f32) at both plans, nq = 1e4, each
-beside its plain version (one call), `chip_smoke.library_scan` and its
-bound: the products at the f32 CUDA-core peak (67 TFLOP/s), or the
-bytes (each input read, each output written once) at 3.35 TB/s.
+instances of K1, K14 and K8 alone on the same codes (f32 operands; K8
+over the rows decoded to f32, the yardstick of the same arithmetic
+without a decode), nq = 1e4: at d = 128 at both plans, each beside its
+plain version (one call), and at d = 960 (n = 5e5) at the k = 1000
+plans; each beside `chip_smoke.library_scan`, its bound (the products at
+the f32 CUDA-core peak, 67 TFLOP/s, or the bytes, each input read and
+each output written once, at 3.35 TB/s) and, for K1 and K14, the L2
+bytes its decode gathers (`gather_bytes`: a row once per cluster of
+query blocks of the version's layout); then K1 and K14 on PQ-8 bases at
+d = 128 and 256, digests only (the PQ layout's norms). ``--codes-only``
+keeps of it K1 and K14 at d = 128 alone (no plain version, library call
+or K8): the quick look at a variant of the kernels, a copy of the
+package with a constant changed passed as ``--root``.
 
 Every output carries a digest (`time_exact.digest`). ``--out FILE``
 writes them; ``--against FILE`` asserts that this run's equal those in
@@ -70,6 +78,7 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--codes-only", action="store_true")
     args = ap.parse_args(argv)
     own = Path(__file__).resolve().parents[2]
     root = args.root or str(own)
@@ -145,7 +154,7 @@ def main(argv=None) -> int:
                 Qm[:, :d].contiguous())
 
     if args.f32:
-        f32_times(base, ms, emit, smoke, tsp, tsc)
+        f32_times(base, ms, emit, smoke, tsp, tsc, args.codes_only)
         return report(args, root, digests, exact)
 
     for d, n in SCANS:
@@ -299,53 +308,113 @@ def report(args, root, digests, exact) -> int:
     return 0
 
 
-def f32_times(base, ms, emit, smoke, tsp, tsc):
-    """The f32 instances of K1, K14 and K8 at d = 128 at both plans (see
-    the module's docstring)."""
+def gather_bytes(tsc, keep, n, nq, dp, m, nw, device):
+    """L2 bytes that a K1 or K14 call gathers to decode its rows: each row
+    is decoded once per cluster of query blocks of its layout (the
+    version's `_candidates_layout`; an earlier layout of 8 fields reads
+    the same way), m codebook rows of dp f32 values and its nw code words
+    a decode."""
+    lay = tsc._candidates_layout(keep, dp, nw, 0, device)
+    per = lay[0] * lay[5]
+    return n * -(-nq // per) * (m * dp + nw) * 4, per
+
+
+def f32_times(base, ms, emit, smoke, tsp, tsc, codes_only=False):
+    """The f32 instances of K1, K14 and K8 (see the module's docstring):
+    at d = 128 (n = 1e6) at both plans, each beside its plain version, at
+    GIST's d = 960 (n = 5e5) at the k = 1000 plans; then K1 and K14 on a
+    PQ-8 base at d = 128 and 256 (n = 2e5, the k = 100 plans), digests
+    only: the PQ layout's norms are the rows' own sums. ``codes_only``:
+    K1 and K14 at d = 128 alone, without their plain versions, the
+    library's scan and K8 (a quick look at a variant)."""
     import numpy as np
     import torch
 
-    idx, Cf, nrm, Qm = base(np.random.default_rng(0), D, N, NQ,
-                            torch.float32)
-    args4 = (Qm, Cf, nrm, idx.packed)
-    codes = tsc.unpack_codes(idx.packed, idx.mprime)
-    Xd, x2 = tsp.decode_base(idx.C, codes[:, :-1],
-                             norm_term=idx.norms_cbook[codes[:, -1].long()])
-    del codes
-    XT, Q8 = Xd.T.contiguous(), Qm[:, :D].contiguous()
     peak, hbm = smoke.PEAK["f32 CUDA-core"], smoke.PEAK["HBM"]
+    dev = torch.device("cuda")
+    for d, n, ks in ((D, N, (100, 1000)),
+                     *(() if codes_only else ((960, 500_000, (1000,)),))):
+        idx, Cf, nrm, Qm = base(np.random.default_rng(0), d, n, NQ,
+                                torch.float32)
+        dp, nw = Cf.shape[1], idx.packed.shape[1]
+        args4 = (Qm, Cf, nrm, idx.packed)
+        codes = tsc.unpack_codes(idx.packed, idx.mprime)
+        Xd, x2 = tsp.decode_base(idx.C, codes[:, :-1],
+                                 norm_term=idx.norms_cbook[codes[:, -1]
+                                                           .long()])
+        del codes
+        XT, Q8 = Xd.T.contiguous(), Qm[:, :d].contiguous()
 
-    def bound(*tensors):
-        return max(2.0 * N * NQ * D / peak,
-                   smoke.nbytes(*tensors) / hbm) * 1e3
+        def bound(*tensors):
+            return max(2.0 * n * NQ * d / peak,
+                       smoke.nbytes(*tensors) / hbm) * 1e3
 
-    for k in (100, 1000):
-        lib = ms(lambda: smoke.library_scan(Q8, XT, x2, k), 3)
-        _, r2, keep, tile = tsc._codes_config(k)
-        r1, keep1, tile1 = tsc._onepass_config(k, idx.mprime)
-        runs = (
-            ("codes_decode_candidates", [r2, keep, tile],
-             tsc.codes_decode_candidates, tsc.codes_decode_candidates_plain,
-             args4, dict(tile=tile, keep=keep, has_norms=True)),
-            ("codes_decode_onepass", [r1, keep1, tile1],
-             tsc.codes_decode_onepass, tsc.codes_decode_onepass_plain,
-             args4, dict(tile=tile1, r=r1, keep=keep1, has_norms=True)),
-            ("scan_candidates", [r2, keep, tile], tsp.scan_candidates,
-             tsp.scan_candidates_plain, (Q8, Xd, x2),
-             dict(tile=tile, keep=keep, premin=0)))
-        for name, plan, fn, plain, a, kw in runs:
-            kw["idbits"] = tsp._pack_idbits(-(-N // kw["tile"])
-                                            * kw["tile"])
-            t = ms(lambda: fn(*a, **kw), 3)
-            out = fn(*a, **kw)
-            out = out if isinstance(out, tuple) else (out,)
-            pt = ms(lambda: plain(*a, **kw), 1)
-            emit(f"{name} f32 d={D} k={k}",
-                 {"kernel": name, "dtype": "float32", "d": D, "n": N,
-                  "nq": NQ, "k": k, "plan": plan, "ms": t, "plain_ms": pt,
-                  "library_ms": lib, "bound_ms": bound(*a, *out)}, out)
-            del out
-            torch.cuda.empty_cache()
+        for k in ks:
+            lib = None if codes_only else ms(
+                lambda: smoke.library_scan(Q8, XT, x2, k), 3)
+            _, r2, keep, tile = tsc._codes_config(k)
+            r1, keep1, tile1 = tsc._onepass_config(k, idx.mprime)
+            runs = (
+                ("codes_decode_candidates", [r2, keep, tile],
+                 tsc.codes_decode_candidates,
+                 tsc.codes_decode_candidates_plain, args4,
+                 dict(tile=tile, keep=keep, has_norms=True)),
+                ("codes_decode_onepass", [r1, keep1, tile1],
+                 tsc.codes_decode_onepass, tsc.codes_decode_onepass_plain,
+                 args4, dict(tile=tile1, r=r1, keep=keep1, has_norms=True)),
+                ("scan_candidates", [r2, keep, tile], tsp.scan_candidates,
+                 tsp.scan_candidates_plain, (Q8, Xd, x2),
+                 dict(tile=tile, keep=keep, premin=0)))
+            for name, plan, fn, plain, a, kw in runs[:2 if codes_only
+                                                    else 3]:
+                kw["idbits"] = tsp._pack_idbits(-(-n // kw["tile"])
+                                                * kw["tile"])
+                t = ms(lambda: fn(*a, **kw), 3)
+                out = fn(*a, **kw)
+                out = out if isinstance(out, tuple) else (out,)
+                rec = {"kernel": name, "dtype": "float32", "d": d, "n": n,
+                       "nq": NQ, "k": k, "plan": plan, "ms": t,
+                       "plain_ms": ms(lambda: plain(*a, **kw), 1)
+                       if d == D and not codes_only else None,
+                       "library_ms": lib, "bound_ms": bound(*a, *out)}
+                if name != "scan_candidates":
+                    rec["l2_gather_bytes"], rec["queries_a_decode"] = \
+                        gather_bytes(tsc, kw["keep"], n, NQ, dp,
+                                     idx.mprime - 1, nw, dev)
+                emit(f"{name} f32 d={d} k={k}", rec, out)
+                del out
+                torch.cuda.empty_cache()
+        del idx, Cf, nrm, Qm, args4, Xd, XT, x2, Q8
+        torch.cuda.empty_cache()
+    for d in () if codes_only else (D, 256):
+        rng = np.random.default_rng(2)
+        n, m = 200_000, 8
+        C = torch.as_tensor(rng.standard_normal((m, H, d // m))
+                            .astype("float32"), device=dev)
+        B = torch.as_tensor(rng.integers(0, H, (n, m)).astype("int32"),
+                            device=dev)
+        Q = torch.as_tensor(rng.standard_normal((NQ, d)).astype("float32"),
+                            device=dev)
+        idx = tsc.build_codes_index(C, B, pq=True, d=d)
+        Cf, nrm = idx.decode_operands(d, torch.float32)
+        a = (tsc._query_operand(Q, Cf.shape[1], torch.float32), Cf, nrm,
+             idx.packed)
+        _, _, keep, tile = tsc._codes_config(100)
+        r1, keep1, tile1 = tsc._onepass_config(100, idx.mprime)
+        kw = dict(tile=tile, keep=keep, has_norms=False,
+                  idbits=tsp._pack_idbits(-(-n // tile) * tile))
+        kw14 = dict(tile=tile1, r=r1, keep=keep1, has_norms=False,
+                    idbits=tsp._pack_idbits(-(-n // tile1) * tile1))
+        emit(f"codes_decode_candidates f32 pq d={d}",
+             {"kernel": "codes_decode_candidates", "dtype": "float32",
+              "layout": "PQ-8", "d": d, "n": n, "nq": NQ},
+             tsc.codes_decode_candidates(*a, **kw))
+        emit(f"codes_decode_onepass f32 pq d={d}",
+             {"kernel": "codes_decode_onepass", "dtype": "float32",
+              "layout": "PQ-8", "d": d, "n": n, "nq": NQ},
+             (tsc.codes_decode_onepass(*a, **kw14),))
+        del idx, Cf, nrm, a
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

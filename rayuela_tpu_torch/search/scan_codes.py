@@ -49,11 +49,12 @@ tensor cores with one score function, so their keys agree (f32 operands
 in fmaf chains); where a row is one d-block (dp <= 256) that function
 keeps the fmaf chain's key, scoring again by the chain the pairs whose
 tensor-core score lies near a key boundary. K1 and K14 share each
-decoded step over a cluster of
-query blocks and are bound by the latency of a step (its L2 gathers,
-the stores to the cluster, the cluster barrier), K5–K7 (one body with
-three sinks) by their table reads from shared memory, K2 by reading its
-candidates (the kernels' headers in ``csrc/`` say more).
+decoded group of rows over a cluster of query blocks, on either operand
+type (bf16: bound by the latency of a step, its L2 gathers, the stores
+to the cluster, the cluster barrier; f32: by its fmaf chains, 64 a
+thread), K5–K7 (one body with three sinks) by their table reads from
+shared memory, K2 by reading its candidates (the kernels' headers in
+``csrc/`` say more).
 """
 
 from __future__ import annotations
@@ -82,9 +83,14 @@ _RESCUE_R, _RESCUE_TILE = scan._ONEPASS_R, 2048
 
 # K14's compiled (r, keep) pairs: the one-pass plan's (`_onepass_config`)
 _ONEPASS_CUTS = ((14, 2), (12, 4), (28, 4))
-# the most CTAs K14's splits may add, in waves of the card's CTA slots
-# (each CTA holds its own scratch: ~1 GB at 8 waves, r = 28)
-_ONEPASS_WAVES = 8
+# the most CTAs K14's splits may give its grid, unless the query blocks
+# alone are more (each CTA holds its own scratch: at r = 28 ~0.9 GB of the
+# bf16 body's, ~0.4 GB of the f32 body's). On an NVIDIA H100 80GB HBM3
+# that is 8 waves of the bf16 body's 30 cluster slots of 8 CTAs and 16 of
+# the f32 body's 15: the f32 body's 80 clusters at nq = 1e4 then take 3
+# splits, 16 whole waves, where 8 waves left them unsplit in 5.3 (115 ->
+# 105 ms at 700 W, PERF.md §6)
+_ONEPASS_CTAS = 1920
 
 # tile of the two-pass scans (K1 and K5)
 _TILE = 8192
@@ -307,6 +313,9 @@ def _check_operands(Qm, Cflat, nrm, packed, has_norms: bool) -> bool:
     if Cflat.data_ptr() % 16:
         raise ValueError("Cflat must be 16-byte aligned: the kernels read "
                          "it 16 bytes at a time")
+    if Qm.data_ptr() % 16:
+        raise ValueError("Qm must be 16-byte aligned: the kernels read it "
+                         "16 bytes at a time")
     if Qm.shape[0] >= 1 << 21:
         raise ValueError("at most 2**21 queries per call")
     return True
@@ -367,10 +376,11 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
     (m*h, dp)`` and ``nrm (h, 128)`` come from `build_decode_operands`,
     ``packed (n, nw)`` from `pack_codes`. Returns ``cand
     (ntiles*keep, 128, nq)`` and ``disc (ntiles, 128, nq)`` int32.
-    On bf16 operands the card scores on the tensor cores, and a cluster
-    of CTAs on neighbouring query blocks shares each decoded step
-    (`_candidates_layout`, from the kernel's source); on f32 operands it
-    scores in f32 fmaf chains. Source:
+    On the card a cluster of CTAs on neighbouring query blocks shares
+    each decoded group of rows (`_candidates_layout`, from the kernel's
+    source); bf16 operands score on the tensor cores, f32 operands in
+    fmaf chains (a CTA of 128 queries x 16 lanes, each thread 8 row ids
+    x 8 queries of its lane). Source:
     ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
     if tile % LANES or keep < 1 or keep > tile // LANES:
         raise ValueError(f"tile={tile} must be a multiple of 128 and "
@@ -390,10 +400,13 @@ def codes_decode_candidates(Qm, Cflat, nrm, packed, *, tile: int,
                disc, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
                ntiles, tile // LANES, keep, idbits, bf16, device=Qm.device)
         codes_decode_candidates.launches += 1
+        codes_decode_candidates.launches_f32 += not bf16
     return cand, disc
 
 
+# launches, and of those the f32 instance's
 codes_decode_candidates.launches = 0
+codes_decode_candidates.launches_f32 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -402,8 +415,8 @@ def _candidates_layout(keep: int, dp: int, nw: int, bf16: int,
     """K1's layout at width ``dp`` with ``nw`` packed words a row, as the
     kernel's source states it: ``(queries per CTA, scratch ints per CTA
     (0), CTAs per SM, d-block, shared bytes per CTA, CTAs per cluster,
-    clusters the card holds at once, step buffers)``."""
-    return query("rq_codes_candidates_layout", keep, dp, nw, bf16, size=8,
+    clusters the card holds at once, step buffers, lanes per CTA)``."""
+    return query("rq_codes_candidates_layout", keep, dp, nw, bf16, size=9,
                  device=device)
 
 
@@ -487,12 +500,13 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
     then the certificate, min(every per-tile discard, every survivor not
     kept) → ``(r + 1, 128, nq)`` int32: K1 → K2's function (K1's
     scores, bit for bit) with no candidate array. Operands as
-    `codes_decode_candidates`. On the card K14 is K1's body (on bf16
-    operands a cluster of CTAs shares each decoded 128-row step, each
-    CTA scoring 32 queries) carrying its buffers over all tiles; the
-    row range is split over CTAs (clusters), on tile boundaries, where
-    that fills the card's waves better (`_onepass_grid`), and K2 merges
-    the splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``."""
+    `codes_decode_candidates`. On the card K14 is K1's body (a cluster
+    of CTAs shares each decoded group of rows; bf16: 32 queries x 128
+    lanes a CTA, f32: 128 queries x 16 lanes) carrying its buffers over
+    all tiles; the row range is split over clusters, on tile boundaries,
+    where that fills the card's waves better (`_onepass_grid`), and K2
+    merges the splits. Source: ``rayuela_tpu_torch/csrc/codes_scan.cu``.
+    """
     rows = tile // LANES
     if tile % LANES or not 1 <= keep <= rows:
         raise ValueError(f"tile={tile} must be a multiple of 128 and "
@@ -523,16 +537,19 @@ def codes_decode_onepass(Qm, Cflat, nrm, packed, *, tile: int, r: int,
                            device=dev)
         disc = torch.empty((splits, LANES, nq), dtype=torch.int32,
                            device=dev)
-    scratch = torch.empty(nqb * splits * layout[1], dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(nqb * LANES // layout[8] * splits * layout[1],
+                          dtype=torch.int32, device=dev)
     launch("rq_codes_decode_onepass", Qm, Cflat, nrm, packed, cand, disc,
            scratch, n, nq, dp, Cflat.shape[0] // h, h, nw, int(has_norms),
            rows, ntiles, tiles_per, r, keep, idbits, bf16, device=dev)
     codes_decode_onepass.launches += 1
+    codes_decode_onepass.launches_f32 += not bf16
     return _merge_onepass(out, cand, disc, r)
 
 
+# launches, and of those the f32 instance's
 codes_decode_onepass.launches = 0
+codes_decode_onepass.launches_f32 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -540,10 +557,11 @@ def _onepass_layout(r: int, keep: int, dp: int, nw: int, bf16: int,
                     device: torch.device) -> tuple[int, ...]:
     """K14's ``(queries per CTA, scratch ints per CTA, CTAs per SM,
     d-block, shared bytes per CTA, CTAs per cluster, clusters the card
-    holds at once, step buffers)`` at these operands, as the kernel's
-    source states them (dp up to 256 is one d-block; f32 operands run
-    clusters of one CTA)."""
-    return query("rq_codes_onepass_layout", r, keep, dp, nw, bf16, size=8,
+    holds at once, step buffers, lanes per CTA)`` at these operands, as
+    the kernel's source states them (bf16: dp up to 256 is one d-block
+    and a CTA takes all 128 lanes; f32: pieces of 128 dimensions, a CTA
+    16 lanes, so a query block has 8 CTAs)."""
+    return query("rq_codes_onepass_layout", r, keep, dp, nw, bf16, size=9,
                  device=device)
 
 
@@ -559,21 +577,24 @@ def _onepass_grid(nq: int, ntiles: int, layout) -> tuple[int, int]:
     ``ntiles`` tiles from its layout (`_onepass_layout`): the query
     blocks padded to whole clusters, and the rows split by
     `_onepass_tiles_per` over the card's cluster slots (the CTAs of a
-    cluster walk one tile range)."""
-    qb, cluster, held = layout[0], layout[5], layout[6]
+    cluster walk one tile range; a split has ``128 / lanes`` clusters per
+    cluster of query blocks, one a lane block)."""
+    qb, cluster, held, lanes = layout[0], layout[5], layout[6], layout[8]
     nqb = _query_blocks(nq, qb, cluster)
-    return nqb, _onepass_tiles_per(nqb // cluster, ntiles, held)
+    return nqb, _onepass_tiles_per(nqb // cluster * (LANES // lanes), ntiles,
+                                   held, cluster)
 
 
-def _onepass_tiles_per(nqb: int, ntiles: int, slots: int) -> int:
-    """Tiles per K14 CTA. Its CTAs (clusters of CTAs, on bf16 operands:
-    ``nqb`` and ``slots`` then count clusters) walk whole tile ranges, so
+def _onepass_tiles_per(nqb: int, ntiles: int, slots: int,
+                       cluster: int = 1) -> int:
+    """Tiles per K14 CTA. Its clusters of ``cluster`` CTAs (``nqb`` and
+    ``slots`` count clusters) walk whole tile ranges, so
     with ``tiles_per`` tiles (``s = ceil(ntiles / tiles_per)`` splits) the
     scan takes about ``ceil(nqb * s / slots)`` waves of ``tiles_per``
     tiles each: the fewest splits within 2% of the least such cost, with
-    at most ``_ONEPASS_WAVES`` waves unless the query blocks alone are
+    at most ``_ONEPASS_CTAS`` CTAs unless the query blocks alone are
     more."""
-    cap = max(1, min(ntiles, max(nqb, _ONEPASS_WAVES * slots) // nqb))
+    cap = max(1, min(ntiles, max(nqb, _ONEPASS_CTAS // cluster) // nqb))
     cost = {}
     for s in range(1, cap + 1):
         tp = cdiv(ntiles, s)

@@ -338,15 +338,14 @@ def test_cuda_tensors_never_fall_back(dev):
 def test_onepass_cut_kernel_equals_plain_on_integer_data(dev, pq, r, keep,
                                                          tile, nq):
     """K14 against K1 → K2's plain versions: identical buffers, with the
-    row range split over CTAs, K2 merging the splits (1, 40 and 9000
-    queries), and not (one query block per CTA slot of the card: one
-    whole wave)."""
+    row range split over clusters, K2 merging the splits (1, 40 and 9000
+    queries), and not (as many clusters of query blocks as the card holds
+    clusters at once: with their lane blocks, whole waves)."""
     n = 20_000 if nq in (1, 40) else 50_001
     if nq == "one wave":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        nq = 32 * 2 * sms
-        assert tsc._onepass_tiles_per(2 * sms, -(-n // tile),
-                                      2 * sms) == -(-n // tile)
+        lay = tsc._onepass_layout(r, keep, D, 2, 0, dev)
+        nq = lay[0] * lay[5] * lay[6]
+        assert tsc._onepass_grid(nq, -(-n // tile), lay)[1] == -(-n // tile)
     idx, Q, Cf, nrm, Qm = _case(dev, pq=pq, kind="int",
                                 dtype=torch.float32, n=n, nq=nq)
     idbits = tsp._pack_idbits(-(-n // tile) * tile)
@@ -377,28 +376,41 @@ def _mma_smem(dp, nw, nbuf):
         + (6 * 16 * 256 if dp <= 256 else 0)
 
 
+def _f32_smem(dp, nw, resident):
+    """Shared bytes of an f32 K1/K14 CTA (`f32_smem` in codes_scan.cu):
+    128 queries (whole where resident, else a piece of 128 dimensions)
+    and two buffers of a group's 128 rows of 128 dimensions, 16 bytes of
+    padding a row, with their norms; the running norms of the CTA's share
+    of a group (128 rows over a cluster of 8 CTAs: 16) and their codes for
+    two groups."""
+    return 4 * (128 * ((dp if resident else 128) + 4) + 2 * 128 * 133
+                + 16 + 2 * 16 * nw)
+
+
 @pytest.mark.parametrize("r,keep", [(14, 2), (12, 4), (28, 4)])
 def test_onepass_layout_is_the_kernels(dev, r, keep):
-    """K14's layout comes from its source. f32: 32 queries per CTA, r
-    rows of 16 (lane, query) pairs x 256 threads of scratch per CTA, two
-    CTAs per SM (the occupancy its launch bounds ask for), the row as one
-    d-block at dp = 128 and blocks of 128 at GIST's dp = 1024, the tile,
-    the queries, the norms and the codes of a step in shared memory,
-    clusters of one CTA. bf16 (the tensor-core body): the same CTA and
-    scratch in clusters of 8 CTAs, the queries whole and two step
-    buffers where two CTAs an SM still fit (dp = 128), else one (dp =
-    1024); the card holds at least one cluster and at most its CTA slots
-    over 8."""
+    """K14's layout comes from its source, and `scan_codes._onepass_layout`
+    states it. f32 (the cluster fmaf body): 128 queries x 16 lanes a CTA
+    (8 CTAs a query block), r rows of 8 (lane, query) pairs x 256
+    threads of scratch per CTA, one CTA an SM, pieces of 128 dimensions,
+    the queries resident at dp = 128 and reloaded a piece at a time at
+    GIST's dp = 1024, two group buffers, clusters of 8. bf16 (the
+    tensor-core body): 32 queries x 128 lanes a CTA, r rows of 16 pairs
+    x 256 threads of scratch, in clusters of 8 CTAs, the queries whole
+    and two step buffers where two CTAs an SM still fit (dp = 128), else
+    one (dp = 1024). The card holds at least one cluster and at most its
+    CTA slots over 8."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem = 4 * (128 * 129 + 32 * 128 + 128 + 128 * 2)
     for dp in (128, 1024):
-        assert tsc._onepass_layout(r, keep, dp, 2, 0, torch.device(dev)) == (
-            32, r * 4096, 2, 128, smem, 1, 2 * sms, 1)
+        f32 = tsc._onepass_layout(r, keep, dp, 2, 0, torch.device(dev))
+        assert f32[:2] == (128, r * 2048) and f32[2:6] == (
+            1, 128, _f32_smem(dp, 2, dp == 128), 8), f32
+        assert f32[7:] == (2, 16) and 1 <= f32[6] <= sms // 8, f32
         lay = tsc._onepass_layout(r, keep, dp, 2, 1, torch.device(dev))
         nbuf = 2 if dp == 128 else 1
         assert lay[:2] == (32, r * 4096) and lay[3:6] == (
             dp if dp <= 256 else 128, _mma_smem(dp, 2, nbuf), 8), lay
-        assert lay[7] == nbuf and lay[2] in (1, 2), lay
+        assert lay[7:] == (nbuf, 128) and lay[2] in (1, 2), lay
         assert 1 <= lay[6] <= lay[2] * sms // 8, lay
     with pytest.raises(RuntimeError, match="rq_codes_onepass_layout"):
         tsc._onepass_layout(16, 2, 128, 2, 1, torch.device(dev))
@@ -407,19 +419,27 @@ def test_onepass_layout_is_the_kernels(dev, r, keep):
 @pytest.mark.parametrize("keep", [2, 4])
 def test_candidates_layout_is_the_kernels(dev, keep):
     """K1's layout entry: on bf16 the tensor-core body's (clusters of 8
-    CTAs of 32 queries, no scratch), on f32 the fmaf body's (32 queries,
-    two CTAs an SM, clusters of one); `mma_smem`'s bytes at dp = 128 and
-    GIST's 1024 with 2 and 4 packed words a row."""
+    CTAs of 32 queries x 128 lanes, no scratch), on f32 the cluster fmaf
+    body's (clusters of 8 CTAs of 128 queries x 16 lanes, one CTA an SM,
+    two group buffers, the queries resident at dp = 128, where they fit
+    beside the buffers, reloaded a piece at a time at 256 and 1024);
+    `mma_smem`'s
+    and `f32_smem`'s bytes at dp = 128, 256 and GIST's 1024 with 2 and 4
+    packed words a row."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for dp in (128, 1024):
+    for dp in (128, 256, 1024):
         for nw in (2, 4):
+            f32 = tsc._candidates_layout(keep, dp, nw, 0, torch.device(dev))
+            assert f32[:6] == (128, 0, 1, 128, _f32_smem(dp, nw, dp == 128),
+                               8), f32
+            assert f32[7:] == (2, 16) and 1 <= f32[6] <= sms // 8, f32
+            if dp == 256:
+                continue
             lay = tsc._candidates_layout(keep, dp, nw, 1, torch.device(dev))
             nbuf = 2 if dp == 128 else 1
             assert lay[:2] == (32, 0) and lay[5] == 8 and lay[7] == nbuf
-            assert lay[4] == _mma_smem(dp, nw, nbuf), lay
+            assert lay[4] == _mma_smem(dp, nw, nbuf) and lay[8] == 128, lay
             assert 1 <= lay[6] <= lay[2] * sms // 8, lay
-            f32 = tsc._candidates_layout(keep, dp, nw, 0, torch.device(dev))
-            assert f32[:2] == (32, 0) and f32[5:] == (1, f32[2] * sms, 1)
     with pytest.raises(RuntimeError, match="rq_codes_candidates_layout"):
         tsc._candidates_layout(3, 128, 2, 1, torch.device(dev))
 
@@ -465,6 +485,71 @@ def test_bf16_codes_kernels_equal_plain_on_integer_data(dev, nq, d, pq,
     assert tsc.codes_decode_candidates.launches == n1 + 2
     assert tsc.codes_decode_onepass.launches == n14 + 3
     assert tsc.codes_decode_topk.launches == n4 + 1
+
+
+@pytest.mark.parametrize("nq", [1, 33, 300, 1100])
+@pytest.mark.parametrize("d", [128, 256, 960])
+@pytest.mark.parametrize("pq", [True, False])
+@pytest.mark.parametrize("mprime", [8, 16])
+def test_f32_codes_kernels_equal_plain_on_integer_data(dev, nq, d, pq,
+                                                       mprime):
+    """K1 and K14 on f32 operands (the cluster fmaf body) against their
+    plain versions: identical int32 buffers on small-integer data, with
+    the queries resident (dp = 128) and reloaded a piece at a time (dp =
+    256, one d-block of the norms, and GIST's 1024), both norm branches,
+    8 and 16 packed bytes a row, query counts that fill no whole cluster
+    of 8 x 128 queries (1100: one and a part), tiles of 64 and 9 row ids
+    (a last group of one row id), and a base of n = 20,001 rows (the last
+    row id holds one row: pad rows score +inf)."""
+    n = 20_001
+    m = mprime if pq else mprime - 1
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="int",
+                                           dtype=torch.float32, n=n, nq=nq,
+                                           d=d, m=m)
+    args = (Qm, Cf, nrm, idx.packed)
+    n1, n14 = (tsc.codes_decode_candidates.launches,
+               tsc.codes_decode_onepass.launches)
+    for keep, tile in ((2, 8192), (4, 8192), (4, 1152)):
+        kw = dict(tile=tile, keep=keep, has_norms=not pq,
+                  idbits=tsp._pack_idbits(-(-n // tile) * tile))
+        cand, disc = tsc.codes_decode_candidates(*args, **kw)
+        cand0, disc0 = tsc.codes_decode_candidates_plain(*args, **kw)
+        assert torch.equal(cand, cand0) and torch.equal(disc, disc0), tile
+    for r, keep, tile in ONEPASS_PLANS + ((12, 4, 1152),):
+        kw14 = dict(tile=tile, r=r, keep=keep, has_norms=not pq,
+                    idbits=tsp._pack_idbits(-(-n // tile) * tile))
+        assert torch.equal(tsc.codes_decode_onepass(*args, **kw14),
+                           tsc.codes_decode_onepass_plain(*args, **kw14)), r
+    torch.cuda.synchronize()
+    assert tsc.codes_decode_candidates.launches == n1 + 3
+    assert tsc.codes_decode_onepass.launches == n14 + 4
+
+
+@pytest.mark.parametrize("nq", [33, 1100])
+@pytest.mark.parametrize("d", [128, 256, 960])
+@pytest.mark.parametrize("pq", [True, False])
+def test_f32_onepass_keys_equal_two_pass_keys_on_gaussian_data(dev, nq, d,
+                                                               pq):
+    """On f32 operands and Gaussian data (sums that round), K14's buffers
+    equal K2's merge of K1's candidates bit for bit at each one-pass plan
+    (split or not), and K4's first `keep` keys equal those of K2's merge
+    of K1's candidates: the cluster fmaf body and K4's one-pass body
+    score each (row, query) to the same bits, the PQ layout's norms
+    included, at one d-block and beyond."""
+    n = 50_001
+    idx, Q, Cf, nrm, Qm = _wide_codes_case(dev, pq=pq, kind="gauss",
+                                           dtype=torch.float32, n=n, nq=nq,
+                                           d=d)
+    args = (Qm, Cf, nrm, idx.packed)
+    for r, keep, tile in ONEPASS_PLANS:
+        idbits = tsp._pack_idbits(-(-n // tile) * tile)
+        kw = dict(tile=tile, keep=keep, idbits=idbits, has_norms=not pq)
+        two = tsc.cand_merge(*tsc.codes_decode_candidates(*args, **kw), r)
+        one = tsc.codes_decode_onepass(*args, r=r, **kw)
+        assert torch.equal(one, two), (r, keep, tile)
+        o4 = tsc.codes_decode_topk(*args, tile=2048, r=48, idbits=idbits,
+                                   has_norms=not pq)
+        assert torch.equal(o4[:keep], two[:keep]), (r, keep, tile)
 
 
 def test_bf16_codes_scans_raise_where_no_cta_fits(dev):
@@ -1468,7 +1553,8 @@ def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
     """What the exact-float kernels do not take raises on CUDA tensors
     (keep=0, the JAX form, is a plain version only; the pair merge is
     compiled to r = 48); and where the kernels cannot be built, the calls
-    raise instead of taking the plain versions."""
+    raise instead of taking the plain versions: the exact-float scans and
+    the f32 instances of K1 and K14."""
     from rayuela_tpu_torch.kernels import build
     idx, Q, Qm = _decoded_case(dev, "int", torch.float32, 3000, 24, 4)
     with pytest.raises(ValueError, match="keep=0"):
@@ -1484,6 +1570,9 @@ def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
         tsc.codes_lut_topk_f32(T, packed, r=16, tile=2048, keep=0)
     taus = torch.zeros(4, device=dev)
     taui = torch.zeros(4, dtype=torch.int32, device=dev)
+    cidx, _, Cf, nrm, Cq = _case(dev, pq=False, kind="int",
+                                 dtype=torch.float32, n=3000, nq=4)
+    ck = dict(idbits=8, has_norms=True)
     blocker = tmp_path / "not_a_directory"
     blocker.write_text("")
     monkeypatch.setattr(build, "_lib", None)
@@ -1497,7 +1586,11 @@ def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
             lambda: tsc.codes_lut_f32_candidates(T, packed, tile=2048,
                                                  keep=2),
             lambda: tsc.codes_verify_counts(T, packed, taus, taui,
-                                            tile=2048)):
+                                            tile=2048),
+            lambda: tsc.codes_decode_candidates(Cq, Cf, nrm, cidx.packed,
+                                                tile=2048, keep=2, **ck),
+            lambda: tsc.codes_decode_onepass(Cq, Cf, nrm, cidx.packed,
+                                             tile=2048, r=14, keep=2, **ck)):
         with pytest.raises(OSError):
             call()
 

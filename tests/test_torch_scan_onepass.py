@@ -193,20 +193,38 @@ def test_the_jax_validation_errors_are_raised(rng):
     (1, 123, 123),     # one query block: a CTA per tile
     (32, 8, 8)])
 def test_onepass_splits_fill_the_waves(nqb, ntiles, splits):
-    """K14's row-range splits on a card of 264 CTA slots (132 SMs x 2):
-    the fewest splits whose waves of tile ranges cost within 2% of the
-    least, and never more than 8 waves of CTAs added."""
+    """K14's row-range splits on a card of 264 CTA slots (132 SMs x 2,
+    clusters of one CTA): the fewest splits whose waves of tile ranges
+    cost within 2% of the least, and never more than `_ONEPASS_CTAS`
+    CTAs in all unless the query blocks alone are more."""
     slots = 264
     tp = tsc._onepass_tiles_per(nqb, ntiles, slots)
     assert -(-ntiles // tp) == splits
 
     def cost(t):
         return -(-nqb * -(-ntiles // t) // slots) * t
-    cap = max(nqb, tsc._ONEPASS_WAVES * slots) // nqb
+    cap = max(nqb, tsc._ONEPASS_CTAS) // nqb
     allowed = {-(-ntiles // s) for s in range(1, min(cap, ntiles) + 1)}
     assert cost(tp) <= 1.02 * min(cost(t) for t in allowed)
     assert all(cost(t) > 1.02 * min(map(cost, allowed))
                for t in allowed if t > tp)
+
+
+@pytest.mark.parametrize("nq", [1, 300, 2048, 10_000])
+@pytest.mark.parametrize("ntiles", [123, 489])
+@pytest.mark.parametrize("qb,lanes,held,waves", [
+    (32, 128, 30, 8),    # the bf16 body's layout on an H100
+    (128, 16, 15, 16)])  # the f32 body's
+def test_onepass_split_cap_counts_ctas(nq, ntiles, qb, lanes, held, waves):
+    """K14's splits give its grid at most `_ONEPASS_CTAS` CTAs (each
+    holds its own scratch) unless its query blocks alone are more: on
+    the layouts an H100 reports, 8 waves of the bf16 body's 30 cluster
+    slots of 8 CTAs and 16 waves of the f32 body's 15."""
+    layout = (qb, 28 * 4096, 2, 128, 79_744, 8, held, 2, lanes)
+    assert tsc._ONEPASS_CTAS == waves * held * 8
+    nqb, tp = tsc._onepass_grid(nq, ntiles, layout)
+    per_split = nqb * (128 // lanes)
+    assert per_split * -(-ntiles // tp) <= max(per_split, tsc._ONEPASS_CTAS)
 
 
 @pytest.mark.parametrize("nq,qb,cluster,blocks", [
@@ -217,7 +235,11 @@ def test_onepass_splits_fill_the_waves(nqb, ntiles, splits):
     (129, 32, 4, 8),
     (10_000, 32, 4, 316),   # 313 blocks padded to 79 clusters
     (10_000, 32, 8, 320),   # clusters of 8 (the bf16 body's)
-    (10_000, 32, 1, 313),   # f32 operands: clusters of one CTA
+    (10_000, 32, 1, 313),   # clusters of one CTA
+    (10_000, 128, 8, 80),   # the f32 body's: 10 clusters of 1024 queries
+    (1, 128, 8, 8),
+    (1024, 128, 8, 8),      # exactly one f32 cluster
+    (1100, 128, 8, 16),
     (0, 32, 4, 0)])
 def test_query_blocks_pad_to_whole_clusters(nq, qb, cluster, blocks):
     """K1's and K14's grids hold whole clusters of query blocks: the
@@ -228,24 +250,39 @@ def test_query_blocks_pad_to_whole_clusters(nq, qb, cluster, blocks):
     assert (got - cluster) * qb < nq or nq == 0
 
 
-@pytest.mark.parametrize("nq,ntiles,cluster,held,splits", [
-    (10_000, 123, 4, 66, 5),     # 79 clusters on 66 slots: 1.2 waves
-    (10_000, 489, 4, 66, 5),     # the same at tile 2048
-    (8448, 123, 4, 66, 1),       # 66 clusters: one whole wave unsplit
-    (100, 123, 4, 66, 62),       # one cluster: one wave of 2-tile splits
-    (10_000, 123, 8, 33, 4),     # 40 clusters of 8 on 33 slots
-    (10_000, 123, 1, 264, 5),    # f32: clusters of one CTA, 264 slots
-    (1, 8, 4, 60, 8)])
-def test_onepass_grid_splits_over_cluster_slots(nq, ntiles, cluster, held,
-                                                splits):
+@pytest.mark.parametrize("nq,ntiles,qb,cluster,held,lanes,splits", [
+    (10_000, 123, 32, 4, 66, 128, 5),   # 79 clusters on 66 slots: 1.2 waves
+    (10_000, 489, 32, 4, 66, 128, 5),   # the same at tile 2048
+    (8448, 123, 32, 4, 66, 128, 1),     # 66 clusters: one whole wave
+    (100, 123, 32, 4, 66, 128, 62),     # one cluster: a wave of 2-tile splits
+    (10_000, 123, 32, 8, 33, 128, 4),   # 40 clusters of 8 on 33 slots (bf16)
+    (10_000, 123, 32, 1, 264, 128, 5),  # clusters of one CTA, 264 slots
+    (1, 8, 32, 4, 60, 128, 8),
+    # the f32 body: 128 queries x 16 lanes a CTA, 8 lane blocks a
+    # cluster of query blocks, one CTA an SM (16 clusters of 8 at once)
+    (10_000, 123, 128, 8, 16, 16, 1),   # 10 x 8 clusters: five whole waves
+    (10_000, 489, 128, 8, 16, 16, 1),
+    (2048, 123, 128, 8, 16, 16, 1),     # 16 clusters: one whole wave
+    (256, 123, 128, 8, 16, 16, 2),      # 8 clusters: two splits fill a wave
+    (1, 8, 128, 8, 15, 16, 8),          # 8 clusters on 15 slots: a tile each
+    # the layouts an NVIDIA H100 80GB HBM3 reports: bf16 30 slots, f32 15
+    (10_000, 123, 32, 8, 30, 128, 3),
+    (10_000, 489, 32, 8, 30, 128, 3),
+    (2048, 123, 32, 8, 30, 128, 18),
+    (10_000, 123, 128, 8, 15, 16, 3),   # 80 clusters: 16 whole waves
+    (10_000, 489, 128, 8, 15, 16, 3)])
+def test_onepass_grid_splits_over_cluster_slots(nq, ntiles, qb, cluster,
+                                                held, lanes, splits):
     """K14's grid from its layout: the query blocks padded to whole
     clusters, and the rows split by `_onepass_tiles_per` with the
-    clusters as its units (a cluster of CTAs walks one tile range) over
-    the clusters the card holds at once."""
-    layout = (32, 28 * 4096, 2, 128, 79_744, cluster, held, 2)
+    clusters as its units (a cluster of CTAs walks one tile range; a
+    cluster of query blocks has one a lane block, 128 / lanes) over the
+    clusters the card holds at once."""
+    layout = (qb, 28 * 4096, 2, 128, 79_744, cluster, held, 2, lanes)
     nqb, tp = tsc._onepass_grid(nq, ntiles, layout)
-    assert nqb == tsc._query_blocks(nq, 32, cluster)
-    assert tp == tsc._onepass_tiles_per(nqb // cluster, ntiles, held)
+    assert nqb == tsc._query_blocks(nq, qb, cluster)
+    assert tp == tsc._onepass_tiles_per(nqb // cluster * (128 // lanes),
+                                        ntiles, held, cluster)
     assert -(-ntiles // tp) == splits
 
 
