@@ -39,7 +39,7 @@ phases below; any failure exits non-zero.
    (`codes_lut_candidates`) against their plain versions at n = 1e6,
    d = 128, nq = 1024: identical int32 outputs in f32 on small-integer
    data for every (r, keep, tile) the plan uses and keep=0 (and K2 on
-   K8's candidates, with `cut=True` and without); in bf16 on
+   K8's candidates, with `cut=True` and without); in f32 and in bf16 on
    Gaussian data K8 within the bounds of phase 1 and K5 (which adds its
    table values in the plain version's order) identical again. Then
    their times at nq = 1e4 beside the plain versions', and whether K8
@@ -147,7 +147,16 @@ phases below; any failure exits non-zero.
    batch) and in decode mode
    (packed keys: within one truncation step of the resident search),
    each beside the resident search's wall time. No packed scan kernel
-   may launch in the ``pack=False`` calls. After the counts were read:
+   may launch in the ``pack=False`` calls. Then, with counts of its own,
+   the default (packed) search over the same f32 index at k = 100 and
+   1000 (f32 K8 → K2 → K3, `exact_rescan` for flagged queries) with
+   recall@1 >= 0.99 and queries/s; after its counts were read, on the
+   first `NSUB` queries its kernels against `scan_topk_packed`'s plain
+   versions by PERF.md §2's packed rule (and the search's result equal
+   to its kernels' on every unflagged query), its flagged counts, its
+   device time by kernel and f32 K8's time at the k = 1000 plan beside
+   its plain version, bound and the library's call. After the
+   ``pack=False`` counts were read:
    the f32 results against `exact_rescan` and the LUT oracle on 64
    queries, the flag counts of the f32 plan at k = 100, 1000 and 3072
    (the deepest k it serves on the card), and one search's device time
@@ -207,7 +216,10 @@ beside `topk` and held against its plain version.
    rescue's K4 and its K2 apart; then one decode-mode search on f32
    operands (f32 K1, the norms table in f32) at k = 100 on the first 256
    queries, its recall@1 beside the bf16 codes search's and the decoded
-   index's on the same queries: a report, not a gate.
+   index's on the same queries: a report, not a gate; and one default
+   (packed) search over the f32 decoded index (f32 K8) on those queries,
+   its recall@1 reported and its kernels held against their plain
+   versions by the d = 960 rule of `compare_topk`.
 9. 128 bits on phase 3's data (d = 128): `api.train(method="sr_d",
    m=15, ...)` → `index_base(mode="codes")` (m' = 16) → LUT mode with
    bf16 tables (K5 on the LUT body, 16 queries a CTA) and f32 tables
@@ -225,14 +237,17 @@ the scan-tail probe (K8 alone and the steps after it).
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
-phase 5's default calls and for its one-pass call, for phases 6 to 9
-and for the probes; K1's and K14's counts of their f32 instance's
-launches are set to 0 with them, and again just before phase 8's f32
-search, and read after phase 4f, that search and phase 9:
+phase 5's default calls and for its one-pass call, for phase 6, its
+packed search and phases 7 to 9 and for the probes; K1's, K14's and
+K8's counts of their f32 instance's launches are set to 0 with them,
+and again just before phase 8's f32 searches, and read after phase 4f,
+phase 6's packed search, those searches and phase 9:
 every kernel of the search path must have launched in each, K11 and K13
 in phase 4, f32 K1, f32 K14, K2 and K3 in phase 4f, K8, K5, K2 and K3
 in phase 5, K8's keep=0 form in the
-one-pass call, K9, K10, K6, K7 and the pair merge in phase 6, K12
+one-pass call, K9, K10, K6, K7 and the pair merge in phase 6, f32 K8, K2
+and K3 in its packed search, f32 K1 and f32 K8 in phase 8's f32
+searches, K12
 (once) and K14 in phase 7, K11, K13, K8, K1, K14, K5, K9, the pair
 merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
 the pair merge, K7,
@@ -246,8 +261,9 @@ phase 7's codes and is held against its plain version there in the same
 way. The
 flag counts and the profiler pass run after those reads. The line before
 the last is a JSON summary of the kernels (launches from the phase
-named beside them; the f32 instances of K1 and K14 as entries of their
-own, their launches phase 4f's); the last line is the device record.
+named beside them; the f32 instances of K1, K14 and K8 as entries of
+their own, their launches phase 4f's and the packed search's of phase 6);
+the last line is the device record.
 """
 
 from __future__ import annotations
@@ -1298,8 +1314,11 @@ def phase1c(rng, errs):
     idb1 = tsp._pack_idbits(-(-N // 2048) * 2048)
     plans = sorted({tsp._scan_config(k)
                     for k in (100, 1000, 2049, tsp._MAX_K)})
-    for kind, dtype in (("int", torch.float32), ("gauss", torch.bfloat16)):
+    for kind, dtype in (("int", torch.float32), ("gauss", torch.float32),
+                        ("gauss", torch.bfloat16)):
         exact = kind == "int"
+        # f32 K8 (K9's body) is an entry of its own in the kernels line
+        k8 = "scan_candidates" + (" f32" if dtype == torch.float32 else "")
         if exact:
             X = rng.integers(-3, 4, (N, D)).astype("float32")
             Q = rng.integers(-3, 4, (NQ1, D)).astype("float32")
@@ -1336,7 +1355,7 @@ def phase1c(rng, errs):
                                        tile=tile, keep=keep)
             ref = plain_topk(tsp.cand_merge_plain(cand0, disc0, r), r, k,
                              idbits)
-            note(errs, "scan_candidates", compare_topk(
+            note(errs, k8, compare_topk(
                 f"{tag} k={k} K8+K2+K3", got, ref, idbits, exact))
             del cand0, disc0, out0
         kw = dict(tile=2048, r=tsp._ONEPASS_R, premin=0, idbits=idb1)
@@ -2174,6 +2193,114 @@ def phase6(card, ds, Xq, index4, index5):
     return index, res, host
 
 
+def phase6_packed(card, ds, Xq, index):
+    """The default (packed) search over phase 6's f32 decoded index at
+    k = 100 and 1000: f32 K8 → K2 → K3, `exact_rescan` for the queries
+    the certificate flags; the default calls only, so that the launch
+    counts read after it are this path's own → ``{k: (dists, ids)}``."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print(f"== phase 6 packed: the default search over the f32 decoded "
+          f"index (f32 K8), SR-D-7+1, {N} base, {NQ} queries ({card})")
+    res = {}
+    for k in (100, 1000):
+        dists, ids = rq.search(index, Xq, k=k)
+        torch.cuda.synchronize()
+        check_search(dists, ids, k)
+        curve = eval_recall(ids, ds.gt, verbose=False)
+        walls = warm_walls(lambda: rq.search(index, Xq, k=k))
+        print(f"  decoded f32 packed k={k}: recall@1 {curve[0]:.4f} @10 "
+              f"{curve[9]:.4f} @100 {curve[99]:.4f}; search "
+              f"{NQ / float(np.median(walls)):,.0f} queries/s (median of "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms)")
+        check(curve[0] >= 0.99,
+              f"decoded f32 packed SR-D recall@1 {curve[0]:.4f} < 0.99")
+        res[k] = (dists, ids)
+    return res
+
+
+def phase6_packed_checks(errs, Xq, index, res):
+    """After the packed search's counts were read: on the first `NSUB`
+    queries its kernels (f32 K8 → K2 → K3, `scan_topk_packed`) against
+    the plain versions on the same operands by PERF.md §2's packed rule,
+    and the search's result equal to its kernels' top-k on every query
+    they do not flag; the flagged count of the whole batch and the
+    search's device time by kernel; f32 K8's time at the k = 1000 plan
+    beside its plain version, its bound and the library's scan →
+    ``{"scan_candidates f32": record}``."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+
+    print(f"== phase 6 packed results: the first {NSUB} queries against the "
+          f"plain versions, flags, profiles, f32 K8's time")
+    si = index.scan_index
+    Q = Xq[:NSUB].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    Qm = tsp._query_operand(Q, si.Xd.shape[1], torch.float32)
+    for k in (100, 1000):
+        r, keep, tile = tsp._scan_config(k)
+        idb = tsp._pack_idbits(-(-N // tile) * tile)
+        got = tsp.scan_topk_packed(Q, si.Xd, si.x2, k=k, r=r, tile=tile,
+                                   keep=keep)
+        ref = plain_topk(tsp.cand_merge_plain(*tsp.scan_candidates_plain(
+            Qm, si.Xd, si.x2, tile=tile, keep=keep, premin=0, idbits=idb),
+            r), r, k, idb)
+        note(errs, "scan_candidates f32", compare_topk(
+            f"f32 index k={k} {NSUB} queries K8+K2+K3 vs plain", got, ref,
+            idb, False))
+        d, i = res[k]
+        gv, gi, gf = got
+        ok = ~gf
+        same = bool(torch.equal(i[:NSUB][ok], gi[ok])) and bool(
+            ((d[:NSUB] - (gv + q2)).abs()[ok]
+             <= 1e-6 * d[:NSUB].abs()[ok]).all())
+        print(f"  the search's result on the {int(ok.sum())} unflagged of "
+              f"{NSUB} queries is its kernels' top-k (+|q|^2): {same}")
+        check(same, f"decoded f32 packed k={k}: the search's result is not "
+              "its kernels' top-k")
+        fl = tsp.scan_topk_packed(Xq, si.Xd, si.x2, k=k, r=r, tile=tile,
+                                  keep=keep)[2]
+        print(f"  k={k} plan (r={r}, keep={keep}, tile={tile}): "
+              f"{int(fl.sum())} of {NQ} queries flagged → exact_rescan")
+        print(f"  device time of the packed f32 search at k={k}")
+        wall, rows = profile(lambda: rq.search(index, Xq, k=k))
+        k8 = sum(ms for name, ms in rows
+                 if re.search(r"exact_rows_kernel.*KeySink", name))
+        print(f"  f32 K8 {k8:.2f} ms of a {wall:.1f} ms wall "
+              f"({k8 / wall:.3f})")
+    # f32 K8 at the main path's batch (nq = 1e4), the k = 1000 plan
+    times = {}
+    Qf = tsp._query_operand(Xq, si.Xd.shape[1], torch.float32)
+    XT = si.Xd.T.contiguous()
+    lib_ms, _ = timed(lambda: library_scan(Qf, XT, si.x2, 1000), 1)
+    del XT
+    r, keep, tile = tsp._scan_config(1000)
+    idb = tsp._pack_idbits(-(-N // tile) * tile)
+    kw = dict(tile=tile, keep=keep, premin=0, idbits=idb)
+    ms, out = timed(lambda: tsp.scan_candidates(Qf, si.Xd, si.x2, **kw), 2)
+    pms, ref = timed(lambda: tsp.scan_candidates_plain(Qf, si.Xd, si.x2,
+                                                       **kw), 1, warm=False)
+    eq = min(float((a == b).float().mean()) for a, b in zip(out, ref))
+    print(f"  f32 K8 k=1000 plan, nq={NQ}: keys equal to the plain "
+          f"version's (cuBLAS sums in another order) {eq:.6f}")
+    note(errs, "scan_candidates f32", compare_topk(
+        f"f32 index k=1000 nq={NQ} K8 (+K2+K3) vs plain",
+        plain_topk(tsp.cand_merge(*out, r, cut=True), r, 1000, idb),
+        plain_topk(tsp.cand_merge_plain(*ref, r), r, 1000, idb), idb,
+        False))
+    record(times, "scan_candidates f32", ms, pms, 2.0 * N * NQ * D,
+           "f32 CUDA-core", nbytes(Qf, si.Xd, si.x2, *out), lib_ms)
+    del out, ref
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase6_streamed_decode(index4, Xq, host):
     """`api.search_streamed` in decode mode (packed keys): counts of its
     own. A shard's keys keep more score bits than the whole base's, so
@@ -2934,7 +3061,9 @@ def phase8_f32(p8):
     in f32): its recall@1 beside the bf16 codes search's and the decoded
     index's on the same queries. A report (how much of decode mode's gap
     to the decoded index the bf16 norms table makes, PERF.md §7), not a
-    gate."""
+    gate. Then the default (packed) search over the f32 decoded index on
+    those queries (f32 K8 over 15 stages of 64 dimensions), its recall@1
+    reported → its ``(dists, ids)`` for `phase8_f32_checks`."""
     import torch
 
     import rayuela_tpu_torch.api as rq
@@ -2947,14 +3076,56 @@ def phase8_f32(p8):
     for tag, which, kw in (("decode mode, f32 operands", "codes",
                             {"op_dtype": torch.float32}),
                            ("decode mode, bf16 operands", "codes", {}),
+                           ("decoded index, f32 rows (packed)", "f32", {}),
                            ("decoded index", "index", {})):
         dists, ids = rq.search(p8[which], Q, k=100, **kw)
         check(bool(torch.isfinite(dists).all())
               and bool(((ids >= 0) & (ids < N8)).all()),
               f"phase 8 {tag}: non-finite dists or ids out of range")
         rec[tag] = float(eval_recall(ids, gt, verbose=False)[0])
+        if which == "f32":
+            out = dists, ids
     print("  recall@1 on the same queries: " + ", ".join(
         f"{tag} {r:.4f}" for tag, r in rec.items()))
+    return out
+
+
+def phase8_f32_checks(errs, p8, res):
+    """After phase 8's f32 counts were read: the packed search over the
+    f32 decoded index (`phase8_f32`'s ``res``) against the exact scan of
+    its own truncated scores, its kernels (f32 K8 → K2 → K3) held against
+    the plain versions on the same operands by the d = 960 rule of
+    `compare_topk` (by set, with the rows' own scores), and the search's
+    result equal to its kernels' top-k on every query they do not
+    flag."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+
+    sf = p8["f32"].scan_index
+    Q = p8["Xq"][:NSUB].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    Qm = tsp._query_operand(Q, D8, torch.float32)
+    r, keep, tile = tsp._scan_config(100)
+    idb = tsp._pack_idbits(-(-N8 // tile) * tile)
+    print(f"== phase 8 f32 results: the packed search over the f32 decoded "
+          f"index, d={D8}, k=100, {NSUB} queries, against the plain versions")
+    got = tsp.scan_topk_packed(Q, sf.Xd, sf.x2, k=100, r=r, tile=tile,
+                               keep=keep)
+    ref = plain_topk(tsp.cand_merge_plain(*tsp.scan_candidates_plain(
+        Qm, sf.Xd, sf.x2, tile=tile, keep=keep, premin=0, idbits=idb), r),
+        r, 100, idb)
+    note(errs, "scan_candidates f32", compare_topk(
+        f"scan_candidates f32 d={D8} k=100 (+K2+K3) vs plain", got, ref, idb,
+        False, row_scores(Qm, sf.Xd, sf.x2)))
+    d, i = res
+    gv, gi, gf = got
+    ok = ~gf
+    same = bool(torch.equal(i[ok], gi[ok])) and bool(
+        ((d - (gv + q2)).abs()[ok] <= 1e-6 * d.abs()[ok]).all())
+    print(f"  the search's result on the {int(ok.sum())} unflagged of {NSUB} "
+          f"queries is its kernels' top-k (+|q|^2): {same}")
+    check(same, "phase 8's packed f32 search is not its kernels' top-k")
 
 
 def phase8_checks(errs, p8):
@@ -3180,7 +3351,8 @@ def wide_kernels_vs_plain(errs, p8, Q, dec):
 def wide_times(p8):
     """The scan kernels at d = 960 over phase 8's base at the main path's
     batch (nq = 1e4, the k = 1000 plan), CUDA events, beside their bound
-    and the library's `addmm` + `topk` → ``{name: record}``."""
+    and the library's `addmm` + `topk` → ``{name: record}`` (K8 on the
+    f32 index as ``"scan_candidates f32"``)."""
     import torch
 
     from rayuela_tpu_torch.search import scan as tsp
@@ -3222,8 +3394,13 @@ def wide_times(p8):
     record(t, "codes_decode_onepass", ms, None, flop, "bf16 tensor-core",
            nbytes(*args, out), lib_ms)
     del out
-    rf, kf, tf, _ = tsp._f32_config(k, DEV)
     Qf = tsp._query_operand(Q, D8, torch.float32)
+    ms, out = timed(lambda: tsp.scan_candidates(Qf, sf.Xd, sf.x2, premin=0,
+                                                **kw), 2)
+    record(t, "scan_candidates f32", ms, None, flop, "f32 CUDA-core",
+           nbytes(Qf, sf.Xd, sf.x2, *out), lib_ms)
+    del out
+    rf, kf, tf, _ = tsp._f32_config(k, DEV)
     ms, (cv, ci) = timed(lambda: tsp.scan_f32_candidates(
         Qf, sf.Xd, sf.x2, tile=tf, keep=kf), 2)
     record(t, "scan_f32_candidates", ms, None, flop, "f32 CUDA-core",
@@ -3302,10 +3479,9 @@ def rescue8(errs, p8):
           f" launch(es)) + its K2<48> {k2ms:.2f} ms: "
           f"{(k4ms + k2ms) / max(busy, 1e-9):.3f} of the device busy time, "
           f"{(k4ms + k2ms) / wall:.3f} of the wall")
-    # K1: the tensor-core body at R = 0 on bf16, the fmaf body on f32
+    # K1: the tensor-core body at R = 0 (the search's bf16 operands)
     k1ms = sum(ms for name, ms in rows if re.search(
-        r"codes_mma_kernel(<\d+, 0,|ILi\d+ELi0E)|scan_candidates_kernel",
-        name))
+        r"codes_mma_kernel(<\d+, 0,|ILi\d+ELi0E)", name))
     if k1ms:
         print(f"  K1 {k1ms:.2f} ms: {k1ms / max(busy, 1e-9):.3f} of the "
               f"device busy time, {k1ms / wall:.3f} of the wall")
@@ -3588,6 +3764,9 @@ def main() -> int:
     path5 = {"scan_candidates": tsp.scan_candidates,
              "codes_lut_candidates": tsc.codes_lut_candidates,
              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
+    # the packed search over phase 6's f32 index: f32 K8, then K2, K3
+    path6p = {"scan_candidates": tsp.scan_candidates,
+              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
     path5b = {"scan_onepass": tsp.scan_onepass,
               "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge}
     path7 = {"encoding_ils": ticm.encoding_ils,
@@ -3668,7 +3847,8 @@ def main() -> int:
         zero()
         res4f = run("phase 4f", phase4f, smi, ds, Xq, served["sr_d"])
         launches4f = {n: w.launches for n, w in path4f.items()}
-        launches4f32 = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        launches4f32 = {n: w.launches_f32 for n, w in f32_wrappers.items()
+                        if n in path4f}
         print(f"phase-4f launches: {launches4f}; of the f32 instances: "
               f"{launches4f32}")
         check(all(launches4f.values()) and all(launches4f32.values()),
@@ -3697,6 +3877,21 @@ def main() -> int:
         packed6 = {n: w.launches for n, w in wrappers.items()
                    if n not in path6 and w.launches}
         check(not packed6, f"a pack=False call launched {packed6}")
+        zero()
+        res6p = run("phase 6 packed", phase6_packed, smi, ds, Xq, index6)
+        launches6p = {n: w.launches for n, w in path6p.items()}
+        launches6pf = tsp.scan_candidates.launches_f32
+        print(f"phase-6 packed launches: {launches6p}; of f32 K8: "
+              f"{launches6pf}")
+        check(all(launches6p.values()) and launches6pf > 0,
+              "a kernel of the packed search over the f32 index never "
+              "launched")
+        check(launches6pf == launches6p["scan_candidates"],
+              "the packed search over the f32 index launched K8 on bf16 "
+              "rows")
+        times.update(run("phase 6 packed checks", phase6_packed_checks, errs,
+                         Xq, index6, res6p))
+        del res6p
         zero()
         index7, res7, cap7 = run("phase 7", phase7, smi, ds, Xq, Xb,
                                  served["sr_d"], wall4)
@@ -3766,14 +3961,21 @@ def main() -> int:
         wide.update(run("phase 8 encode checks", encode_checks, rng, errs,
                         f"d={D8}", p8["model"], p8["Xb"], p8["vit"]))
         wide.update(run("d=960 kernel times", wide_times, p8))
+        wide_f32 = {f"scan_candidates f32 d={D8}":
+                    wide.pop("scan_candidates f32")}
         wide.update(run("phase 8 rescue", rescue8, errs, p8))
         for w in f32_wrappers.values():
             w.launches_f32 = 0
-        run("phase 8 f32", phase8_f32, p8)
+        res8f = run("phase 8 f32", phase8_f32, p8)
         launches8f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
         print(f"phase-8 f32 launches of the f32 instances: {launches8f}")
         check(launches8f["codes_decode_candidates"] > 0,
               "phase 8's f32 search never launched f32 K1")
+        check(launches8f["scan_candidates"] > 0,
+              "phase 8's packed search over the f32 index never launched "
+              "f32 K8")
+        run("phase 8 f32 checks", phase8_f32_checks, errs, p8, res8f)
+        del res8f
         del p8
         torch.cuda.empty_cache()
         zero()
@@ -3805,15 +4007,21 @@ def main() -> int:
         wide_by.setdefault(label.split(" ")[0], {})[
             label if " " in label else f"{label} d={D8}"] = rec
     # the f32 instances of K1 and K14 (the cluster fmaf body): launches of
-    # phase 4f, times at its shapes
+    # phase 4f, times at its shapes; f32 K8 (K9's body with the packed-key
+    # sink): launches of phase 6's packed search, times at its shapes and
+    # at d = 960
+    f32_on = {**{n: ("phase 4f", launches4f32[n]) for n in launches4f32},
+              "scan_candidates": ("phase 6, packed search over the f32 index",
+                                  launches6pf)}
     f32 = [{"name": f"{n} (f32 operands)", "route": "cuda",
             "source": SOURCES[n], "replaces": REPLACES[n],
-            "launches": launches4f32[n], "launches_in": "phase 4f",
+            "launches": f32_on[n][1], "launches_in": f32_on[n][0],
             "max_abs_err": errs[f"{n} f32"], **times[f"{n} f32"],
             "launches_wide": {"phase 8": launches8f[n],
                               "phase 9": launches9f[n]},
-            "wide": {}}
-           for n in ("codes_decode_candidates", "codes_decode_onepass")]
+            "wide": wide_f32 if n == "scan_candidates" else {}}
+           for n in ("codes_decode_candidates", "codes_decode_onepass",
+                     "scan_candidates")]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n],
          "replaces": REPLACES[n], "launches": on_path[n][1],

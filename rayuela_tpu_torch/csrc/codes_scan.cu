@@ -183,7 +183,6 @@ __device__ void decode_lanes(const T* __restrict__ Cflat,
 // their packed codes.
 template <typename T> struct CodesSrc {
   using Op = T;
-  static constexpr bool kQueryFastest = false;
   // bf16 rows score on the tensor cores (K4 here; K1 and K14 in their own
   // body below)
   static constexpr bool kTensorScores = std::is_same<T, __nv_bfloat16>::value;
@@ -919,10 +918,10 @@ inline int mma_nbuf(int dp, int nw) {
 }
 
 // K1 (R = 0: tile blockIdx.y, its KEEP smallest keys and certificate per
-// (lane, query) to cand/disc as the fmaf body writes them) and K14 (R > 0:
-// tiles [s * tiles_per, +tiles_per) of split s = blockIdx.y, the running
-// R-key buffer in `scratch`, the survivors merged at each tile's end) on
-// bf16 operands. Launched in clusters of MMA_CL CTAs along x (the query
+// (lane, query) to cand/disc as every candidates kernel writes them) and
+// K14 (R > 0: tiles [s * tiles_per, +tiles_per) of split s = blockIdx.y,
+// the running R-key buffer in `scratch`, the survivors merged at each
+// tile's end) on bf16 operands. Launched in clusters of MMA_CL CTAs along x (the query
 // blocks); the CTAs of a cluster walk the same rows.
 template <int KEEP, int R, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -1230,7 +1229,7 @@ cudaError_t mma_layout(int dp, int nw, int* out) {
 // body's order, and a score is one fmaf chain in dimension order from zero
 // across the d-blocks, then + x2.
 //
-// What bounded the former body (scan_common.cuh's 4 x 4 candidates blocks
+// What bounded the former body (4 x 4 blocks of lanes x queries a thread
 // over a CTA of 32 queries and all 128 lanes). Every CTA decoded each
 // 128-row step itself: m codebook rows of dp f32 values gathered from L2
 // for every row, about 1.1 TB of L2 reads a search at n = 1e6, nq = 1e4,

@@ -20,17 +20,18 @@
 // codes_scan.cu) reduces them to the (r + 1, 128, nq) buffer the TPU
 // kernel emits.
 //
-// K8's kernels are the scan bodies of scan_common.cuh over the row
-// source of this file, and on bf16 rows its candidates kernel is a body
-// of this file (`rows_mma_kernel`): the 128 rows of a row id are a
-// contiguous block of the decoded base Xd (n, dp), dp a multiple of 8,
-// already at the operand type, and their norms come from x2 (n,) f32. On
-// f32 rows the scores are the fmaf chain's (K1's f32 body: the dot in
-// dimension order plus x2); on bf16 rows they are the tensor-core score
-// of K1, K14 and K4 (`tile_scores`), and where a row is one d-block the
-// keys are the fmaf chain's (`margin_keys`), so K8's keys equal K1's on
-// the same rows at any width and the f32 body's at one d-block. A row
-// wider than 256 (GIST's d = 960) goes through in d-blocks of 128.
+// K8's candidates kernel is a body of this file at either operand type:
+// the 128 rows of a row id are a contiguous block of the decoded base Xd
+// (n, dp), dp a multiple of 8, already at the operand type, and their
+// norms come from x2 (n,) f32. On f32 rows it is K9/K10's exact-float
+// body (`exact_rows_kernel`) with the packed-key sink of scan_common.cuh
+// (`KeySink`): the scores are the fmaf chain's (the dot in dimension
+// order plus x2, K1's f32 arithmetic), the keys those of the body it
+// replaced, bit for bit. On bf16 rows it is `rows_mma_kernel`: the
+// tensor-core score of K1, K14 and K4 (`tile_scores`), and where a row is
+// one d-block the keys are the fmaf chain's (`margin_keys`), so K8's keys
+// equal K1's on the same rows at any width and the f32 body's at one
+// d-block. Either takes a row wider than 256 (GIST's d = 960) in stages.
 //
 // K9 and K10 replace scan_pallas.py::_scan_kernel and ::_verify_kernel
 // (pallas_scan_topk(pack=False), the idbits = 0 form of the counting
@@ -45,22 +46,22 @@
 // what the body does about it is said there.
 //
 // What bounds K8 on the card. 2*n*nq*dp operations (2.6e12 at n = 1e6,
-// nq = 1e4, dp = 128: 2.6 ms at the bf16 tensor-core peak) and, per
-// query block, its tile's rows (2 MB in bf16), which it reads rather than
-// decodes. The bf16 body (`rows_mma_kernel`, below, which says what it
-// does about the rest) puts the products on the tensor cores and stages
-// 128-row steps by cp.async; the grid runs the query blocks of one tile
-// together, so a tile comes from device memory about once and from L2 for
-// the other query blocks. The f32 body keeps the 4 x 4 fmaf blocks of
-// scan_common.cuh (a warp reads 64- or 128-byte runs of a row and writes
-// them transposed into shared memory, four loads in flight a thread).
-// scan_onepass (keep = 0) is the one-pass body of scan_common.cuh over the
-// same rows (`load_lanes`: a lane group's rows are one contiguous run of
-// Xd): it reads a row once per query block of its CTA (up to 32 queries),
-// and the query blocks of one lane group and split are neighbours in the
-// grid, so they find its rows in L2; on bf16 it scores on the tensor
-// cores as the candidates body does, and with few queries its row range
-// is split over CTAs as K4's is.
+// nq = 1e4, dp = 128: 2.6 ms at the bf16 tensor-core peak, 38.2 ms at the
+// f32 CUDA-core one) and, per query block, its tile's rows (2 MB in
+// bf16), which it reads rather than decodes. The bf16 body
+// (`rows_mma_kernel`, below, which says what it does about the rest) puts
+// the products on the tensor cores and stages 128-row steps by cp.async;
+// the f32 body is K9's (below: 64 queries x 16 lanes a CTA, rows and
+// queries staged together, 32 chains a thread). Both grids run the query
+// blocks of one tile together, so a tile comes from device memory about
+// once and from L2 for the other query blocks. scan_onepass (keep = 0) is
+// the one-pass body of scan_common.cuh over the same rows (`load_lanes`:
+// a lane group's rows are one contiguous run of Xd): it reads a row once
+// per query block of its CTA (up to 32 queries), and the query blocks of
+// one lane group and split are neighbours in the grid, so they find its
+// rows in L2; on bf16 it scores on the tensor cores as the candidates
+// body does, and with few queries its row range is split over CTAs as
+// K4's is.
 
 #include "scan_common.cuh"
 
@@ -68,68 +69,14 @@ namespace {
 
 constexpr int LOAD_BATCH = 4;  // 16-byte loads a thread keeps in flight
 
-// Row source of K8: rows of the decoded base. On bf16 rows K8 at keep =
-// 0 scores on the tensor cores (`tensor_scores`), as its candidates body
-// (`rows_mma_kernel`, below) does.
+// Row source of K8 at keep = 0: rows of the decoded base. On bf16 rows
+// it scores on the tensor cores (`tensor_scores`), as K8's candidates
+// body (`rows_mma_kernel`, below) does.
 template <typename T> struct RowsSrc {
   using Op = T;
-  static constexpr bool kQueryFastest = true;
   static constexpr bool kTensorScores = std::is_same<T, __nv_bfloat16>::value;
   const T* Xd;
   const float* x2;
-  __host__ __device__ int words() const { return 0; }
-  // A warp pass takes V lanes x 32/V chunks of 16 bytes: thread t reads
-  // chunk c0 + t % (32/V) of lane l0 + t / (32/V), so 32/V neighbours
-  // read one contiguous run, and element e of the chunk goes to bank
-  // (V * (t % (32/V)) + t / (32/V) + e) % 32, distinct over the warp.
-  // The d-block [b0, b0 + nb) is chunks b0/V .. (b0 + nb)/V of a row (nb
-  // and b0 are multiples of 8).
-  __device__ __forceinline__ void load(int n, int rid, int b0, int nb,
-                                       int dp, float* XsT, float* x2s,
-                                       int*) const {
-    constexpr int V = Vec16<T>::N;
-    constexpr int CW = 32 / V;
-    const int cpr = nb / V;               // 16-byte chunks of the block
-    const int cb = b0 / V;                // its first chunk in the row
-    const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const int lgroups = LANES / V;
-    const int items = lgroups * ((cpr + CW - 1) / CW);
-    const long long g0 = (long long)rid * LANES;
-    for (int it0 = warp; it0 < items; it0 += nwarps * LOAD_BATCH) {
-      uint4 u[LOAD_BATCH];
-#pragma unroll
-      for (int b = 0; b < LOAD_BATCH; ++b) {
-        const int it = it0 + b * nwarps;
-        const int lane = (it % lgroups) * V + t / CW;
-        const int c = (it / lgroups) * CW + t % CW;
-        const long long gid = g0 + lane;
-        u[b] = make_uint4(0u, 0u, 0u, 0u);
-        if (it < items && c < cpr && gid < n)
-          u[b] = __ldg(reinterpret_cast<const uint4*>(Xd + (size_t)gid * dp) +
-                       cb + c);
-      }
-#pragma unroll
-      for (int b = 0; b < LOAD_BATCH; ++b) {
-        const int it = it0 + b * nwarps;
-        const int lane = (it % lgroups) * V + t / CW;
-        const int c = (it / lgroups) * CW + t % CW;
-        if (it < items && c < cpr) {
-          float v[V];
-#pragma unroll
-          for (int e = 0; e < V; ++e) v[e] = 0.f;
-          Vec16<T>::add(u[b], v);
-#pragma unroll
-          for (int e = 0; e < V; ++e) XsT[(c * V + e) * LP + lane] = v[e];
-        }
-      }
-    }
-    if (threadIdx.x < LANES) {
-      const long long gid = g0 + threadIdx.x;
-      x2s[threadIdx.x] = gid < n ? x2[gid] : 0.f;
-    }
-    __syncthreads();
-  }
   __host__ __device__ int lane_words() const { return 0; }
   // The NL lanes [l0, l0 + NL) of the NR row ids rid .. rid + NR - 1
   // (NR runs of NL consecutive rows of Xd) at dimensions [b0, b0 + nb),
@@ -191,14 +138,16 @@ template <typename T> struct RowsSrc {
 };
 
 // ---------------------------------------------------------------------------
-// K9 and K10: the exact-float body
+// K9 and K10, and K8 on f32 rows: the exact-float body
 // ---------------------------------------------------------------------------
 // What bounds it on the card: n*nq*dp multiply-adds on the CUDA cores
 // (1.28e12 at n = 1e6, nq = 1e4, dp = 128: 38.2 ms at 67 TFLOP/s). Each
 // (query, row) score is one f32 chain, acc = 0, acc = fmaf(x, q, acc)
 // over the dimensions in ascending order (bf16 operands widened
-// exactly), then acc + x2: the arithmetic of the body this one replaced
-// (scan_common.cuh's 4 x 4 blocks), so the outputs are the same bits.
+// exactly), then acc + x2: the arithmetic of the 4 x 4-blocked fmaf body
+// these kernels replaced, so the outputs are the same bits. With the
+// packed-key sink it is K8 on f32 rows (any rows a tile: the sink keeps
+// no tile step), whose keys are thereby those of that body too.
 // What the design does about the bound:
 //  - A CTA scores EX_QB = 64 queries against EX_LC lanes of the tile,
 //    walking the tile's row ids in groups of EX_RG = 8. A thread owns one
@@ -320,7 +269,8 @@ template <typename T> struct ExCopies {
   }
 };
 
-// The exact-float body (K9 with a SelectSink, K10 with the CountSink):
+// The exact-float body (K9 with a SelectSink, K10 with the CountSink, K8
+// on f32 rows with a KeySink):
 // CTA (query block, lane block, tile) over Xd (n, dp) at T, the norms x2
 // and the f32 queries Qf (nq, dp), -2q widened exactly.
 template <typename T, class Sink>
@@ -442,10 +392,11 @@ cudaError_t launch_exact(const void* Qf, const void* Xd, const void* x2,
 // ---------------------------------------------------------------------------
 // K8 on bf16 operands: the tensor-core candidates body
 // ---------------------------------------------------------------------------
-// What bounded K8's fmaf body (scan_common.cuh's 4 x 4 blocks): n*nq*dp
-// multiply-adds on the CUDA cores, 20 shared loads per 64 of them, and a
-// step that waited on its own row loads (PERF.md §6: 100.8 ms at d = 128,
-// 516 ms at d = 960 on an H100, the library's addmm + topk 270 ms there).
+// What bounded K8's former fmaf body (a 4 x 4 block of lanes x queries a
+// thread): n*nq*dp multiply-adds on the CUDA cores, 20 shared loads per 64
+// of them, and a step that waited on its own row loads (PERF.md §6: 100.8
+// ms at d = 128, 516 ms at d = 960 on an H100, the library's addmm + topk
+// 270 ms there).
 // Here the products go to the tensor cores with the score function of K1,
 // K14 and K4 (`tile_scores`: one mma.sync m16n8k16 per 16-dimension
 // chunk, ascending, from a zero accumulator, added in f32, then + x2), so
@@ -517,7 +468,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 
 // K8's candidates on bf16 rows: CTA (query block, tile) writes, per
 // (lane, query), the KEEP smallest keys ascending to cand[t * KEEP + c]
-// and the smallest other key to disc[t], as the fmaf body does. stats,
+// and the smallest other key to disc[t], as the f32 body does. stats,
 // where given, gains the number of pairs the fmaf chain scored.
 template <int KEEP, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -776,8 +727,10 @@ cudaError_t launch_rows_mma(const void* Qm, const void* Xd, const void* x2,
 extern "C" {
 
 // K8: per tile and (lane, query) the keep smallest keys and the
-// certificate. bf16 rows take the tensor-core body (`rows_mma_kernel`);
-// stats (bf16 only, may be null) gains the pairs the fmaf chain scored.
+// certificate. bf16 rows take the tensor-core body (`rows_mma_kernel`),
+// f32 rows the exact-float body with the packed-key sink (Qm then -2q in
+// f32, 16-byte aligned); stats (bf16 only, may be null) gains the pairs
+// the fmaf chain scored.
 int rq_scan_candidates(const void* Qm, const void* Xd, const void* x2,
                        void* cand, void* disc, void* stats, int n, int nq,
                        int dp, int ntiles, int rows, int keep, int idbits,
@@ -794,20 +747,23 @@ int rq_scan_candidates(const void* Qm, const void* Xd, const void* x2,
     }
     return (int)cudaErrorInvalidValue;
   }
-  const RowsSrc<float> src{(const float*)Xd, (const float*)x2};
+#define RQ_K8(K)                                                          \
+  return (int)launch_exact<float>(                                        \
+      Qm, Xd, x2, KeySink<K>{(int*)cand, (int*)disc, -(1 << idbits)}, n,  \
+      nq, dp, ntiles, rows, st)
   switch (keep) {
-    case 2: return (int)launch_candidates<RowsSrc<float>, 2>(
-        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
-    case 4: return (int)launch_candidates<RowsSrc<float>, 4>(
-        src, Qm, cand, disc, n, nq, dp, ntiles, rows, idbits, st);
+    case 2: RQ_K8(2);
+    case 4: RQ_K8(4);
   }
+#undef RQ_K8
   return (int)cudaErrorInvalidValue;
 }
 
 // K8's layout at width dp into out[5] (scan._candidates_layout mirrors
 // the first four): queries per CTA, dimensions per stage, stages, bytes of
 // shared memory per CTA, and the CTAs an SM holds at once (of the keep =
-// 2 instance; keep = 4 takes the same layout).
+// 2 instance; keep = 4 takes the same layout). The f32 body's is K9's at
+// every dp.
 int rq_scan_candidates_layout(int dp, int bf16, void* out) {
   int* o = (int*)out;
   const void* kern;
@@ -818,13 +774,11 @@ int rq_scan_candidates_layout(int dp, int bf16, void* out) {
     o[3] = (int)rm_smem(dp);
     kern = (const void*)rows_mma<2>(dp);
   } else {
-    using S = RowsSrc<float>;
-    o[0] = K1_QB;
-    o[1] = scan_dblock(dp);
-    o[2] = 1;
-    o[3] = (int)scan_smem(dp, K1_QB, 0);
-    kern = dp > NARROW_DP ? (const void*)scan_candidates_kernel<S, 2, true>
-                          : (const void*)scan_candidates_kernel<S, 2, false>;
+    o[0] = EX_QB;
+    o[1] = EX_KC;
+    o[2] = EX_STAGES;
+    o[3] = ex_smem<float>();
+    kern = (const void*)exact_rows_kernel<float, KeySink<2>>;
   }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, o[3]);

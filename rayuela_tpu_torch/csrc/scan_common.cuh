@@ -1,12 +1,12 @@
 // Shared device code of the packed-key scans for Hopper (sm_90a): the
 // key format, the register selection, the tensor-core score and its
-// keys, and the two scan bodies that K4 (codes_scan.cu) and K8
-// (decoded_scan.cu) instantiate with their own row source (K8's bf16
-// candidates, and K1/K14 on either operand type, have bodies of their
-// own over the same score and keys). The exact-float scans (K9, K10 in
-// decoded_scan.cu; K6, K7 in lut_scan.cu) share the sinks at the end of
-// this file, and K5 (lut_scan.cu) is K6/K7's LUT body with the packed-key
-// sink there.
+// keys, and the one-pass body that K4 (codes_scan.cu) and K8 at keep = 0
+// (decoded_scan.cu) instantiate with their own row source (the candidates
+// kernels K1/K14 and bf16 K8 have bodies of their own over the same score
+// and keys). The exact-float scans (K9, K10 in decoded_scan.cu; K6, K7 in
+// lut_scan.cu) share the sinks at the end of this file, and with the
+// packed-key sink there the same bodies are K8 on f32 rows
+// (decoded_scan.cu) and K5 (lut_scan.cu).
 //
 // Logical contract (shared with the plain PyTorch versions in
 // rayuela_tpu_torch/search/). Row gid lives in lane gid % 128 with
@@ -20,36 +20,25 @@
 // every key that is dropped on the way goes into one running minimum,
 // the certificate.
 //
-// A row source `Src` provides
+// A row source `Src` (of the one-pass body) provides
 //   using Op = float | __nv_bfloat16     the operand type
-//   static constexpr bool kQueryFastest  block index order (see below)
-//   int words() const                    ints of scratch per CTA
-//   int lane_words() const               of them, per lane
-//   void load(n, rid, b0, nb, dp, XsT, x2s, words)
+//   int lane_words() const               ints of scratch per row
 //   void load_lanes<NL, NR>(n, rid, l0, b0, nb, dp, Xs, xs, x2s, words)
 //                                        (Xs: Op *)
-// where load() brings dimensions [b0, b0 + nb) of the 128 rows of row
-// id `rid` (dp values each) into shared memory, transposed as
-// XsT[kk * LP + lane] for kk < nb (f32 holding values of Op; the padded
-// stride keeps the score reads free of bank conflicts), and their norms
-// into x2s[lane] (with a block at b0 > 0 only adding to what the earlier
-// blocks left there, where the norms come from the row itself), and
-// ends with a barrier. load_lanes() does the same for the NL lanes
-// [l0, l0 + NL) of the NR row ids rid .. rid + NR - 1, row by row: row
-// j < NR * NL (row id rid + j / NL, lane l0 + j % NL) at Xs[j * xs + kk]
-// at the operand type, its norm at x2s[j] (the one-pass body's layout).
+// where load_lanes() brings dimensions [b0, b0 + nb) of the NL lanes
+// [l0, l0 + NL) of the NR row ids rid .. rid + NR - 1 (dp values each)
+// into shared memory row by row: row j < NR * NL (row id rid + j / NL,
+// lane l0 + j % NL) at Xs[j * xs + kk] at the operand type, its norm at
+// x2s[j] (a block at b0 > 0 only adding to what the earlier blocks left
+// there, where the norms come from the row itself), and ends with a
+// barrier.
 //
-// The d-blocks. Up to NARROW_DP a row is one block (b0 = 0, nb = dp):
-// the tile and the queries of a CTA sit in shared memory whole, and the
-// queries load once. A wider row (GIST's d = 960) goes through in
-// blocks of DBLK dimensions, in ascending order, each with the CTA's
-// queries cut to the same block: the per-thread scores stay in
-// registers across the blocks, so a score is still one fmaf chain in
-// dimension order and its bits do not depend on the blocking. Such a
-// CTA reloads its queries' block for every row id (from L2: a quarter
-// of the bytes of the rows' block at 32 queries) and takes the shared
-// memory of dp = DBLK, two CTAs per SM. The layout (`scan_dblock`,
-// `scan_smem`) is the kernels' alone; the wrappers ask for it.
+// The d-blocks. Up to NARROW_DP a row is one block (b0 = 0, nb = dp). A
+// wider row (GIST's d = 960) goes through in blocks of DBLK dimensions,
+// in ascending order: the per-thread scores stay in registers across the
+// blocks, so a score is still one fmaf chain in dimension order and its
+// bits do not depend on the blocking (`scan_dblock`; the one-pass
+// layout, `topk_smem`, is the kernels' alone, the wrappers ask for it).
 //
 // The tensor-core score. The bf16 code-resident scans (K1 and K14 in
 // codes_scan.cu, K4 below) score on the tensor cores instead: a score is
@@ -67,7 +56,8 @@
 // (`margin_keys`). A d not a multiple of 16 scores with its last chunk
 // zero-filled in shared memory (the rows' and the queries' pads), so any
 // dp a multiple of 8 takes the same function. The f32 instances keep the
-// fmaf chain (f32 K1 and K14: `codes_f32_kernel` in codes_scan.cu).
+// fmaf chain (f32 K1 and K14: `codes_f32_kernel` in codes_scan.cu; f32
+// K8: `exact_rows_kernel` in decoded_scan.cu).
 
 #pragma once
 
@@ -80,8 +70,6 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int LP = LANES + 1;  // padded stride of the transposed tile
-constexpr int K1_QB = 32;      // queries per candidates CTA (8 warps x 4)
 constexpr int THREADS = 256;
 constexpr int NARROW_DP = 256;  // up to this width a row is one d-block
 constexpr int DBLK = 128;       // the d-block of a wider row
@@ -91,28 +79,9 @@ __host__ __device__ inline int scan_dblock(int dp) {
   return dp <= NARROW_DP ? dp : DBLK;
 }
 
-// Dynamic shared memory of a scan CTA: the transposed tile and the
-// queries of one d-block, the rows' norms, the row source's scratch.
-inline size_t scan_smem(int dp, int qb, int words) {
-  const size_t db = scan_dblock(dp);
-  return sizeof(float) * (db * LP + (size_t)qb * db + LANES) +
-         sizeof(int) * (size_t)words;
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// round an f32 value to the operand type T and back (round to nearest
-// even, as torch's .to(torch.bfloat16) does)
-template <typename T> __device__ __forceinline__ float round_op(float x);
-template <> __device__ __forceinline__ float round_op<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_op<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // 16 bytes from device memory to shared memory, asynchronously (zeros
@@ -186,171 +155,6 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-template <typename T>
-__device__ void load_queries(const T* __restrict__ Qm, int q0, int nq,
-                             int dp, int nqb, float* Qs) {
-  for (int i = threadIdx.x; i < nqb * dp; i += blockDim.x) {
-    const int q = q0 + i / dp;
-    Qs[i] = q < nq ? to_f32(Qm[(size_t)q * dp + i % dp]) : 0.f;
-  }
-}
-
-// Dimensions [b0, b0 + nb) of the CTA's nqb queries to Qs[j * DBLK + kk]
-// (zeros past nb and past nq).
-template <typename T>
-__device__ void load_query_block(const T* __restrict__ Qm, int q0, int nq,
-                                 int dp, int b0, int nb, int nqb,
-                                 float* Qs) {
-  for (int i = threadIdx.x; i < nqb * DBLK; i += blockDim.x) {
-    const int q = q0 + i / DBLK, kk = i % DBLK;
-    Qs[i] = q < nq && kk < nb ? to_f32(Qm[(size_t)q * dp + b0 + kk]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void zero_scores(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// The 4-lane x 4-query block of dot products of a candidates thread,
-// over the nd dimensions of the tile in shared memory: lanes lg + 32 i
-// of the transposed tile XsT against the four queries at qrow (query j
-// at qrow + j * qs), each added to acc[i][j] as an f32 fmaf chain in
-// dimension order. One 16-byte shared load brings four dimensions of a
-// query (nd and qs are multiples of 4).
-__device__ __forceinline__ void block_scores(const float* XsT,
-                                             const float* qrow, int qs,
-                                             int nd, int lg,
-                                             float (&acc)[4][4]) {
-  for (int kk0 = 0; kk0 < nd; kk0 += 4) {
-    float4 qv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      qv[j] = *reinterpret_cast<const float4*>(qrow + j * qs + kk0);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float xv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = XsT[(kk0 + e) * LP + lg + 32 * i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(xv[i], comp(qv[j], e), acc[i][j]);
-    }
-  }
-}
-
-// The scores of row id `rid` in a 4x4-blocked CTA (the f32 K8; K9 and
-// K10 have a body of their own in decoded_scan.cu): its 128
-// rows into shared memory, the thread's 4 lanes x 4
-// queries to acc, the rows' norms to x2s. Narrow (dp <= NARROW_DP): one
-// block, the queries already in Qs (the kernel loaded them once). WIDE:
-// the d-blocks in ascending order, each with its block of the CTA's
-// queries; acc keeps the sums across the blocks.
-template <bool WIDE, class Src>
-__device__ __forceinline__ void step_scores(
-    const Src& src, const typename Src::Op* __restrict__ Qm, int q0, int nq,
-    int n, int rid, int dp, float* XsT, float* Qs, float* x2s, int* words,
-    float (&acc)[4][4]) {
-  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
-  zero_scores(acc);
-  if constexpr (!WIDE) {
-    __syncthreads();  // the previous step's readers are done with XsT
-    src.load(n, rid, 0, dp, dp, XsT, x2s, words);
-    block_scores(XsT, Qs + (qg * 4) * dp, dp, dp, lg, acc);
-  } else {
-    for (int b0 = 0; b0 < dp; b0 += DBLK) {
-      const int nb = min(DBLK, dp - b0);
-      __syncthreads();  // the readers of the last block are done
-      load_query_block(Qm, q0, nq, dp, b0, nb, K1_QB, Qs);
-      src.load(n, rid, b0, nb, dp, XsT, x2s, words);
-      block_scores(XsT, Qs + (qg * 4) * DBLK, DBLK, nb, lg, acc);
-    }
-  }
-}
-
-// The candidates body (f32 K8): CTA (t, qb) scans tile t (rows
-// row ids) for 32 queries and writes, per (lane, query), the KEEP
-// smallest keys ascending to cand[t*KEEP + c] and the smallest other key
-// to disc[t] (INT_MAX when nothing was dropped). Each thread scores a
-// 4-lane x
-// 4-query register block (one 16-byte shared load brings four
-// dimensions of a query) and keeps the selection state of its 16
-// (lane, query) pairs in registers; two CTAs share an SM, so one loads
-// rows while the other scores. The grid is (ntiles, query blocks), or
-// the transpose when Src::kQueryFastest: the blocks that run together
-// then share one tile, which they find in L2. WIDE: the d-blocks of
-// `step_scores`.
-template <class Src, int KEEP, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2)
-    scan_candidates_kernel(const Src src,
-                           const typename Src::Op* __restrict__ Qm,
-                           int* __restrict__ cand, int* __restrict__ disc,
-                           int n, int nq, int dp, int rows, int idbits) {
-  using T = typename Src::Op;
-  extern __shared__ __align__(16) float smem[];
-  const int db = WIDE ? DBLK : dp;
-  float* XsT = smem;                  // db * LP
-  float* Qs = XsT + db * LP;          // K1_QB * db
-  float* x2s = Qs + K1_QB * db;       // LANES
-  int* words = (int*)(x2s + LANES);   // src.words()
-  const int t = Src::kQueryFastest ? blockIdx.y : blockIdx.x;
-  const int q0 = (Src::kQueryFastest ? blockIdx.x : blockIdx.y) * K1_QB;
-  const int lg = threadIdx.x & 31, qg = threadIdx.x >> 5;
-  const int vmask = -(1 << idbits);
-  if constexpr (!WIDE) load_queries<T>(Qm, q0, nq, dp, K1_QB, Qs);
-
-  int best[4][4][KEEP];
-  int rest[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      rest[i][j] = INT_MAX;
-#pragma unroll
-      for (int c = 0; c < KEEP; ++c) best[i][j][c] = INT_MAX;
-    }
-
-  for (int step = 0; step < rows; ++step) {
-    const int rid = t * rows + step;
-    float acc[4][4];
-    step_scores<WIDE>(src, Qm, q0, nq, n, rid, dp, XsT, Qs, x2s, words,
-                      acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lane = lg + 32 * i;
-      const bool pad = (long long)rid * LANES + lane >= n;
-      const float x2 = x2s[lane];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float s = pad ? __int_as_float(0x7F800000) : acc[i][j] + x2;
-        insert_sorted<KEEP>(best[i][j], rest[i][j], row_key(s, rid, vmask));
-      }
-    }
-  }
-
-  const size_t plane = (size_t)LANES * nq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = q0 + qg * 4 + j;
-      if (q >= nq) continue;
-      const size_t off = (size_t)(lg + 32 * i) * nq + q;
-#pragma unroll
-      for (int c = 0; c < KEEP; ++c)
-        cand[(size_t)(t * KEEP + c) * plane + off] = best[i][j][c];
-      disc[(size_t)t * plane + off] = rest[i][j];
-    }
-}
 
 // Elements of T in 16 bytes, unpacked to f32 (exact: a bf16 is the top
 // half of the f32 with the same value; the lower address is the low half).
@@ -901,19 +705,6 @@ cudaError_t launch_scan(void (*kern)(P...), dim3 grid, size_t smem,
   if (e != cudaSuccess) return e;
   kern<<<grid, THREADS, smem, st>>>(args...);
   return cudaGetLastError();
-}
-
-template <class Src, int KEEP>
-cudaError_t launch_candidates(const Src& src, const void* Qm, void* cand,
-                              void* disc, int n, int nq, int dp, int ntiles,
-                              int rows, int idbits, cudaStream_t st) {
-  const int nqb = (nq + K1_QB - 1) / K1_QB;
-  const dim3 grid = Src::kQueryFastest ? dim3(nqb, ntiles) : dim3(ntiles, nqb);
-  const size_t smem = scan_smem(dp, K1_QB, src.words());
-  auto kern = dp > NARROW_DP ? scan_candidates_kernel<Src, KEEP, true>
-                             : scan_candidates_kernel<Src, KEEP, false>;
-  return launch_scan(kern, grid, smem, st, src, (const typename Src::Op*)Qm,
-                     (int*)cand, (int*)disc, n, nq, dp, rows, idbits);
 }
 
 // The one-pass body at qb queries a CTA (`topk_qb`; the wrapper passes

@@ -43,7 +43,7 @@ Every output carries a digest (`time_exact.digest`). ``--out FILE``
 writes them; ``--against FILE`` asserts that this run's equal those in
 FILE (exit 1 otherwise) for every case marked ``"exact"``: all but K8's
 Gaussian candidates at d = 960, whose keys are the tensor cores' where
-K8's fmaf body took the fmaf chain's. ``--root DIR`` imports
+K8's former fmaf body took the fmaf chain's. ``--root DIR`` imports
 ``rayuela_tpu_torch`` from DIR (an unpacked earlier commit; run the file
 by its path, not with ``-m``, so that nothing is imported before), so
 that two versions are timed on one card in one call, in turns: the

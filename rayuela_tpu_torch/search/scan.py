@@ -568,14 +568,18 @@ def scan_candidates(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
     ``Qm (nq, dp)`` is ``-2 Q`` at the operand dtype, ``Xd (n, dp)`` the
     decoded base at that dtype (dp a multiple of 8 on the card), ``x2
     (n,)`` f32. Returns ``cand (ntiles*keep, 128, nq)`` and ``disc
-    (ntiles, 128, nq)`` int32. On bf16 rows the kernel scores on the
+    (ntiles, 128, nq)`` int32. On f32 rows the kernel is K9's body with
+    a packed-key sink (64 queries x 16 lanes a CTA, rows and queries
+    staged 64 dimensions at a time, `_candidates_layout`): each score one
+    fmaf chain in dimension order plus x2. On bf16 rows it scores on the
     tensor cores (K1's score function, a CTA of 32 queries over 128-row
-    steps staged 128 dimensions at a time, `_candidates_layout`); where
-    a row is one d-block (dp <= 256) its keys are the fmaf chain's, as
-    the f32 body's and the plain version's f32 matmul's on data whose
-    sums round alike, beyond that the tensor-core keys. The kernel is
-    compiled without the pre-min (it saved no time on the card): a CUDA
-    tensor with ``premin != 0`` raises. Source:
+    steps staged 128 dimensions at a time); where a row is one d-block
+    (dp <= 256) its keys are the fmaf chain's, as the f32 body's and the
+    plain version's f32 matmul's on data whose sums round alike, beyond
+    that the tensor-core keys. The kernel is compiled without the
+    pre-min (it saved no time on the card): a CUDA tensor with ``premin
+    != 0`` raises. ``launches_f32`` counts the launches on f32 rows
+    beside ``launches``. Source:
     ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
     on_card = _check_decoded(Qm, Xd, x2, tile, premin)
     if keep < 1 or keep > (tile // LANES) >> premin:
@@ -591,10 +595,12 @@ def scan_candidates(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
     if nq and n:
         _launch_candidates(Qm, Xd, x2, cand, disc, 0, tile, keep, idbits)
         scan_candidates.launches += 1
+        scan_candidates.launches_f32 += Xd.dtype == torch.float32
     return cand, disc
 
 
 scan_candidates.launches = 0
+scan_candidates.launches_f32 = 0
 
 
 def _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile: int, keep: int,
@@ -603,7 +609,9 @@ def _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile: int, keep: int,
     or 0) gains the pairs the fmaf chain scored (bf16 rows)."""
     (n, dp), nq = Xd.shape, Qm.shape[0]
     bf16 = int(Xd.dtype == torch.bfloat16)
-    if bf16 and Qm.data_ptr() % 16:      # the kernel copies 16 bytes
+    if not bf16:
+        Qm = _f32_queries(Qm)
+    elif Qm.data_ptr() % 16:             # the kernel copies 16 bytes
         Qm = Qm.clone()
     launch("rq_scan_candidates", Qm, Xd, x2, cand, disc, stats, n, nq, dp,
            cdiv(n, tile), tile // LANES, keep, idbits, bf16,
@@ -641,13 +649,12 @@ def _candidates_layout(dp: int, bf16: int) -> tuple[int, int, int, int]:
     (dp <= 256) the CTA also keeps its queries whole (``dp + 8`` bf16
     each), the rows' norms and 8 partial sums of each, the queries'
     margins and each of its 8 warps' requests for the fmaf chain (an int
-    key and a 16-bit item each). The
-    f32 body holds the 4 x 4-blocked tile of one d-block transposed (129
-    floats a dimension), the queries of that block and the rows'
-    norms."""
+    key and a 16-bit item each). The f32 body is K9's (`_exact_layout`):
+    64 queries a CTA, stages of 64 dimensions, 2 deep, the same at every
+    dp."""
     if not bf16:
-        db = dp if dp <= 256 else 128
-        return 32, db, 1, 4 * (db * (LANES + 1) + 32 * db + LANES)
+        qb, _, _, _, kc, stages, smem = _exact_layout(_KEEPS[0], 0)
+        return qb, kc, stages, smem
     wide = dp > 256
     stage = 2 * (LANES + (_RM_QB if wide else 0)) * (_RM_KC + 8) + 4 * LANES
     extra = 0 if wide else (2 * _RM_QB * (dp + 8) + 4 * (9 * LANES + _RM_QB)

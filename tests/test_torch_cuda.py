@@ -792,21 +792,67 @@ def _decoded_case(dev, kind, dtype, n, d, nq, seed=0):
     return idx, Qt, tsp._query_operand(Qt, idx.Xd.shape[1], dtype)
 
 
-@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 33)])
+@pytest.mark.parametrize("d,nq", [(24, 33), (100, 1), (128, 33), (104, 70),
+                                  (256, 70), (264, 70), (960, 70)])
 @pytest.mark.parametrize("keep,tile", [(2, 8192), (4, 8192), (4, 2048),
                                        (2, 1024)])
 def test_decoded_scan_kernel_equals_plain_on_integer_data(dev, d, nq, keep,
                                                           tile):
+    """K8 on f32 rows (K9's exact-float body with the packed-key sink)
+    against its plain version: identical int32 buffers at rows narrower
+    than a stage of 64 dimensions, of a partial last stage (d = 100 ->
+    104, 264) and of many (960), query blocks of 64 cut short, n ragged
+    against the tile; one launch, counted as an f32 one."""
     n = 20_001                          # odd, ragged against the tile
     idx, Q, Qm = _decoded_case(dev, "int", torch.float32, n, d, nq)
     idbits = tsp._pack_idbits(-(-n // tile) * tile)
     kw = dict(tile=tile, keep=keep, premin=0, idbits=idbits)
-    n8 = tsp.scan_candidates.launches
+    n8, f8 = tsp.scan_candidates.launches, tsp.scan_candidates.launches_f32
     cand, disc = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
     torch.cuda.synchronize()
-    assert tsp.scan_candidates.launches == n8 + 1
+    assert (tsp.scan_candidates.launches,
+            tsp.scan_candidates.launches_f32) == (n8 + 1, f8 + 1)
     cand0, disc0 = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2, **kw)
     assert torch.equal(cand, cand0) and torch.equal(disc, disc0)
+
+
+@pytest.mark.parametrize("tile", [256, 512, 1024, 2048, 8192, 32768, 65536])
+def test_f32_decoded_candidates_take_every_tile(dev, tile):
+    """Every tile `scan_candidates` accepts runs K8 on f32 rows and equals
+    the plain version: fewer rows a tile than a group of 8 row ids (tile
+    256, 512) and more than a byte of tile steps (32768, 65536), keep 2
+    and 4 where the tile holds them; a tile the wrapper refuses raises as
+    it did before the kernel ran."""
+    n = 70_001
+    idx, Q, Qm = _decoded_case(dev, "int", torch.float32, n, 24, 5)
+    idbits = tsp._pack_idbits(-(-n // tile) * tile)
+    for keep in (2, 4):
+        kw = dict(tile=tile, keep=keep, premin=0, idbits=idbits)
+        if keep > tile // 128:
+            with pytest.raises(ValueError, match="keep"):
+                tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+            continue
+        cand, disc = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+        cand0, disc0 = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2, **kw)
+        assert torch.equal(cand, cand0) and torch.equal(disc, disc0)
+    with pytest.raises(ValueError, match="power of two"):
+        tsp.scan_candidates(Qm, idx.Xd, idx.x2, tile=3 * 128, keep=2,
+                            premin=0, idbits=idbits)
+
+
+def test_f32_decoded_candidates_raise_where_the_kernel_refuses(
+        dev, monkeypatch):
+    """A shape that K8's f32 instance is not compiled for (keep = 3, let
+    past the wrapper's check) raises from the launch: no plain result and
+    no count."""
+    idx, Q, Qm = _decoded_case(dev, "int", torch.float32, 3000, 24, 4)
+    monkeypatch.setattr(tsp, "_KEEPS", (2, 3, 4))
+    n8, f8 = tsp.scan_candidates.launches, tsp.scan_candidates.launches_f32
+    with pytest.raises(RuntimeError, match="rq_scan_candidates"):
+        tsp.scan_candidates(Qm, idx.Xd, idx.x2, tile=2048, keep=3,
+                            premin=0, idbits=8)
+    assert (tsp.scan_candidates.launches,
+            tsp.scan_candidates.launches_f32) == (n8, f8)
 
 
 @pytest.mark.parametrize("nq", ONEPASS_NQ)
@@ -1332,15 +1378,13 @@ def test_f32_counts_see_k9s_scores(dev, d, dtype, k, r, keep):
 @pytest.mark.parametrize("bf16", [0, 1])
 def test_decoded_candidates_layout_is_the_kernels(dev, dp, bf16):
     """K8's layout comes from its source (`rq_scan_candidates_layout`),
-    `scan._candidates_layout` states it, and the card holds two bf16 CTAs
-    an SM at every width (the occupancy its launch bounds ask for), f32
-    ones where two fit."""
+    `scan._candidates_layout` states it, and the card holds two CTAs an
+    SM at every width on either operand type (the occupancy the launch
+    bounds ask for; on f32 K9's body, whose layout does not depend on
+    dp)."""
     lay = query("rq_scan_candidates_layout", dp, bf16, size=5, device=dev)
     assert lay[:4] == tsp._candidates_layout(dp, bf16)
-    cap = getattr(torch.cuda.get_device_properties(dev),
-                  "shared_memory_per_block_optin", 232_448)
-    # the f32 body at dp = 256 holds one CTA an SM (its tile transposed)
-    assert lay[4] == (2 if bf16 or lay[3] <= (cap - 1024) // 2 else 1), lay
+    assert lay[4] == 2, lay
 
 
 @pytest.mark.parametrize("keep", [0, 2, 4])

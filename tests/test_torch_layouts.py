@@ -1,4 +1,4 @@
-"""The host-side mirrors of the layouts of K8's bf16 candidates body, of
+"""The host-side mirrors of the layouts of K8's candidates bodies, of
 the ICM kernels K11/K12, of the LUT body of K5, K6 and K7 and of the
 Viterbi kernel K13, on the CPU: the vectors or queries a CTA takes, its
 shared bytes and whether it fits, for every shape the wrappers take.
@@ -50,13 +50,16 @@ def test_bf16_candidates_layout_fits_two_ctas_at_any_width(dp):
 
 
 @pytest.mark.parametrize("dp", [8, 104, 128, 256, 264, 960, 2432])
-def test_f32_candidates_layout_is_the_fmaf_body(dp):
-    """K8 on f32 keeps the 4 x 4-blocked fmaf body: 32 queries, one
-    d-block (the row up to 256, else 128) transposed at 129 floats a
-    dimension, the queries of that block and the rows' norms."""
-    db = dp if dp <= 256 else 128
-    assert tsp._candidates_layout(dp, 0) == (
-        32, db, 1, 4 * (db * 129 + 32 * db + 128))
+def test_f32_candidates_layout_is_the_exact_float_body(dp):
+    """K8 on f32 rows runs K9's exact-float body at every width: 64
+    queries a CTA, stages of 64 dimensions, 2 deep; a stage holds 8 row
+    ids x 16 lanes of rows and the 64 queries, each at 64 f32 + 16
+    bytes, so the CTA does not grow with dp and two fit an SM."""
+    smem = 2 * (8 * 16 * 272 + 64 * 272)
+    assert tsp._candidates_layout(dp, 0) == (64, 64, 2, smem)
+    assert smem == tsp._exact_layout(2, 0)[6] == tsp._exact_layout(4, 0)[6]
+    assert smem <= CAP2
+    assert smem % 16 == 0
 
 
 @pytest.mark.parametrize("m", [7, 8, 15, 16])
