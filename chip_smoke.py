@@ -230,6 +230,20 @@ beside `topk` and held against its plain version.
    counts were read, K5 (both table types), K6 and K7 against their
    plain versions on its tables, K1 (+K2+K3) and K4 at m = 15 against
    theirs, and the times of K5-K7 and K1 at m = 15.
+10. ERVQ and CompQ through the facade on phase 3's data:
+   `api.train(method="ervq" | "compq", m=7, h=256, niter=10)` (RVQ, then
+   ERVQ's fine-tuning or CompQ's beam training) → `api.index_base(
+   mode="codes")` over the 1e6 base (ERVQ's greedy encode, CompQ's
+   H = 16 beam) → `api.search(k=100)` and `(k=1000)`, with train
+   seconds, base vectors/s and queries/s; then ERVQ's default decoded
+   index at k = 100. Recall@1 >= 0.99 through each, printed beside the
+   JAX rows. After its counts were read, the persistence on the card:
+   each ERVQ index (both modes) turned into the saved arrays
+   (`api.saved_index`) and rebuilt on the card (`api.index_from_saved`)
+   must search as the live one (dists and ids, k = 100); the decoded
+   save rebuilt code-resident within 0.005 recall@1 of the live codes
+   index; where h5py imports, the HDF5 round trip too (a line says
+   whether it ran).
 Then the two probes at the JAX probes' sizes: the fusion probe (its
 kernel against its plain version for every k and both source forms,
 timed beside `amin` and its bound, its launch's device time apart) and
@@ -238,7 +252,7 @@ the scan-tail probe (K8 alone and the steps after it).
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
 phase 5's default calls and for its one-pass call, for phase 6, its
-packed search and phases 7 to 9 and for the probes; K1's, K14's and
+packed search and phases 7 to 10 and for the probes; K1's, K14's and
 K8's counts of their f32 instance's launches are set to 0 with them,
 and again just before phase 8's f32 searches, and read after phase 4f,
 phase 6's packed search, those searches and phase 9:
@@ -251,7 +265,8 @@ searches, K12
 (once) and K14 in phase 7, K11, K13, K8, K1, K14, K5, K9, the pair
 merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
 the pair merge, K7,
-K1, K2 and K3 in phase 9, the fusion kernel and K8 in the probes.
+K1, K2 and K3 in phase 9, K1, K2, K3 and K8 in phase 10, the fusion
+kernel and K8 in the probes.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
@@ -261,8 +276,9 @@ phase 7's codes and is held against its plain version there in the same
 way. The
 flag counts and the profiler pass run after those reads. The line before
 the last is a JSON summary of the kernels (launches from the phase
-named beside them; the f32 instances of K1, K14 and K8 as entries of
-their own, their launches phase 4f's and the packed search's of phase 6);
+named beside them, and phase 10's apart; the f32 instances of K1, K14
+and K8 as entries of their own, their launches phase 4f's and the
+packed search's of phase 6);
 the last line is the device record.
 """
 
@@ -281,7 +297,8 @@ N, D, NQ1, NQ, NTRAIN = 1_000_000, 128, 1024, 10_000, 100_000
 DEV = "cuda"
 # recall@1 on synthetic-corr at 64 bits from BASELINE.md (JAX package):
 # quality references, not speed figures
-JAX_RECALL1 = {"rvq": 0.9985, "pq": 0.1669, "sr_d": 0.9984}
+JAX_RECALL1 = {"rvq": 0.9985, "pq": 0.1669, "sr_d": 0.9984, "ervq": 0.9995,
+               "compq": 0.9985}
 # the sample standard deviation of SR-D-7+1's recall@1 through the codes
 # index over training seeds 0-39 on phase 4's data (NVIDIA H100 80GB HBM3,
 # 700 W; `rayuela_tpu_torch/demos/time_srd.py`): phase 4 holds its recall
@@ -3668,6 +3685,152 @@ def phase9_checks(errs, p9, Xq):
     return t
 
 
+def phase10(seed, card, ds, Xq):
+    """ERVQ and CompQ through the facade on phase 3's data: train, encode
+    the base, search the codes index at k = 100 and 1000 (and ERVQ's
+    decoded index at k = 100)."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import qerror
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print(f"== phase 10: ERVQ and CompQ through the facade, synthetic-corr "
+          f"d={D}, {NTRAIN} train, {N} base, {NQ} queries, m=7+1, h=256, "
+          f"niter=10 ({card})")
+    Xt = torch.as_tensor(ds.Xt, device=DEV)
+    Xb = torch.as_tensor(ds.Xb, device=DEV)
+    out = {"models": {}, "indexes": {}, "recall1": {}}
+
+    def searched(tag, index, k):
+        k4 = tsc.codes_decode_topk.launches
+        dists, ids = rq.search(index, Xq, k=k)
+        torch.cuda.synchronize()
+        rescues = tsc.codes_decode_topk.launches - k4
+        check_search(dists, ids, k)
+        curve = eval_recall(ids, ds.gt, verbose=False)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rq.search(index, Xq, k=k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall = float(np.median(walls))
+        print(f"  {tag} k={k}: recall@1 {curve[0]:.4f} @10 {curve[9]:.4f} "
+              f"@100 {curve[99]:.4f}; search {NQ / wall:,.0f} queries/s "
+              f"(median of {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
+              f"ms); rescue launches {rescues}")
+        out["recall1"][(tag, k)] = float(curve[0])
+        return float(curve[0])
+
+    for method in ("ervq", "compq"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = rq.train(Xt, method=method, m=7, h=256, niter=10, seed=seed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        qe = float(qerror(Xt, model.codebooks, model.train_codes))
+        index = rq.index_base(model, Xb, mode="codes")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"  {method} m=7: train {t1 - t0:.1f} s (train qerror "
+              f"{qe:.4f}); index_base ({'greedy' if method == 'ervq' else 'H = 16 beam'}"
+              f" encode, norms byte, pack) {t2 - t1:.1f} s, "
+              f"{N / (t2 - t1):,.0f} base vectors/s")
+        check(np.isfinite(qe), f"non-finite {method} train qerror")
+        if method == "compq":
+            # the training codes precede the last codebook step
+            qr = float(qerror(Xt, model.codebooks, rq.encode(model, Xt)))
+            print(f"  compq: train qerror {qr:.4f} at the beam's codes for "
+                  f"the final codebooks")
+        for k in (100, 1000):
+            r1 = searched(method, index, k)
+            check(r1 >= 0.99, f"{method} recall@1 {r1:.4f} < 0.99 at k={k}")
+        print(f"  {method}: recall@1 {out['recall1'][(method, 100)]:.4f} "
+              f"(JAX package, BASELINE.md: {JAX_RECALL1[method]})")
+        out["models"][method] = model
+        out["indexes"][(method, "codes")] = index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = rq.index_base(out["models"]["ervq"], Xb)
+    torch.cuda.synchronize()
+    print(f"  ervq decoded index (bf16 base): index_base "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(dec.mode == "decoded", "ERVQ's default index is not the decoded one")
+    r1 = searched("ervq decoded", dec, 100)
+    check(r1 >= 0.99, f"ervq decoded recall@1 {r1:.4f} < 0.99")
+    out["indexes"][("ervq", "decoded")] = dec
+    return out
+
+
+def phase10_checks(ds, Xq, p10):
+    """The persistence on the card, after phase 10's counts were read:
+    each ERVQ index turned into the saved arrays and rebuilt on the card
+    searches as the live one (dists and ids at k = 100); the decoded save
+    rebuilt code-resident (the layout override: at h = 256 its norms
+    codebook of 256 entries stacks with the tables as it is) keeps
+    recall@1 within 0.005 of the live codes index; where h5py imports,
+    the same through HDF5 files."""
+    import tempfile
+
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    print("== phase 10 checks: the persistence on the card")
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    live = {mode: p10["indexes"][("ervq", mode)]
+            for mode in ("codes", "decoded")}
+    ref = {mode: rq.search(idx, Xq, k=100) for mode, idx in live.items()}
+    for mode, idx in live.items():
+        t = time.perf_counter()
+        saved = rq.saved_index(idx)
+        again = rq.index_from_saved(saved, device=DEV)
+        torch.cuda.synchronize()
+        print(f"  ervq {mode}: saved arrays -> rebuilt on the card in "
+              f"{time.perf_counter() - t:.1f} s (d = {saved['@d']}, codes "
+              f"{saved['codes'].dtype})")
+        check(again.mode == mode and again.codes.device.type == "cuda",
+              f"the rebuilt {mode} index is not on the card")
+        check(same(rq.search(again, Xq, k=100), ref[mode]),
+              f"the rebuilt ervq {mode} index searches apart from the live "
+              f"one")
+    over = rq.index_from_saved(rq.saved_index(live["decoded"]), mode="codes",
+                               device=DEV)
+    check(over.norms_codebook.numel() == 256, "the override's norms codebook")
+    r_over = float(eval_recall(rq.search(over, Xq, k=100)[1], ds.gt,
+                               verbose=False)[0])
+    r_live = p10["recall1"][("ervq", 100)]
+    print(f"  ervq decoded save rebuilt code-resident: recall@1 {r_over:.4f} "
+          f"(live codes index {r_live:.4f})")
+    check(abs(r_over - r_live) <= 0.005,
+          f"the layout override's recall@1 {r_over:.4f} vs {r_live:.4f}")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("  HDF5 round trip: not run (h5py is not installed here)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, idx in live.items():
+            path = os.path.join(tmp, f"{mode}.h5")
+            rq.save_index(path, idx)
+            check(same(rq.search(rq.load_index(path, device=DEV), Xq,
+                                 k=100), ref[mode]),
+                  f"the HDF5 round trip of the ervq {mode} index")
+        rq.save_model(os.path.join(tmp, "m.h5"), p10["models"]["compq"])
+        m = rq.load_model(os.path.join(tmp, "m.h5"), device=DEV)
+        check(torch.equal(m.codebooks, p10["models"]["compq"].codebooks),
+              "the HDF5 round trip of the compq model")
+    print("  HDF5 round trip: ran (both ervq indexes, the compq model)")
+
+
 def probes(errs):
     """The counterparts of the JAX package's two probes, at its sizes:
     `rayuela_tpu_torch.demos.fusion_probe` and `.profile_scan_tail`."""
@@ -3793,6 +3956,11 @@ def main() -> int:
              "cand_merge": tsp.cand_merge, "tail_merge": tsp.tail_merge,
              "icm_sweeps": ticm.icm_sweeps,
              "viterbi_encode": tvit.viterbi_encode}
+    # ERVQ and CompQ (phase 10): the codes searches (K1 → K2 → K3, K4 for
+    # flagged queries) and ERVQ's decoded search (K8 → K2 → K3)
+    path10 = {"codes_decode_candidates": tsc.codes_decode_candidates,
+              "cand_merge": tsc.cand_merge, "tail_merge": tsp.tail_merge,
+              "scan_candidates": tsp.scan_candidates}
     probe_path = {"fusion_chain": fusion_probe.fusion_chain,
                   "scan_candidates": tsp.scan_candidates}
     wrappers = {**path4, **path5, **path5b, **path6, **path7, **probe_path}
@@ -3919,7 +4087,19 @@ def main() -> int:
         wide.update(run("phase 9 encode checks", encode_checks, rng, errs,
                         "m=15", p9["sr_d"].model, p9["Xb"], p9["vit"],
                         " m=15"))
-        del p9, ds
+        del p9
+        zero()
+        p10 = run("phase 10", phase10, args.seed, smi, ds, Xq)
+        launches10 = {n: w.launches for n, w in path10.items()}
+        print(f"phase-10 launches: {launches10}; K4 (rescues) "
+              f"{tsc.codes_decode_topk.launches}")
+        check(all(launches10.values()), "a kernel of the path never launched "
+              "in phase 10")
+        launches10.update({n: w.launches for n, w in wrappers.items()
+                           if n not in launches10})
+        launches10f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        run("phase 10 checks", phase10_checks, ds, Xq, p10)
+        del p10, ds
         zero()
         run("phase 6 streamed decode", phase6_streamed_decode,
             served["sr_d"], Xq, host)
@@ -4019,6 +4199,7 @@ def main() -> int:
             "max_abs_err": errs[f"{n} f32"], **times[f"{n} f32"],
             "launches_wide": {"phase 8": launches8f[n],
                               "phase 9": launches9f[n]},
+            "launches_phase10": launches10f[n],
             "wide": wide_f32 if n == "scan_candidates" else {}}
            for n in ("codes_decode_candidates", "codes_decode_onepass",
                      "scan_candidates")]
@@ -4028,6 +4209,7 @@ def main() -> int:
          "launches_in": on_path[n][0], "max_abs_err": errs[n], **times[n],
          "launches_wide": {"phase 8": launches8.get(n, 0),
                            "phase 9": launches9.get(n, 0)},
+         "launches_phase10": launches10[n],
          "wide": wide_by.get(n, {})}
         for n in wrappers] + f32}))
     print(json.dumps({"ok": True, "device": {

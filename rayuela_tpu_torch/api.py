@@ -11,16 +11,19 @@ a tensor stays on its device, a numpy array goes to ``"cuda"`` (and
 where there is no card that raises), and ``device="cpu"`` asks for the
 CPU, where the kernels' plain versions run.
 
-Ported: PQ, RVQ, OPQ, ChainQ and the LSQ family (LSQ, SR-C, SR-D), the
-last four through the staged OPQ → ChainQ init, served from the decoded
-index (``mode="decoded"``, the default: the base decoded once, bfloat16
-on the card) or the code-resident one (``mode="codes"``: ~m bytes per
-vector, scanned by decoding or, with ``search(..., mode="lut")``,
-through per-query tables); `search_streamed` serves packed codes that
-stay in host memory. ERVQ, CompQ and multi-device training and
-search raise `NotImplementedError` naming the ROADMAP item that brings
-them. The defaults are the JAX facade's (``method="sr_d"``,
-``mode="decoded"``).
+All nine methods of `METHODS`: PQ, OPQ, RVQ, ERVQ (RVQ fine-tuned),
+CompQ (RVQ init, then beam-search training) and ChainQ and the LSQ
+family (LSQ, SR-C, SR-D) through the staged OPQ → ChainQ init, served
+from the decoded index (``mode="decoded"``, the default: the base
+decoded once, bfloat16 on the card) or the code-resident one
+(``mode="codes"``: ~m bytes per vector, scanned by decoding or, with
+``search(..., mode="lut")``, through per-query tables);
+`search_streamed` serves packed codes that stay in host memory.
+`save_model` / `load_model` / `save_index` / `load_index` keep the JAX
+package's HDF5 layout, so a file that either package wrote loads in the
+other. Only multi-device training and search (``mesh=``) raise
+`NotImplementedError`, naming the ROADMAP item that brings them. The
+defaults are the JAX facade's (``method="sr_d"``, ``mode="decoded"``).
 """
 
 from __future__ import annotations
@@ -28,16 +31,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 from rayuela_tpu_torch.utils import as_tensor, exact_f32
 
 METHODS = ("pq", "opq", "rvq", "ervq", "chainq", "lsq", "sr_c", "sr_d",
            "compq")
-PORTED = ("pq", "opq", "rvq", "chainq", "lsq", "sr_c", "sr_d")
+PORTED = METHODS
 _ORTHOGONAL = ("pq", "opq")
 _ROTATED = ("opq", "chainq")      # search rotates the queries by R
-_ROADMAP = {"ervq": "A6", "compq": "A6"}
 
 
 @dataclass
@@ -72,10 +75,6 @@ def _check_method(method: str) -> str:
     method = method.lower()
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
-    if method not in PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP "
-            f"{_ROADMAP[method]}); ported: {PORTED}")
     return method
 
 
@@ -84,10 +83,13 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
           mesh=None, **kw) -> MCQModel:
     """Train a quantizer on ``Xt (n, d)``. ``device`` defaults to
     ``Xt``'s when it is a tensor and to the card otherwise
-    (``device="cpu"`` asks for the CPU). ChainQ and the LSQ family follow the
+    (``device="cpu"`` asks for the CPU). ERVQ fine-tunes an RVQ model,
+    CompQ trains from one; ChainQ and the LSQ family follow the
     reference pipeline: OPQ → ChainQ → {chainq | lsq | sr_c | sr_d};
     ``kw`` goes to the last stage's trainer."""
     from rayuela_tpu_torch.models.chainq import train_chainq
+    from rayuela_tpu_torch.models.compq import train_compq
+    from rayuela_tpu_torch.models.ervq import train_ervq_from_scratch
     from rayuela_tpu_torch.models.lsq import train_lsq
     from rayuela_tpu_torch.models.opq import train_opq
     from rayuela_tpu_torch.models.pq import train_pq
@@ -105,6 +107,14 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
         return MCQModel(method, model.codebooks, h=h, train_codes=B)
     if method == "rvq":
         model, B, _ = train_rvq(gen, Xt, m, h, niter=niter, **kw)
+        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+    if method == "ervq":
+        model, B, _ = train_ervq_from_scratch(gen, Xt, m, h, niter=niter,
+                                              **kw)
+        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+    if method == "compq":
+        rvq, B0, _ = train_rvq(gen, Xt, m, h, niter=niter)
+        model, B, _ = train_compq(Xt, rvq.codebooks, B0, niter=niter, **kw)
         return MCQModel(method, model.codebooks, h=h, train_codes=B)
     if method == "opq":
         model, B, _ = train_opq(gen, Xt, m, h, niter=niter, **kw)
@@ -125,13 +135,15 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
 
 
 def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:
-    """Encode vectors with a trained model → (n, m) int32. The LSQ
-    family starts from the greedy RVQ encode and runs ILS/ICM at the
-    base budget (``ilsiter=32`` unless ``kw`` says otherwise), drawing
-    from ``gen`` (a generator on X's device; seeded with 1 if None);
-    ``impl="pallas-ils"`` runs all rounds in one whole-ILS kernel
-    launch (`ops.icm.encoding_icm`)."""
+    """Encode vectors with a trained model → (n, m) int32. RVQ and ERVQ
+    encode greedily, CompQ by its beam search (``kw``: ``H``,
+    ``chunk``). The LSQ family starts from the greedy RVQ encode and
+    runs ILS/ICM at the base budget (``ilsiter=32`` unless ``kw`` says
+    otherwise), drawing from ``gen`` (a generator on X's device; seeded
+    with 1 if None); ``impl="pallas-ils"`` runs all rounds in one
+    whole-ILS kernel launch (`ops.icm.encoding_icm`)."""
     from rayuela_tpu_torch.models.chainq import ChainQModel, quantize_chainq
+    from rayuela_tpu_torch.models.compq import quantize_compq
     from rayuela_tpu_torch.models.opq import OPQModel, quantize_opq
     from rayuela_tpu_torch.models.pq import PQModel, quantize_pq
     from rayuela_tpu_torch.models.rvq import quantize_rvq
@@ -143,8 +155,10 @@ def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:
         return quantize_pq(PQModel(model.codebooks), X)
     if method == "opq":
         return quantize_opq(OPQModel(model.codebooks, model.R), X)
-    if method == "rvq":
+    if method in ("rvq", "ervq"):
         return quantize_rvq(model.codebooks, X)[0]
+    if method == "compq":
+        return quantize_compq(model.codebooks, X, **kw)[0]
     if method == "chainq":
         return quantize_chainq(ChainQModel(model.codebooks, model.R), X)
     if gen is None:
@@ -244,3 +258,181 @@ def search_streamed(model: MCQModel, B_packed, Q, k: int = 100,
     return scan_codes.search_codes_streamed(
         model.codebooks, B_packed, Q, k, pq=model.pq_layout,
         norms_cbook=norms_cbook, mprime=mprime, shard_n=shard_n, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Persistence: the JAX package's HDF5 layout
+# ---------------------------------------------------------------------------
+#
+# A model is the group ``model``: attributes ``method`` and ``h``,
+# datasets ``codebooks`` (f32), ``R`` (f32, OPQ / ChainQ) and
+# ``train_codes`` (uint8 for h <= 256, else int32). An index adds, at the
+# root, ``codes`` (as the training codes), ``norms_codebook`` (f32) and
+# ``norm_codes`` (uint8), and the attributes ``mode`` and ``d`` (the
+# true width). The scan structures are rebuilt on load. In memory the
+# layout is a dict of numpy arrays and attributes keyed by their path in
+# the file, an attribute's name marked with ``@`` (`saved_model`,
+# `saved_index`); the HDF5 functions only move such a dict, so the
+# card's machine, which has no h5py, runs everything else.
+
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def _tensor(a, dtype, device):
+    # a copy: the arrays may be read-only views (of HDF5 or JAX
+    # buffers); the numpy cast widens a bfloat16 array, which torch does
+    # not take
+    return torch.tensor(np.array(a, dtype=_NUMPY[dtype]), device=device)
+
+
+def _opt(a, dtype, device):
+    return None if a is None else _tensor(a, dtype, device)
+
+
+def _numpy(t, dtype):
+    return None if t is None else t.detach().cpu().numpy().astype(dtype)
+
+
+def _codes_np(B, h: int) -> np.ndarray:
+    return _numpy(B, np.uint8 if h <= 256 else np.int32)
+
+
+def saved_model(model: MCQModel) -> dict:
+    """The arrays and attributes `save_model` writes into the group
+    ``model``, keyed by name (``"@method"``, ``"@h"``, ``"codebooks"``,
+    ``"R"``, ``"train_codes"``; None where the model has none)."""
+    return {"@method": model.method, "@h": int(model.h),
+            "codebooks": _numpy(model.codebooks, np.float32),
+            "R": _numpy(model.R, np.float32),
+            "train_codes": (None if model.train_codes is None else
+                            _codes_np(model.train_codes, model.h))}
+
+
+def saved_index(index: MCQIndex) -> dict:
+    """The arrays and attributes `save_index` writes, keyed by their
+    path in the file: the model's under ``"model/"``, then ``"codes"``,
+    ``"norms_codebook"``, ``"norm_codes"``, ``"@mode"`` and ``"@d"``,
+    the index's true width (the decoded base's columns are padded)."""
+    return {**{f"model/{k}": v for k, v in saved_model(index.model).items()},
+            "codes": _codes_np(index.codes, index.model.h),
+            "norms_codebook": _numpy(index.norms_codebook, np.float32),
+            "norm_codes": (None if index.norm_codes is None else
+                           _codes_np(index.norm_codes, 256)),
+            "@mode": index.mode, "@d": int(index.scan_index.d)}
+
+
+def model_from_saved(saved: dict, device=None) -> MCQModel:
+    """`MCQModel` from `saved_model`'s dict on ``device`` (the card
+    unless the caller names another)."""
+    device = "cuda" if device is None else device
+    return MCQModel(str(saved["@method"]),
+                    _tensor(saved["codebooks"], torch.float32, device),
+                    R=_opt(saved.get("R"), torch.float32, device),
+                    h=int(saved["@h"]),
+                    train_codes=_opt(saved.get("train_codes"), torch.int32,
+                                     device))
+
+
+def index_from_saved(saved: dict, mode: str | None = None,
+                     device=None) -> MCQIndex:
+    """`MCQIndex` from `saved_index`'s dict on ``device`` (the card
+    unless the caller names another), in the saved layout or ``mode``
+    (see `rebuild_index`)."""
+    model = model_from_saved({k[6:]: v for k, v in saved.items()
+                              if k.startswith("model/")}, device)
+    return rebuild_index(model, saved["codes"], saved.get("norms_codebook"),
+                         saved.get("norm_codes"), int(saved["@d"]),
+                         mode=str(saved["@mode"]) if mode is None else mode)
+
+
+def rebuild_index(model: MCQModel, codes, norms_codebook, norm_codes,
+                  d: int, mode: str = "codes") -> MCQIndex:
+    """`MCQIndex` on the model's device from numpy base codes ``(n,
+    m)``, norms codebook and norms codes (both None for PQ) and the
+    base's width ``d``, in either layout. A norms codebook with more
+    entries than the model's h (a decoded index's 256) cannot stack with
+    the per-codebook tables of the code-resident index: for
+    ``mode="codes"`` it is derived anew at h entries from the codes,
+    drawn from a generator seeded with 3, as the JAX package's
+    `load_index` does."""
+    from rayuela_tpu_torch.search.norms import (get_norms_codebook,
+                                                quantize_norms)
+    from rayuela_tpu_torch.search.scan import build_index
+    from rayuela_tpu_torch.search.scan_codes import build_codes_index
+
+    if mode not in ("decoded", "codes"):
+        raise ValueError(f"mode {mode!r}: 'decoded' or 'codes'")
+    dev = model.codebooks.device
+    B = _tensor(codes, torch.int32, dev)
+    ncb = _opt(norms_codebook, torch.float32, dev)
+    nco = _opt(norm_codes, torch.int32, dev)
+    C, pq = model.codebooks, model.pq_layout
+    if mode == "codes":
+        if ncb is not None and ncb.numel() > model.h:
+            gen = torch.Generator(device=dev).manual_seed(3)
+            _, ncb = get_norms_codebook(gen, C, B, h=model.h)
+            nco, _ = quantize_norms(C, B, ncb)
+        idx = build_codes_index(C, B, pq=pq, d=d, norms_cbook=ncb,
+                                norms_codes=nco)
+    else:
+        nt = None if ncb is None else ncb[nco.long()]
+        idx = build_index(C, B, pq=pq, d=d, norm_term=nt)
+    return MCQIndex(model, B, idx, ncb, nco, mode=mode)
+
+
+def _h5_write(f, saved: dict) -> None:
+    for key, v in saved.items():
+        if v is None:
+            continue
+        path, _, name = key.rpartition("/")
+        g = f.require_group(path) if path else f
+        if name.startswith("@"):
+            g.attrs[name[1:]] = v
+        else:
+            g.create_dataset(name, data=v)
+
+
+def _h5_read(g, prefix: str = "") -> dict:
+    import h5py
+    out = {f"{prefix}@{k}": v for k, v in g.attrs.items()}
+    for k, v in g.items():
+        if isinstance(v, h5py.Group):
+            out.update(_h5_read(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v[()]
+    return out
+
+
+def save_model(path: str, model: MCQModel) -> None:
+    """Write a model to HDF5 (the JAX package's layout: f32 codebooks,
+    0-based uint8 codes for h <= 256). Needs h5py, imported here."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        _h5_write(f, {f"model/{k}": v for k, v in saved_model(model).items()})
+
+
+def load_model(path: str, device=None) -> MCQModel:
+    """Read a model that either package saved, onto ``device`` (the
+    card unless the caller names another)."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        return model_from_saved(_h5_read(f["model"]), device)
+
+
+def save_index(path: str, index: MCQIndex) -> None:
+    """Write an index: the model, the base codes and the norms byte,
+    not the scan structures, which `load_index` rebuilds (the base
+    encode is the costly part they hold)."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        _h5_write(f, saved_index(index))
+
+
+def load_index(path: str, mode: str | None = None, device=None) -> MCQIndex:
+    """Rebuild an index that either package saved, on ``device`` (the
+    card unless the caller names another). ``mode`` overrides the saved
+    layout, e.g. a decoded save loaded code-resident (`rebuild_index`)."""
+    import h5py
+    with h5py.File(path, "r") as f:
+        saved = _h5_read(f)
+    return index_from_saved(saved, mode=mode, device=device)

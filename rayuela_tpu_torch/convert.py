@@ -11,49 +11,28 @@ facade, the card unless the caller names the CPU.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from rayuela_tpu_torch.api import MCQIndex, MCQModel
+from rayuela_tpu_torch.api import (MCQIndex, MCQModel, _tensor,
+                                   model_from_saved, rebuild_index)
 from rayuela_tpu_torch.search.scan import LinscanIndex
-from rayuela_tpu_torch.search.scan_codes import build_codes_index
-
-
-_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
-
-
-def _tensor(a, dtype, device):
-    # a copy: the arrays may be read-only views of JAX buffers; the
-    # numpy cast widens a bfloat16 array, which torch does not take
-    return torch.tensor(np.array(a, dtype=_NUMPY[dtype]), device=device)
-
-
-def _opt(a, dtype, device):
-    return None if a is None else _tensor(a, dtype, device)
 
 
 def model_from_arrays(method: str, codebooks, R=None, h: int = 256,
                       train_codes=None, device="cuda") -> MCQModel:
     """`MCQModel` from the JAX model's codebooks ``(m, h, d*)``,
     rotation and training codes."""
-    return MCQModel(method.lower(),
-                    _tensor(codebooks, torch.float32, device),
-                    R=_opt(R, torch.float32, device), h=h,
-                    train_codes=_opt(train_codes, torch.int32, device))
+    return model_from_saved({"@method": method.lower(), "@h": h,
+                             "codebooks": codebooks, "R": R,
+                             "train_codes": train_codes}, device)
 
 
 def index_from_arrays(model: MCQModel, codes, norms_codebook, norm_codes,
                       d: int) -> MCQIndex:
     """Code-resident `MCQIndex` from the JAX index's base codes
     ``(n, m)``, norms codebook ``(h',)`` and norms codes ``(n,)``
-    (both None for PQ), on the model's device."""
-    dev = model.codebooks.device
-    B = _tensor(codes, torch.int32, dev)
-    ncb = _opt(norms_codebook, torch.float32, dev)
-    nco = _opt(norm_codes, torch.int32, dev)
-    idx = build_codes_index(model.codebooks, B, pq=model.pq_layout, d=d,
-                            norms_cbook=ncb, norms_codes=nco)
-    return MCQIndex(model, B, idx, ncb, nco, mode="codes")
+    (both None for PQ), on the model's device (`api.rebuild_index`)."""
+    return rebuild_index(model, codes, norms_codebook, norm_codes, d)
 
 
 def decoded_index_from_arrays(Xd, x2, device="cuda") -> LinscanIndex:

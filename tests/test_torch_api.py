@@ -120,10 +120,16 @@ def test_cpu_takes_plain_paths_with_no_launch(small_corr):
 
 def test_unported_facade_routes_raise(small_corr):
     ds = small_corr
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tapi.train(ds.Xt, method="ervq")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tapi.train(ds.Xt, method="compq")
+    # ERVQ and CompQ are ported: both train and serve on the CPU
+    for method in ("ervq", "compq"):
+        tm = tapi.train(ds.Xt[:500], method=method, m=2, h=16, niter=1,
+                        device="cpu")
+        assert tm.method == method and tm.codebooks.shape == (2, 16, 32)
+        for mode in ("decoded", "codes"):
+            d, i = tapi.search(tapi.index_base(tm, ds.Xb[:500], mode=mode),
+                               ds.Xq[:4], k=3)
+            assert i.shape == (4, 3) and torch.isfinite(d).all()
+    assert tapi.PORTED == tapi.METHODS
     with pytest.raises(ValueError, match="unknown method"):
         tapi.train(ds.Xt, method="nope")
     tm = tapi.train(ds.Xt[:500], method="pq", m=2, h=8, niter=1,

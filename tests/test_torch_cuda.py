@@ -2087,3 +2087,73 @@ def test_search_at_gist_width_in_every_mode(dev, monkeypatch):
         assert dists.shape == (nq, k) and bool(torch.isfinite(dists).all())
         assert bool(((ids >= 0) & (ids < n)).all())
         assert sum(rescued) <= int(flags().sum()), kw
+
+
+# ---------------------------------------------------------------------------
+# ERVQ, CompQ and the persistence's arrays round trip through the facade
+# ---------------------------------------------------------------------------
+
+def _grid_model(dev, method, seed=4):
+    """An ERVQ or CompQ model trained on the card, its codebooks rounded
+    to a 1/16 grid (every decoded value and dot product exact in f32),
+    and grid queries."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.standard_normal((20_000, 32)).astype(np.float32),
+                        device=dev)
+    model = tapi.train(X[:4000], method=method, m=4, h=64, niter=2, seed=1)
+    model.codebooks = torch.round(model.codebooks * 16) / 16
+    Q = torch.round(X[:64] * 16) / 16
+    return model, X, Q
+
+
+@pytest.mark.parametrize("method", ["ervq", "compq"])
+def test_ervq_compq_searches_on_the_card_equal_the_cpu_search(dev, method):
+    """An ERVQ or CompQ model trained and its base encoded on the card
+    (greedy for ERVQ, the H = 16 beam for CompQ): the code-resident
+    search on the card (f32 operands: K1 → K2 → K3) returns the CPU
+    search's result over the same codes, carried to the CPU by the
+    persistence's arrays."""
+    model, X, Q = _grid_model(dev, method)
+    idx = tapi.index_base(model, X, mode="codes")
+    assert idx.codes.device.type == "cuda"
+    cpu = tapi.index_from_saved(tapi.saved_index(idx), device="cpu")
+    for k in (10, 100):
+        got = tapi.search(idx, Q, k=k, op_dtype=torch.float32)
+        ref = tapi.search(cpu, Q.cpu(), k=k, op_dtype=torch.float32)
+        _same_up_to_ties(got, ref)
+
+
+@pytest.mark.parametrize("method", ["ervq", "compq"])
+def test_card_encodes_ervq_and_compq_as_the_cpu(dev, method):
+    """The base encode on the card (ERVQ greedy, CompQ's beam) against
+    the CPU's on the same model and data: at least 99.9% of codes equal
+    (the f32 matmuls round apart) and the error within 1e-5 relative."""
+    model, X, _ = _grid_model(dev, method)
+    B = tapi.encode(model, X)
+    cmodel = tapi.model_from_saved(tapi.saved_model(model), device="cpu")
+    B0 = tapi.encode(cmodel, X.cpu())
+    assert (B.cpu() == B0).float().mean() >= 0.999
+    e = veccost_chunked(X, model.codebooks, B).mean()
+    e0 = veccost_chunked(X.cpu(), cmodel.codebooks, B0).mean()
+    assert abs(float(e) - float(e0)) <= 1e-5 * float(e0)
+
+
+@pytest.mark.parametrize("mode", ["decoded", "codes"])
+def test_index_arrays_round_trip_on_the_card(dev, mode):
+    """`saved_index` → `index_from_saved` on the card: the rebuilt
+    index's search equals the live one's (dists and ids), and a decoded
+    save rebuilt code-resident (the layout override) draws an h-entry
+    norms codebook and serves."""
+    model, X, Q = _grid_model(dev, "ervq")
+    live = tapi.index_base(model, X, mode=mode)
+    saved = tapi.saved_index(live)
+    again = tapi.index_from_saved(saved, device=dev)
+    assert again.codes.device.type == "cuda"
+    for k in (10, 100):
+        a, b = tapi.search(live, Q, k=k), tapi.search(again, Q, k=k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if mode == "decoded":
+        over = tapi.index_from_saved(saved, mode="codes", device=dev)
+        assert over.mode == "codes" and over.norms_codebook.numel() == 64
+        d, i = tapi.search(over, Q, k=10)
+        assert torch.isfinite(d).all() and int(i.max()) < X.shape[0]
