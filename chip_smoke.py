@@ -248,6 +248,27 @@ Then the two probes at the JAX probes' sizes: the fusion probe (its
 kernel against its plain version for every k and both source forms,
 timed beside `amin` and its bound, its launch's device time apart) and
 the scan-tail probe (K8 alone and the steps after it).
+11. The experiment protocols through the drivers
+   (`rayuela_tpu_torch.experiments`, the rows of
+   `rayuela_tpu_torch/demos/run_protocols.py`), after the probes: (a)
+   the 64-bit SIFT1M-shape protocol on `read_dataset("synthetic-corr")`
+   (1e5 train, 1e6 base, 1e4 queries, ground truth on the card), one
+   trial of the nine methods at m = 8 (7 + the norms byte), h = 256,
+   niter = 10, knn = 1000 through the runner's per-trial function
+   without a store, each method's train, base-encode and search seconds
+   printed and its recall@1 within 0.02 of the JAX row (BASELINE.md:57),
+   PQ < OPQ < ChainQ < SR-C < min(LSQ, SR-D); (f) where h5py imports,
+   the public runner with a results store (PQ and RVQ) read back by
+   `list_trials` and `load_results` (a line says whether it ran); (c) the
+   high-recall ladder on (a)'s data (SR-D m = 7, ilsiters 1 / 4 / 16 /
+   64): non-decreasing within 0.002, recall@1 >= 0.99 at 64; (b)
+   query=base at LabelMe's shape (`demos/bench_query_base10.py`'s data,
+   3 trials): each method's mean recall@1 within 3 JAX stds of the JAX
+   10-trial mean (BASELINE.md:53); (d) `hpo.optimize` over
+   `default_objective` (1e4 / 1e5 / 1e3 synthetic-corr, m = 8, niter =
+   3), 3 evaluations, each loss in [0, 1); then (e) the native xvecs
+   reader on a 1e5 x 128 fvecs and bvecs file, full and range reads bit
+   for bit the numpy path's, both times printed.
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
@@ -266,7 +287,8 @@ searches, K12
 merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
 the pair merge, K7,
 K1, K2 and K3 in phase 9, K1, K2, K3 and K8 in phase 10, the fusion
-kernel and K8 in the probes.
+kernel and K8 in the probes, K8, K2, K3, K11 and K13 in phase 11 (its
+(a)-(d), set to 0 just before it).
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
@@ -279,7 +301,8 @@ the last is a JSON summary of the kernels (launches from the phase
 named beside them, and phase 10's apart; the f32 instances of K1, K14
 and K8 as entries of their own, their launches phase 4f's and the
 packed search's of phase 6);
-the last line is the device record.
+each entry also carries its launches in phase 11; the last line is
+the device record.
 """
 
 from __future__ import annotations
@@ -348,6 +371,10 @@ SOURCES = {
 PEAK = {"bf16 tensor-core": 989e12, "tf32 tensor-core": 495e12,
         "f32 CUDA-core": 67e12, "HBM": 3.35e12}
 N1B, NT = 65_536, 100_000     # phase 1b vectors; the timed encode batch
+# the kernels of the protocols' path (phase 11): K8 → K2 → K3 under
+# `linscan_*`, K11 in the LSQ family's encodes, K13 in ChainQ's
+PATH11 = ("scan_candidates", "cand_merge", "tail_merge", "icm_sweeps",
+          "viterbi_encode")
 
 
 class Failed(Exception):
@@ -3831,6 +3858,167 @@ def phase10_checks(ds, Xq, p10):
     print("  HDF5 round trip: ran (both ervq indexes, the compq model)")
 
 
+def phase11(seed, card):
+    """The experiment protocols through the port's drivers on the card:
+    (a) the 64-bit SIFT1M-shape protocol (one trial of the nine methods,
+    the runner's per-trial function without a store), (f) where h5py
+    imports the public runner with a results store, (c) the high-recall
+    ladder on (a)'s data, (b) query=base at LabelMe's shape over 3
+    trials and (d) an HPO campaign of 3 evaluations."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.demos import run_protocols as rp
+    from rayuela_tpu_torch.experiments import drivers, hpo
+    from rayuela_tpu_torch.experiments.datasets import make_synthetic
+
+    print(f"== phase 11: the experiment protocols through the drivers "
+          f"({card})")
+    out = {}
+    t0 = time.perf_counter()
+    ds = rp.dataset("sift1m", DEV)
+    print(f"  (a) read_dataset('synthetic-corr'): {ds.Xt.shape[0]} train, "
+          f"{ds.Xb.shape[0]} base, {ds.Xq.shape[0]} queries, d = "
+          f"{ds.Xt.shape[1]}, exact ground truth on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["a"] = rp.rows(ds, [0], seed, DEV)
+    print(f"  (a) one trial of the nine methods at {rp.PROTOCOL} (m - 1 "
+          f"+ the norms byte but PQ and OPQ): "
+          f"{time.perf_counter() - t0:.1f} s")
+    r1 = {}
+    for meth, rec in out["a"].items():
+        s, r1[meth] = rec["seconds"][0], rec["recall1"][0]
+        print(f"  (a) {meth:6s} train {s['train']:.2f} s, base encode "
+              f"{s['encode']:.2f} s, search {s['search']:.2f} s; recall@1 "
+              f"{r1[meth]:.4f} (JAX {rp.JAX_ROWS['sift1m'][meth]:.4f})")
+    check(list(r1) == list(drivers.ALL_METHODS), "(a) ran other methods")
+    far = {m: (r1[m], ref) for m, ref in rp.JAX_ROWS["sift1m"].items()
+           if abs(r1[m] - ref) > 0.02}
+    check(not far, f"(a) recall@1 beyond 0.02 of the JAX row: {far}")
+    check(r1["pq"] < r1["opq"] < r1["chainq"] < r1["sr_c"]
+          < min(r1["lsq"], r1["sr_d"]),
+          f"(a) the order PQ < OPQ < ChainQ < SR-C < min(LSQ, SR-D) "
+          f"breaks: {r1}")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("  (f) the runner with a results store: not run (h5py is not "
+              "installed here)")
+    else:
+        from rayuela_tpu_torch.experiments import store
+        with tempfile.TemporaryDirectory() as tmp:
+            res = drivers.run_train_query_base(
+                ds, methods=("pq", "rvq"), results_dir=tmp, verbose=False,
+                seed=seed, device=DEV, **rp.PROTOCOL)
+            for meth in ("pq", "rvq"):
+                path = os.path.join(tmp, f"{ds.name}_{meth}.h5")
+                check(store.list_trials(path) == [0],
+                      f"(f) the {meth} store's trials")
+                check(np.array_equal(store.load_results(path, 0)["recall"],
+                                     res[meth][0]["recall"]),
+                      f"(f) the {meth} store's recall")
+        print("  (f) the runner with a results store: ran (PQ and RVQ on "
+              "(a)'s data; list_trials and load_results read it back)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    lad = drivers.high_recall_experiment(gen, ds, m=7, h=256, niter=10,
+                                         ilsiters=(1, 4, 16, 64), knn=1000,
+                                         verbose=False)
+    curve = [float(lad[i][0]) for i in rp.JAX_LADDER]
+    out["c"] = dict(zip(rp.JAX_LADDER, curve))
+    print(f"  (c) the high-recall ladder (SR-D m = 7, ilsiters 1 / 4 / 16 / "
+          f"64): recall@1 {' / '.join(f'{v:.4f}' for v in curve)} (JAX "
+          f"{' / '.join(f'{v:.4f}' for v in rp.JAX_LADDER.values())}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(b >= a - 0.002 for a, b in zip(curve, curve[1:])),
+          f"(c) the ladder falls: {curve}")
+    check(curve[-1] >= 0.99, f"(c) recall@1 {curve[-1]:.4f} < 0.99 at 64")
+    del ds
+    t0 = time.perf_counter()
+    qb = rp.dataset("labelme", DEV)
+    t1 = time.perf_counter()
+    out["b"] = rp.rows(qb, range(3), seed, DEV)
+    print(f"  (b) query=base at LabelMe's shape ({qb.Xt.shape[0]} base = "
+          f"train, {qb.Xq.shape[0]} queries): data and ground truth "
+          f"{t1 - t0:.1f} s, 3 trials {time.perf_counter() - t1:.1f} s")
+    far = {}
+    for meth, rec in out["b"].items():
+        mean, sd = rp.spread(rec["recall1"])
+        jm, js = rp.JAX_ROWS["labelme"][meth]
+        sec = np.mean([sum(s.values()) for s in rec["seconds"]])
+        print(f"  (b) {meth:6s} recall@1 {mean:.4f} ± {sd:.4f} (JAX {jm:.4f}"
+              f" ± {js:.4f} over 10 trials); {sec:.2f} s a trial")
+        if abs(mean - jm) > 3 * js:
+            far[meth] = (mean, jm, js)
+    check(not far, f"(b) mean recall@1 beyond 3 JAX stds of the JAX mean: "
+          f"{far}")
+    del qb
+    t0 = time.perf_counter()
+    hd = make_synthetic(d=D, ntrain=10_000, nbase=100_000, nquery=1_000,
+                        corr=True, device=DEV)
+    objective = hpo.default_objective(hd, m=8, h=256, niter=3, device=DEV)
+    walls = []
+
+    def timed_objective(cfg):
+        t = time.perf_counter()
+        loss = objective(cfg)
+        walls.append(time.perf_counter() - t)
+        return loss
+
+    t1 = time.perf_counter()
+    best, loss, hist = hpo.optimize(timed_objective, m=8, budget=3,
+                                    seed=0, verbose=False)
+    losses = [v for _, v in hist]
+    out["d"] = dict(losses=losses, walls=walls)
+    print(f"  (d) HPO, 3 evaluations on synthetic-corr (1e4 train, 1e5 "
+          f"base, 1e3 queries; data {t1 - t0:.1f} s): losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; seconds an evaluation "
+          f"{', '.join(f'{w:.1f}' for w in walls)}; incumbent {best} "
+          f"(loss {loss:.4f})")
+    check(len(losses) == 3 and all(0.0 <= v < 1.0 for v in losses),
+          f"(d) an evaluation crashed or scored 1: {losses}")
+    return out
+
+
+def phase11_xvecs(rng):
+    """(e) The native xvecs reader on the card's host: a 1e5 x 128 fvecs
+    and bvecs file, full and range reads, bit for bit the numpy path's."""
+    import tempfile
+
+    import numpy as np
+
+    from rayuela_tpu_torch.io import native, xvecs
+
+    t0 = time.perf_counter()
+    check(native.available(), "(e) the native xvecs reader did not build")
+    print(f"== phase 11 (e): native xvecs reader built or loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({native.library_path().name})")
+    data = {"fvecs": rng.standard_normal((100_000, D)).astype(np.float32),
+            "bvecs": rng.integers(0, 256, (100_000, D)).astype(np.uint8)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flavor, X in data.items():
+            path = os.path.join(tmp, f"x.{flavor}")
+            getattr(xvecs, f"{flavor}_write")(path, X)
+            read = getattr(xvecs, f"{flavor}_read")
+            for start, count in ((0, None), (31_337, 4_096)):
+                t0 = time.perf_counter()
+                ref = read(path, start, count, native="never")
+                t1 = time.perf_counter()
+                got = read(path, start, count, native="always")
+                t2 = time.perf_counter()
+                check(got.dtype == ref.dtype and got.shape == ref.shape
+                      and got.tobytes() == ref.tobytes(),
+                      f"(e) the native {flavor} read [{start}, +{count}) "
+                      f"differs from the numpy path")
+                print(f"  (e) {flavor} {os.path.getsize(path) / 1e6:.1f} MB, "
+                      f"rows [{start}, {start + got.shape[0]}): numpy "
+                      f"{(t1 - t0) * 1e3:.2f} ms, native "
+                      f"{(t2 - t1) * 1e3:.2f} ms, bit for bit equal")
+
+
 def probes(errs):
     """The counterparts of the JAX package's two probes, at its sizes:
     `rayuela_tpu_torch.demos.fusion_probe` and `.profile_scan_tail`."""
@@ -4167,6 +4355,17 @@ def main() -> int:
             "ms": fus["ms"][("split", 0)], "plain_ms": fus["plain_ms"][0],
             "bound_ms": fus["bound_ms"], "bound_by": "bytes",
             "library_ms": fus["library_ms"]}
+        del fus
+        torch.cuda.empty_cache()
+        zero()
+        run("phase 11", phase11, args.seed, smi)
+        launches11 = {n: w.launches for n, w in wrappers.items()}
+        launches11f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
+        print(f"phase-11 launches: {launches11}; of the f32 instances: "
+              f"{launches11f}")
+        check(all(launches11[n] for n in PATH11), "a kernel of the "
+              "protocols' path never launched in phase 11")
+        run("phase 11 (e)", phase11_xvecs, rng)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4200,6 +4399,7 @@ def main() -> int:
             "launches_wide": {"phase 8": launches8f[n],
                               "phase 9": launches9f[n]},
             "launches_phase10": launches10f[n],
+            "launches_phase11": launches11f[n],
             "wide": wide_f32 if n == "scan_candidates" else {}}
            for n in ("codes_decode_candidates", "codes_decode_onepass",
                      "scan_candidates")]
@@ -4210,6 +4410,7 @@ def main() -> int:
          "launches_wide": {"phase 8": launches8.get(n, 0),
                            "phase 9": launches9.get(n, 0)},
          "launches_phase10": launches10[n],
+         "launches_phase11": launches11[n],
          "wide": wide_by.get(n, {})}
         for n in wrappers] + f32}))
     print(json.dumps({"ok": True, "device": {

@@ -228,7 +228,8 @@ def test_port_never_imports_jax(tmp_path):
         "from rayuela_tpu_torch.experiments.datasets import "
         "make_synthetic\n"
         "from rayuela_tpu_torch.search.linscan import eval_recall\n"
-        "ds = make_synthetic(d=16, ntrain=500, nbase=3000, nquery=20)\n"
+        "ds = make_synthetic(d=16, ntrain=500, nbase=3000, nquery=20, "
+        "device='cpu')\n"
         "m = rq.train(ds.Xt, method='rvq', m=2, h=8, niter=2, "
         "device='cpu')\n"
         "d, i = rq.search(rq.index_base(m, ds.Xb, mode='codes'), ds.Xq, k=10)\n"

@@ -2157,3 +2157,48 @@ def test_index_arrays_round_trip_on_the_card(dev, mode):
         assert over.mode == "codes" and over.norms_codebook.numel() == 64
         d, i = tapi.search(over, Q, k=10)
         assert torch.isfinite(d).all() and int(i.max()) < X.shape[0]
+
+
+def test_tiny_protocol_on_the_card_gives_the_cpu_rows(dev):
+    """The protocol's per-trial function (no results store: the card's
+    machine has no h5py) over the nine methods, 3 trials on the card and
+    3 on the CPU on one dataset: each method's mean recall@1 on the card
+    lies within 3 x the CPU trials' std + 0.02 of the CPU mean (the
+    generators of the two devices draw other streams), and the path's
+    encode kernels launched."""
+    from rayuela_tpu_torch.experiments import drivers
+    from rayuela_tpu_torch.experiments.datasets import make_synthetic
+
+    ds = make_synthetic(d=16, ntrain=1200, nbase=4000, nquery=600,
+                        ncenters=16, seed=1, name="tiny", device="cpu")
+    kw = dict(m=4, h=16, niter=3, knn=100, verbose=False, ilsiter=2,
+              icmiter=2, npert=1, chunk=1024)
+    k11, k13 = ticm.icm_sweeps.launches, tvit.viterbi_encode.launches
+    card = [drivers._run_trial(ds, t, None, **kw) for t in range(3)]
+    assert ticm.icm_sweeps.launches > k11
+    assert tvit.viterbi_encode.launches > k13
+    cpu = [drivers._run_trial(ds, t, None, device="cpu", **kw)
+           for t in range(3)]
+    for method in drivers.ALL_METHODS:
+        assert card[0][method]["B_base"].device.type == "cuda"
+        g, c = (np.array([r[method]["recall"][0] for r in rows])
+                for rows in (card, cpu))
+        assert abs(g.mean() - c.mean()) <= 3 * c.std(ddof=1) + 0.02, (
+            method, g, c)
+
+
+def test_datasets_default_to_the_card(dev):
+    """`exact_ground_truth` and `read_dataset` run on the card by default
+    and give the CPU's ground truth."""
+    from rayuela_tpu_torch.experiments import datasets as tds
+
+    rng = np.random.default_rng(9)
+    Xb = rng.standard_normal((5000, 24)).astype(np.float32)
+    Xq = rng.standard_normal((300, 24)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tds.exact_ground_truth(Xq, Xb),
+        tds.exact_ground_truth(Xq, Xb, device="cpu"))
+    a = tds.read_dataset("synthetic-corr-small", nquery=50, ncenters=8)
+    b = tds.read_dataset("synthetic-corr-small", nquery=50, ncenters=8,
+                         device="cpu")
+    np.testing.assert_array_equal(a.gt, b.gt)

@@ -19,15 +19,17 @@ import rayuela_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the JAX package's public names the port has not yet, by ROADMAP queue A
-# item: 3 the other codebook updates and the small leftovers, 4 the I/O,
-# 5 multi-GPU
+# item: 3 the other codebook updates and the small leftovers, 5 multi-GPU
 NOT_YET = {
-    "": {"io": 4, "parallel": 5},
+    "": {"parallel": 5},
     "ops": {"get_cbdims_chain": 3, "qerror_pq": 3, "qerror_opq": 3,
             "update_codebooks_generic": 3},
     "models": {},
     "search": {},
+    "experiments": {},
+    "io": {},
 }
+SUBPACKAGES = ["models", "ops", "search", "experiments", "io", ""]
 
 
 def _pair(sub):
@@ -37,7 +39,7 @@ def _pair(sub):
             importlib.import_module(f"rayuela_tpu_torch.{sub}"))
 
 
-@pytest.mark.parametrize("sub", ["models", "ops", "search", ""])
+@pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_port_exports_the_jax_names(sub):
     jax_pkg, port = _pair(sub)
     missing = [n for n in jax_pkg.__all__
@@ -51,7 +53,7 @@ def test_port_exports_the_jax_names(sub):
     assert set(port.__all__) <= set(jax_pkg.__all__)
 
 
-@pytest.mark.parametrize("sub", ["models", "ops", "search", ""])
+@pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_names_not_yet_ported_stay_unexported(sub):
     jax_pkg, port = _pair(sub)
     for name, item in NOT_YET[sub].items():
@@ -82,24 +84,33 @@ def test_exports_are_the_modules_own_objects():
 
 def test_imports_load_no_jax_and_no_kernels(tmp_path):
     """In a fresh interpreter, importing the package and each subpackage
-    imports no jax module and nothing of the JAX package, and neither
-    builds nor loads the CUDA library."""
+    (the I/O, the drivers, HPO and the CLI among them) imports no jax
+    module and nothing of the JAX package, neither builds nor loads the
+    CUDA library nor the native xvecs reader, and loads neither h5py nor
+    matplotlib."""
     code = (
         "import sys\n"
         "import rayuela_tpu_torch\n"
         "import rayuela_tpu_torch.models, rayuela_tpu_torch.ops\n"
         "import rayuela_tpu_torch.search, rayuela_tpu_torch.experiments\n"
-        "import rayuela_tpu_torch.convert\n"
+        "import rayuela_tpu_torch.convert, rayuela_tpu_torch.io\n"
+        "import rayuela_tpu_torch.experiments.drivers\n"
+        "import rayuela_tpu_torch.experiments.hpo\n"
+        "import rayuela_tpu_torch.experiments.viz\n"
+        "import rayuela_tpu_torch.cli\n"
         "from rayuela_tpu_torch.kernels import build\n"
+        "from rayuela_tpu_torch.io import native\n"
         "maps = open('/proc/self/maps').read()\n"
-        "print(build._lib is None, '_build/' in maps,\n"
+        "print(build._lib is None, native._lib is None, '_build/' in maps,\n"
         "      any(k == 'jax' or k.startswith('jax.') or k == 'jaxlib'\n"
         "          for k in sys.modules),\n"
         "      any(k == 'rayuela_tpu' or k.startswith('rayuela_tpu.')\n"
-        "          for k in sys.modules))\n")
+        "          for k in sys.modules),\n"
+        "      'h5py' in sys.modules, 'matplotlib' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["True", "False", "False", "False"]
+    assert out.stdout.split() == ["True", "True", "False", "False", "False",
+                                  "False", "False"]
