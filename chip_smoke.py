@@ -269,6 +269,38 @@ the scan-tail probe (K8 alone and the steps after it).
    3), 3 evaluations, each loss in [0, 1); then (e) the native xvecs
    reader on a 1e5 x 128 fvecs and bvecs file, full and range reads bit
    for bit the numpy path's, both times printed.
+12. Multi-GPU over `torch.distributed` (`rayuela_tpu_torch.parallel`),
+   after phase 11: (a) a world of 1 over NCCL in this process (a file
+   store; no fallback to gloo or the CPU): `api.train(method="sr_d",
+   m=7, h=256, niter=10, mesh=mesh)` on phase 3's 1e5 training vectors
+   (OPQ, then the sharded ChainQ and SR-D: all-reduced statistics, K13
+   and K11 on the rank's rows), its train qerror within 5% of phase 4's
+   meshless model; `api.search(..., mesh=mesh)` at k = 100 and 1000 on
+   the 1e4 queries over phase 4's codes index (the LUT form, as the JAX
+   package's ``mesh=`` search takes it: K5 → K2 → K3) and phase 5's
+   decoded index (K8 → K2 → K3), whose ids must equal the single-device
+   call of the same form (``mode="lut"`` for the codes index) on every
+   query that call's certificate does not flag, recall@1 >= 0.99, with
+   queries/s and the NCCL all-gather's ms, and for the decoded index
+   where the time goes beside the single-device search (the scan, the
+   merge, the rescue through the decoded rows and through the codes,
+   both searches by kernel); then `destroy_process_group`.
+   (b) A world of 2 over gloo, both ranks on ``cuda:0``, spawned (the
+   ``spawn`` method: this process holds a CUDA context), each loading
+   only its half of the 1e6 base (`host_local_to_global`): the sharded
+   decode-mode search (K14 → K3), the LUT search (K5 → K2 → K3), the
+   decoded search over a bf16 and, with ``pack=False``, an f32 half
+   (K8 → K2 → K3; K9 → pair merge → K10) at k = 100 and 1000, and K4 at
+   keep = 0 on 1,024 queries, each held in this process against the
+   single-device search of the whole base on the queries no certificate
+   flagged, to one truncation step (every raw score within a step, every
+   id one list holds and the other not within a step of the other's k-th
+   score), the ``pack=False`` ids equal; one SR-D step and one ChainQ
+   step on the ranks' halves of the training set, whose all-reduced
+   (G, F) equal the single-device `codebook_stats` (G bit for bit, F to
+   the reduction order), both ranks' codebooks and rotation bit-identical;
+   queries/s of each sharded search and the gloo all-gather's ms (host
+   copies). A rank that fails or exits non-zero fails the run.
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
@@ -288,7 +320,11 @@ merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
 the pair merge, K7,
 K1, K2 and K3 in phase 9, K1, K2, K3 and K8 in phase 10, the fusion
 kernel and K8 in the probes, K8, K2, K3, K11 and K13 in phase 11 (its
-(a)-(d), set to 0 just before it).
+(a)-(d), set to 0 just before it), and in phase 12 K2-K5, K8-K11, K13,
+K14 and the pair merge: in (a) set to 0 just before each mesh= call and
+read right after it, in (b) each spawned rank's counts, every one of
+these kernels on each rank; the single-device references beside them
+are counted and printed apart.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
@@ -301,8 +337,8 @@ the last is a JSON summary of the kernels (launches from the phase
 named beside them, and phase 10's apart; the f32 instances of K1, K14
 and K8 as entries of their own, their launches phase 4f's and the
 packed search's of phase 6);
-each entry also carries its launches in phase 11; the last line is
-the device record.
+each entry also carries its launches in phase 11 and in phase 12; the
+last line is the device record.
 """
 
 from __future__ import annotations
@@ -4019,6 +4055,444 @@ def phase11_xvecs(rng):
                       f"{(t2 - t1) * 1e3:.2f} ms, bit for bit equal")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: multi-GPU over torch.distributed
+# ---------------------------------------------------------------------------
+
+# the kernels the multi-GPU path runs (K2-K5, K8-K11, K13, K14 and the
+# pair merge); the sharded searches scan codes by K14, K4 or K5, never
+# by the two-pass decode scan K1
+PATH12 = ("cand_merge", "tail_merge", "codes_decode_topk",
+          "codes_lut_candidates", "scan_candidates", "scan_f32_candidates",
+          "pair_merge", "verify_counts", "icm_sweeps", "viterbi_encode",
+          "codes_decode_onepass")
+
+
+# the kernels with an f32 instance, whose launches count apart
+F32_12 = ("codes_decode_candidates", "codes_decode_onepass",
+          "scan_candidates")
+
+
+def _wrappers12():
+    from rayuela_tpu_torch.ops import icm as ticm
+    from rayuela_tpu_torch.ops import viterbi as tvit
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    mods = (tsc, tsp, ticm, tvit)
+    return {n: next(getattr(m, n) for m in mods if hasattr(m, n))
+            for n in PATH12 + F32_12}
+
+
+def _zero12():
+    for w in _wrappers12().values():
+        w.launches = 0
+        if hasattr(w, "launches_f32"):
+            w.launches_f32 = 0
+
+
+def _counts12():
+    """This process's launches of the multi-GPU path's kernels, and of
+    the f32 instances under ``"<name> f32"``."""
+    wr = _wrappers12()
+    out = {n: wr[n].launches for n in PATH12}
+    out.update({f"{n} f32": wr[n].launches_f32 for n in F32_12})
+    return out
+
+
+def raw_close12(tag, got, ref, q2, idbits, ok, exact):
+    """A sharded top-k ``(raw scores without +|q|^2, ids)`` against the
+    single-device search's ``(dists with +|q|^2, ids)`` on the queries
+    ``ok`` that no certificate flagged. ``exact`` (``pack=False``): equal
+    ids. Else to one truncation step (that of the coarser scan, the whole
+    base's ``idbits``): every raw score within a step of the other's at
+    the same position, and an id that one list holds and the other does
+    not lies within a step of the other list's k-th score (a step holds
+    many neighbours: the two lists may break the boundary's ties their
+    own way)."""
+    import torch
+    (gs, gi), (rd, ri) = got, ref
+    gs, gi = gs[ok], gi[ok]
+    rs, ri = (rd - q2)[ok], ri[ok]
+    if exact:
+        check(torch.equal(gi, ri), f"{tag}: ids differ from the "
+              "single-device search")
+        print(f"  {tag}: ids equal to the single-device search on "
+              f"{int(ok.sum())} unflagged queries")
+        return
+    eps = 4 * 2.0 ** -23 * q2[ok]
+    step = 2.0 ** (idbits - 23)
+    tol = step * torch.maximum(gs.abs(), rs.abs()) + eps
+    within = bool(((gs - rs).abs() <= tol).all())
+    boundary, shared = True, 0
+    for (av, ai), (bv, bi) in (((gs, gi), (rs, ri)), ((rs, ri), (gs, gi))):
+        bsort = bi.sort(1).values
+        pos = torch.searchsorted(bsort, ai.contiguous()).clamp(
+            max=bi.shape[1] - 1)
+        miss = bsort.gather(1, pos) != ai
+        kth = bv[:, -1:]
+        lim = kth - step * kth.abs() - eps
+        boundary &= bool((av[miss] >= lim.expand_as(av)[miss]).all())
+        shared = 1.0 - float(miss.float().mean())
+    print(f"  {tag}: {int(ok.sum())} unflagged queries, ids shared "
+          f"{shared:.6f} (equal by position "
+          f"{float((gi == ri).float().mean()):.6f}), every score within "
+          f"one truncation step: {within}, every id not shared within a "
+          f"step of the other list's k-th score: {boundary}")
+    if not within:
+        excess = (gs - rs).abs() - tol
+        for flat in excess.flatten().topk(5).indices.tolist():
+            q, j = divmod(flat, gs.shape[1])
+            print(f"    query {q} position {j}: sharded {float(gs[q, j])!r} "
+                  f"(id {int(gi[q, j])}), single-device {float(rs[q, j])!r}"
+                  f" (id {int(ri[q, j])}), tolerance {float(tol[q, j])!r}")
+    check(within, f"{tag}: a score moved by more than one truncation step")
+    check(boundary, f"{tag}: an id not shared lies off the boundary")
+
+
+def phase12a(seed, card, p):
+    """(a) A world of 1 over NCCL inside this process: the facade's
+    ``mesh=`` training and searches against the single-device calls.
+    The launch counts are set to 0 just before each ``mesh=`` call and
+    read right after it (``res["launches"]``); the single-device
+    references' launches are counted apart (``res["ref_launches"]``)."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import qerror
+    from rayuela_tpu_torch.parallel import make_mesh
+    from rayuela_tpu_torch.parallel import mesh as pmesh
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import eval_recall
+
+    on_mesh, on_ref = {}, {}
+
+    def count(into, fn):
+        _zero12()
+        out = fn()
+        for n, c in _counts12().items():
+            into[n] = into.get(n, 0) + c
+        return out
+
+    print(f"== phase 12 (a): a world of 1 over NCCL, SR-D-7+1 trained and "
+          f"searched through the facade's mesh= ({card})")
+    tmp = tempfile.mkdtemp(prefix="rq12a_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh()
+        check(dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+              "phase 12 (a) is not an NCCL mesh on the card")
+        index4, index5, Xq = p["index4"], p["index5"], p["Xq"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = count(on_mesh, lambda: rq.train(
+            p["Xt"], method="sr_d", m=7, h=256, niter=10, seed=seed,
+            mesh=mesh))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        Xt = torch.as_tensor(p["Xt"], device=DEV)
+        qe = float(qerror(Xt, model.codebooks, model.train_codes))
+        qe4 = float(qerror(Xt, index4.model.codebooks,
+                           index4.model.train_codes))
+        print(f"  train(mesh=) (OPQ -> sharded ChainQ -> sharded SR-D, "
+              f"niter=10, phase 4's settings): {t1 - t0:.1f} s ({card}); "
+              f"train qerror {qe:.4f} (phase 4's meshless model "
+              f"{qe4:.4f})")
+        check(np.isfinite(qe) and qe <= 1.05 * qe4,
+              f"train(mesh=) qerror {qe:.4f} vs meshless {qe4:.4f}")
+        q2 = (Xq * Xq).sum(-1, keepdim=True)
+        res = {}
+        for form, index, kw in (("codes, LUT form", index4, {"mode": "lut"}),
+                                ("decoded", index5, {})):
+            si = index.scan_index
+            for k in (100, 1000):
+                mesh_call = lambda: rq.search(index, Xq, k=k, mesh=mesh)
+                dm, im = count(on_mesh, mesh_call)
+                walls = count(on_mesh, lambda: warm_walls(mesh_call))
+                dr, ir = count(on_ref, lambda: rq.search(index, Xq, k=k,
+                                                         **kw))
+                torch.cuda.synchronize()
+                check_search(dm, im, k)
+                if index is index4:
+                    _, r, keep, tile = tsc._codes_config(k, "lut", N)
+                    T = tsc.build_luts(si.C, Xq, pq=si.pq, d=D,
+                                       norms_cbook=si.norms_cbook)
+                    fl = count(on_ref, lambda: tsc.scan_codes_topk(
+                        T, si.packed, k=k, r=r, tile=tile, keep=keep)[2])
+                    del T
+                else:
+                    fl = count(on_ref, lambda: tsp.search_flagged(
+                        si.Xd, si.x2, Xq, k)[2])
+                ok = ~fl
+                same = bool(torch.equal(im[ok], ir[ok]))
+                curve = eval_recall(im, p["gt"], verbose=False)
+                wall = float(np.median(walls))
+                print(f"  {form} k={k}: recall@1 {curve[0]:.4f}; search "
+                      f"(mesh=) {NQ / wall:,.0f} queries/s (median of "
+                      f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; "
+                      f"{card}); "
+                      f"ids equal to the single-device call on the "
+                      f"{int(ok.sum())} queries no certificate flagged: "
+                      f"{same} (all {NQ}: "
+                      f"{bool(torch.equal(im, ir))})")
+                check(same, f"{form} k={k}: the mesh= ids differ from the "
+                      "single-device call's on an unflagged query")
+                check(curve[0] >= 0.99, f"{form} k={k}: recall@1 "
+                      f"{curve[0]:.4f} < 0.99")
+                res[(form, k)] = NQ / wall
+                if index is index5:
+                    res[("breakdown", k)] = count(
+                        on_ref, lambda: breakdown12(mesh, index5, Xq, k,
+                                                    card))
+        x = torch.zeros(2, NQ, 1000, dtype=torch.int32, device=DEV)
+        ms, _ = timed(lambda: pmesh._all_gather(mesh, x), 10)
+        print(f"  the merge's all-gather at k = 1000 (scores and ids, 2 x "
+              f"{NQ} x 1000 int32) over NCCL (a world of 1): {ms:.3f} ms "
+              f"({card})")
+        res["all_gather_ms"] = ms
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"], res["ref_launches"] = on_mesh, on_ref
+    return res
+
+
+def breakdown12(mesh, index, Xq, k, card):
+    """Where the decoded index's ``search(mesh=)`` spends its time beside
+    the single-device search, at a world of 1: each by CUDA events over 3
+    calls after a warm one. The scan (`sharded_search`: the kernel scan
+    and the merge), the merge alone on the scan's list, and the rescue of
+    the flagged queries in its two forms: the exact rescan of the decoded
+    rows (what ``mesh=`` and the single-device search run) and
+    `sharded_scan_topk` over the codes (the JAX package's ``mesh=``
+    rescue), then both whole searches under the profiler."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.parallel import mesh as pmesh
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    si = index.scan_index
+    nt = index.norms_codebook.reshape(-1)[index.norm_codes.long()]
+    Q = torch.nn.functional.pad(Xq, (0, si.Xd.shape[1] - Xq.shape[1]))
+    out = {}
+    out["scan_ms"], (d, i, fl) = timed(
+        lambda: pmesh.sharded_search(mesh, si.Xd, si.x2, Xq, k=k), 3)
+    out["single_scan_ms"], _ = timed(
+        lambda: tsp.search_flagged(si.Xd, si.x2, Q, k), 3)
+    out["merge_ms"], _ = timed(lambda: pmesh._merge(mesh, d, i, k), 3)
+    qidx = torch.nonzero(fl).flatten()
+    out["flagged"] = int(qidx.numel())
+    if out["flagged"]:
+        out["codes_rescue_ms"], _ = timed(lambda: pmesh.sharded_scan_topk(
+            mesh, Xq[qidx], index.model.codebooks, index.codes, k=k,
+            norm_term=nt), 3)
+        out["rows_rescue_ms"], _ = timed(lambda: exact_rescan(
+            Q[qidx], si.Xd, si.x2, k), 3)
+    print(f"  decoded k={k}, where the time goes ({card}): sharded_search "
+          f"{out['scan_ms']:.2f} ms (the single-device kernel scan "
+          f"{out['single_scan_ms']:.2f} ms; the merge alone "
+          f"{out['merge_ms']:.2f} ms); the rescue of its "
+          f"{out['flagged']} flagged queries through the decoded rows "
+          f"{out.get('rows_rescue_ms', 0.0):.2f} ms, through the codes "
+          f"(the JAX package's mesh= rescue) "
+          f"{out.get('codes_rescue_ms', 0.0):.2f} ms")
+    print(f"  decoded k={k}, search(mesh=) by kernel:")
+    out["mesh_profile"] = profile(lambda: rq.search(index, Xq, k=k,
+                                                    mesh=mesh))[1][:8]
+    print(f"  decoded k={k}, the single-device search by kernel:")
+    out["single_profile"] = profile(lambda: rq.search(index, Xq,
+                                                      k=k))[1][:8]
+    return out
+
+
+def phase12_rank(rank, world, tmp):
+    """(b) One of two gloo ranks on ``cuda:0``: its half of the base,
+    the sharded searches, one SR-D step and one ChainQ step."""
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.ops.codebook_update import codebook_stats
+    from rayuela_tpu_torch.parallel import (host_local_to_global, make_mesh,
+                                            make_sr_train_step,
+                                            sharded_search,
+                                            sharded_search_codes,
+                                            sharded_search_codes_decode,
+                                            train_chainq_sharded)
+    from rayuela_tpu_torch.parallel import mesh as pmesh
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(world, 1, device="cuda:0")
+    dev = mesh.device
+    rep = np.load(os.path.join(tmp, "replicated.npz"))
+    own = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    C, Q = t(rep["C"]), t(rep["Q"])
+    ncb4, ncb5 = t(rep["ncb4"]), t(rep["ncb5"])
+    B = host_local_to_global(mesh, own["B"])
+    rows = lambda x: pmesh.RowShard(x, B.start, B.n)
+    packed = rows(tsc.pack_codes(B.local, t(own["nco4"])))
+    nt = ncb5.reshape(-1)[t(own["nco5"]).long()]
+    Xd, x2 = (rows(a) for a in tsp.decode_base(C, B.local, norm_term=nt,
+                                               dtype=torch.bfloat16))
+    Xf, x2f = (rows(a) for a in tsp.decode_base(C, B.local, norm_term=nt,
+                                                dtype=torch.float32))
+    T = tsc.build_luts(C, Q, norms_cbook=ncb4)
+    forms = {
+        "codes, decode (K14)": lambda k: sharded_search_codes_decode(
+            mesh, Q, C, packed, k=k, pq=False, d=D, norms_cbook=ncb4),
+        "codes, LUT (K5)": lambda k: sharded_search_codes(mesh, T, packed,
+                                                          k=k),
+        "decoded, packed (K8)": lambda k: sharded_search(mesh, Xd, x2, Q,
+                                                         k=k),
+        "decoded, pack=False (K9, K10)": lambda k: sharded_search(
+            mesh, Xf, x2f, Q, k=k, pack=False),
+    }
+    out, walls = {}, {}
+    for k in (100, 1000):
+        for name, fn in forms.items():
+            res = fn(k)
+            ws = warm_walls(lambda: fn(k))
+            out[(name, k)] = [a.cpu() for a in res]
+            walls[(name, k)] = float(np.median(ws))
+    # K4 (keep = 0, its one compiled depth) on the rescue's scale
+    k4 = lambda: sharded_search_codes_decode(
+        mesh, Q[:1024], C, packed, k=100, pq=False, d=D, norms_cbook=ncb4,
+        r=48, tile=2048, keep=0)
+    out[("codes, decode keep=0 (K4)", 100)] = [a.cpu() for a in k4()]
+    walls[("codes, decode keep=0 (K4)", 100)] = float(np.median(
+        warm_walls(k4)))
+    x = torch.zeros(2, NQ, 1000, dtype=torch.int32, device=dev)
+    gather_ms, _ = timed(lambda: pmesh._all_gather(mesh, x), 5)
+    # one SR-D step and one ChainQ step on the rank's half of the
+    # training set; their all-reduced (G, F)
+    X = host_local_to_global(mesh, own["X"])
+    Bt = host_local_to_global(mesh, own["Bt"])
+    G, F = codebook_stats(X.local, Bt.local, 256)
+    G, F = pmesh._all_reduce(mesh, G), pmesh._all_reduce(mesh, F)
+    step = make_sr_train_step(mesh, h=256, niter=10)
+    C1, B1, obj = step(X, Bt, C, 1, torch.Generator().manual_seed(0))
+    cq, _, cq_obj = train_chainq_sharded(mesh, X, Bt, torch.eye(D, device=dev),
+                                         h=256, niter=1)
+    res = dict(launches=_counts12(), walls=walls, gather_ms=gather_ms,
+               sr_C=C1.cpu(), sr_obj=float(obj), cq_C=cq.codebooks.cpu(),
+               cq_R=cq.R.cpu(), cq_obj=cq_obj.cpu(), start=B.start, n=B.n)
+    if rank == 0:
+        res.update(out=out, G=G.cpu(), F=F.cpu())
+    return res
+
+
+def phase12b(card, p):
+    """(b) A world of 2 over gloo, both ranks on ``cuda:0`` (spawned),
+    each holding its half of the 1e6 base, held against the
+    single-device searches of the whole base in this process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.ops.codebook_update import codebook_stats
+    from rayuela_tpu_torch.parallel.dryrun import run_ranks
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    print(f"== phase 12 (b): a world of 2 over gloo, both ranks on cuda:0, "
+          f"each holding its half of the {N} base ({card})")
+    index4, index5, Xq = p["index4"], p["index5"], p["Xq"]
+    npy = lambda a: a.detach().cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="rq12b_")
+    try:
+        np.savez(os.path.join(tmp, "replicated.npz"),
+                 C=npy(index4.model.codebooks), Q=npy(Xq),
+                 ncb4=npy(index4.norms_codebook),
+                 ncb5=npy(index5.norms_codebook))
+        Xt = np.asarray(p["Xt"], np.float32)
+        halves = [(0, N // 2), (N // 2, N)]
+        thalves = [(0, NTRAIN // 2), (NTRAIN // 2, NTRAIN)]
+        for r, ((a, b), (ta, tb)) in enumerate(zip(halves, thalves)):
+            np.savez(os.path.join(tmp, f"rank{r}.npz"),
+                     B=npy(index4.codes[a:b]),
+                     nco4=npy(index4.norm_codes[a:b]),
+                     nco5=npy(index5.norm_codes[a:b]), X=Xt[ta:tb],
+                     Bt=npy(index4.model.train_codes[ta:tb]))
+        t0 = time.perf_counter()
+        try:
+            ranks = run_ranks(phase12_rank, 2, (tmp,), timeout=600.0,
+                              pg_timeout=300.0, threads=None)
+        except RuntimeError as e:
+            raise Failed(f"phase 12 (b): {e}")
+        print(f"  spawn, the 2 ranks' work and join: "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    check([(r["start"], r["n"]) for r in ranks] == [(0, N), (N // 2, N)],
+          "host_local_to_global gave the wrong row ranges")
+    for (name, k), w in r0["walls"].items():
+        nq = 1024 if "K4" in name else NQ
+        print(f"  {name} k={k}: {nq / w:,.0f} queries/s over 2 gloo ranks "
+              f"on one card ({card})")
+    print(f"  the merge's all-gather at k = 1000 (2 x {NQ} x 1000 int32) "
+          f"over gloo (host copies, 2 ranks on one card): "
+          f"{r0['gather_ms']:.3f} ms ({card})")
+    # the single-device searches of the whole base
+    q2 = (Xq * Xq).sum(-1, keepdim=True)
+    f32 = tsp.build_index(index4.model.codebooks, index4.codes,
+                          d=D, dtype=torch.float32,
+                          norm_term=index5.scan_index.x2)
+    idb = tsp._pack_idbits(tsp.cdiv(N, tsp._TILE) * tsp._TILE)
+    for (name, k), (s, i, fl) in r0["out"].items():
+        s, i, fl = s.to(DEV), i.to(DEV), fl.to(DEV)
+        nq = s.shape[0]
+        ok = ~fl
+        if name.startswith("codes, LUT"):
+            ref = tsc.search_codes(index4.scan_index, Xq, k, mode="lut")
+        elif name.startswith("codes"):
+            ref = tsc.search_codes(index4.scan_index, Xq[:nq], k)
+        else:
+            # the decoded searches' own flags: a flagged query's rescue
+            # (a library matmul) rounds its scores apart from the kernels'
+            ix = f32 if "pack=False" in name else index5.scan_index
+            *ref, rfl = tsp.search_flagged(ix.Xd, ix.x2, Xq, k,
+                                           pack=False if ix is f32 else None)
+            ok = ok & ~rfl
+            s = s - q2        # the decoded search's dists carry +|q|^2
+        print(f"  {name} k={k}: {int(fl.sum())} of {nq} queries flagged")
+        raw_close12(f"{name} k={k}", (s, i), ref, q2[:nq], idb, ok,
+                    exact="pack=False" in name)
+    del f32
+    Xtd = torch.as_tensor(Xt, device=DEV)
+    G, F = codebook_stats(Xtd, index4.model.train_codes, 256)
+    gG, gF = r0["G"].to(DEV), r0["F"].to(DEV)
+    print(f"  all-reduced (G, F) against the single-device codebook_stats: "
+          f"G equal {bool(torch.equal(gG, G))}, F max |diff| "
+          f"{float((gF - F).abs().max()):.3g} (max |F| "
+          f"{float(F.abs().max()):.3g})")
+    check(torch.equal(gG, G), "the all-reduced G differs")
+    check(bool(torch.allclose(gF, F, rtol=1e-5, atol=1e-4 *
+                              float(F.abs().max()))),
+          "the all-reduced F differs beyond the reduction order")
+    same = all(torch.equal(ranks[0][key], ranks[1][key])
+               for key in ("sr_C", "cq_C", "cq_R"))
+    print(f"  SR-D step objective {r0['sr_obj']:.4f}, ChainQ step "
+          f"objectives {r0['cq_obj'].tolist()}; both ranks' codebooks "
+          f"(SR-D step, ChainQ) and rotation bit-identical: {same}")
+    check(same, "the two ranks' codebooks differ")
+    return [r["launches"] for r in ranks]
+
+
 def probes(errs):
     """The counterparts of the JAX package's two probes, at its sizes:
     `rayuela_tpu_torch.demos.fusion_probe` and `.profile_scan_tail`."""
@@ -4216,6 +4690,10 @@ def main() -> int:
         zero()
         index5, res5 = run("phase 5", phase5, smi, ds, Xq, Xb,
                            served["sr_d"])
+        # what phase 12 serves: phase 4's codes index, phase 5's decoded
+        # index, phase 3's queries and training set
+        p12 = dict(index4=served["sr_d"], index5=index5, Xq=Xq, Xt=ds.Xt,
+                   gt=ds.gt)
         launches5 = {n: w.launches for n, w in path5.items()}
         print(f"phase-5 launches: {launches5}")
         check(all(launches5.values()), "a kernel of the path never launched "
@@ -4366,6 +4844,38 @@ def main() -> int:
         check(all(launches11[n] for n in PATH11), "a kernel of the "
               "protocols' path never launched in phase 11")
         run("phase 11 (e)", phase11_xvecs, rng)
+        zero()
+        res12a = run("phase 12 (a)", phase12a, args.seed, smi, p12)
+        launches12a = res12a["launches"]
+        zero()
+        rank_launches = run("phase 12 (b)", phase12b, smi, p12)
+        ref12 = _counts12()
+        launches12r = {n: res12a["ref_launches"][n] + c
+                       for n, c in ref12.items()}
+        launches12 = {n: launches12a.get(n, 0)
+                      + sum(r.get(n, 0) for r in rank_launches)
+                      for n in wrappers}
+        launches12f = {n: launches12a[f"{n} f32"]
+                       + sum(r[f"{n} f32"] for r in rank_launches)
+                       for n in F32_12}
+        print(f"phase-12 launches of the multi-GPU path: (a), the mesh= "
+              f"training and searches in this process: {launches12a}; "
+              f"(b), rank 0: {rank_launches[0]}; rank 1: "
+              f"{rank_launches[1]}; in all: "
+              f"{ {n: launches12[n] for n in PATH12} }; of the f32 "
+              f"instances: {launches12f}")
+        print(f"phase-12 launches of the single-device references (not "
+              f"counted above): {launches12r}")
+        check(all(launches12[n] for n in PATH12), "a kernel of the "
+              "multi-GPU path never launched in phase 12")
+        check(all(launches12a[n] for n in ("icm_sweeps", "viterbi_encode",
+                                           "codes_lut_candidates",
+                                           "scan_candidates")),
+              "phase 12 (a) did not train and search through the kernels")
+        check(all(r[n] for r in rank_launches for n in PATH12),
+              "a rank of phase 12 (b) never launched a kernel of its path")
+        del res12a
+        del p12
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4400,6 +4910,7 @@ def main() -> int:
                               "phase 9": launches9f[n]},
             "launches_phase10": launches10f[n],
             "launches_phase11": launches11f[n],
+            "launches_phase12": launches12f[n],
             "wide": wide_f32 if n == "scan_candidates" else {}}
            for n in ("codes_decode_candidates", "codes_decode_onepass",
                      "scan_candidates")]
@@ -4411,6 +4922,7 @@ def main() -> int:
                            "phase 9": launches9.get(n, 0)},
          "launches_phase10": launches10[n],
          "launches_phase11": launches11[n],
+         "launches_phase12": launches12[n],
          "wide": wide_by.get(n, {})}
         for n in wrappers] + f32}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,14 @@ jax: the JAX package is the reference the tests hold it against.
 
 Importing the package imports `api` and `utils`, as `rayuela_tpu`
 does (``import rayuela_tpu_torch.api as rq``); the subpackages
-`experiments`, `io`, `models`, `ops` and `search` re-export their public
-names. No import builds or loads the CUDA kernels: they build at their
-first launch.
+`experiments`, `io`, `models`, `ops`, `parallel` and `search` re-export
+their public names. No import builds or loads the CUDA kernels (they
+build at their first launch) or creates a process group.
 """
 
 from rayuela_tpu_torch import api, utils  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["api", "experiments", "io", "models", "ops", "search", "utils",
-           "__version__"]
+__all__ = ["api", "experiments", "io", "models", "ops", "parallel",
+           "search", "utils", "__version__"]

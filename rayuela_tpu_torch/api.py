@@ -21,8 +21,9 @@ decoded once, bfloat16 on the card) or the code-resident one
 `search_streamed` serves packed codes that stay in host memory.
 `save_model` / `load_model` / `save_index` / `load_index` keep the JAX
 package's HDF5 layout, so a file that either package wrote loads in the
-other. Only multi-device training and search (``mesh=``) raise
-`NotImplementedError`, naming the ROADMAP item that brings them. The
+other. ``mesh=`` (a `rayuela_tpu_torch.parallel.make_mesh` result, every
+rank of the process group calling with the same arguments) trains and
+searches over several GPUs (`rayuela_tpu_torch.parallel`). The
 defaults are the JAX facade's (``method="sr_d"``, ``mode="decoded"``).
 """
 
@@ -86,7 +87,17 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
     (``device="cpu"`` asks for the CPU). ERVQ fine-tunes an RVQ model,
     CompQ trains from one; ChainQ and the LSQ family follow the
     reference pipeline: OPQ → ChainQ → {chainq | lsq | sr_c | sr_d};
-    ``kw`` goes to the last stage's trainer."""
+    ``kw`` goes to the last stage's trainer.
+
+    With ``mesh`` (every rank passing the same ``Xt``; the mesh's device
+    is the default) ChainQ and the LSQ family train data-parallel after
+    the OPQ stage: `parallel.train_chainq_sharded` and
+    `parallel.train_lsq_family_sharded` (all-reduced normal-equation
+    statistics, replicated solves, each rank encoding its rows). PQ,
+    OPQ, RVQ, ERVQ and CompQ, and the OPQ stage, train replicated on
+    every rank: the meshless result, with no communication (the JAX
+    package shards their data and lets its compiler place the
+    collectives, which gives the same result)."""
     from rayuela_tpu_torch.models.chainq import train_chainq
     from rayuela_tpu_torch.models.compq import train_compq
     from rayuela_tpu_torch.models.ervq import train_ervq_from_scratch
@@ -96,12 +107,13 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
     from rayuela_tpu_torch.models.rvq import train_rvq
     from rayuela_tpu_torch.models.sr import train_sr
 
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported "
-                                  "yet (ROADMAP A9)")
     method = _check_method(method)
+    if mesh is not None and device is None:
+        device = mesh.device
     Xt = as_tensor(Xt, device)
     gen = torch.Generator(device=Xt.device).manual_seed(seed)
+    if mesh is not None and method in ("chainq", "lsq", "sr_c", "sr_d"):
+        return _train_sharded(mesh, gen, Xt, method, m, h, niter, **kw)
     if method == "pq":
         model, B, _ = train_pq(gen, Xt, m, h, iters=niter, **kw)
         return MCQModel(method, model.codebooks, h=h, train_codes=B)
@@ -131,6 +143,27 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
     else:
         model, B, _ = train_sr(gen, Xt, B1, cq.R, h=h, niter=niter,
                                method=method.upper(), **kw)
+    return MCQModel(method, model.codebooks, h=h, train_codes=B)
+
+
+def _train_sharded(mesh, gen, Xt, method: str, m: int, h: int, niter: int,
+                   **kw) -> MCQModel:
+    """``mesh=`` path of `train` for ChainQ and the LSQ family: OPQ
+    (replicated) → sharded ChainQ → sharded LSQ / SR."""
+    from rayuela_tpu_torch.models.opq import train_opq
+    from rayuela_tpu_torch.parallel import (train_chainq_sharded,
+                                            train_lsq_family_sharded)
+
+    opq, B0, _ = train_opq(gen, Xt, m, h, niter=niter)
+    if method == "chainq":
+        model, B, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h,
+                                           niter=niter, **kw)
+        return MCQModel(method, model.codebooks, R=model.R, h=h,
+                        train_codes=B)
+    cq, B1, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h, niter=niter)
+    model, B, _ = train_lsq_family_sharded(mesh, gen, Xt, B1, cq.R, h=h,
+                                           niter=niter,
+                                           method=method.upper(), **kw)
     return MCQModel(method, model.codebooks, h=h, train_codes=B)
 
 
@@ -219,21 +252,57 @@ def search(index: MCQIndex, Q, k: int = 100, mesh=None,
     scan, as in the JAX package). ``pack=False`` asks
     for the exact-float scan: the exact top-k of the untruncated f32
     scores, the lowest id among equal ones (decoded index, or codes with
-    ``mode="lut"``)."""
+    ``mode="lut"``).
+
+    With ``mesh`` every rank passes the global index and scans its own
+    row range of it (a view), and the ranks' lists merge, as in the JAX
+    package: a codes index by the LUT scan
+    (`parallel.sharded_search_codes`; ``lut_dtype`` or ``op_dtype``
+    rounds the tables), its flagged queries through the exact tiled LUT
+    scan of each rank's rows; a decoded index by
+    `parallel.mesh.sharded_search_exact`, its flagged queries through
+    the exact rescan of each rank's decoded rows, the single-device
+    search's rescue. (The JAX package rescues them from the codes, which
+    spares it a gather of the decoded rows; a rank here rescans its own
+    rows, which gathers nothing and on the card takes a quarter of the
+    codes rescue's time.)"""
     from rayuela_tpu_torch.search import scan, scan_codes
 
-    if mesh is not None:
-        raise NotImplementedError("multi-device search is not ported yet "
-                                  "(ROADMAP A9)")
     model = index.model
     _check_method(model.method)
     Q = as_tensor(Q, model.codebooks.device)
     if model.method in _ROTATED:
         exact_f32()
         Q = Q @ model.R
+    if mesh is not None:
+        return _search_sharded(mesh, index, Q, k, **kw)
     if index.mode == "codes":
         return scan_codes.search_codes(index.scan_index, Q, k, **kw)
     return scan.search(index.scan_index, Q, k, **kw)
+
+
+def _search_sharded(mesh, index: MCQIndex, Q, k: int, **kw):
+    """``mesh=`` path of `search` (``Q`` already rotated)."""
+    from rayuela_tpu_torch.parallel import mesh as pmesh
+    from rayuela_tpu_torch.search import scan_codes
+
+    k = min(k, index.scan_index.n)
+    if index.mode == "codes":
+        ix = index.scan_index
+        kw.pop("mode", None)
+        lut_dtype = kw.pop("lut_dtype", kw.pop("op_dtype", None))
+        d = Q.shape[1] if ix.d in (-1, None) else ix.d
+        T = scan_codes.build_luts(ix.C, Q, pq=ix.pq, d=d,
+                                  norms_cbook=ix.norms_cbook)
+        s, i, fl = pmesh.sharded_search_codes(mesh, T, ix.packed, k=k,
+                                              lut_dtype=lut_dtype, **kw)
+        if bool(fl.any()):
+            qidx = torch.nonzero(fl).flatten()
+            s[qidx], i[qidx] = pmesh._sharded_lut_exact(
+                mesh, T[:, :, qidx], ix.packed, k, lut_dtype)
+        return s + (Q * Q).sum(-1, keepdim=True), i
+    return pmesh.sharded_search_exact(mesh, index.scan_index.Xd,
+                                      index.scan_index.x2, Q, k=k, **kw)
 
 
 def search_streamed(model: MCQModel, B_packed, Q, k: int = 100,

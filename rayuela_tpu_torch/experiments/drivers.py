@@ -22,7 +22,12 @@ run draws what a fresh one would. Datasets are numpy; a trial moves them
 to its device once. Everything runs on the card unless the caller asks
 for the CPU (``device="cpu"``), where the kernels' plain versions run;
 nothing falls back to the CPU when the card or a kernel fails.
-Multi-device runs (``mesh=``) raise `NotImplementedError`.
+With ``mesh=`` (every rank of the process group running the same call)
+ChainQ and the LSQ family train and encode their base data-parallel
+(`rayuela_tpu_torch.parallel`: each rank rotates, encodes and measures
+its own rows of the base, and the codes are all-gathered); the norms
+codebook and the recall search, and the other methods, run replicated
+on every rank, and only the rank at the mesh's origin writes the store.
 """
 
 from __future__ import annotations
@@ -48,29 +53,17 @@ from rayuela_tpu_torch.models.pq import quantize_pq, train_pq
 from rayuela_tpu_torch.models.rvq import quantize_rvq, train_rvq
 from rayuela_tpu_torch.models.sr import train_sr
 from rayuela_tpu_torch.ops.icm import encoding_icm, encoding_icm_checkpoints
-from rayuela_tpu_torch.ops.qerror import qerror
+from rayuela_tpu_torch.ops.qerror import qerror, veccost
 from rayuela_tpu_torch.search.linscan import (eval_recall, linscan_lsq,
                                               linscan_opq, linscan_pq)
 from rayuela_tpu_torch.search.norms import get_norms_codebook, quantize_norms
-from rayuela_tpu_torch.utils import as_tensor
+from rayuela_tpu_torch.utils import as_tensor, fold_in
 
 # the stages a key feeds: training (k-means seeds, ILS perturbations, SR
 # noise, the OPQ init of the chain), the norms codebook, the base encode
 # (JAX's ``fold_in(key, 7)``) and the high-recall ladder's init codes and
 # encode (``fold_in(key, 11)``)
 _TRAIN, _NORMS, _BASE, _LADDER = 0, 1, 7, 11
-
-_NO_MESH = ("multi-device protocol runs are not ported yet (ROADMAP "
-            "queue A item 5, A9)")
-
-
-def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
-    """A new generator on ``gen``'s device, seeded from ``gen``'s seed and
-    ``data`` (the role of ``jax.random.fold_in``); ``gen`` is untouched."""
-    seed = np.random.SeedSequence([gen.initial_seed(), data]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=gen.device).manual_seed(int(seed))
-
 
 def _np(t):
     return None if t is None else t.detach().cpu().numpy()
@@ -208,20 +201,33 @@ def experiment_chainq(gen, ds: Dataset, m: int = 7, h: int = 256,
                       verbose: bool = True, store: str | None = None,
                       trial: int = 0, opq_init=None, mesh=None):
     """ChainQ end-to-end (exported but undefined in the reference). OPQ
-    init per `demos/demos_train_query_base.jl:52-58`."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    init per `demos/demos_train_query_base.jl:52-58`. With ``mesh``,
+    training and the base Viterbi encode run data-parallel
+    (`parallel.train_chainq_sharded`, `parallel.sharded_viterbi_encode`)."""
     dev, laps = gen.device, _Laps(gen.device)
     Xt = as_tensor(ds.Xt, dev)
     if opq_init is None:
         opq_model, B_opq, _ = train_opq(fold_in(gen, _TRAIN), Xt, m, h,
                                         niter=niter)
         opq_init = (B_opq, opq_model.R)
-    model, B, obj = train_chainq(Xt, as_tensor(opq_init[0], dev, torch.int32),
-                                 as_tensor(opq_init[1], dev), h=h,
-                                 niter=niter)
-    laps("train")
-    Bb = quantize_chainq(model, as_tensor(ds.Xb, dev))
+    B0 = as_tensor(opq_init[0], dev, torch.int32)
+    R0 = as_tensor(opq_init[1], dev)
+    if mesh is not None:
+        from rayuela_tpu_torch.parallel import (shard_data,
+                                                sharded_viterbi_encode,
+                                                train_chainq_sharded)
+        from rayuela_tpu_torch.parallel.mesh import _like
+        model, B, obj = train_chainq_sharded(mesh, Xt, B0, R0, h=h,
+                                             niter=niter)
+        laps("train")
+        rows = shard_data(mesh, as_tensor(ds.Xb, dev))
+        Bl = sharded_viterbi_encode(mesh, rows._replace(
+            local=rows.local @ model.R), model.codebooks).local
+        Bb = _like(mesh, ds.Xb, Bl, rows)
+    else:
+        model, B, obj = train_chainq(Xt, B0, R0, h=h, niter=niter)
+        laps("train")
+        Bb = quantize_chainq(model, as_tensor(ds.Xb, dev))
     laps("encode")
     out = _finish_nonorth(gen, "chainq", model.codebooks, B, Bb, model.R,
                           ds, float(obj[-1]), knn, verbose, store, trial,
@@ -233,31 +239,44 @@ def experiment_chainq(gen, ds: Dataset, m: int = 7, h: int = 256,
 def _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
                 trainer: Callable, name: str, chain_init,
                 ilsiter, icmiter, npert, randord, chunk, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    """``trainer(gen, Xt, B0, R0, **ils)`` trains this stage (over
+    ``mesh`` when its caller made it so, `_sharded_trainer`). With
+    ``mesh`` the ChainQ init trains data-parallel
+    (`parallel.train_chainq_sharded`) and the base encode runs on the
+    rank's rows (`_encode_base_sharded`)."""
     dev, laps = gen.device, _Laps(gen.device)
     Xt, Xb = as_tensor(ds.Xt, dev), as_tensor(ds.Xb, dev)
     if chain_init is None:
         opq_model, B_opq, _ = train_opq(fold_in(gen, _TRAIN), Xt, m, h,
                                         niter=niter)
-        cq_model, B_cq, _ = train_chainq(Xt, B_opq, opq_model.R, h=h,
-                                         niter=niter)
+        if mesh is not None:
+            from rayuela_tpu_torch.parallel import train_chainq_sharded
+            cq_model, B_cq, _ = train_chainq_sharded(
+                mesh, Xt, B_opq, opq_model.R, h=h, niter=niter)
+        else:
+            cq_model, B_cq, _ = train_chainq(Xt, B_opq, opq_model.R, h=h,
+                                             niter=niter)
         chain_init = (B_cq, cq_model.R)
     B0 = as_tensor(chain_init[0], dev, torch.int32)
     R0 = as_tensor(chain_init[1], dev)
-    model, B, obj = trainer(fold_in(gen, _TRAIN), Xt, B0, R0,
-                            h=h, niter=niter, ilsiter=ilsiter,
-                            icmiter=icmiter, npert=npert, randord=randord)
+    model, B, obj = trainer(fold_in(gen, _TRAIN), Xt, B0, R0, h=h,
+                            niter=niter, ilsiter=ilsiter, icmiter=icmiter,
+                            npert=npert, randord=randord)
     laps("train")
     # Base encode: greedy sequential init + 4x ILS budget. The reference
     # inits from RANDOM codes (`src/SR.jl:283-287`, `src/LSQ.jl:438-440`);
     # greedy costs one extra pass and starts ILS far closer to the
     # training optimum.
-    Bb0, _ = quantize_rvq(model.codebooks, Xb)
-    Bb = encoding_icm(fold_in(gen, _BASE), Xb, model.codebooks, Bb0,
-                      ilsiter=ilsiter * 4, icmiter=icmiter, npert=npert,
-                      randord=randord, chunk=chunk)
-    base_error = float(qerror(Xb, model.codebooks, Bb))
+    enc = dict(ilsiter=ilsiter * 4, icmiter=icmiter, npert=npert,
+               randord=randord, chunk=chunk)
+    if mesh is not None:
+        Bb, base_error = _encode_base_sharded(mesh, fold_in(gen, _BASE), Xb,
+                                              model.codebooks, **enc)
+    else:
+        Bb0, _ = quantize_rvq(model.codebooks, Xb)
+        Bb = encoding_icm(fold_in(gen, _BASE), Xb, model.codebooks, Bb0,
+                          **enc)
+        base_error = float(qerror(Xb, model.codebooks, Bb))
     laps("encode")
     if verbose:
         print(f"{name}: train {float(obj[-1]):.5g} base {base_error:.5g}")
@@ -268,6 +287,36 @@ def _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
     return out
 
 
+def _encode_base_sharded(mesh, gen, Xb, C, **enc):
+    """`_lsq_family`'s base encode over ``mesh`` → ``(codes (n, m),
+    mean squared error)``: the rank's rows of ``Xb`` get the greedy init,
+    the ILS (`parallel.sharded_encoding_icm`, the rank's own stream of
+    ``gen``) and their squared error; the codes are all-gathered and the
+    error sums all-reduced."""
+    from rayuela_tpu_torch.parallel import shard_data, sharded_encoding_icm
+    from rayuela_tpu_torch.parallel.mesh import _all_reduce, _like
+
+    rows = shard_data(mesh, Xb)
+    B0, _ = quantize_rvq(C, rows.local)
+    B = sharded_encoding_icm(mesh, gen, rows, C, rows._replace(local=B0),
+                             **enc).local
+    err = _all_reduce(mesh, veccost(rows.local, C, B).sum()) / rows.n
+    return _like(mesh, Xb, B, rows), float(err)
+
+
+def _sharded_trainer(mesh, method: str, chunk: int, schedule: int = 1,
+                     p: float = 0.5) -> Callable:
+    """`parallel.train_lsq_family_sharded` over ``mesh`` at ``method``
+    (``schedule``, ``p``: SR's) as `_lsq_family`'s stage trainer."""
+    from rayuela_tpu_torch.parallel import train_lsq_family_sharded
+
+    def trainer(g, X, B0, R0, **kw):
+        return train_lsq_family_sharded(mesh, g, X, B0, R0, method=method,
+                                        schedule=schedule, p=p, chunk=chunk,
+                                        **kw)
+    return trainer
+
+
 def experiment_lsq(gen, ds: Dataset, m: int = 7, h: int = 256,
                    niter: int = 25, knn: int = 1000,
                    verbose: bool = True, store: str | None = None,
@@ -275,8 +324,10 @@ def experiment_lsq(gen, ds: Dataset, m: int = 7, h: int = 256,
                    icmiter: int = 4, npert: int = 4,
                    randord: bool = True, chunk: int = 8192, mesh=None):
     """Reference `src/LSQ.jl:383-476`."""
+    trainer = (train_lsq if mesh is None else
+               _sharded_trainer(mesh, "LSQ", chunk))
     return _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
-                       train_lsq, "lsq", chain_init, ilsiter, icmiter,
+                       trainer, "lsq", chain_init, ilsiter, icmiter,
                        npert, randord, chunk, mesh=mesh)
 
 
@@ -291,6 +342,8 @@ def experiment_sr(gen, ds: Dataset, m: int = 7, h: int = 256,
     def trainer(g, X, B0, R0, **kw):
         return train_sr(g, X, B0, R0, method=method, schedule=schedule,
                         p=p, **kw)
+    if mesh is not None:
+        trainer = _sharded_trainer(mesh, method, chunk, schedule, p)
     return _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
                        trainer, f"sr-{method[-1].lower()}", chain_init,
                        ilsiter, icmiter, npert, randord, chunk, mesh=mesh)
@@ -414,11 +467,14 @@ def _run_trial(ds: Dataset, trial: int, results_dir: str | None,
                m: int = 8, h: int = 256, niter: int = 25, knn: int = 1000,
                methods=ALL_METHODS, verbose: bool = True, seed: int = 0,
                resume: bool = False, device=None, sr_extra=None,
-               **exp_kw) -> dict:
+               mesh=None, **exp_kw) -> dict:
     """One trial of the protocol → ``{method: result}``. Results go to
     ``results_dir/{dataset}_{method}.h5``; with ``results_dir=None``
     nothing is stored or resumed, and h5py is never imported (the card's
-    machine has none)."""
+    machine has none). With ``mesh`` ChainQ and the LSQ family run
+    sharded, and only the rank at the mesh's origin writes (every rank
+    reads what it resumes)."""
+    writes = mesh is None or not any(mesh.coords.values())
     dev = torch.device(device or "cuda")
     dsd = _on_device(ds, dev)
     key = torch.Generator(device=dev).manual_seed(seed + trial)
@@ -438,31 +494,32 @@ def _run_trial(ds: Dataset, trial: int, results_dir: str | None,
             out_t[method] = dict(name=method, recall=saved.get("recall"),
                                  resumed=True)
             continue
+        store = path if writes else None
         if method in ("pq", "opq"):
             fn = experiment_pq if method == "pq" else experiment_opq
-            out = fn(key, dsd, m, h, niter, knn, verbose, path, trial)
+            out = fn(key, dsd, m, h, niter, knn, verbose, store, trial)
         elif method == "rvq":
             out = experiment_rvq(key, dsd, m - 1, h, niter, knn, verbose,
-                                 path, trial)
+                                 store, trial)
         elif method == "ervq":
             out = experiment_ervq(key, dsd, m - 1, h, niter, knn, verbose,
-                                  path, trial)
+                                  store, trial)
         elif method == "chainq":
             out = experiment_chainq(key, dsd, m - 1, h, niter, knn,
-                                    verbose, path, trial)
+                                    verbose, store, trial, mesh=mesh)
             chain_init = (out["B"], out["R"])
         elif method == "lsq":
             out = experiment_lsq(key, dsd, m - 1, h, niter, knn, verbose,
-                                 path, trial, chain_init=chain_init,
-                                 **exp_kw)
+                                 store, trial, chain_init=chain_init,
+                                 mesh=mesh, **exp_kw)
         elif method in ("sr_c", "sr_d"):
             out = experiment_sr(key, dsd, m - 1, h, niter, knn, verbose,
-                                path, trial, chain_init=chain_init,
-                                method=method.upper(),
+                                store, trial, chain_init=chain_init,
+                                method=method.upper(), mesh=mesh,
                                 **{**(sr_extra or {}), **exp_kw})
         elif method == "compq":
             out = experiment_compq(key, dsd, m - 1, h, niter, knn,
-                                   verbose, path, trial)
+                                   verbose, store, trial)
         else:
             raise ValueError(f"unknown method {method!r}")
         if verbose:
@@ -495,9 +552,13 @@ def run_train_query_base(dataset: str | Dataset = "sift1m", m: int = 8,
     datasets fall back to the defaults), or pass an ``hpo.LSQConfig``.
     The incumbent's ilsiter / icmiter / npert / randord apply to LSQ and
     SR; schedule / p to SR only. Explicit keyword overrides still win.
-    ``mesh`` raises `NotImplementedError`."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+
+    ``mesh`` (every rank of the process group making the same call; its
+    device is the default) trains ChainQ and the LSQ family and encodes
+    their base data-parallel; the other methods run replicated on every
+    rank, and only the rank at the mesh's origin writes the store."""
+    if mesh is not None and device is None:
+        device = mesh.device
     ds = (read_dataset(dataset, device=device) if isinstance(dataset, str)
           else dataset)
     os.makedirs(results_dir, exist_ok=True)
@@ -507,7 +568,7 @@ def run_train_query_base(dataset: str | Dataset = "sift1m", m: int = 8,
         out_t = _run_trial(ds, trial, results_dir, m=m, h=h, niter=niter,
                            knn=knn, methods=methods, verbose=verbose,
                            seed=seed, resume=resume, device=device,
-                           sr_extra=sr_extra, **exp_kw)
+                           sr_extra=sr_extra, mesh=mesh, **exp_kw)
         for method, out in out_t.items():
             results.setdefault(method, []).append(out)
     return results

@@ -12,8 +12,8 @@ from typing import NamedTuple
 import torch
 
 from rayuela_tpu_torch.models.opq import OPQModel
-from rayuela_tpu_torch.ops.codebook_update import update_codebooks_chain
-from rayuela_tpu_torch.ops.qerror import qerror, reconstruct
+from rayuela_tpu_torch.ops.codebook_update import _chain_solve, codebook_stats
+from rayuela_tpu_torch.ops.qerror import reconstruct, veccost
 from rayuela_tpu_torch.ops.viterbi import viterbi_encode
 from rayuela_tpu_torch.utils import exact_f32
 
@@ -24,27 +24,45 @@ class ChainQModel(NamedTuple):
 
 
 def train_chainq(X: torch.Tensor, B0: torch.Tensor, R0: torch.Tensor,
-                 h: int = 256, niter: int = 25
+                 h: int = 256, niter: int = 25, *, chunk: int = 2048,
+                 impl: str = "auto", reduce=None, n: int | None = None
                  ) -> tuple[ChainQModel, torch.Tensor, torch.Tensor]:
     """Train ChainQ from init codes and rotation (usually OPQ's) →
     ``(model, codes (n, m) int32, obj (niter+1,))``. Per iteration: the
     objective, R from the SVD of ``X^T X_hat``, the chain codebook
-    update on the rotated data, Viterbi re-encode."""
+    update on the rotated data, Viterbi re-encode (``chunk``, ``impl``).
+
+    ``reduce`` sums a statistic over the ranks that hold the other rows
+    of a data-parallel run, ``n`` rows in all: the normal-equation
+    statistics, ``X^T X_hat`` and the squared error are sums over the
+    rows (`parallel.train_chainq_sharded` passes its all-reduce). Without
+    it, ``X`` is all the rows."""
     exact_f32()
+    red = (lambda t: t) if reduce is None else reduce
+    n = X.shape[0] if n is None else n
+    d, m = X.shape[1], B0.shape[1]
+
+    def solve(RX, B):
+        G, F = codebook_stats(RX, B, h)
+        return _chain_solve(red(G), red(F), h=h, d=d, m=m, rho=1e-4)
+
+    def error(RX, C, B):
+        return red(veccost(RX, C, B).sum()) / n
+
     RX = X @ R0
-    C = update_codebooks_chain(RX, B0, h)
-    B = viterbi_encode(RX, C)
+    C = solve(RX, B0)
+    B = viterbi_encode(RX, C, chunk=chunk, impl=impl)
     R = R0
     obj = torch.zeros(niter + 1, dtype=X.dtype, device=X.device)
     for it in range(niter):
-        obj[it] = qerror(X @ R, C, B)
-        U, _, Vt = torch.linalg.svd(X.T @ reconstruct(C, B),
+        obj[it] = error(RX, C, B)
+        U, _, Vt = torch.linalg.svd(red(X.T @ reconstruct(C, B)),
                                     full_matrices=False)
         R = U @ Vt
         RX = X @ R
-        C = update_codebooks_chain(RX, B, h)
-        B = viterbi_encode(RX, C)
-    obj[niter] = qerror(X @ R, C, B)
+        C = solve(RX, B)
+        B = viterbi_encode(RX, C, chunk=chunk, impl=impl)
+    obj[niter] = error(RX, C, B)
     return ChainQModel(C, R), B, obj
 
 

@@ -54,6 +54,19 @@ def qerror(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *,
     return veccost(X, C, B, pq=pq).mean()
 
 
+def qerror_pq(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor
+              ) -> torch.Tensor:
+    """PQ objective (concatenative decode)."""
+    return qerror(X, C, B, pq=True)
+
+
+def qerror_opq(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
+               R: torch.Tensor) -> torch.Tensor:
+    """OPQ objective: the rotated data ``X R`` against the PQ decode."""
+    exact_f32()
+    return qerror(X @ R, C, B, pq=True)
+
+
 def get_unaries(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """MRF unary terms ``(n, m, h)``: ``|c|^2 - 2 c.x`` per codebook
     entry, in full f32."""

@@ -1237,18 +1237,70 @@ def merge_topk(best, new, k: int):
     return v, i.to(torch.int32)
 
 
-def _scan_segments(Q, Xd, x2, *, k: int, r: int, tile: int, keep: int):
-    """A base beyond the packed row-id range: the scan per
-    `_SEG_DECODED`-row segment with an exact merge on the device; the
-    segments' flags are OR-ed."""
+def segments_topk(n: int, seg: int, k: int, scan_one):
+    """``scan_one(start, stop, kseg) -> (scores, ids, flagged)`` over
+    segments of ``seg`` rows of an ``n``-row base, merged exactly on the
+    device by (score, id), the segments' flags OR-ed: a base beyond the
+    packed row-id range of one scan call."""
     best = flagged = None
-    for st in range(0, Xd.shape[0], _SEG_DECODED):
-        Xs, x2s = Xd[st:st + _SEG_DECODED], x2[st:st + _SEG_DECODED]
-        dv, iv, fl = scan_topk_packed(Q, Xs, x2s, k=min(k, Xs.shape[0]),
-                                      r=r, tile=tile, keep=keep)
+    for st in range(0, n, seg):
+        stop = min(st + seg, n)
+        dv, iv, fl = scan_one(st, stop, min(k, stop - st))
         best = merge_topk(best, (dv, iv + st), k)
         flagged = fl if flagged is None else flagged | fl
     return (*best, flagged)
+
+
+def _scan_segments(Q, Xd, x2, *, k: int, r: int, tile: int, keep: int):
+    """A base beyond the packed row-id range: the scan per
+    `_SEG_DECODED`-row segment with an exact merge on the device."""
+    return segments_topk(
+        Xd.shape[0], _SEG_DECODED, k,
+        lambda st, stop, kseg: scan_topk_packed(
+            Q, Xd[st:stop], x2[st:stop], k=kseg, r=r, tile=tile, keep=keep))
+
+
+def search_flagged(Xd, x2, Q, k: int, *, r: int | None = None,
+                   tile: int | None = None, keep: int | None = None,
+                   pack: bool | None = None):
+    """`search`'s plan and kernel scan without its rescue → ``(dists
+    (nq, k) f32 with +|q|^2, ids (nq, k) int32, flagged (nq,) bool)``
+    over ``Xd (n, dp)``, ``x2 (n,)``, ``Q (nq, dp)`` f32 on Xd's device,
+    ``k <= n``. Where the plan serves no kernel scan (k beyond its
+    deepest class, or most of a small base) the result is the exact
+    scan's and nothing is flagged."""
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    n = Xd.shape[0]
+    f32 = pack is not None and not pack
+    if f32:
+        ar, akeep, atile, kmax = _f32_config(k, Xd.device)
+    else:
+        ar, akeep, atile = _scan_config(min(k, _MAX_K))
+        kmax = _MAX_K
+    if (r is None and k > kmax) or (
+            r is None and keep is None and tile is None and akeep
+            and k > cdiv(n, atile) * akeep * LANES):
+        # beyond the plan, or the tiles keep fewer than k candidates
+        s, i = exact_rescan(Q, Xd, x2, k)
+        return s, i, torch.zeros(Q.shape[0], dtype=torch.bool,
+                                 device=Xd.device)
+    r = ar if r is None else r
+    keep = akeep if keep is None else keep
+    tile = atile if tile is None else tile
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    if f32:
+        scan = scan_topk_f32
+        per_query = _f32_bytes_per_query(n, r, tile, keep)
+    else:
+        segmented = cdiv(n, tile) * tile > _SEG_DECODED
+        scan = _scan_segments if segmented else scan_topk_packed
+        per_query = (cdiv(min(n, _SEG_DECODED), tile) * max(keep, 1)
+                     * LANES * 4)
+    parts = [scan(Q[a:b], Xd, x2, k=k, r=r, tile=tile, keep=keep)
+             for a, b in _query_chunks(Q.shape[0], per_query)]
+    s, i, flagged = (torch.cat(p) for p in zip(*parts))
+    return s + q2, i, flagged
 
 
 def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
@@ -1270,41 +1322,15 @@ def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
     ``r``/``tile``/``keep`` default to the plan of the k class
     (`_scan_config`, `_f32_config`). Beyond the plan's deepest k the
     search is `exact_rescan` alone. A query batch whose candidate array
-    would pass `_CAND_CAP` bytes runs in chunks."""
+    would pass `_CAND_CAP` bytes runs in chunks (`search_flagged`)."""
     from rayuela_tpu_torch.search.linscan import exact_rescan
 
     Xd, x2 = index.Xd, index.x2
     Q = torch.as_tensor(Q, dtype=torch.float32, device=Xd.device)
     Q = torch.nn.functional.pad(Q, (0, Xd.shape[1] - Q.shape[1]))
     k = min(k, index.n)       # never return padded (inf, fake-id) rows
-    f32 = pack is not None and not pack
-    if f32:
-        ar, akeep, atile, kmax = _f32_config(k, Xd.device)
-    else:
-        ar, akeep, atile = _scan_config(min(k, _MAX_K))
-        kmax = _MAX_K
-    if r is None and k > kmax:
-        return exact_rescan(Q, Xd, x2, k)
-    if r is None and keep is None and tile is None and akeep \
-            and k > cdiv(index.n, atile) * akeep * LANES:
-        # the tiles keep fewer than k candidates (k most of a small base)
-        return exact_rescan(Q, Xd, x2, k)
-    r = ar if r is None else r
-    keep = akeep if keep is None else keep
-    tile = atile if tile is None else tile
-    q2 = (Q * Q).sum(-1, keepdim=True)
-    if f32:
-        scan = scan_topk_f32
-        per_query = _f32_bytes_per_query(index.n, r, tile, keep)
-    else:
-        segmented = cdiv(index.n, tile) * tile > _SEG_DECODED
-        scan = _scan_segments if segmented else scan_topk_packed
-        per_query = (cdiv(min(index.n, _SEG_DECODED), tile) * max(keep, 1)
-                     * LANES * 4)
-    parts = [scan(Q[a:b], Xd, x2, k=k, r=r, tile=tile, keep=keep)
-             for a, b in _query_chunks(Q.shape[0], per_query)]
-    s, i, flagged = (torch.cat(p) for p in zip(*parts))
-    s = s + q2
+    s, i, flagged = search_flagged(Xd, x2, Q, k, r=r, tile=tile, keep=keep,
+                                   pack=pack)
     if bool(flagged.any()):
         qidx = torch.nonzero(flagged).flatten()
         s[qidx], i[qidx] = exact_rescan(Q[qidx], Xd, x2, k)

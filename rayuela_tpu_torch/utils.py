@@ -8,6 +8,7 @@ one-hot matmul form existed only for the TPU's matrix unit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -185,6 +186,11 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to the next multiple of ``m``."""
+    return cdiv(x, m) * m
+
+
 def splitarray(n: int, nparts: int) -> list[tuple[int, int]]:
     """Split ``range(n)`` into ``nparts`` balanced ``(start, size)``
     chunks (the earlier chunks take the remainder)."""
@@ -195,6 +201,41 @@ def splitarray(n: int, nparts: int) -> list[tuple[int, int]]:
         out.append((start, size))
         start += size
     return out
+
+
+def one_hot(idx: torch.Tensor, num: int, dtype=torch.float32
+            ) -> torch.Tensor:
+    """One-hot encode ``idx`` with trailing dimension ``num``; an index
+    outside ``[0, num)`` (a pad code of -1) gives an all-zero row, as
+    ``jax.nn.one_hot`` does."""
+    return (idx.long()[..., None]
+            == torch.arange(num, device=idx.device)).to(dtype)
+
+
+def sparsify_codes(B: torch.Tensor, h: int, dtype=torch.float32
+                   ) -> torch.Tensor:
+    """Codes ``B (n, m)`` → the ``(n, m*h)`` 0/1 indicator ``U`` of the
+    normal equations (dense)."""
+    n, m = B.shape
+    return one_hot(B, h, dtype).reshape(n, m * h)
+
+
+def K2vec(K: torch.Tensor, m: int, h: int) -> torch.Tensor:
+    """Stacked least-squares solution ``(m*h, d)`` → codebooks
+    ``(m, h, d)``."""
+    return K.reshape(m, h, -1)
+
+
+def fold_in(gen: torch.Generator, data: int, device=None
+            ) -> torch.Generator:
+    """A new generator on ``device`` (``gen``'s by default), seeded from
+    ``gen``'s seed and ``data`` (the role of ``jax.random.fold_in``);
+    ``gen`` is untouched, so equal seeds give equal streams on every
+    process."""
+    seed = np.random.SeedSequence([gen.initial_seed(), data]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=gen.device if device is None
+                           else device).manual_seed(int(seed))
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

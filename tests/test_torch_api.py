@@ -138,10 +138,16 @@ def test_unported_facade_routes_raise(small_corr):
         tapi.index_base(tm, ds.Xb[:500], mode="lut")
     tidx = tapi.index_base(tm, ds.Xb[:500])      # the default, decoded
     assert tidx.mode == "decoded"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tapi.train(ds.Xt[:500], method="pq", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tapi.search(tidx, ds.Xq[:2], mesh=object())
+    # mesh= is ported: on a one-rank mesh PQ trains replicated (the
+    # meshless model) and the search merges one rank's list
+    from rayuela_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device="cpu")
+    tmm = tapi.train(ds.Xt[:500], method="pq", m=2, h=8, niter=1,
+                     mesh=mesh)
+    assert torch.equal(tmm.codebooks, tm.codebooks)
+    d0, i0 = tapi.search(tidx, ds.Xq[:2], k=5)
+    d1, i1 = tapi.search(tidx, ds.Xq[:2], k=5, mesh=mesh)
+    assert torch.equal(i0, i1) and torch.allclose(d0, d1)
 
 
 @pytest.mark.parametrize("method", ["pq", "opq"])
@@ -246,15 +252,17 @@ def test_port_never_imports_jax(tmp_path):
 
 
 def test_port_sources_name_no_jax():
-    """No source of the port, nor chip_smoke.py, imports jax or the JAX
-    package: a grep of every import statement (the smoke runs where
-    there is no jax, and imports its modules inside functions)."""
+    """No source of the port, nor chip_smoke.py, nor the worker of the
+    multi-process tests, imports jax or the JAX package: a grep of every
+    import statement (the smoke runs where there is no jax, and imports
+    its modules inside functions)."""
     import re
     pat = re.compile(r"^\s*(?:import|from)\s+(?:jax|rayuela_tpu)(?![\w])",
                      re.M)
     root = pathlib.Path(REPO)
     files = [*sorted((root / "rayuela_tpu_torch").rglob("*.py")),
-             root / "chip_smoke.py"]
+             root / "chip_smoke.py",
+             root / "tests" / "torch_parallel_worker.py"]
     assert len(files) > 20
     hits = [f"{f.name}: {m.group(0).strip()}" for f in files
             for m in pat.finditer(f.read_text())]

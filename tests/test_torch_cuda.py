@@ -2202,3 +2202,58 @@ def test_datasets_default_to_the_card(dev):
     b = tds.read_dataset("synthetic-corr-small", nquery=50, ncenters=8,
                          device="cpu")
     np.testing.assert_array_equal(a.gt, b.gt)
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A world of 1 over NCCL in this process (a file store under
+    ``tmp_path``), destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from rayuela_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("k", [100, 1000])
+def test_world_of_one_over_nccl_searches_as_the_single_device(nccl_mesh,
+                                                               dev, k):
+    """At a world of 1 the shard is the whole base: every sharded search
+    (through the NCCL group's collectives) gives the single-device
+    kernel path's result, flags included."""
+    from rayuela_tpu_torch.parallel import mesh as pmesh
+
+    mesh = nccl_mesh
+    assert mesh.device.type == "cuda" and mesh.group("data") is not None
+    idx, Qt, Cf, nrm, _ = _case(dev, pq=False, kind="gauss",
+                                dtype=torch.bfloat16, n=300_000, nq=512)
+    C, ncb = idx.C, idx.norms_cbook
+    T = tsc.build_luts(C, Qt, norms_cbook=ncb)
+    _, r, keep, tile = tsc._codes_config(k, "lut", idx.n)
+    got = pmesh.sharded_search_codes(mesh, T, idx.packed, k=k)
+    ref = tsc.scan_codes_topk(T, idx.packed, k=k, r=r, tile=tile, keep=keep)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    pr, pkeep, ptile = tsc._onepass_config(k, idx.mprime)
+    got = pmesh.sharded_search_codes_decode(mesh, Qt, C, idx.packed, k=k,
+                                            pq=False, d=D, norms_cbook=ncb)
+    ref = tsc.scan_codes_decode_topk(Qt, Cf, nrm, idx.packed, k=k, pq=False,
+                                     r=pr, tile=ptile, keep=pkeep)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    B = tsc.unpack_codes(idx.packed, idx.mprime)
+    nt = ncb.reshape(-1)[B[:, -1].long()]
+    for dtype, pack in ((torch.bfloat16, None), (torch.float32, False)):
+        ix = tsp.build_index(C, B[:, :-1], d=D, norm_term=nt, dtype=dtype)
+        got = pmesh.sharded_search(mesh, ix.Xd, ix.x2, Qt, k=k, pack=pack)
+        ref = tsp.search_flagged(ix.Xd, ix.x2, Qt, k, pack=pack)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)

@@ -345,14 +345,35 @@ def test_cli_runs_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("call", ["runner", "chainq", "lsq", "sr"])
 def test_mesh_raises_naming_item_5(tmp_path, call):
+    """``mesh=`` is ported (it raised before): on a one-rank mesh the
+    sharded ChainQ gives the meshless codes, the sharded LSQ family
+    trains and encodes the base, and the runner takes the mesh's device
+    and writes its store from the mesh's origin."""
+    from rayuela_tpu_torch.parallel import make_mesh
     ds = make_synthetic(d=8, ntrain=100, nbase=200, nquery=5, ncenters=4,
                         seed=0, name="m")
     gen = torch.Generator().manual_seed(0)
-    fn = {"runner": lambda: tdrv.run_train_query_base(
-              ds, mesh=object(), results_dir=str(tmp_path), device="cpu"),
-          "chainq": lambda: tdrv.experiment_chainq(gen, ds, mesh=object()),
-          "lsq": lambda: tdrv.experiment_lsq(gen, ds, mesh=object()),
-          "sr": lambda: tdrv.experiment_sr(gen, ds, mesh=object())}[call]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fn()
+    mesh = make_mesh(device="cpu")
+    kw = dict(m=3, h=4, niter=2, knn=10, verbose=False)
+    ils = dict(ilsiter=2, icmiter=1, npert=1)
+    if call == "runner":
+        out = tdrv.run_train_query_base(
+            ds, mesh=mesh, results_dir=str(tmp_path),
+            methods=("chainq", "sr_d"), verbose=False, m=3, h=4, niter=2,
+            knn=10, **ils)
+        assert set(out) == {"chainq", "sr_d"}
+        assert (tmp_path / "m_sr_d.h5").exists()
+        return
+    fn = {"chainq": tdrv.experiment_chainq, "lsq": tdrv.experiment_lsq,
+          "sr": tdrv.experiment_sr}[call]
+    extra = {} if call == "chainq" else ils
+    got = fn(gen, ds, mesh=mesh, **kw, **extra)
+    ref = fn(gen, ds, **kw, **extra)
+    assert got["B_base"].shape == ref["B_base"].shape == (200, 3)
+    assert np.isfinite(got["train_error"])
+    if call == "chainq":
+        assert torch.equal(got["B"], ref["B"])
+        assert torch.equal(got["B_base"], ref["B_base"])
+    else:
+        assert got["train_error"] <= 1.2 * ref["train_error"]
 

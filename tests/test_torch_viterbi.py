@@ -117,11 +117,14 @@ def test_codebook_stats_and_solves_match_jax(rng):
 
 @pytest.mark.parametrize("method", ["naive", "lsqr", "lsmr"])
 def test_unported_updates_raise(rng, method):
+    """These updates are ported now (they raised before; parity with the
+    JAX package in `test_torch_codebook_update.py`): each returns finite
+    codebooks, and the generic update refuses a map of the wrong shape."""
     X = _t(rng.standard_normal((50, 4)).astype(np.float32))
     B = _t(rng.integers(0, 4, (50, 2)).astype(np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tcu.update_codebooks(X, B, 4, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    C = tcu.update_codebooks(X, B, 4, method=method)
+    assert C.shape == (2, 4, 4) and bool(torch.isfinite(C).all())
+    with pytest.raises(ValueError, match="dim2C"):
         tcu.update_codebooks_generic(X, B, 4, None)
 
 
