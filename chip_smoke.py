@@ -130,10 +130,26 @@ phases below; any failure exits non-zero.
    counts of these calls were read, the results are held against phase
    4's decode-mode search and the LUT oracle on 64 queries; then an
    explicit one-pass configuration (keep=0) on 128 queries runs with
-   counts of its own; then the plan sweep: flagged queries and time of
-   the decoded and the LUT scan at k = 2048, 4096 and 8192 for the buffer
-   depths and tiles the plan chooses among, beside the exact scans that
-   serve a k beyond the plan.
+   counts of its own; then the plan sweep: flagged queries (beside the
+   count a binomial model of the lanes and tiles expects) and time of
+   the decoded and the LUT scan at k = 2048, 4096, 8192, 10240 and
+   12288 for the buffer depths and tiles the plan chooses among, beside
+   the exact scans; the deep band's class must flag at most 5% / 10% of
+   the sweep's 2,500 queries at k = 10240 / 12288. Then the deep band
+   (8192 < k <= 12288: K8 / K1 / K5 → K2 at r = 128 → K3 at cap =
+   16384): `api.search` at k = 10240 and 12288 over those queries on the
+   decoded index and the codes index in decode and LUT mode, the launch
+   counts set to 0 just before each call and read just after (each
+   form's candidates kernel, K2 and K3 must have launched), the exact
+   scans wrapped to count the queries they serve, which must be the
+   queries the certificate flags; each result against the exact scan of
+   its kernels' own scores (the flagged queries against the exact scan
+   that served them) by the packed-key contract, one truncation step;
+   K2 at r = 128 and K3 at cap = 16384 bit-equal to their plain
+   versions on the first query chunk of each search's operands, and
+   timed at k = 12288 beside their plain versions, `torch.topk` and
+   their bounds; the searches' walls beside those of `exact_rescan` and
+   the LUT oracle, which served these k before.
 
 6. The exact-float main path on phase 4's model and codes: an f32
    decoded index (`build_index(dtype=float32)` on phase 5's codes) →
@@ -158,9 +174,21 @@ phases below; any failure exits non-zero.
    its plain version, bound and the library's call. After the
    ``pack=False`` counts were read:
    the f32 results against `exact_rescan` and the LUT oracle on 64
-   queries, the flag counts of the f32 plan at k = 100, 1000 and 3072
-   (the deepest k it serves on the card), and one search's device time
-   by kernel.
+   queries, the flag counts of the f32 plan at k = 100, 1000 and 3072,
+   and one search's device time by kernel. Then beyond k = 3072 (the
+   card's f32 plan r = 96, keep 4, tile 2048, to the JAX f32 plan's
+   k = 6144): `api.search(pack=False)` at k = 4096 and 6144 over the
+   plan sweep's 2,500 queries and the f32 LUT search at k = 4096, counts
+   set to 0 just before each call and read just after (K9 or K6, the
+   pair merge and K10 or K7 must have launched), the exact scans
+   serving exactly the flagged queries; the decoded results against
+   `exact_rescan` by the rule above, the LUT result's unflagged queries
+   equal to the LUT oracle's on the same tables, and on an f32 base of
+   small integers (every score exact) `search(pack=False)` equal to
+   `exact_rescan` on every query; the pair merge at r = 96 bit-equal to
+   its plain version on the first query chunk of K9's and K6's
+   candidates, and timed at k = 6144 beside its plain version,
+   `torch.topk` and its bound.
 
 Every kernel's time stands beside its bound (the larger of its
 operations over the card's published peak for the operand type and its
@@ -312,14 +340,15 @@ phase 6's packed search, those searches and phase 9:
 every kernel of the search path must have launched in each, K11 and K13
 in phase 4, f32 K1, f32 K14, K2 and K3 in phase 4f, K8, K5, K2 and K3
 in phase 5, K8's keep=0 form in the
-one-pass call, K9, K10, K6, K7 and the pair merge in phase 6, f32 K8, K2
-and K3 in its packed search, f32 K1 and f32 K8 in phase 8's f32
-searches, K12
-(once) and K14 in phase 7, K11, K13, K8, K1, K14, K5, K9, the pair
-merge, K10, K2, K3 and the rescue's K4 in phase 8, K11, K13, K5, K6,
-the pair merge, K7,
-K1, K2 and K3 in phase 9, K1, K2, K3 and K8 in phase 10, the fusion
-kernel and K8 in the probes, K8, K2, K3, K11 and K13 in phase 11 (its
+one-pass call, K9, K10, K6, K7 and the pair merge in phase 6 (and in
+each of phase 6 deep's calls, set to 0 just before each), f32 K8, K2
+and K3 in its packed search, K8 / K1 / K5, K2 and K3 in each of the
+deep band's calls (set to 0 just before each), f32 K1 and f32 K8 in
+phase 8's f32 searches, K12 (once) and K14 in phase 7, K11, K13, K8,
+K1, K14, K5, K9, the pair merge, K10, K2, K3 and the rescue's K4 in
+phase 8, K11, K13, K5, K6, the pair merge, K7, K1, K2 and K3 in phase
+9, K1, K2, K3 and K8 in phase 10, the fusion kernel and K8 in the
+probes, K8, K2, K3, K11 and K13 in phase 11 (its
 (a)-(d), set to 0 just before it), and in phase 12 K2-K5, K8-K11, K13,
 K14 and the pair merge: in (a) set to 0 just before each mesh= call and
 read right after it, in (b) each spawned rank's counts, every one of
@@ -346,6 +375,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -1393,7 +1423,7 @@ def phase1c(rng, errs):
     print(f"== phase 1c: K8 and K5 vs plain, n={N}, d={D}, nq={NQ1}")
     idb1 = tsp._pack_idbits(-(-N // 2048) * 2048)
     plans = sorted({tsp._scan_config(k)
-                    for k in (100, 1000, 2049, tsp._MAX_K)})
+                    for k in (100, 1000, 2049, 8192, tsp._MAX_K)})
     for kind, dtype in (("int", torch.float32), ("gauss", torch.float32),
                         ("gauss", torch.bfloat16)):
         exact = kind == "int"
@@ -2476,9 +2506,36 @@ def phase6_checks(Xq, index4, index, res):
 
 
 SWEEP_NQ = 2500
-SWEEP_K = (2048, 4096, 8192)
+SWEEP_K = (2048, 4096, 8192, 10240, 12288)
 SWEEP_PLANS = ((32, 4, 8192), (48, 4, 8192), (96, 4, 8192), (96, 4, 2048),
-               (96, 4, 1024))
+               (96, 4, 1024), (128, 4, 2048), (128, 4, 1024))
+# the deep band (8192 < k <= 12288): the share of the sweep's queries the
+# plan's class may flag on phase 5's index at each k
+DEEP_FLAG_MAX = {10240: 0.05, 12288: 0.10}
+
+
+def binom_tail(m, p, t):
+    """P(X > t) for X ~ Binomial(m, p)."""
+    if t >= m:
+        return 0.0
+    lp, lq = math.log(p), math.log1p(-p)
+    return sum(math.exp(math.lgamma(m + 1) - math.lgamma(j + 1)
+                       - math.lgamma(m - j + 1) + j * lp + (m - j) * lq)
+               for j in range(t + 1, m + 1))
+
+
+def predicted_flags(n, k, r, keep, tile, nq=SWEEP_NQ):
+    """The queries of ``nq`` a plan (r, keep, tile) should flag if a
+    query's top-k were k rows drawn at random from n (a lane's share is
+    then Binomial(n / 128, k / n), a lane-tile's Binomial(tile / 128,
+    k / n)): one minus the chance that no lane holds more than r of them
+    and no lane-tile more than keep, the lanes and tiles taken as
+    independent."""
+    p = k / n
+    lane = binom_tail(-(-n // 128), p, r)
+    cell = binom_tail(tile // 128, p, keep) if keep else 0.0
+    ok = (1 - lane) ** 128 * (1 - cell) ** (128 * -(-n // tile))
+    return nq * (1 - ok)
 
 
 def plan_sweep(index, index4, Xq):
@@ -2493,8 +2550,8 @@ def plan_sweep(index, index4, Xq):
     from rayuela_tpu_torch.search import scan_codes as tsc
     from rayuela_tpu_torch.search.linscan import exact_rescan
 
-    print(f"== plan sweep: flagged of {SWEEP_NQ} queries and scan ms, "
-          f"SR-D-7+1, n={N}")
+    print(f"== plan sweep: flagged of {SWEEP_NQ} queries (beside the count "
+          f"`predicted_flags` expects) and scan ms, SR-D-7+1, n={N}")
     si, sc = index.scan_index, index4.scan_index
     Q = Xq[:SWEEP_NQ].contiguous()
     T = tsc.build_luts(sc.C, Q, norms_cbook=sc.norms_cbook)
@@ -2513,11 +2570,453 @@ def plan_sweep(index, index4, Xq):
             lm, lout = timed(lambda: tsc.scan_codes_topk(
                 T, sc.packed, k=k, r=r, tile=tile, keep=keep,
                 lut_dtype=torch.bfloat16), 1)
-            print(f"    r={r} keep={keep} tile={tile}: decoded "
-                  f"{int(out[2].sum())} flagged, {ms:.1f} ms; lut "
-                  f"{int(lout[2].sum())} flagged, {lm:.1f} ms")
+            fl = int(out[2].sum())
+            print(f"    r={r} keep={keep} tile={tile}: decoded {fl} "
+                  f"flagged, {ms:.1f} ms; lut {int(lout[2].sum())} "
+                  f"flagged, {lm:.1f} ms; predicted "
+                  f"{predicted_flags(N, k, r, keep, tile):.1f}")
+            if k in DEEP_FLAG_MAX and (r, keep, tile) == tsp._scan_config(k):
+                check(fl <= DEEP_FLAG_MAX[k] * SWEEP_NQ,
+                      f"the plan's class at k={k} flags {fl} of "
+                      f"{SWEEP_NQ} queries (at most "
+                      f"{DEEP_FLAG_MAX[k]:.0%})")
             del out, lout
         torch.cuda.empty_cache()
+
+
+DEEP_K = (10240, 12288)
+# the deep band's forms: the candidates kernel each runs before K2 and K3
+DEEP_SCANS = {"decoded": "scan_candidates",
+              "decode": "codes_decode_candidates",
+              "lut": "codes_lut_candidates"}
+# the exact-float searches served by the pair merge at r = 96
+F32_DEEP_K = (4096, 6144)
+F32_SCANS = {"decoded": ("scan_f32_candidates", "verify_counts"),
+             "lut": ("codes_lut_f32_candidates", "codes_verify_counts")}
+
+
+@contextlib.contextmanager
+def exact_scans_served(served):
+    """Within the block, every call of the exact scans that serve a
+    flagged query (`linscan.exact_rescan`, `scan_codes._lut_scan_tiled`)
+    appends the number of queries it serves to ``served``."""
+    from rayuela_tpu_torch.search import linscan as tls
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    ex, lut = tls.exact_rescan, tsc._lut_scan_tiled
+
+    def spy_ex(Qx, *a, **kw):
+        served.append(Qx.shape[0])
+        return ex(Qx, *a, **kw)
+
+    def spy_lut(index, Qx, *a, **kw):
+        served.append(Qx.shape[0])
+        return lut(index, Qx, *a, **kw)
+    tls.exact_rescan, tsc._lut_scan_tiled = spy_ex, spy_lut
+    try:
+        yield served
+    finally:
+        tls.exact_rescan, tsc._lut_scan_tiled = ex, lut
+
+
+def facade_calls(forms, wrappers, zero):
+    """``forms``: ``(form, k, index, kwargs, kernel names)``. Each
+    `api.search(index, Q, k, **kwargs)` on the plan sweep's queries with
+    the launch counts set to 0 just before it and read just after it, the
+    exact scans counting the queries they serve, then timed (median of 3
+    warm calls, host clock to a synchronize) → ``{(form, k): {"res":
+    (dists, ids), "launches", "served", "wall"}}``."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    out = {}
+    for form, k, idx, kw, names, Q in forms:
+        served = []
+        zero()
+        with exact_scans_served(served):
+            dists, ids = rq.search(idx, Q, k=k, **kw)
+            torch.cuda.synchronize()
+        launches = {n: wrappers[n].launches for n in names}
+        check(all(launches.values()), f"{form} k={k}: a kernel of its path "
+              f"never launched: {launches}")
+        check(dists.shape == ids.shape == (Q.shape[0], k)
+              and bool(torch.isfinite(dists).all())
+              and bool(((ids >= 0) & (ids < N)).all()),
+              f"{form} k={k}: malformed result")
+        walls = warm_walls(lambda: rq.search(idx, Q, k=k, **kw))
+        wall = float(np.median(walls))
+        print(f"  {form} k={k}: launches {launches}; the exact scans served "
+              f"{sum(served)} queries in {len(served)} calls; search "
+              f"{wall * 1e3:.1f} ms, {Q.shape[0] / wall:,.0f} queries/s "
+              f"(median of {', '.join(f'{w * 1e3:.1f}' for w in walls)} "
+              "ms)")
+        out[(form, k)] = {"res": (dists, ids), "launches": launches,
+                          "served": sum(served), "wall": wall}
+    return out
+
+
+def deep_band(card, Xq, index, index4, wrappers, zero):
+    """The deep top-k band through the facade (8192 < k <= 12288, the
+    plan's class r = 128, keep 4, tile 1024: K8 / K1 / K5 → K2 at
+    r = 128 → K3 at cap = 16384, flagged queries through the exact
+    scans): `api.search` at k = 10240 and 12288 over the plan sweep's
+    queries on phase 5's decoded index and phase 4's codes index in
+    decode and LUT mode (`facade_calls`), beside the exact scans that
+    served these k before the plan reached them."""
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    print(f"== deep band: api.search at k = {DEEP_K} over {SWEEP_NQ} "
+          f"queries, SR-D-7+1, n={N} ({card})")
+    Q = Xq[:SWEEP_NQ].contiguous()
+    si, sc = index.scan_index, index4.scan_index
+    forms = []
+    for k in DEEP_K:
+        check(tsp._scan_config(k)[0] == 128 and k <= tsp._MAX_K,
+              f"k={k} is not the plan's deep class")
+        ems = float(np.median(warm_walls(
+            lambda: exact_rescan(Q, si.Xd, si.x2, k))))
+        lms = float(np.median(warm_walls(
+            lambda: tsc._lut_scan_tiled(sc, Q, k, D, torch.bfloat16))))
+        print(f"  k={k}, the exact scans alone (median of 3): exact_rescan "
+              f"{ems * 1e3:.1f} ms ({SWEEP_NQ / ems:,.0f} queries/s), the "
+              f"LUT oracle {lms * 1e3:.1f} ms ({SWEEP_NQ / lms:,.0f})")
+        forms += [(form, k, idx, kw, (DEEP_SCANS[form], "cand_merge",
+                                      "tail_merge"), Q)
+                  for form, idx, kw in (("decoded", index, {}),
+                                        ("decode", index4, {}),
+                                        ("lut", index4, {"mode": "lut"}))]
+    return facade_calls(forms, wrappers, zero)
+
+
+def packed_contract(tag, got, ref, q2, idbits):
+    """A packed search's ``(dists with +|q|^2, ids)`` against an exact
+    scan's ``(raw scores, ids)`` on the same queries, by the packed-key
+    contract (`tests/torch_parity.py::assert_close_topk`): each raw
+    score within one truncation step (2**(idbits - 23) of its magnitude)
+    of the exact one at its position, + 1e-5 of the score and |q|^2 (the
+    f32 rounding of the sums and of adding |q|^2), and at least 99% of
+    the ids shared → the share of ids shared."""
+    import torch
+    (gd, gi), (rv, ri) = got, ref
+    raw = gd - q2
+    step = 2.0 ** (idbits - 23)
+    tol = step * torch.maximum(raw.abs(), rv.abs()) + 1e-5 * (q2 + rv.abs())
+    worst = float(((raw - rv).abs() - tol).max())
+    bs = ri.long().sort(1).values
+    gl = gi.long().contiguous()
+    pos = torch.searchsorted(bs, gl).clamp(max=bs.shape[1] - 1)
+    hits = float((bs.gather(1, pos) == gl).float().mean())
+    print(f"  {tag}: ids shared {hits:.6f}, equal by position "
+          f"{float((gl == ri.long()).float().mean()):.6f}; every score within "
+          f"one truncation step of the exact scan's: {worst <= 0}")
+    check(worst <= 0, f"{tag}: a score lies {worst:.3g} beyond one "
+          "truncation step of the exact scan's")
+    check(hits >= 0.99, f"{tag}: only {hits:.6f} of ids shared")
+    return hits
+
+
+def merges_equal_plain(errs, tag, cand, disc, r, cap):
+    """K2 (with the per-tile cut's ``cut=True`` and without) and K3 at
+    ``cap`` on K2's output, each bit-equal to its plain version → K2's
+    output."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    out, out0 = tsp.cand_merge(cand, disc, r, cut=True), \
+        tsp.cand_merge_plain(cand, disc, r)
+    check(torch.equal(out, out0)
+          and torch.equal(tsp.cand_merge(cand, disc, r), out0),
+          f"K2 r={r} {tag}: kernel != plain")
+    note(errs, "cand_merge", int_err((out, out0)))
+    rows = out[:r].contiguous()
+    (kk, ln), (kk0, ln0) = tsp.tail_merge(rows, cap), \
+        tsp.tail_merge_plain(rows, cap)
+    check(torch.equal(kk, kk0) and torch.equal(ln, ln0),
+          f"K3 r={r} cap={cap} {tag}: kernel != plain")
+    note(errs, "tail_merge", int_err((kk, kk0), (ln, ln0)))
+    print(f"  {tag}: K2 at r={r} ({cand.shape[0]} candidate rows, "
+          f"{cand.shape[2]} queries) and K3 at cap={cap} identical to their "
+          f"plain versions")
+    return out
+
+
+def deep_band_checks(errs, times, Xq, index, index4, res):
+    """After the deep band's launch counts were read: each search against
+    the exact scan of its own scores (the kernels' operands: -2Q at the
+    operand type against the decoded rows, decode mode's rows decoded
+    from its operands, the LUT oracle) by the packed-key contract, a
+    flagged query against the exact scan that served it; the exact scans
+    served the flagged queries and no other; K2 at r = 128 and K3 at
+    cap = 16384 bit-equal to their plain versions on the first query
+    chunk of each search's own operands, and timed on the decoded
+    index's at k = 12288 beside their plain versions, `torch.topk` and
+    their bounds."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    print("== deep band results against the exact scans; K2 and K3 against "
+          "their plain versions")
+    Q = Xq[:SWEEP_NQ].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    si, sc = index.scan_index, index4.scan_index
+    # the codes searches' operand type: bf16 on the card
+    op = torch.bfloat16 if sc.packed.device.type == "cuda" else torch.float32
+    Cf, nrm = sc.decode_operands(D, op)
+    Xc, x2c = tsc._decode_x2(Cf, nrm, sc.packed, sc.mprime - 1, True)
+
+    def own(Qm, X, x2, k):
+        """The exact top-k of ``Qm x + x2`` → (raw scores, ids)."""
+        Qo = Qm.float() * -0.5          # exact: Qm is -2Q rounded
+        d, i = exact_rescan(Qo, X, x2, k)
+        return d - (Qo * Qo).sum(-1, keepdim=True), i
+
+    for k in DEEP_K:
+        r, keep, tile = tsp._scan_config(k)
+        ntiles = -(-N // tile)
+        idbits = tsp._pack_idbits(ntiles * tile)
+        per_query = ntiles * keep * tsp.LANES * 4
+        chunks = tsp._query_chunks(SWEEP_NQ, per_query)
+        nq1 = chunks[0][1]
+        cap = min(1 << (k - 1).bit_length(), 128 * tsp.LANES)
+        Qm = tsp._query_operand(Q, D, si.Xd.dtype)
+        Qc = tsp._query_operand(Q, Cf.shape[1], op)
+        T = [tsc.build_luts(sc.C, Q[a:b], norms_cbook=sc.norms_cbook)
+             for a, b in chunks]
+        kw = dict(r=r, tile=tile, keep=keep)
+        flags = {
+            "decoded": tsp.search_flagged(si.Xd, si.x2, Q, k)[2],
+            "decode": tsc.scan_codes_decode_topk_2p(
+                Q, Cf, nrm, sc.packed, k=k, pq=sc.pq, **kw)[2],
+            "lut": torch.cat([tsc.scan_codes_topk(t, sc.packed, k=k,
+                                                  lut_dtype=op, **kw)[2]
+                              for t in T])}
+        for form, fl in flags.items():
+            rec = res[(form, k)]
+            nfl = int(fl.sum())
+            print(f"  {form} k={k}: {nfl} of {SWEEP_NQ} queries flagged; "
+                  f"the exact scans served {rec['served']}")
+            check(rec["served"] == nfl, f"{form} k={k}: the exact scans "
+                  f"served {rec['served']} queries, the certificate flags "
+                  f"{nfl}")
+            if form == "decoded":
+                rv, ri = own(Qm, si.Xd, si.x2, k)
+            elif form == "decode":
+                rv, ri = own(Qc, Xc, x2c, k)
+            else:
+                rv, ri = tsc._lut_scan_tiled(sc, Q, k, D, op)
+            ri = ri.long()
+            if nfl:            # a flagged query took the exact scan's
+                if form == "decoded":
+                    fd, fi = exact_rescan(Q[fl], si.Xd, si.x2, k)
+                    rv[fl], ri[fl] = fd - q2[fl], fi.long()
+                else:
+                    fd, fi = tsc._lut_scan_tiled(sc, Q[fl], k, D, op)
+                    rv[fl], ri[fl] = fd, fi.long()
+            packed_contract(f"{form} k={k} against the exact scan",
+                            rec["res"], (rv, ri), q2, idbits)
+            del rv, ri
+        # the first chunk of each search's own candidates
+        kc = dict(tile=tile, keep=keep, idbits=idbits)
+        cands = {
+            "decoded": lambda: tsp.scan_candidates(
+                Qm[:nq1].contiguous(), si.Xd, si.x2, premin=0, **kc),
+            "decode": lambda: tsc.codes_decode_candidates(
+                Qc[:nq1].contiguous(), Cf, nrm, sc.packed,
+                has_norms=not sc.pq, **kc),
+            "lut": lambda: tsc.codes_lut_candidates(
+                T[0].to(op).contiguous(), sc.packed, **kc)}
+        for form, fn in cands.items():
+            cand, disc = fn()
+            tag = f"{form} k={k}, the first chunk"
+            if form != "decoded" or k != DEEP_K[-1]:
+                merges_equal_plain(errs, tag, cand, disc, r, cap)
+                del cand, disc
+                continue
+            lib_ms, _ = timed(lambda: torch.topk(cand, r, dim=0,
+                                                 largest=False), 2)
+            ms, out = timed(lambda: tsp.cand_merge(cand, disc, r, cut=True),
+                            3)
+            pms, _ = timed(lambda: tsp.cand_merge_plain(cand, disc, r), 1,
+                           warm=False)
+            out = merges_equal_plain(errs, tag, cand, disc, r, cap)
+            print(f" K2 at the k={k} plan (r={r}, keep={keep}, tile={tile}), "
+                  f"one chunk of {nq1} queries")
+            record_merge(times, f"cand_merge k={k}", ms, pms, cand, disc,
+                         out, r, True, lib_ms)
+            del cand, disc
+            rows = out[:r].contiguous()
+            flat = rows.permute(2, 0, 1).reshape(nq1, -1).contiguous()
+            lib3, _ = timed(lambda: torch.topk(flat, k, dim=1,
+                                               largest=False), 3)
+            del flat
+            ms3, (kk, ln) = timed(lambda: tsp.tail_merge(rows, cap), 3)
+            pms3, _ = timed(lambda: tsp.tail_merge_plain(rows, cap), 1,
+                            warm=False)
+            print(f" K3 at the k={k} plan (r={r}, cap={cap}) on that "
+                  f"chunk's K2 output")
+            record(times, f"tail_merge k={k}", ms3, pms3,
+                   2.0 * rows.numel(), "f32 CUDA-core",
+                   nbytes(rows, kk, ln), lib3)
+            del out, rows, kk, ln
+        del T
+        torch.cuda.empty_cache()
+    del Xc, x2c
+    for name in ("cand_merge", "tail_merge"):
+        times[f"{name} k={DEEP_K[-1]}"]["launches"] = sum(
+            rec["launches"][name] for rec in res.values())
+    torch.cuda.empty_cache()
+
+
+def phase6_deep(card, Xq, index, index4, wrappers, zero):
+    """The exact-float searches beyond k = 3072 through the facade (the
+    card's plan r = 96, keep 4, tile 2048: K9 → the pair merge at r = 96
+    → top-k → K10, and K6 → the pair merge → K7 on f32 tables):
+    `api.search(pack=False)` at k = 4096 and 6144 over the plan sweep's
+    queries on phase 6's f32 index, and `api.search(mode="lut",
+    pack=False, op_dtype=float32)` at k = 4096 on phase 4's codes index
+    (`facade_calls`)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+
+    print(f"== phase 6 deep: pack=False at k = {F32_DEEP_K} over {SWEEP_NQ} "
+          f"queries, SR-D-7+1, n={N} ({card})")
+    Q = Xq[:SWEEP_NQ].contiguous()
+    lut = dict(mode="lut", pack=False, op_dtype=torch.float32)
+    forms = []
+    for form, idx, kw, ks in (("decoded", index, {"pack": False}, F32_DEEP_K),
+                              ("lut", index4, lut, F32_DEEP_K[:1])):
+        for k in ks:
+            check(tsp._f32_config(k, DEV)[0] == 96,
+                  f"k={k}: the card's f32 plan is not r = 96")
+            scan, count = F32_SCANS[form]
+            forms.append((form, k, idx, kw, (scan, "pair_merge", count), Q))
+    return facade_calls(forms, wrappers, zero)
+
+
+def phase6_deep_checks(errs, times, Xq, index, index4, res):
+    """After phase 6 deep's launch counts were read: the exact scans
+    served the flagged queries and no other; the decoded searches against
+    `exact_rescan` by PERF.md §2's rule (cuBLAS sums in another order:
+    scores within 1e-5 relative + 1e-4, >= 99.9% of ids equal by
+    position) and, on an f32 base of small integers where every score is
+    exact, equal to it; the LUT search's unflagged queries equal to the
+    LUT oracle on the same tables by position; the pair merge at r = 96
+    bit-equal to its plain version on the first query chunk of K9's and
+    K6's candidates, timed on K9's at k = 6144 beside its plain version,
+    `torch.topk` and its bound."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    print("== phase 6 deep results against the exact scans; the pair merge "
+          "at r = 96 against its plain version")
+    Q = Xq[:SWEEP_NQ].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    si, sc = index.scan_index, index4.scan_index
+    codes = tsc.unpack_codes(sc.packed, sc.mprime)
+    for (form, k), rec in res.items():
+        r, keep, tile, _ = tsp._f32_config(k, DEV)
+        per_query = tsp._f32_bytes_per_query(N, r, tile, keep)
+        chunks = tsp._query_chunks(SWEEP_NQ, per_query)
+        nq1 = chunks[0][1]
+        dd, di = rec["res"]
+        if form == "decoded":
+            fl = tsp.search_flagged(si.Xd, si.x2, Q, k, pack=False)[2]
+            ed, ei = exact_rescan(Q, si.Xd, si.x2, k)
+            same = float((di == ei).float().mean())
+            within = bool(((dd - ed).abs() <= 1e-5 * ed.abs() + 1e-4).all())
+            print(f"  decoded pack=False k={k}: {int(fl.sum())} of "
+                  f"{SWEEP_NQ} flagged, the exact scans served "
+                  f"{rec['served']}; against exact_rescan: ids equal by "
+                  f"position {same:.6f}, dists within 1e-5 relative: "
+                  f"{within}")
+            check(same >= 0.999 and within,
+                  f"decoded pack=False k={k} != exact_rescan")
+            del ed, ei
+            cv, ci = tsp.scan_f32_candidates(
+                tsp._query_operand(Q[:nq1], D, torch.float32), si.Xd, si.x2,
+                tile=tile, keep=keep)
+        else:
+            T = [tsc.build_luts(sc.C, Q[a:b], norms_cbook=sc.norms_cbook)
+                 for a, b in chunks]
+            fl = torch.cat([tsc.scan_codes_topk(
+                t, sc.packed, k=k, r=r, tile=tile, keep=keep,
+                lut_dtype=torch.float32, pack=False)[2] for t in T])
+            ok = ~fl
+            bad = 0
+            for (a, b), t in zip(chunks, T):
+                for q0 in range(a, b, 250):
+                    q1 = min(q0 + 250, b)
+                    so, io = tsc.lut_scan(t[:, :, q0 - a:q1 - a], codes, k)
+                    sel = ok[q0:q1]
+                    bad += int((~((di[q0:q1] == io).all(1)
+                                  & (dd[q0:q1] == so + q2[q0:q1]).all(1))
+                                & sel).sum())
+            print(f"  lut pack=False k={k}: {int(fl.sum())} of {SWEEP_NQ} "
+                  f"flagged, the exact scans served {rec['served']}; "
+                  f"unflagged queries identical to the LUT oracle on the "
+                  f"same tables by position: all but {bad}")
+            check(bad == 0, f"lut pack=False k={k} != the LUT oracle")
+            cv, ci = tsc.codes_lut_f32_candidates(T[0], sc.packed, tile=tile,
+                                                  keep=keep)
+            del T
+        check(rec["served"] == int(fl.sum()), f"{form} pack=False k={k}: "
+              f"the exact scans served {rec['served']} queries, the "
+              f"certificate flags {int(fl.sum())}")
+        tag = f"{form} pack=False k={k}, the first chunk ({nq1} queries)"
+        if form == "decoded" and k == F32_DEEP_K[-1]:
+            mms, (ov, oi) = timed(lambda: tsp.pair_merge(cv, ci, r), 3)
+            mpms, (ov0, oi0) = timed(lambda: tsp.pair_merge_plain(cv, ci, r),
+                                     1, warm=False)
+            libm_ms, _ = timed(lambda: torch.topk(cv, r, dim=0,
+                                                  largest=False), 2)
+            print(f" the pair merge at the k={k} plan (r={r}, keep={keep}, "
+                  f"tile={tile}), one chunk of {nq1} queries")
+            record(times, f"pair_merge k={k}", mms, mpms, 2.0 * cv.numel(),
+                   "f32 CUDA-core", nbytes(cv, ov, oi), libm_ms)
+        else:
+            (ov, oi), (ov0, oi0) = tsp.pair_merge(cv, ci, r), \
+                tsp.pair_merge_plain(cv, ci, r)
+        check(torch.equal(ov, ov0) and torch.equal(oi, oi0),
+              f"pair merge r={r} {tag}: kernel != plain")
+        note(errs, "pair_merge", 0.0)
+        print(f"  {tag}: the pair merge at r={r} identical to its plain "
+              f"version")
+        del cv, ci, ov, oi, ov0, oi0
+        torch.cuda.empty_cache()
+    times[f"pair_merge k={F32_DEEP_K[-1]}"]["launches"] = sum(
+        rec["launches"]["pair_merge"] for rec in res.values())
+    del codes
+    # an f32 base of small integers: every score exact, so the result is
+    # exact_rescan's by position, ties ordered by id in both
+    g = torch.Generator(device=DEV).manual_seed(F32_DEEP_K[-1])
+    X = torch.randint(-3, 4, (N, D), generator=g, device=DEV).float()
+    Qi = torch.randint(-3, 4, (SWEEP_NQ, D), generator=g, device=DEV).float()
+    idx = tsp.LinscanIndex(X, (X * X).sum(-1))
+    del X
+    for k in F32_DEEP_K:
+        dv, iv = tsp.search(idx, Qi, k, pack=False)
+        ed, ei = exact_rescan(Qi, idx.Xd, idx.x2, k)
+        fl = int(tsp.search_flagged(idx.Xd, idx.x2, Qi, k, pack=False)[2]
+                 .sum())
+        same = bool(torch.equal(iv.long(), ei.long()) and torch.equal(dv, ed))
+        print(f"  integer f32 base, pack=False k={k}: {fl} of {SWEEP_NQ} "
+              f"flagged; ids and dists identical to exact_rescan on every "
+              f"query: {same}")
+        check(same, f"integer f32 base, pack=False k={k} != exact_rescan")
+    del idx
+    torch.cuda.empty_cache()
 
 
 def base_encode_check(rng, errs, model, Xb):
@@ -4787,7 +5286,11 @@ def main() -> int:
         _, deep = run("diagnostics 5", deep_merges, diagnostics5, index5,
                       served["sr_d"], Xq)
         run("phase 6 checks", phase6_checks, Xq, served["sr_d"], index6, res6)
-        del res6, index6
+        res6d = run("phase 6 deep", phase6_deep, smi, Xq, index6,
+                    served["sr_d"], wrappers, zero)
+        run("phase 6 deep checks", phase6_deep_checks, errs, times, Xq,
+            index6, served["sr_d"], res6d)
+        del res6, index6, res6d
         run("phase 7 checks", phase7_checks, Xq, Xb, served["sr_d"], res7)
         del res7, Xb
         deep += run("plan sweep", deep_merges, plan_sweep, index5,
@@ -4795,6 +5298,17 @@ def main() -> int:
         print(f"K2 launches at r = 96 (the k = 4096 and 8192 plans) in the "
               f"diagnostics and the plan sweep: {deep}")
         times["cand_merge k=4096"]["launches"] = deep
+        res_deep = run("deep band", deep_band, smi, Xq, index5,
+                       served["sr_d"], wrappers, zero)
+        run("deep band checks", deep_band_checks, errs, times, Xq, index5,
+            served["sr_d"], res_deep)
+        del res_deep
+        # the deep instances of K2, K3 and the pair merge: times at the
+        # deep plans' shapes, launches of the deep band's and phase 6
+        # deep's searches
+        wide.update({n: times[n] for n in (
+            f"cand_merge k={DEEP_K[-1]}", f"tail_merge k={DEEP_K[-1]}",
+            f"pair_merge k={F32_DEEP_K[-1]}")})
         del index5, served, Xq
         torch.cuda.empty_cache()
         zero()

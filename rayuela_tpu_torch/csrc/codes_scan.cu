@@ -238,13 +238,17 @@ template <typename T> struct CodesSrc {
 //   once. For runs of 4 the wavefront's deeper lag let more keys past a
 //   staler threshold and was slower;
 // - an insertion computes every slot from the old buffer by one min and
-//   one max (`key_insert`): no step waits on another. At R = 96 a thread
-//   stages up to 16 keys and the warp merges them into its buffers
-//   together by a bitonic merge (`merge_staged`): about two fifths of
-//   the min / max operations of inserting each key on its own, at the
-//   price of one CTA an SM (2.93 against 3.84 ms on the k = 4096 plan's
-//   chunk); at R = 48 the two CTAs an SM of plain insertions were faster
-//   (2.32 against 2.76 ms at the k = 3072 plan).
+//   one max (`key_insert`): no step waits on another. At R = 96 and 128
+//   (the k <= 8192 and k <= 12288 plans) a thread stages up to 16 keys
+//   and the warp merges them into its buffers together by a bitonic
+//   merge (`merge_staged`): about two fifths of the min / max operations
+//   of inserting each key on its own, at the price of one CTA an SM
+//   (2.93 against 3.84 ms on the k = 4096 plan's chunk); at R = 48 the
+//   two CTAs an SM of plain insertions were faster (2.32 against 2.76 ms
+//   at the k = 3072 plan). At R = 128 the buffer and the stage take 255
+//   registers and the runs-of-4 instance spills ~120 bytes; a stage of 8
+//   spilled as much and was slower (3.04 against 2.60 ms on the
+//   k = 12288 plan's chunk of 1,609 queries, demos/time_exact.py).
 // The outputs are the same bits whatever the order of the insertions.
 // At n = 1e6, nq = 1e4 (NVIDIA H100 80GB HBM3, 700 W; demos/time_exact.py
 // --only cand_merge): 0.76 / 1.60 / 2.29 ms at the k = 100 / 1000 / 3072
@@ -1775,6 +1779,7 @@ int rq_cand_merge(const void* cand, const void* disc, void* out, int ncand,
     RQ_K2(32);
     RQ_K2(48);
     RQ_K2(96);
+    RQ_K2(128);
   }
 #undef RQ_K2
   return (int)cudaErrorInvalidValue;
@@ -1787,6 +1792,7 @@ int rq_pair_merge(const void* candv, const void* candi, void* outv,
     case 16: return (int)launch_pair_merge<16>(candv, candi, outv, outi, ncand, nq, st);
     case 32: return (int)launch_pair_merge<32>(candv, candi, outv, outi, ncand, nq, st);
     case 48: return (int)launch_pair_merge<48>(candv, candi, outv, outi, ncand, nq, st);
+    case 96: return (int)launch_pair_merge<96>(candv, candi, outv, outi, ncand, nq, st);
   }
   return (int)cudaErrorInvalidValue;
 }

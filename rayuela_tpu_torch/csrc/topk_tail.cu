@@ -35,6 +35,10 @@
 //      for the merges across the warps of a query one exchange through
 //      shared memory a step. Where the survivors span less than 2^32
 //      (the usual case) they sort as 32-bit distances from the least one.
+//      The deepest cap, 16384 (the k <= 12288 plans: every slot of every
+//      lane at r = 96 or 128), takes 16 warps: a CTA of 512 threads and
+//      one query, its sort 128 KB of shared memory, compiled apart so
+//      that the 256-thread instances keep their register budget.
 //   5. The sorted pairs go through shared memory (a swizzle keeps both
 //      sides free of bank conflicts) and out, keys and lanes, coalesced.
 // The host-side layout (`tail_layout`, mirrored by scan._tail_layout)
@@ -46,7 +50,8 @@
 namespace {
 
 constexpr int LANES = 128;
-constexpr int MAX_THREADS = 256;       // threads of a CTA at most
+constexpr int MAX_THREADS = 256;       // threads of a CTA of several queries
+constexpr int MAX_WQ = 16;             // warps of a query at most
 constexpr int MAX_QB = 4;              // queries of a CTA at most
 constexpr int WARP_N = 1024;           // values a warp sorts at most
 constexpr int TAIL_SMEM_CAP = 232448;  // dynamic shared memory a CTA may use
@@ -74,10 +79,10 @@ struct TailLayout {
 // The layout of K3 at (r, cap, L0); qb = 0 when not even one query's
 // region fits. A query's region holds its staged lists, later the
 // exchanges of its warps' sort and its sorted keys and lanes (8 * cap
-// bytes), then 129 lane offsets and the survivors' span; its size is 16 bytes past a multiple of
-// 128, so that the queries of one load instruction write to distinct
-// banks. Up to 4 queries a CTA, as long as the CTA keeps to 8 warps and
-// its shared memory.
+// bytes), then 129 lane offsets and the survivors' span; its size is 16
+// bytes past a multiple of 128, so that the queries of one load
+// instruction write to distinct banks. Up to 4 queries a CTA, as long as
+// the CTA keeps to 8 warps (or to one query's 16) and its shared memory.
 inline TailLayout tail_layout(int r, int cap, int L0) {
   TailLayout t;
   t.lr = L0 < r ? L0 : r;
@@ -85,9 +90,10 @@ inline TailLayout tail_layout(int r, int cap, int L0) {
   const int staged = 4 * LANES * t.lr;
   t.r1 = staged > 8 * cap ? staged : 8 * cap;
   t.qbytes = (t.r1 + META + 127) / 128 * 128 + 16;
-  t.qb = MAX_QB;
+  const int most = 32 * t.wq > MAX_THREADS ? 32 * t.wq : MAX_THREADS;
+  t.qb = t.wq > MAX_WQ ? 0 : MAX_QB;
   while (t.qb > 0 && (t.qb * t.qbytes > TAIL_SMEM_CAP ||
-                      32 * t.wq * t.qb > MAX_THREADS))
+                      32 * t.wq * t.qb > most))
     t.qb >>= 1;
   t.threads = 32 * t.wq * t.qb;
   t.smem = t.qb * t.qbytes;
@@ -334,9 +340,10 @@ __device__ __forceinline__ void sort_survivors(int* xb, const int* off,
   }
 }
 
-// K3: CTA of qb queries, wq warps a query, EPT values a thread.
-template <int EPT, int W>
-__global__ void __launch_bounds__(MAX_THREADS)
+// K3: CTA of qb queries, wq warps a query, EPT values a thread, at most
+// NT threads.
+template <int EPT, int W, int NT>
+__global__ void __launch_bounds__(NT)
     tail_merge_kernel(const int* __restrict__ rows, int* __restrict__ keys,
                       int* __restrict__ lanes, int nq, int cap, int L0,
                       int lr, int qb, int wq, int r1, int qbytes) {
@@ -398,9 +405,9 @@ extern "C" int rq_tail_merge(const void* rows, void* keys, void* lanes,
                     ? 4 : 1;
   const int ept = cap >= WARP_N ? 32 : cap <= 32 ? 1 : cap / 32;
   cudaStream_t st = (cudaStream_t)stream;
-#define RQ_K3(E, V)                                                         \
-  if (ept == E && w == V) {                                                 \
-    auto kern = tail_merge_kernel<E, V>;                                    \
+#define RQ_K3(E, V, NT)                                                     \
+  if (ept == E && w == V && t.threads <= NT) {                              \
+    auto kern = tail_merge_kernel<E, V, NT>;                                \
     cudaError_t e = cudaFuncSetAttribute(                                   \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem);         \
     if (e != cudaSuccess) return (int)e;                                    \
@@ -409,8 +416,9 @@ extern "C" int rq_tail_merge(const void* rows, void* keys, void* lanes,
         t.wq, t.r1, t.qbytes);                                              \
     return (int)cudaGetLastError();                                         \
   }
-#define RQ_K3W(E) RQ_K3(E, 1) RQ_K3(E, 4)
+#define RQ_K3W(E) RQ_K3(E, 1, MAX_THREADS) RQ_K3(E, 4, MAX_THREADS)
   RQ_K3W(1) RQ_K3W(2) RQ_K3W(4) RQ_K3W(8) RQ_K3W(16) RQ_K3W(32)
+  RQ_K3(32, 1, 32 * MAX_WQ)  // cap = 16384: one query of 16 warps
 #undef RQ_K3W
 #undef RQ_K3
   return (int)cudaErrorInvalidValue;

@@ -9,26 +9,27 @@ hold two versions' outputs to each other bit for bit.
 Each line is one JSON object (CUDA events, the mean of ``--reps`` calls
 after a warm one; the first line names the card and its power limit):
 
-- K3 at the k = 100, 1000 and 4096 plans (`scan._scan_config`: r = 16,
-  32, 96; cap = 128, 1024, 4096) over nq = 1e4 queries of per-lane
-  ascending keys (the sortable keys of Gaussian scores), beside
-  `torch.topk` over the same (nq, r * 128) keys;
+- K3 at the k = 100, 1000, 4096 and 12288 plans (`scan._scan_config`:
+  r = 16, 32, 96, 128; cap = 128, 1024, 4096, 16384) over nq = 1e4
+  queries of per-lane ascending keys (the sortable keys of Gaussian
+  scores), beside `torch.topk` over the same (nq, r * 128) keys;
 - K9 and K10 at the k = 100 and 1000 plans of the card's f32 plan
   (`scan._f32_config`) over nq = 1e4 Gaussian queries: n = 1e6 rows at
   d = 128 (an f32 and a bf16 index) and n = 5e5 at GIST's d = 960 (f32),
   beside `chip_smoke.library_scan` (`addmm` + `topk` per 1024 queries
   over the same rows in f32); K10 counts at K9's own k-th pairs;
-- the pair merge (`scan.pair_merge`) alone at the k = 100, 1000 and 3072
-  plans of the card's f32 plan, on K9's candidates over n = 1e6 rows at
-  d = 128 (f32), nq = 1e4, beside `torch.topk` along the candidates, with
-  its bound: the candidates' scores read once and the (r, 128, nq)
-  outputs written once at 3.35 TB/s (an id is read only for a candidate
-  that enters).
+- the pair merge (`scan.pair_merge`) alone at the k = 100, 1000, 3072
+  and 6144 plans of the card's f32 plan (r = 16, 32, 48, 96), on K9's
+  candidates over n = 1e6 rows at d = 128 (f32), nq = 1e4, beside
+  `torch.topk` along the candidates, with its bound: the candidates'
+  scores read once and the (r, 128, nq) outputs written once at 3.35
+  TB/s (an id is read only for a candidate that enters).
 
 - K2 (`scan.cand_merge`) alone at the k = 100, 1000 and 3072 plans on
   K1's candidates over nq = 1e4 queries, and at the k = 4096 plan (r = 96,
-  keep = 4, tile = 2048) on one chunk of them (`scan._query_chunks`:
-  3,216 queries), K1 over `chip_smoke.Phase1`'s bf16 RVQ-7+1 codes
+  keep = 4, tile = 2048) and the k = 12288 plan (r = 128, keep = 4,
+  tile = 1024) on one chunk of them each (`scan._query_chunks`: 3,216
+  and 1,609 queries), K1 over `chip_smoke.Phase1`'s bf16 RVQ-7+1 codes
   (n = 1e6, d = 128, Gaussian), beside `torch.topk` along the
   candidates, with two bounds: the bytes the data requires
   (`chip_smoke.merge_needs`: a run's later member, or its discard, only
@@ -63,7 +64,7 @@ import sys
 from pathlib import Path
 
 NQ = 10_000
-TAIL_KS = (100, 1000, 4096)
+TAIL_KS = (100, 1000, 4096, 12288)
 
 
 def digest(*ts):
@@ -85,9 +86,9 @@ def digest(*ts):
 SCAN_KS = (100, 1000)
 SCANS = ((128, 1_000_000, ("float32", "bfloat16")),
          (960, 500_000, ("float32",)))
-MERGE_KS, MERGE_N, MERGE_D = (100, 1000, 3072), 1_000_000, 128
+MERGE_KS, MERGE_N, MERGE_D = (100, 1000, 3072, 6144), 1_000_000, 128
 HBM = 3.35e12
-MERGE2_KS = (100, 1000, 3072, 4096)
+MERGE2_KS = (100, 1000, 3072, 4096, 12288)
 PARTS = ("tail", "scans", "pair_merge", "cand_merge")
 
 
@@ -269,9 +270,10 @@ def main(argv=None) -> int:
 
 
 def cand_merge_part(tsp, smoke, ms, emit, reps) -> bool:
-    """K2 at the k = 100, 1000 and 4096 plans (see the module's
-    docstring) → True where an output differs from the plain version's.
-    A version whose K2 takes no ``cut`` reads every discard."""
+    """K2 at the k = 100, 1000, 3072, 4096 and 12288 plans (see the
+    module's docstring) → True where an output differs from the plain
+    version's. A version whose K2 takes no ``cut`` reads every
+    discard."""
     import numpy as np
     import torch
 

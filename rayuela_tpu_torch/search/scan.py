@@ -67,7 +67,7 @@ _SEG_DECODED = (1 << 16) * LANES
 # plan's, whose K14 splits K2 merges), and r of the keep=0 one-pass
 # kernels
 _KEEPS = (2, 4)
-_RS = (12, 14, 16, 28, 32, 48, 96)
+_RS = (12, 14, 16, 28, 32, 48, 96, 128)
 _ONEPASS_R = 48
 _MAX_SPLITS = 4096
 # the cost model of the keep=0 one-pass splits (`_onepass_splits`), in
@@ -81,9 +81,13 @@ _STEP_US, _MERGE_US, _MERGE_THREADS = 8.0, 0.2, 2048
 # query batches run in chunks
 _CAND_CAP = 3 << 30
 
-# deepest k the plan serves by kernel (see `_scan_config`)
-_MAX_K = 64 * LANES
+# deepest k the plan serves by kernel (see `_scan_config`): the JAX
+# package's cut (`scan_pallas.search`), beyond which it takes its exact
+# scan
+_MAX_K = 96 * LANES
 _TILE = 8192
+# the tile of the deepest class (8192 < k <= _MAX_K)
+_DEEP_TILE = 1024
 
 
 def _pack_idbits(npad: int) -> int:
@@ -145,10 +149,12 @@ def tail_merge_plain(rows: torch.Tensor, cap: int
     return keys, lanes
 
 
-# K3's layout constants (`tail_layout`, csrc/topk_tail.cu): threads and
-# queries of a CTA at most, values a warp sorts at most, bytes of a
-# query's lane offsets and span
-_TAIL_THREADS, _TAIL_QB, _WARP_N, _TAIL_META = 256, 4, 1024, 536
+# K3's layout constants (`tail_layout`, csrc/topk_tail.cu): threads of a
+# CTA of several queries and warps of one query at most, queries of a CTA
+# at most, values a warp sorts at most, bytes of a query's lane offsets
+# and span
+_TAIL_THREADS, _TAIL_WQ, _TAIL_QB = 256, 16, 4
+_WARP_N, _TAIL_META = 1024, 536
 # dynamic shared memory one CTA may take on the card (H100: 227 KB)
 _SMEM_CAP = 232448
 
@@ -163,14 +169,16 @@ def _tail_layout(r: int, cap: int) -> tuple[int, int, int, int, int]:
     its sorted keys and lanes (``8 * cap`` bytes), then its lane offsets
     and span; it is 16 bytes past a multiple of 128 so that the queries
     of one load instruction meet distinct banks. Queries per CTA halve
-    from 4 until the regions fit and the CTA keeps to 256 threads; 0
-    where not even one query fits (``cap > 8192``)."""
+    from 4 until the regions fit and the CTA keeps to 256 threads, or to
+    one query's warps where those are more (cap = 16384: 16 warps, 512
+    threads); 0 where not even one query fits (``cap > 16384``)."""
     lr = min(_tail_shape(r, cap), r)
     wq = max(1, cap // _WARP_N)
     r1 = max(4 * LANES * lr, 8 * cap)
     qbytes = cdiv(r1 + _TAIL_META, 128) * 128 + 16
-    qb = _TAIL_QB
-    while qb and (qb * qbytes > _SMEM_CAP or 32 * wq * qb > _TAIL_THREADS):
+    most = max(_TAIL_THREADS, 32 * wq)
+    qb = 0 if wq > _TAIL_WQ else _TAIL_QB
+    while qb and (qb * qbytes > _SMEM_CAP or 32 * wq * qb > most):
         qb >>= 1
     return qb, 32 * wq * qb, lr, qbytes, qb * qbytes
 
@@ -181,13 +189,14 @@ def tail_merge(rows: torch.Tensor, cap: int
     the 128 ascending per-lane lists of ``rows (r, 128, nq)`` int32,
     ordered by (key, lane) → ``keys (nq, cap)``, ``lanes (nq, cap)``.
     ``cap`` is a power of two no larger than ``next_pow2(r) * 128``; on
-    the card also no larger than 8192 (`_tail_layout`), the deepest the
-    plans ask for (`_MAX_K`).
+    the card also no larger than 16384 (`_tail_layout`), the deepest the
+    plans ask for (`_MAX_K`: every slot of every lane at r = 96 or 128).
 
     On the card a warp finds a query's cap-th pair by bisection over
     counts of the sorted lists, and ``max(1, cap / 1024)`` warps sort the
-    lanes' surviving prefixes in registers (`_tail_layout`); it uses that
-    each lane's list is ascending. CPU tensors take the plain version;
+    lanes' surviving prefixes in registers (`_tail_layout`; at cap =
+    16384 a CTA of 512 threads holds one query); it uses that each lane's
+    list is ascending. CPU tensors take the plain version;
     CUDA tensors launch the kernel
     (``rayuela_tpu_torch/csrc/topk_tail.cu``) or raise."""
     if rows.dtype != torch.int32 or rows.dim() != 3 \
@@ -207,7 +216,7 @@ def tail_merge(rows: torch.Tensor, cap: int
                          "exceed the kernel's shared memory (<= 128)")
     if not _tail_layout(r, cap)[0]:
         raise ValueError(f"cap={cap}: one query's sort exceeds a CTA's "
-                         "shared memory (cap <= 8192)")
+                         "shared memory (cap <= 16384)")
     keys = torch.empty((nq, cap), dtype=torch.int32, device=rows.device)
     lanes = torch.empty_like(keys)
     if nq:
@@ -765,7 +774,7 @@ def scan_topk_packed(Q, Xd, x2, *, k: int, r: int = 32, tile: int = _TILE,
 # the id an empty slot carries (its score is +inf)
 NOID = IMAX
 # buffer depths the pair merge kernel is compiled for
-_F32_RS = (16, 32, 48)
+_F32_RS = (16, 32, 48, 96)
 # a (score, gid) pair as one int64 whose order is (score, gid): the
 # plain versions select on it; this one pads
 _PAIR_PAD = (0x7F800000 << 32) | NOID
@@ -1195,16 +1204,18 @@ def _scan_config(k: int) -> tuple[int, int, int]:
     within one tile, so the deepest class takes a smaller tile. Both set
     how much K2 reads, so they stay as small as the flag rate allows.
     The class limits are where the flag counts measured on the card
-    (PERF.md) pass a few per cent of a batch; beyond `_MAX_K` most
-    queries overflow the deepest buffer (r = 96), and the searches take
-    their exact scan directly."""
+    (PERF.md, the plan sweep) pass a few per cent of a batch. `_MAX_K`
+    is the JAX package's cut: beyond it the searches take their exact
+    scan directly, as the JAX package does."""
     if k <= 512:
         return 16, 2, _TILE
     if k <= 2048:
         return 32, 4, _TILE
     if k <= 3072:
         return 48, 4, _TILE
-    return _RS[-1], 4, 2048
+    if k <= 64 * LANES:
+        return 96, 4, 2048
+    return 128, 4, _DEEP_TILE
 
 
 def _f32_config(k: int, device) -> tuple[int, int, int, int]:
@@ -1212,12 +1223,12 @@ def _f32_config(k: int, device) -> tuple[int, int, int, int]:
     CPU tensors take the JAX package's f32 plan (no per-tile cut, tile
     2048). The card's kernels need the cut, and the flag statistics of
     ``(k, r, keep, tile)`` do not depend on the key, so they take the
-    packed plan's classes (`_scan_config`) as far as the pair merge
-    kernel's deepest buffer."""
+    packed plan's classes (`_scan_config`: r = 96 beyond k = 3072). Both
+    serve k up to the JAX package's f32 plan, 48 * 128 = 6144."""
+    kmax = 48 * LANES
     if torch.device(device).type == "cuda":
-        kmax = 3072
         return (*_scan_config(min(k, kmax)), kmax)
-    return (16 if k <= 512 else 48), 0, 2048, 48 * LANES
+    return (16 if k <= 512 else 48), 0, 2048, kmax
 
 
 def _f32_bytes_per_query(n: int, r: int, tile: int, keep: int) -> int:

@@ -110,9 +110,11 @@ def test_two_pass_kernels_equal_plain_on_integer_data(dev, pq, keep, r):
 
 
 # the (r, cap) classes the plans give K3: the packed plans' r = 16 / 32 /
-# 48 / 96 with cap = next_pow2(k) up to 8192, and the rescue's r = 48
+# 48 / 96 / 128 with cap = next_pow2(k) up to 16384, and the rescue's
+# r = 48
 TAIL_CLASSES = [(16, 128), (16, 2048), (32, 1024), (32, 4096), (48, 128),
-                (48, 1024), (48, 8192), (96, 4096), (96, 8192)]
+                (48, 1024), (48, 8192), (96, 4096), (96, 8192), (96, 16384),
+                (128, 16384)]
 
 
 def _tail_rows(dev, r, nq, seed=0):
@@ -147,7 +149,7 @@ def test_tail_merge_equals_plain_at_every_plan_class(dev, r, cap, nq):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("r,cap", TAIL_CLASSES + [(14, 128), (96, 16384)])
+@pytest.mark.parametrize("r,cap", TAIL_CLASSES + [(14, 128), (256, 32768)])
 def test_tail_layout_is_the_kernels(dev, r, cap):
     """K3's layout comes from its source (`rq_tail_layout`), and
     `scan._tail_layout` states it; a cap whose run buffers do not fit
@@ -1498,7 +1500,7 @@ def test_f32_searches_on_the_card_equal_the_cpu_searches(dev):
             assert bool(((ss[0] - rd).abs() <= step * raw.abs() + 1e-6).all())
 
 
-@pytest.mark.parametrize("r", [16, 32, 48])
+@pytest.mark.parametrize("r", tsp._F32_RS)
 @pytest.mark.parametrize("ncand,nq", [(246, 33), (47, 5), (9, 130)])
 def test_pair_merge_equals_plain_with_ties_and_inf_rows(dev, r, ncand, nq):
     """The pair merge at each compiled r against its plain version, bit
@@ -1596,7 +1598,7 @@ def test_cand_merge_of_splits_equals_plain(dev, r):
 def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
     """What the exact-float kernels do not take raises on CUDA tensors
     (keep=0, the JAX form, is a plain version only; the pair merge is
-    compiled to r = 48); and where the kernels cannot be built, the calls
+    compiled to r = 96); and where the kernels cannot be built, the calls
     raise instead of taking the plain versions: the exact-float scans and
     the f32 instances of K1 and K14."""
     from rayuela_tpu_torch.kernels import build
@@ -1606,8 +1608,8 @@ def test_f32_scans_never_fall_back(dev, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="keep=8"):
         tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=8)
     cv, ci = tsp.scan_f32_candidates(Qm, idx.Xd, idx.x2, tile=2048, keep=2)
-    with pytest.raises(ValueError, match="r=96"):
-        tsp.pair_merge(cv, ci, 96)
+    with pytest.raises(ValueError, match="r=64"):
+        tsp.pair_merge(cv, ci, 64)
     T = torch.zeros((8, 256, 4), device=dev)
     packed = torch.zeros((3000, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="keep=0"):

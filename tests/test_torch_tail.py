@@ -66,7 +66,8 @@ def _plan_tails():
     (`_scan_config`) at the k that open and close it, the rescue's r = 48
     at the same k, and the deepest cap."""
     out = set()
-    for k in (1, 100, 512, 513, 1000, 2048, 2049, 3072, 3073, 4096, 8192):
+    for k in (1, 100, 512, 513, 1000, 2048, 2049, 3072, 3073, 4096, 8192,
+              8193, 12288):
         rs = (tsp._scan_config(k)[0], 48)
         for r in rs:
             rpad = 1 << max(0, (r - 1).bit_length())
@@ -78,30 +79,36 @@ def _plan_tails():
 @pytest.mark.parametrize("r,cap", _plan_tails())
 def test_tail_layout_fits_every_plan_class(r, cap):
     """K3's layout at each class: cap / 1024 warps a query (at least one),
-    at most 4 queries and 256 threads a CTA, as many queries as fit; a
-    CTA's regions fit its shared memory, a query's region holds its
-    staged lists or its sort (8 bytes a survivor) and its offsets, and is
-    16 bytes past a multiple of 128 (the queries of a load meet distinct
-    banks); the grid covers any query count."""
+    at most 4 queries and 256 threads a CTA, or one query's 16 warps at
+    cap = 16384, as many queries as fit; a CTA's regions fit its shared
+    memory, a query's region holds its staged lists or its sort (8 bytes
+    a survivor) and its offsets, and is 16 bytes past a multiple of 128
+    (the queries of a load meet distinct banks); the grid covers any
+    query count."""
     qb, threads, lr, qbytes, smem = tsp._tail_layout(r, cap)
     wq = max(1, cap // 1024)
-    assert qb in (1, 2, 4) and threads == 32 * wq * qb <= 256
+    most = max(256, 32 * wq)
+    assert qb in (1, 2, 4) and threads == 32 * wq * qb <= most <= 512
     assert lr == min(tsp._tail_shape(r, cap), r)
     assert max(4 * 128 * lr, 8 * cap) + 4 * 129 + 16 <= qbytes
     assert qbytes % 128 == 16 and smem == qb * qbytes <= SMEM_CAP
-    assert qb == 4 or 2 * qb * qbytes > SMEM_CAP or 64 * wq * qb > 256
+    assert qb == 4 or 2 * qb * qbytes > SMEM_CAP or 64 * wq * qb > most
     for nq in (1, max(1, qb - 1), qb + 1, 10_000):
         grid = -(-nq // qb)
         assert grid * qb >= nq > (grid - 1) * qb
 
 
 def test_tail_layout_refuses_what_does_not_fit():
-    """cap = 16384 (r = 96, all 128 slots of every lane) is past the
-    plans (`_MAX_K`): its two run buffers exceed a CTA's shared memory,
-    and the layout says so with 0 queries per CTA."""
-    assert tsp._MAX_K == 8192
+    """cap = 16384 (all 128 slots of every lane at r = 96 or 128) is the
+    deepest the plans ask for (`_MAX_K` = 12288): one query a CTA of 16
+    warps. A deeper cap (32768, 32 warps, a 256 KB sort) exceeds a CTA's
+    threads and shared memory, and the layout says so with 0 queries per
+    CTA."""
+    assert tsp._MAX_K == 12288
     assert tsp._tail_layout(96, 8192)[0] == 1
-    assert tsp._tail_layout(96, 16384)[0] == 0
+    assert tsp._tail_layout(96, 16384)[:2] == (1, 512)
+    assert tsp._tail_layout(128, 16384)[:2] == (1, 512)
+    assert tsp._tail_layout(256, 32768)[0] == 0
 
 
 @pytest.mark.parametrize("dp", [8, 128, 256, 960, 2400])
