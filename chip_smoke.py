@@ -312,7 +312,21 @@ the scan-tail probe (K8 alone and the steps after it).
    queries/s and the NCCL all-gather's ms, and for the decoded index
    where the time goes beside the single-device search (the scan, the
    merge, the rescue through the decoded rows and through the codes,
-   both searches by kernel); then `destroy_process_group`.
+   both searches by kernel). Then the data-parallel training of PQ-8,
+   OPQ-8, RVQ-7, ERVQ-7 and CompQ-7 (h = 256, niter = 10) through
+   `api.train(mesh=mesh)` on the same 1e5 vectors, each train qerror
+   within 2% of the meshless `api.train` of the same seed in this run
+   (phases 3 and 10 trained PQ, RVQ, ERVQ and CompQ; OPQ trains here),
+   the seconds of both and the collectives each ``mesh=`` training
+   issued (> 0); CompQ's yardstick is the meshless CompQ loop from the
+   ``mesh=`` RVQ init of the seed, from which its ``mesh=`` training
+   started (`compq_from_init12`: the meshless CompQ starts from an RVQ
+   of other seeding draws, which CompQ's capped SGD step carries far);
+   then one trial of the runner (`drivers._run_trial`,
+   what `run_train_query_base` runs a trial with, without a store) of
+   those five methods under ``mesh=`` at phase 11 (a)'s SIFT1M shape,
+   each recall@1 within 0.02 of its JAX row, with the launches of K8 →
+   K2 → K3 in its sharded recall searches; then `destroy_process_group`.
    (b) A world of 2 over gloo, both ranks on ``cuda:0``, spawned (the
    ``spawn`` method: this process holds a CUDA context), each loading
    only its half of the 1e6 base (`host_local_to_global`): the sharded
@@ -328,7 +342,13 @@ the scan-tail probe (K8 alone and the steps after it).
    (G, F) equal the single-device `codebook_stats` (G bit for bit, F to
    the reduction order), both ranks' codebooks and rotation bit-identical;
    queries/s of each sharded search and the gloo all-gather's ms (host
-   copies). A rank that fails or exits non-zero fails the run.
+   copies). Then each rank trains PQ, OPQ, RVQ, ERVQ, CompQ and SR-D
+   through `api.train(mesh=mesh)` on its half of the training set alone
+   (`host_local_to_global`): both ranks' codebooks, R and (gathered)
+   train codes bit-identical, each train qerror within 2% of the
+   meshless model of (a) (SR-D: phase 4's; CompQ: the meshless loop
+   from the two ranks' RVQ model), the seconds printed. A rank that fails or exits non-zero fails the
+   run.
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
@@ -1751,6 +1771,7 @@ def phase3(seed, card):
                              seed=seed, device=DEV)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        model.extras["train_s"] = t1 - t0
         index = rq.index_base(model, ds.Xb, mode="codes")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -4105,6 +4126,7 @@ def phase9(seed, card, ds, Xq):
                              seed=seed, device=DEV)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        model.extras["train_s"] = t1 - t0
         index = rq.index_base(model, ds.Xb, mode="codes")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -4294,6 +4316,7 @@ def phase10(seed, card, ds, Xq):
         model = rq.train(Xt, method=method, m=7, h=256, niter=10, seed=seed)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        model.extras["train_s"] = t1 - t0
         qe = float(qerror(Xt, model.codebooks, model.train_codes))
         index = rq.index_base(model, Xb, mode="codes")
         torch.cuda.synchronize()
@@ -4471,7 +4494,7 @@ def phase11(seed, card):
     check(all(b >= a - 0.002 for a, b in zip(curve, curve[1:])),
           f"(c) the ladder falls: {curve}")
     check(curve[-1] >= 0.99, f"(c) recall@1 {curve[-1]:.4f} < 0.99 at 64")
-    del ds
+    out["sift1m"] = ds      # phase 12 (a)'s trial runs on it
     t0 = time.perf_counter()
     qb = rp.dataset("labelme", DEV)
     t1 = time.perf_counter()
@@ -4648,6 +4671,147 @@ def raw_close12(tag, got, ref, q2, idbits, ok, exact):
     check(boundary, f"{tag}: an id not shared lies off the boundary")
 
 
+# the methods `api.train(mesh=)` trains data-parallel through
+# `parallel.train_sharded`, with their m at 64 bits
+DP12 = (("pq", 8), ("opq", 8), ("rvq", 7), ("ervq", 7), ("compq", 7))
+
+
+def train_qerror(Xt, model):
+    """A facade model's train qerror on ``Xt``; CompQ's at the beam's
+    codes for its final codebooks (its train codes precede the last
+    codebook step, and their error moves by seed far more, phase 10)."""
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import qerror, qerror_opq
+    if model.method == "compq":
+        return float(qerror(Xt, model.codebooks, rq.encode(model, Xt)))
+    if model.method == "opq":
+        return float(qerror_opq(Xt, model.codebooks, model.train_codes,
+                                model.R))
+    return float(qerror(Xt, model.codebooks, model.train_codes,
+                        pq=model.method == "pq"))
+
+
+class Collectives:
+    """Counts this process's `torch.distributed` all-reduces and
+    all-gathers (every collective of `parallel.mesh`) while entered."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.count, self._orig = 0, (dist.all_reduce, dist.all_gather)
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.count += 1
+                return fn(*a, **kw)
+            return call
+        dist.all_reduce, dist.all_gather = map(counted, self._orig)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce, dist.all_gather = self._orig
+
+
+def phase12_train(seed, card, p, mesh, count):
+    """(a) continued: the five data-parallel trainings through
+    ``api.train(mesh=)`` on phase 3's training set beside the meshless
+    models of the same seed (``p["meshless"]``; OPQ's trained here), then
+    one runner trial of the five under ``mesh=`` at the SIFT1M shape on
+    phase 11's dataset (its launches counted by ``count``). Returns the train seconds and
+    qerrors and the trial's recall@1 and seconds."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.demos import run_protocols as rp
+    from rayuela_tpu_torch.experiments import drivers
+
+    Xt = torch.as_tensor(p["Xt"], device=DEV)
+    out = {"train": {}}
+    models = {}
+    for method, m in DP12:
+        if method not in p["meshless"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rq.train(Xt, method=method, m=m, h=256, niter=10,
+                           seed=seed, device=DEV)
+            torch.cuda.synchronize()
+            ref.extras["train_s"] = time.perf_counter() - t0
+            p["meshless"][method] = ref
+        ref = p["meshless"][method]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Collectives() as coll:
+            model = count(lambda: rq.train(Xt, method=method, m=m, h=256,
+                                           niter=10, seed=seed, mesh=mesh))
+            torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        models[method] = model
+        qe, qr = train_qerror(Xt, model), train_qerror(Xt, ref)
+        out["train"][method] = dict(mesh_s=t, s=ref.extras["train_s"],
+                                    qerror=qe, meshless_qerror=qr,
+                                    collectives=coll.count)
+        print(f"  train(method={method!r}, m={m}, mesh=) {t:.2f} s, "
+              f"{coll.count} collectives; train qerror {qe:.4f} (meshless "
+              f"{qr:.4f} in {ref.extras['train_s']:.2f} s; {card})")
+        check(coll.count > 0, f"train({method}, mesh=) issued no collective")
+        check(model.train_codes.shape == (Xt.shape[0], m),
+              f"train({method}, mesh=) codes are not the global array")
+        if method == "compq":
+            qr = compq_from_init12(Xt, models["rvq"], qe, "(a)")
+            out["train"][method]["loop_qerror"] = qr
+        check(abs(qe - qr) <= 0.02 * qr, f"train({method}, mesh=) "
+              f"qerror {qe:.4f} beyond 2% of the meshless {qr:.4f}")
+    ds = p["sift1m"]
+    t0 = time.perf_counter()
+    with Collectives() as coll:
+        res = count(lambda: drivers._run_trial(
+            ds, 0, None, methods=tuple(m for m, _ in DP12), verbose=False,
+            seed=seed, device=DEV, mesh=mesh, **rp.PROTOCOL))
+    out["trial_s"] = time.perf_counter() - t0
+    out["trial"] = {}
+    for meth, rec in res.items():
+        r1, ref = float(rec["recall"][0]), rp.JAX_ROWS["sift1m"][meth]
+        out["trial"][meth] = dict(recall1=r1, seconds=rec["seconds"])
+        sec = ", ".join(f"{k} {v:.2f} s" for k, v in rec["seconds"].items())
+        print(f"  trial under mesh= (SIFT1M shape): {meth:6s} recall@1 "
+              f"{r1:.4f} (JAX {ref:.4f}); {sec}")
+    print(f"  the trial: {out['trial_s']:.1f} s, {coll.count} collectives "
+          f"({card})")
+    far = {m: (v["recall1"], rp.JAX_ROWS["sift1m"][m])
+           for m, v in out["trial"].items()
+           if abs(v["recall1"] - rp.JAX_ROWS["sift1m"][m]) > 0.02}
+    check(list(out["trial"]) == [m for m, _ in DP12],
+          "the mesh= trial ran other methods")
+    check(not far, f"mesh= trial recall@1 beyond 0.02 of the JAX row: {far}")
+    return out
+
+
+def compq_from_init12(Xt, rvq, qe, tag):
+    """The yardstick of a ``mesh=`` CompQ: the meshless CompQ loop
+    (`models.compq.train_compq`) from the ``mesh=`` RVQ model ``rvq`` of
+    the same seed, the init from which ``api.train(method="compq",
+    mesh=)`` trained, so that the two differ by the order of the sums
+    alone. A meshless CompQ of the same seed starts from an RVQ of other
+    seeding draws, and the capped SGD step carries such a difference far
+    (the objective rises from the init's before it falls; the trajectory
+    is printed), so it is no yardstick. Returns the loop's train
+    qerror."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.models.compq import train_compq
+
+    model, _, obj = train_compq(Xt, rvq.codebooks, rvq.train_codes,
+                                niter=10)
+    torch.cuda.synchronize()
+    qr = train_qerror(Xt, rq.MCQModel("compq", model.codebooks))
+    print(f"  {tag} CompQ: the meshless loop from the mesh= RVQ init gives "
+          f"train qerror {qr:.4f} (mesh= {qe:.4f}); its objective "
+          f"{float(obj[0]):.4f} (the init) -> max {float(obj.max()):.4f} "
+          f"-> {float(obj[-1]):.4f}")
+    return qr
+
+
 def phase12a(seed, card, p):
     """(a) A world of 1 over NCCL inside this process: the facade's
     ``mesh=`` training and searches against the single-device calls.
@@ -4757,6 +4921,17 @@ def phase12a(seed, card, p):
               f"{NQ} x 1000 int32) over NCCL (a world of 1): {ms:.3f} ms "
               f"({card})")
         res["all_gather_ms"] = ms
+        before = dict(on_mesh)
+        res["dp"] = phase12_train(seed, card, p, mesh,
+                                  lambda fn: count(on_mesh, fn))
+        res["dp_launches"] = {n: c - before.get(n, 0)
+                              for n, c in on_mesh.items()}
+        print(f"  launches of the data-parallel trainings and the trial: "
+              f"{res['dp_launches']}")
+        check(all(res["dp_launches"][n] for n in ("scan_candidates",
+                                                  "cand_merge",
+                                                  "tail_merge")),
+              "the mesh= trial's searches did not run K8 -> K2 -> K3")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4884,15 +5059,75 @@ def phase12_rank(rank, world, tmp):
     C1, B1, obj = step(X, Bt, C, 1, torch.Generator().manual_seed(0))
     cq, _, cq_obj = train_chainq_sharded(mesh, X, Bt, torch.eye(D, device=dev),
                                          h=256, niter=1)
+    dp = dp_rank12(mesh, X, int(rep["seed"]))
     res = dict(launches=_counts12(), walls=walls, gather_ms=gather_ms,
                sr_C=C1.cpu(), sr_obj=float(obj), cq_C=cq.codebooks.cpu(),
-               cq_R=cq.R.cpu(), cq_obj=cq_obj.cpu(), start=B.start, n=B.n)
+               cq_R=cq.R.cpu(), cq_obj=cq_obj.cpu(), start=B.start, n=B.n,
+               dp=dp)
     if rank == 0:
         res.update(out=out, G=G.cpu(), F=F.cpu())
     return res
 
 
-def phase12b(card, p):
+def dp_rank12(mesh, X, seed):
+    """(b) on one rank: every data-parallel method, and SR-D, trained
+    through ``api.train(mesh=)`` on the rank's rows ``X`` (a `RowShard`)
+    → ``{method: {s, C, R, B}}`` on the host."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+
+    dp = {}
+    for method, m in DP12 + (("sr_d", 7),):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mdl = rq.train(X, method=method, m=m, h=256, niter=10, seed=seed,
+                       mesh=mesh)
+        torch.cuda.synchronize()
+        dp[method] = dict(s=time.perf_counter() - t0, C=mdl.codebooks.cpu(),
+                          R=None if mdl.R is None else mdl.R.cpu(),
+                          B=mdl.train_codes.cpu())
+    return dp
+
+
+def dp_checks12(card, Xt, refs, ranks):
+    """(b)'s trainings held in this process: both ranks' results
+    bit-identical, each train qerror within 2% of the meshless model of
+    ``refs`` → ``{method: {s, qerror, meshless_qerror}}``."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+
+    out = {}
+    for method, got in ranks[0]["dp"].items():
+        same = all(torch.equal(got[k], ranks[1]["dp"][method][k])
+                   for k in ("C", "B") + (("R",) if got["R"] is not None
+                                          else ()))
+        model = rq.MCQModel(method, got["C"].to(DEV),
+                            R=None if got["R"] is None else got["R"].to(DEV),
+                            train_codes=got["B"].to(DEV))
+        qe, qr = train_qerror(Xt, model), train_qerror(Xt, refs[method])
+        if method == "compq":
+            rvq = ranks[0]["dp"]["rvq"]
+            qr = compq_from_init12(Xt, rq.MCQModel(
+                "rvq", rvq["C"].to(DEV), train_codes=rvq["B"].to(DEV)), qe,
+                "(b)")
+        out[method] = dict(s=[r["dp"][method]["s"] for r in ranks],
+                           qerror=qe, meshless_qerror=qr)
+        print(f"  train(method={method!r}, mesh=) on each rank's half: "
+              f"{', '.join(f'{t:.2f}' for t in out[method]['s'])} s; train "
+              f"qerror {qe:.4f} (meshless {qr:.4f}); both ranks' codebooks"
+              f"{', R' if got['R'] is not None else ''} and train codes "
+              f"bit-identical: {same} ({card})")
+        check(same, f"train({method}, mesh=): the two ranks differ")
+        check(got["B"].shape == (Xt.shape[0], got["C"].shape[0]),
+              f"train({method}, mesh=): codes are not the global array")
+        check(abs(qe - qr) <= 0.02 * qr, f"train({method}, mesh=) over "
+              f"2 gloo ranks: qerror {qe:.4f} beyond 2% of {qr:.4f}")
+    return out
+
+
+def phase12b(seed, card, p):
     """(b) A world of 2 over gloo, both ranks on ``cuda:0`` (spawned),
     each holding its half of the 1e6 base, held against the
     single-device searches of the whole base in this process."""
@@ -4913,7 +5148,7 @@ def phase12b(card, p):
     npy = lambda a: a.detach().cpu().numpy()
     tmp = tempfile.mkdtemp(prefix="rq12b_")
     try:
-        np.savez(os.path.join(tmp, "replicated.npz"),
+        np.savez(os.path.join(tmp, "replicated.npz"), seed=seed,
                  C=npy(index4.model.codebooks), Q=npy(Xq),
                  ncb4=npy(index4.norms_codebook),
                  ncb5=npy(index5.norms_codebook))
@@ -4989,7 +5224,9 @@ def phase12b(card, p):
           f"objectives {r0['cq_obj'].tolist()}; both ranks' codebooks "
           f"(SR-D step, ChainQ) and rotation bit-identical: {same}")
     check(same, "the two ranks' codebooks differ")
-    return [r["launches"] for r in ranks]
+    dp = dp_checks12(card, torch.as_tensor(p["Xt"], device=DEV),
+                     dict(p["meshless"], sr_d=index4.model), ranks)
+    return [r["launches"] for r in ranks], dp
 
 
 def probes(errs):
@@ -5192,7 +5429,8 @@ def main() -> int:
         # what phase 12 serves: phase 4's codes index, phase 5's decoded
         # index, phase 3's queries and training set
         p12 = dict(index4=served["sr_d"], index5=index5, Xq=Xq, Xt=ds.Xt,
-                   gt=ds.gt)
+                   gt=ds.gt, meshless={m: served[m].model
+                                       for m in ("pq", "rvq")})
         launches5 = {n: w.launches for n, w in path5.items()}
         print(f"phase-5 launches: {launches5}")
         check(all(launches5.values()), "a kernel of the path never launched "
@@ -5264,6 +5502,7 @@ def main() -> int:
                            if n not in launches10})
         launches10f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
         run("phase 10 checks", phase10_checks, ds, Xq, p10)
+        p12["meshless"].update(p10["models"])
         del p10, ds
         zero()
         run("phase 6 streamed decode", phase6_streamed_decode,
@@ -5350,7 +5589,7 @@ def main() -> int:
         del fus
         torch.cuda.empty_cache()
         zero()
-        run("phase 11", phase11, args.seed, smi)
+        p12["sift1m"] = run("phase 11", phase11, args.seed, smi)["sift1m"]
         launches11 = {n: w.launches for n, w in wrappers.items()}
         launches11f = {n: w.launches_f32 for n, w in f32_wrappers.items()}
         print(f"phase-11 launches: {launches11}; of the f32 instances: "
@@ -5362,7 +5601,8 @@ def main() -> int:
         res12a = run("phase 12 (a)", phase12a, args.seed, smi, p12)
         launches12a = res12a["launches"]
         zero()
-        rank_launches = run("phase 12 (b)", phase12b, smi, p12)
+        rank_launches, dp12b = run("phase 12 (b)", phase12b, args.seed,
+                                   smi, p12)
         ref12 = _counts12()
         launches12r = {n: res12a["ref_launches"][n] + c
                        for n, c in ref12.items()}

@@ -89,15 +89,23 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
     reference pipeline: OPQ → ChainQ → {chainq | lsq | sr_c | sr_d};
     ``kw`` goes to the last stage's trainer.
 
-    With ``mesh`` (every rank passing the same ``Xt``; the mesh's device
-    is the default) ChainQ and the LSQ family train data-parallel after
-    the OPQ stage: `parallel.train_chainq_sharded` and
-    `parallel.train_lsq_family_sharded` (all-reduced normal-equation
-    statistics, replicated solves, each rank encoding its rows). PQ,
-    OPQ, RVQ, ERVQ and CompQ, and the OPQ stage, train replicated on
-    every rank: the meshless result, with no communication (the JAX
-    package shards their data and lets its compiler place the
-    collectives, which gives the same result)."""
+    With ``mesh`` (every rank of the process group making the same call;
+    the model lives on the mesh's device) every method trains data-parallel
+    over the mesh's ``data`` ranks: the same trainers, given the ranks
+    (`utils.Ranks`; the LSQ family's last stage
+    `parallel.train_lsq_family_sharded`). ``Xt`` is then the
+    global array on every rank, of which each rank trains on its rows, or
+    a `parallel.mesh.RowShard` of the rank's own rows
+    (`parallel.host_local_to_global`), so that no rank holds the whole
+    training set. Each rank trains on its rows with the statistics
+    (counts, sums, objectives, normal equations, the rotation's ``X^T
+    X_hat``) all-reduced and every solve replicated, so every rank holds
+    the same codebooks; ``train_codes`` is the global (n, m) array on
+    every rank. The result equals the single-device one to the order of
+    the sums; the k-means seeding draws over all ranks' rows
+    (`ops.kmeans.kmeanspp_spread`), not as the single-device
+    `torch.multinomial` does. The JAX package shards ``Xt`` and lets its
+    compiler place the same collectives."""
     from rayuela_tpu_torch.models.chainq import train_chainq
     from rayuela_tpu_torch.models.compq import train_compq
     from rayuela_tpu_torch.models.ervq import train_ervq_from_scratch
@@ -108,63 +116,60 @@ def train(Xt, method: str = "sr_d", m: int = 8, h: int = 256,
     from rayuela_tpu_torch.models.sr import train_sr
 
     method = _check_method(method)
-    if mesh is not None and device is None:
-        device = mesh.device
-    Xt = as_tensor(Xt, device)
-    gen = torch.Generator(device=Xt.device).manual_seed(seed)
-    if mesh is not None and method in ("chainq", "lsq", "sr_c", "sr_d"):
-        return _train_sharded(mesh, gen, Xt, method, m, h, niter, **kw)
+    ranks = rows = None
+    if mesh is None:
+        Xt = as_tensor(Xt, device)
+        gen = torch.Generator(device=Xt.device).manual_seed(seed)
+    else:
+        from rayuela_tpu_torch.parallel.mesh import _ranks, _rows
+        rows = _rows(mesh, Xt, torch.float32)
+        Xt, ranks = rows.local, _ranks(mesh, rows)
+        gen = torch.Generator(device=mesh.device).manual_seed(seed)
+
+    def done(codebooks, B, R=None):
+        if mesh is not None:
+            from rayuela_tpu_torch.parallel.mesh import _gather_rows
+            B = _gather_rows(mesh, rows._replace(local=B))
+        return MCQModel(method, codebooks, R=R, h=h, train_codes=B)
+
     if method == "pq":
-        model, B, _ = train_pq(gen, Xt, m, h, iters=niter, **kw)
-        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+        model, B, _ = train_pq(gen, Xt, m, h, iters=niter, ranks=ranks, **kw)
+        return done(model.codebooks, B)
     if method == "rvq":
-        model, B, _ = train_rvq(gen, Xt, m, h, niter=niter, **kw)
-        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+        model, B, _ = train_rvq(gen, Xt, m, h, niter=niter, ranks=ranks,
+                                **kw)
+        return done(model.codebooks, B)
     if method == "ervq":
         model, B, _ = train_ervq_from_scratch(gen, Xt, m, h, niter=niter,
-                                              **kw)
-        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+                                              ranks=ranks, **kw)
+        return done(model.codebooks, B)
     if method == "compq":
-        rvq, B0, _ = train_rvq(gen, Xt, m, h, niter=niter)
-        model, B, _ = train_compq(Xt, rvq.codebooks, B0, niter=niter, **kw)
-        return MCQModel(method, model.codebooks, h=h, train_codes=B)
+        rvq, B0, _ = train_rvq(gen, Xt, m, h, niter=niter, ranks=ranks)
+        model, B, _ = train_compq(Xt, rvq.codebooks, B0, niter=niter,
+                                  ranks=ranks, **kw)
+        return done(model.codebooks, B)
     if method == "opq":
-        model, B, _ = train_opq(gen, Xt, m, h, niter=niter, **kw)
-        return MCQModel(method, model.codebooks, R=model.R, h=h,
-                        train_codes=B)
-    opq, B0, _ = train_opq(gen, Xt, m, h, niter=niter)
+        model, B, _ = train_opq(gen, Xt, m, h, niter=niter, ranks=ranks,
+                                **kw)
+        return done(model.codebooks, B, model.R)
+    opq, B0, _ = train_opq(gen, Xt, m, h, niter=niter, ranks=ranks)
     if method == "chainq":
-        model, B, _ = train_chainq(Xt, B0, opq.R, h=h, niter=niter, **kw)
-        return MCQModel(method, model.codebooks, R=model.R, h=h,
-                        train_codes=B)
-    cq, B1, _ = train_chainq(Xt, B0, opq.R, h=h, niter=niter)
-    if method == "lsq":
+        model, B, _ = train_chainq(Xt, B0, opq.R, h=h, niter=niter,
+                                   ranks=ranks, **kw)
+        return done(model.codebooks, B, model.R)
+    cq, B1, _ = train_chainq(Xt, B0, opq.R, h=h, niter=niter, ranks=ranks)
+    if mesh is not None:
+        from rayuela_tpu_torch.parallel import train_lsq_family_sharded
+        model, B, _ = train_lsq_family_sharded(
+            mesh, gen, rows, rows._replace(local=B1), cq.R, h=h,
+            niter=niter, method=method.upper(), **kw)
+        B = B.local
+    elif method == "lsq":
         model, B, _ = train_lsq(gen, Xt, B1, cq.R, h=h, niter=niter, **kw)
     else:
         model, B, _ = train_sr(gen, Xt, B1, cq.R, h=h, niter=niter,
                                method=method.upper(), **kw)
-    return MCQModel(method, model.codebooks, h=h, train_codes=B)
-
-
-def _train_sharded(mesh, gen, Xt, method: str, m: int, h: int, niter: int,
-                   **kw) -> MCQModel:
-    """``mesh=`` path of `train` for ChainQ and the LSQ family: OPQ
-    (replicated) → sharded ChainQ → sharded LSQ / SR."""
-    from rayuela_tpu_torch.models.opq import train_opq
-    from rayuela_tpu_torch.parallel import (train_chainq_sharded,
-                                            train_lsq_family_sharded)
-
-    opq, B0, _ = train_opq(gen, Xt, m, h, niter=niter)
-    if method == "chainq":
-        model, B, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h,
-                                           niter=niter, **kw)
-        return MCQModel(method, model.codebooks, R=model.R, h=h,
-                        train_codes=B)
-    cq, B1, _ = train_chainq_sharded(mesh, Xt, B0, opq.R, h=h, niter=niter)
-    model, B, _ = train_lsq_family_sharded(mesh, gen, Xt, B1, cq.R, h=h,
-                                           niter=niter,
-                                           method=method.upper(), **kw)
-    return MCQModel(method, model.codebooks, h=h, train_codes=B)
+    return done(model.codebooks, B)
 
 
 def encode(model: MCQModel, X, gen=None, **kw) -> torch.Tensor:

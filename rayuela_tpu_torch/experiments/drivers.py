@@ -23,11 +23,14 @@ to its device once. Everything runs on the card unless the caller asks
 for the CPU (``device="cpu"``), where the kernels' plain versions run;
 nothing falls back to the CPU when the card or a kernel fails.
 With ``mesh=`` (every rank of the process group running the same call)
-ChainQ and the LSQ family train and encode their base data-parallel
-(`rayuela_tpu_torch.parallel`: each rank rotates, encodes and measures
-its own rows of the base, and the codes are all-gathered); the norms
-codebook and the recall search, and the other methods, run replicated
-on every rank, and only the rank at the mesh's origin writes the store.
+every method runs data-parallel over the mesh's ``data`` ranks
+(`rayuela_tpu_torch.parallel`), as the JAX package's run shards ``Xt``
+and ``Xb``: each rank trains on its rows of the training set (the
+statistics all-reduced, the solves replicated), encodes its rows of the
+base (the codes all-gathered), trains the norms codebook on its rows of
+the training codes, and scans its rows of the base (K8 → K2 → K3 on the
+card, `parallel.sharded_search_exact`; the ranks' lists merge). Only the
+rank at the mesh's origin writes the store.
 """
 
 from __future__ import annotations
@@ -97,16 +100,61 @@ class _Laps:
         self._t = t
 
 
+def _encode_base(mesh, encode: Callable, Xb):
+    """``encode(X) -> codes`` of the base ``Xb``; with ``mesh`` each rank
+    encodes its rows, and the codes are all-gathered."""
+    if mesh is None:
+        return encode(Xb)
+    from rayuela_tpu_torch.parallel.mesh import _like, shard_data
+    rows = shard_data(mesh, Xb)
+    return _like(mesh, Xb, encode(rows.local), rows)
+
+
+def _search_sharded(mesh, C, Q, rows, knn: int, *, pq: bool, R=None,
+                    norm_term=None):
+    """The recall search over ``mesh``: each rank decodes its ``rows`` of
+    the base codes (a `RowShard`; ``norm_term`` its rows' norm terms) and
+    scans them (`parallel.mesh.sharded_search_exact`: K8 → K2 → K3 on the
+    card, flagged queries rescued exactly), the queries rotated by ``R``
+    where given → the merged ids."""
+    from rayuela_tpu_torch.parallel.mesh import (RowShard,
+                                                 sharded_search_exact)
+    from rayuela_tpu_torch.search.scan import build_index
+    if R is not None:
+        Q = Q @ R
+    idx = build_index(C, rows.local, pq=pq, d=Q.shape[1],
+                      norm_term=norm_term)
+    return sharded_search_exact(
+        mesh, RowShard(idx.Xd, rows.start, rows.n),
+        RowShard(idx.x2, rows.start, rows.n), Q, k=knn)[1]
+
+
 def _finish_nonorth(gen, name, C, B, Xb_codes, R, ds: Dataset,
-                    train_error, knn, verbose, store, trial, laps):
+                    train_error, knn, verbose, store, trial, laps,
+                    mesh=None):
     """Shared tail for non-orthogonal methods: norms codebook from the
     TRAIN codes, base norms quantization, the scan with the norms byte,
-    recall."""
+    recall. With ``mesh``, the norms codebook's k-means spans the ranks'
+    rows of the training codes, and each rank quantizes the norms of
+    its rows of the base and scans them (`_search_sharded`)."""
     dev = gen.device
-    _, norms_cbook = get_norms_codebook(fold_in(gen, _NORMS), C, B)
-    base_norm_codes, _ = quantize_norms(C, Xb_codes, norms_cbook)
-    _, ids = linscan_lsq(C, as_tensor(ds.Xq, dev), Xb_codes, norms_cbook,
-                         base_norm_codes, R=R, k=knn)
+    Q = as_tensor(ds.Xq, dev)
+    if mesh is None:
+        _, norms_cbook = get_norms_codebook(fold_in(gen, _NORMS), C, B)
+        base_norm_codes, _ = quantize_norms(C, Xb_codes, norms_cbook)
+        _, ids = linscan_lsq(C, Q, Xb_codes, norms_cbook, base_norm_codes,
+                             R=R, k=knn)
+    else:
+        from rayuela_tpu_torch.parallel import (norms_codebook_sharded,
+                                                shard_data)
+        from rayuela_tpu_torch.parallel.mesh import _like
+        _, norms_cbook = norms_codebook_sharded(mesh, fold_in(gen, _NORMS),
+                                                C, B)
+        rows = shard_data(mesh, Xb_codes)
+        nco, _ = quantize_norms(C, rows.local, norms_cbook)
+        ids = _search_sharded(mesh, C, Q, rows, knn, pq=False, R=R,
+                              norm_term=norms_cbook[nco.long()])
+        base_norm_codes = _like(mesh, Xb_codes, nco, rows)
     recall = eval_recall(ids, ds.gt, verbose=verbose)
     laps("search")
     out = dict(name=name, C=C, B=B, R=R, B_base=Xb_codes,
@@ -121,17 +169,36 @@ def _finish_nonorth(gen, name, C, B, Xb_codes, R, ds: Dataset,
     return out
 
 
+def _orth_search(mesh, C, Q, Bb, knn: int, R=None):
+    """PQ's / OPQ's recall search (``R``: OPQ's rotation) → ids."""
+    if mesh is None:
+        return (linscan_pq(C, Q, Bb, k=knn) if R is None
+                else linscan_opq(C, Q, Bb, R, k=knn))[1]
+    from rayuela_tpu_torch.parallel import shard_data
+    return _search_sharded(mesh, C, Q, shard_data(mesh, Bb), knn, pq=True,
+                           R=R)
+
+
 def experiment_pq(gen, ds: Dataset, m: int = 8, h: int = 256,
                   niter: int = 25, knn: int = 1000, verbose: bool = True,
-                  store: str | None = None, trial: int = 0):
-    """Reference `src/PQ.jl:104-132`."""
+                  store: str | None = None, trial: int = 0, mesh=None):
+    """Reference `src/PQ.jl:104-132`. With ``mesh``, data-parallel
+    (`parallel.train_pq_sharded`, each rank's rows of the base)."""
     dev, laps = gen.device, _Laps(gen.device)
-    model, B, err = train_pq(fold_in(gen, _TRAIN), as_tensor(ds.Xt, dev),
-                             m, h, iters=niter)
+    Xt = as_tensor(ds.Xt, dev)
+    if mesh is None:
+        model, B, err = train_pq(fold_in(gen, _TRAIN), Xt, m, h,
+                                 iters=niter)
+    else:
+        from rayuela_tpu_torch.parallel import train_pq_sharded
+        model, B, err = train_pq_sharded(mesh, fold_in(gen, _TRAIN), Xt, m,
+                                         h, iters=niter)
     laps("train")
-    Bb = quantize_pq(model, as_tensor(ds.Xb, dev))
+    Bb = _encode_base(mesh, lambda X: quantize_pq(model, X),
+                      as_tensor(ds.Xb, dev))
     laps("encode")
-    _, ids = linscan_pq(model.codebooks, as_tensor(ds.Xq, dev), Bb, k=knn)
+    ids = _orth_search(mesh, model.codebooks, as_tensor(ds.Xq, dev), Bb,
+                       knn)
     recall = eval_recall(ids, ds.gt, verbose=verbose)
     laps("search")
     if store is not None:
@@ -142,19 +209,29 @@ def experiment_pq(gen, ds: Dataset, m: int = 8, h: int = 256,
                 seconds=laps.seconds)
 
 
+def _train_opq(mesh, gen, Xt, m, h, niter):
+    """OPQ, the method and the LSQ family's first stage, data-parallel
+    with ``mesh`` (`parallel.train_opq_sharded`)."""
+    if mesh is None:
+        return train_opq(gen, Xt, m, h, niter=niter)
+    from rayuela_tpu_torch.parallel import train_opq_sharded
+    return train_opq_sharded(mesh, gen, Xt, m, h, niter=niter)
+
+
 def experiment_opq(gen, ds: Dataset, m: int = 8, h: int = 256,
                    niter: int = 25, knn: int = 1000,
                    verbose: bool = True, store: str | None = None,
-                   trial: int = 0):
-    """Reference `src/OPQ.jl:143-197`."""
+                   trial: int = 0, mesh=None):
+    """Reference `src/OPQ.jl:143-197`. With ``mesh``, data-parallel."""
     dev, laps = gen.device, _Laps(gen.device)
-    model, B, obj = train_opq(fold_in(gen, _TRAIN), as_tensor(ds.Xt, dev),
-                              m, h, niter=niter)
+    model, B, obj = _train_opq(mesh, fold_in(gen, _TRAIN),
+                               as_tensor(ds.Xt, dev), m, h, niter)
     laps("train")
-    Bb = quantize_opq(model, as_tensor(ds.Xb, dev))
+    Bb = _encode_base(mesh, lambda X: quantize_opq(model, X),
+                      as_tensor(ds.Xb, dev))
     laps("encode")
-    _, ids = linscan_opq(model.codebooks, as_tensor(ds.Xq, dev), Bb,
-                         model.R, k=knn)
+    ids = _orth_search(mesh, model.codebooks, as_tensor(ds.Xq, dev), Bb,
+                       knn, R=model.R)
     recall = eval_recall(ids, ds.gt, verbose=verbose)
     laps("search")
     if store is not None:
@@ -166,34 +243,55 @@ def experiment_opq(gen, ds: Dataset, m: int = 8, h: int = 256,
                 seconds=laps.seconds)
 
 
+def _train_rvq(mesh, gen, Xt, m, h, niter):
+    """RVQ, the method and CompQ's init, data-parallel with ``mesh``
+    (`parallel.train_rvq_sharded`)."""
+    if mesh is None:
+        return train_rvq(gen, Xt, m, h, niter=niter)
+    from rayuela_tpu_torch.parallel import train_rvq_sharded
+    return train_rvq_sharded(mesh, gen, Xt, m, h, niter=niter)
+
+
 def experiment_rvq(gen, ds: Dataset, m: int = 7, h: int = 256,
                    niter: int = 25, knn: int = 1000,
                    verbose: bool = True, store: str | None = None,
-                   trial: int = 0):
-    """Reference `src/RVQ.jl:125-188`."""
+                   trial: int = 0, mesh=None):
+    """Reference `src/RVQ.jl:125-188`. With ``mesh``, data-parallel."""
     dev, laps = gen.device, _Laps(gen.device)
-    model, B, err = train_rvq(fold_in(gen, _TRAIN), as_tensor(ds.Xt, dev),
-                              m, h, niter=niter)
+    model, B, err = _train_rvq(mesh, fold_in(gen, _TRAIN),
+                               as_tensor(ds.Xt, dev), m, h, niter)
     laps("train")
-    Bb, _ = quantize_rvq(model, as_tensor(ds.Xb, dev))
+    Bb = _encode_base(mesh, lambda X: quantize_rvq(model, X)[0],
+                      as_tensor(ds.Xb, dev))
     laps("encode")
     return _finish_nonorth(gen, "rvq", model.codebooks, B, Bb, None, ds,
-                           float(err), knn, verbose, store, trial, laps)
+                           float(err), knn, verbose, store, trial, laps,
+                           mesh)
 
 
 def experiment_ervq(gen, ds: Dataset, m: int = 7, h: int = 256,
                     niter: int = 25, knn: int = 1000,
                     verbose: bool = True, store: str | None = None,
-                    trial: int = 0):
-    """Reference `src/ERVQ.jl:151-242` (RVQ init inside the trainer)."""
+                    trial: int = 0, mesh=None):
+    """Reference `src/ERVQ.jl:151-242` (RVQ init inside the trainer).
+    With ``mesh``, data-parallel
+    (`parallel.train_ervq_from_scratch_sharded`)."""
     dev, laps = gen.device, _Laps(gen.device)
-    model, B, err = train_ervq_from_scratch(
-        fold_in(gen, _TRAIN), as_tensor(ds.Xt, dev), m, h, niter=niter)
+    Xt = as_tensor(ds.Xt, dev)
+    if mesh is None:
+        model, B, err = train_ervq_from_scratch(fold_in(gen, _TRAIN), Xt, m,
+                                                h, niter=niter)
+    else:
+        from rayuela_tpu_torch.parallel import train_ervq_from_scratch_sharded
+        model, B, err = train_ervq_from_scratch_sharded(
+            mesh, fold_in(gen, _TRAIN), Xt, m, h, niter=niter)
     laps("train")
-    Bb, _ = quantize_rvq(model.codebooks, as_tensor(ds.Xb, dev))
+    Bb = _encode_base(mesh, lambda X: quantize_rvq(model.codebooks, X)[0],
+                      as_tensor(ds.Xb, dev))
     laps("encode")
     return _finish_nonorth(gen, "ervq", model.codebooks, B, Bb, None, ds,
-                           float(err), knn, verbose, store, trial, laps)
+                           float(err), knn, verbose, store, trial, laps,
+                           mesh)
 
 
 def experiment_chainq(gen, ds: Dataset, m: int = 7, h: int = 256,
@@ -203,35 +301,28 @@ def experiment_chainq(gen, ds: Dataset, m: int = 7, h: int = 256,
     """ChainQ end-to-end (exported but undefined in the reference). OPQ
     init per `demos/demos_train_query_base.jl:52-58`. With ``mesh``,
     training and the base Viterbi encode run data-parallel
-    (`parallel.train_chainq_sharded`, `parallel.sharded_viterbi_encode`)."""
+    (`parallel.train_chainq_sharded`, each rank's rows of the base)."""
     dev, laps = gen.device, _Laps(gen.device)
     Xt = as_tensor(ds.Xt, dev)
     if opq_init is None:
-        opq_model, B_opq, _ = train_opq(fold_in(gen, _TRAIN), Xt, m, h,
-                                        niter=niter)
+        opq_model, B_opq, _ = _train_opq(mesh, fold_in(gen, _TRAIN), Xt, m,
+                                         h, niter)
         opq_init = (B_opq, opq_model.R)
     B0 = as_tensor(opq_init[0], dev, torch.int32)
     R0 = as_tensor(opq_init[1], dev)
     if mesh is not None:
-        from rayuela_tpu_torch.parallel import (shard_data,
-                                                sharded_viterbi_encode,
-                                                train_chainq_sharded)
-        from rayuela_tpu_torch.parallel.mesh import _like
+        from rayuela_tpu_torch.parallel import train_chainq_sharded
         model, B, obj = train_chainq_sharded(mesh, Xt, B0, R0, h=h,
                                              niter=niter)
-        laps("train")
-        rows = shard_data(mesh, as_tensor(ds.Xb, dev))
-        Bl = sharded_viterbi_encode(mesh, rows._replace(
-            local=rows.local @ model.R), model.codebooks).local
-        Bb = _like(mesh, ds.Xb, Bl, rows)
     else:
         model, B, obj = train_chainq(Xt, B0, R0, h=h, niter=niter)
-        laps("train")
-        Bb = quantize_chainq(model, as_tensor(ds.Xb, dev))
+    laps("train")
+    Bb = _encode_base(mesh, lambda X: quantize_chainq(model, X),
+                      as_tensor(ds.Xb, dev))
     laps("encode")
     out = _finish_nonorth(gen, "chainq", model.codebooks, B, Bb, model.R,
                           ds, float(obj[-1]), knn, verbose, store, trial,
-                          laps)
+                          laps, mesh)
     out["obj"] = _np(obj)
     return out
 
@@ -247,8 +338,8 @@ def _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
     dev, laps = gen.device, _Laps(gen.device)
     Xt, Xb = as_tensor(ds.Xt, dev), as_tensor(ds.Xb, dev)
     if chain_init is None:
-        opq_model, B_opq, _ = train_opq(fold_in(gen, _TRAIN), Xt, m, h,
-                                        niter=niter)
+        opq_model, B_opq, _ = _train_opq(mesh, fold_in(gen, _TRAIN), Xt, m,
+                                         h, niter)
         if mesh is not None:
             from rayuela_tpu_torch.parallel import train_chainq_sharded
             cq_model, B_cq, _ = train_chainq_sharded(
@@ -281,7 +372,8 @@ def _lsq_family(gen, ds, m, h, niter, knn, verbose, store, trial,
     if verbose:
         print(f"{name}: train {float(obj[-1]):.5g} base {base_error:.5g}")
     out = _finish_nonorth(gen, name, model.codebooks, B, Bb, None, ds,
-                          float(obj[-1]), knn, verbose, store, trial, laps)
+                          float(obj[-1]), knn, verbose, store, trial, laps,
+                          mesh)
     out["obj"] = _np(obj)
     out["base_error"] = base_error
     return out
@@ -353,21 +445,29 @@ def experiment_compq(gen, ds: Dataset, m: int = 7, h: int = 256,
                      niter: int = 25, knn: int = 1000,
                      verbose: bool = True, store: str | None = None,
                      trial: int = 0, H: int = 16, lr_total: float = 0.01,
-                     update: str = "sgd"):
+                     update: str = "sgd", mesh=None):
     """CompQ end-to-end: RVQ init → competitive training → beam base
     encode → norms-byte scan. Reference `demos/demo_compq.jl` +
-    `src/CompetitiveQ.jl:138-221`."""
+    `src/CompetitiveQ.jl:138-221`. With ``mesh``, data-parallel
+    (`parallel.train_compq_sharded`)."""
     dev, laps = gen.device, _Laps(gen.device)
     Xt = as_tensor(ds.Xt, dev)
-    rvq_model, B0, _ = train_rvq(fold_in(gen, _TRAIN), Xt, m, h,
-                                 niter=niter)
-    model, B, obj = train_compq(Xt, rvq_model.codebooks, B0, niter=niter,
-                                H=H, lr_total=lr_total, update=update)
+    rvq_model, B0, _ = _train_rvq(mesh, fold_in(gen, _TRAIN), Xt, m, h,
+                                  niter)
+    kw = dict(niter=niter, H=H, lr_total=lr_total, update=update)
+    if mesh is None:
+        model, B, obj = train_compq(Xt, rvq_model.codebooks, B0, **kw)
+    else:
+        from rayuela_tpu_torch.parallel import train_compq_sharded
+        model, B, obj = train_compq_sharded(mesh, Xt, rvq_model.codebooks,
+                                            B0, **kw)
     laps("train")
-    Bb, _ = quantize_compq(model, as_tensor(ds.Xb, dev), H=H)
+    Bb = _encode_base(mesh, lambda X: quantize_compq(model, X, H=H)[0],
+                      as_tensor(ds.Xb, dev))
     laps("encode")
     out = _finish_nonorth(gen, "compq", model.codebooks, B, Bb, None, ds,
-                          float(obj[-1]), knn, verbose, store, trial, laps)
+                          float(obj[-1]), knn, verbose, store, trial, laps,
+                          mesh)
     out["obj"] = _np(obj)
     return out
 
@@ -471,9 +571,9 @@ def _run_trial(ds: Dataset, trial: int, results_dir: str | None,
     """One trial of the protocol → ``{method: result}``. Results go to
     ``results_dir/{dataset}_{method}.h5``; with ``results_dir=None``
     nothing is stored or resumed, and h5py is never imported (the card's
-    machine has none). With ``mesh`` ChainQ and the LSQ family run
-    sharded, and only the rank at the mesh's origin writes (every rank
-    reads what it resumes)."""
+    machine has none). With ``mesh`` every method runs data-parallel,
+    and only the rank at the mesh's origin writes (every rank reads what
+    it resumes)."""
     writes = mesh is None or not any(mesh.coords.values())
     dev = torch.device(device or "cuda")
     dsd = _on_device(ds, dev)
@@ -497,13 +597,14 @@ def _run_trial(ds: Dataset, trial: int, results_dir: str | None,
         store = path if writes else None
         if method in ("pq", "opq"):
             fn = experiment_pq if method == "pq" else experiment_opq
-            out = fn(key, dsd, m, h, niter, knn, verbose, store, trial)
+            out = fn(key, dsd, m, h, niter, knn, verbose, store, trial,
+                     mesh=mesh)
         elif method == "rvq":
             out = experiment_rvq(key, dsd, m - 1, h, niter, knn, verbose,
-                                 store, trial)
+                                 store, trial, mesh=mesh)
         elif method == "ervq":
             out = experiment_ervq(key, dsd, m - 1, h, niter, knn, verbose,
-                                  store, trial)
+                                  store, trial, mesh=mesh)
         elif method == "chainq":
             out = experiment_chainq(key, dsd, m - 1, h, niter, knn,
                                     verbose, store, trial, mesh=mesh)
@@ -519,7 +620,7 @@ def _run_trial(ds: Dataset, trial: int, results_dir: str | None,
                                 **{**(sr_extra or {}), **exp_kw})
         elif method == "compq":
             out = experiment_compq(key, dsd, m - 1, h, niter, knn,
-                                   verbose, store, trial)
+                                   verbose, store, trial, mesh=mesh)
         else:
             raise ValueError(f"unknown method {method!r}")
         if verbose:
@@ -554,9 +655,9 @@ def run_train_query_base(dataset: str | Dataset = "sift1m", m: int = 8,
     SR; schedule / p to SR only. Explicit keyword overrides still win.
 
     ``mesh`` (every rank of the process group making the same call; its
-    device is the default) trains ChainQ and the LSQ family and encodes
-    their base data-parallel; the other methods run replicated on every
-    rank, and only the rank at the mesh's origin writes the store."""
+    device is the default) runs every method data-parallel: each rank
+    trains on its rows of the training set, encodes and scans its rows
+    of the base; only the rank at the mesh's origin writes the store."""
     if mesh is not None and device is None:
         device = mesh.device
     ds = (read_dataset(dataset, device=device) if isinstance(dataset, str)

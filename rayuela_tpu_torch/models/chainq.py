@@ -15,7 +15,7 @@ from rayuela_tpu_torch.models.opq import OPQModel
 from rayuela_tpu_torch.ops.codebook_update import _chain_solve, codebook_stats
 from rayuela_tpu_torch.ops.qerror import reconstruct, veccost
 from rayuela_tpu_torch.ops.viterbi import viterbi_encode
-from rayuela_tpu_torch.utils import exact_f32
+from rayuela_tpu_torch.utils import Ranks, exact_f32, summed
 
 
 class ChainQModel(NamedTuple):
@@ -25,29 +25,28 @@ class ChainQModel(NamedTuple):
 
 def train_chainq(X: torch.Tensor, B0: torch.Tensor, R0: torch.Tensor,
                  h: int = 256, niter: int = 25, *, chunk: int = 2048,
-                 impl: str = "auto", reduce=None, n: int | None = None
+                 impl: str = "auto", ranks: Ranks | None = None
                  ) -> tuple[ChainQModel, torch.Tensor, torch.Tensor]:
     """Train ChainQ from init codes and rotation (usually OPQ's) →
     ``(model, codes (n, m) int32, obj (niter+1,))``. Per iteration: the
     objective, R from the SVD of ``X^T X_hat``, the chain codebook
     update on the rotated data, Viterbi re-encode (``chunk``, ``impl``).
 
-    ``reduce`` sums a statistic over the ranks that hold the other rows
-    of a data-parallel run, ``n`` rows in all: the normal-equation
-    statistics, ``X^T X_hat`` and the squared error are sums over the
-    rows (`parallel.train_chainq_sharded` passes its all-reduce). Without
-    it, ``X`` is all the rows."""
+    With ``ranks`` (`utils.Ranks`), ``X`` and ``B0`` are this rank's rows
+    of a data-parallel run: the normal-equation statistics, ``X^T X_hat``
+    and the squared error are sums over the rows, summed over the ranks
+    (`parallel.train_chainq_sharded`)."""
     exact_f32()
-    red = (lambda t: t) if reduce is None else reduce
-    n = X.shape[0] if n is None else n
+    n = X.shape[0] if ranks is None else ranks.n
     d, m = X.shape[1], B0.shape[1]
 
     def solve(RX, B):
         G, F = codebook_stats(RX, B, h)
-        return _chain_solve(red(G), red(F), h=h, d=d, m=m, rho=1e-4)
+        return _chain_solve(summed(ranks, G), summed(ranks, F), h=h, d=d,
+                            m=m, rho=1e-4)
 
     def error(RX, C, B):
-        return red(veccost(RX, C, B).sum()) / n
+        return summed(ranks, veccost(RX, C, B).sum()) / n
 
     RX = X @ R0
     C = solve(RX, B0)
@@ -56,7 +55,7 @@ def train_chainq(X: torch.Tensor, B0: torch.Tensor, R0: torch.Tensor,
     obj = torch.zeros(niter + 1, dtype=X.dtype, device=X.device)
     for it in range(niter):
         obj[it] = error(RX, C, B)
-        U, _, Vt = torch.linalg.svd(red(X.T @ reconstruct(C, B)),
+        U, _, Vt = torch.linalg.svd(summed(ranks, X.T @ reconstruct(C, B)),
                                     full_matrices=False)
         R = U @ Vt
         RX = X @ R

@@ -15,9 +15,10 @@ from typing import NamedTuple
 
 import torch
 
-from rayuela_tpu_torch.ops.codebook_update import update_codebooks
+from rayuela_tpu_torch.ops.codebook_update import _solve_direct, codebook_stats
 from rayuela_tpu_torch.ops.qerror import qerror
-from rayuela_tpu_torch.utils import exact_f32, segment_sum, sqdist
+from rayuela_tpu_torch.utils import (Ranks, exact_f32, segment_sum, sqdist,
+                                     summed)
 
 # vectors a beam chunk: its (chunk, H, h) f32 candidate block is 16 KB a
 # vector at H = 16, h = 256, 256 MB a chunk, enough work to fill the card
@@ -58,8 +59,9 @@ def quantize_compq(model: CompQModel | torch.Tensor, X: torch.Tensor,
     (n, d))``, ``chunk`` vectors at a time."""
     C = model.codebooks if isinstance(model, CompQModel) else model
     exact_f32()
+    # one chunk of no rows where X has none (a rank's empty share)
     out = [_beam_chunk(X[s:s + chunk], C, H)
-           for s in range(0, X.shape[0], chunk)]
+           for s in range(0, max(X.shape[0], 1), chunk)]
     return (torch.cat([b for b, _ in out]), torch.cat([r for _, r in out]))
 
 
@@ -73,7 +75,8 @@ def _layer_lrs(m: int, lr_total: float, device=None) -> torch.Tensor:
 
 def train_compq(X: torch.Tensor, C0: torch.Tensor, B0: torch.Tensor,
                 niter: int = 10, H: int = 16, lr_total: float = 0.01,
-                chunk: int = CHUNK, update: str = "sgd"
+                chunk: int = CHUNK, update: str = "sgd",
+                ranks: Ranks | None = None
                 ) -> tuple[CompQModel, torch.Tensor, torch.Tensor]:
     """Train CompQ from an init (typically RVQ) → ``(model, codes,
     obj (niter+1,))``, ``obj[it]`` the error before iteration ``it``.
@@ -85,7 +88,13 @@ def train_compq(X: torch.Tensor, C0: torch.Tensor, B0: torch.Tensor,
     mean that the reference's online rule reaches over ``cnt`` visits of
     an entry. Uncapped, the batched step ``2 lr_i cnt`` grows with n / h
     and training diverges at n = 1e5. ``update="lsq"`` solves the
-    least-squares codebooks for the beam codes exactly (fastbin)."""
+    least-squares codebooks for the beam codes exactly (fastbin).
+
+    With ``ranks`` (`utils.Ranks`), ``X`` and ``B0`` are this rank's rows
+    of a data-parallel run: the beam is per row, the step's sums and
+    counts, the normal-equation statistics and the objective are summed
+    over the ranks, and the solves run on identical bits on every
+    rank."""
     if update not in ("sgd", "lsq"):
         raise ValueError(f"update {update!r}: 'sgd' or 'lsq'")
     m, h, _ = C0.shape
@@ -93,18 +102,20 @@ def train_compq(X: torch.Tensor, C0: torch.Tensor, B0: torch.Tensor,
     lrs = _layer_lrs(m, lr_total, X.device)
     obj = torch.zeros(niter + 1, dtype=torch.float32, device=X.device)
     for it in range(niter):
-        obj[it] = qerror(X, C, B)
+        obj[it] = qerror(X, C, B, ranks=ranks)
         B, Xr = quantize_compq(C, X, H=H, chunk=chunk)
         if update == "lsq":
-            C = update_codebooks(X, B, h=h)
+            G, F = codebook_stats(X, B, h)
+            C = _solve_direct(summed(ranks, G), summed(ranks, F), h, 1e-4)
             continue
         C = C.clone()
         for i in range(m):
             bi = B[:, i].long()
-            grad = segment_sum(Xr, bi, h)                  # (h, d)
-            cnt = torch.bincount(bi, minlength=h).to(torch.float32)
+            grad = summed(ranks, segment_sum(Xr, bi, h))   # (h, d)
+            cnt = summed(ranks, torch.bincount(bi, minlength=h).to(
+                torch.float32))
             cnt = cnt.clamp_min(1.0)[:, None]
             step = 1.0 - (1.0 - 2.0 * lrs[i]) ** cnt       # in (0, 1)
             C[i] = C[i] + step * grad / cnt
-    obj[niter] = qerror(X, C, B)
+    obj[niter] = qerror(X, C, B, ranks=ranks)
     return CompQModel(C), B, obj

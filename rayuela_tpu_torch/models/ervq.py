@@ -14,7 +14,7 @@ import torch
 from rayuela_tpu_torch.models.rvq import RVQModel, quantize_rvq, train_rvq
 from rayuela_tpu_torch.ops.kmeans import assign, update_centers
 from rayuela_tpu_torch.ops.qerror import qerror, reconstruct
-from rayuela_tpu_torch.utils import exact_f32, gather_rows
+from rayuela_tpu_torch.utils import Ranks, exact_f32, gather_rows
 
 
 def _masked_reencode(C: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
@@ -31,10 +31,14 @@ def _masked_reencode(C: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
 
 
 def train_ervq(X: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-               niter: int = 25
+               niter: int = 25, ranks: Ranks | None = None
                ) -> tuple[RVQModel, torch.Tensor, torch.Tensor]:
     """Fine-tune RVQ codes ``B (n, m)`` and codebooks ``C (m, h, d)``
-    (typically `train_rvq`'s) → ``(model, codes, error)``."""
+    (typically `train_rvq`'s) → ``(model, codes, error)``. With
+    ``ranks`` (`utils.Ranks`), ``X`` and ``B`` are this rank's rows of a
+    data-parallel run: the targets and the re-encode are per row, the
+    entry means and the repick span all the ranks' rows
+    (`kmeans.update_centers`), and so does the error."""
     exact_f32()
     h = C.shape[1]
     C, B = C.clone(), B.to(torch.int32)
@@ -44,17 +48,18 @@ def train_ervq(X: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             # the target of codebook j: the data less every OTHER
             # codebook's decode
             Xd = X - reconstruct(C, B) + gather_rows(C[j], bj)
-            C[j] = update_centers(Xd, bj, h, C[j])
+            C[j] = update_centers(Xd, bj, h, C[j], ranks=ranks)
             B = _masked_reencode(C, B, X, j)
-    return RVQModel(C), B, qerror(X, C, B)
+    return RVQModel(C), B, qerror(X, C, B, ranks=ranks)
 
 
 def train_ervq_from_scratch(gen: torch.Generator, X: torch.Tensor, m: int,
-                            h: int = 256, niter: int = 25
+                            h: int = 256, niter: int = 25,
+                            ranks: Ranks | None = None
                             ) -> tuple[RVQModel, torch.Tensor, torch.Tensor]:
     """RVQ init (``gen`` seeds its k-means) + ERVQ fine-tuning."""
-    model, B, _ = train_rvq(gen, X, m, h, niter)
-    return train_ervq(X, B, model.codebooks, niter)
+    model, B, _ = train_rvq(gen, X, m, h, niter, ranks=ranks)
+    return train_ervq(X, B, model.codebooks, niter, ranks=ranks)
 
 
 def quantize_ervq(model: RVQModel | torch.Tensor, X: torch.Tensor

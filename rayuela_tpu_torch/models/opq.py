@@ -14,7 +14,8 @@ import torch
 from rayuela_tpu_torch.models.pq import PQModel, _split_subspaces, quantize_pq
 from rayuela_tpu_torch.ops.kmeans import assign
 from rayuela_tpu_torch.ops.qerror import reconstruct_pq
-from rayuela_tpu_torch.utils import exact_f32, segment_sum
+from rayuela_tpu_torch.utils import (Ranks, exact_f32, row_mean, rows_at,
+                                     segment_sum, summed)
 
 
 class OPQModel(NamedTuple):
@@ -22,31 +23,43 @@ class OPQModel(NamedTuple):
     R: torch.Tensor          # (d, d) f32 orthonormal rotation
 
 
-def _subspace_lloyd(C: torch.Tensor, Xs: torch.Tensor, B: torch.Tensor
+def _subspace_lloyd(C: torch.Tensor, Xs: torch.Tensor, B: torch.Tensor,
+                    ranks: Ranks | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Lloyd step in one subspace: centres from the old assignments
     ``B (n,)`` (empties keep theirs), then the new assignments."""
     h = C.shape[0]
-    counts = torch.bincount(B.long(), minlength=h).to(Xs.dtype)
-    sums = segment_sum(Xs, B, h)
+    counts = summed(ranks, torch.bincount(B.long(), minlength=h).to(Xs.dtype))
+    sums = summed(ranks, segment_sum(Xs, B, h))
     C = torch.where((counts > 0)[:, None],
                     sums / counts.clamp_min(1.0)[:, None], C)
     return C, assign(Xs, C)[0]
 
 
-def _objective(X, R, C, B):
+def _objective(X, R, C, B, ranks=None):
     Xr = X @ R
-    return ((Xr - reconstruct_pq(C, B, X.shape[1])) ** 2).sum(-1).mean()
+    return row_mean(ranks, ((Xr - reconstruct_pq(C, B, X.shape[1])) ** 2
+                            ).sum(-1))
 
 
 def train_opq(gen: torch.Generator, X: torch.Tensor, m: int, h: int = 256,
-              niter: int = 25, init: str = "natural"
+              niter: int = 25, init: str = "natural",
+              ranks: Ranks | None = None
               ) -> tuple[OPQModel, torch.Tensor, torch.Tensor]:
     """Train OPQ → ``(model, codes (n, m) int32, obj (niter+1,))``.
     ``init``: "natural" (R = I) or "random" (a random orthonormal R).
-    Codebooks start from h distinct random training vectors."""
+    Codebooks start from h distinct random training vectors.
+
+    With ``ranks`` (`utils.Ranks`), ``X`` is this rank's rows of a
+    data-parallel run and ``gen`` is seeded the same on every rank: the
+    h init rows are drawn over all n rows and assembled from their
+    owners (`utils.rows_at`), ``X^T X_hat``, the Lloyd steps' counts and
+    sums and the objective are summed over the ranks, and the SVD runs
+    on identical bits on every rank; the codes are this rank's."""
     exact_f32()
     n, d = X.shape
+    if ranks is not None:
+        n = ranks.n
     if init == "natural":
         R = torch.eye(d, dtype=X.dtype, device=X.device)
     elif init == "random":
@@ -55,21 +68,23 @@ def train_opq(gen: torch.Generator, X: torch.Tensor, m: int, h: int = 256,
     else:
         raise ValueError(f"unknown init {init!r}")
     perm = torch.randperm(n, generator=gen, device=gen.device)[:h]
-    Xs = _split_subspaces(X @ R, m)
-    C = [x.index_select(0, perm.to(X.device)) for x in Xs]
+    XR = X @ R
+    Xs = _split_subspaces(XR, m)
+    C = _split_subspaces(rows_at(ranks, XR, perm.to(X.device)), m)
     B = [assign(x, c)[0] for x, c in zip(Xs, C)]
     obj = torch.zeros(niter + 1, dtype=X.dtype, device=X.device)
     for it in range(niter):
         Bm = torch.stack(B, dim=1)
         Xhat = reconstruct_pq(torch.stack(C), Bm, d)
-        obj[it] = ((X @ R - Xhat) ** 2).sum(-1).mean()
-        U, _, Vt = torch.linalg.svd(X.T @ Xhat, full_matrices=False)
+        obj[it] = row_mean(ranks, ((X @ R - Xhat) ** 2).sum(-1))
+        U, _, Vt = torch.linalg.svd(summed(ranks, X.T @ Xhat),
+                                    full_matrices=False)
         R = U @ Vt
         Xs = _split_subspaces(X @ R, m)
         for j in range(m):
-            C[j], B[j] = _subspace_lloyd(C[j], Xs[j], B[j])
+            C[j], B[j] = _subspace_lloyd(C[j], Xs[j], B[j], ranks)
     C, B = torch.stack(C), torch.stack(B, dim=1).to(torch.int32)
-    obj[niter] = _objective(X, R, C, B)
+    obj[niter] = _objective(X, R, C, B, ranks)
     return OPQModel(C, R), B, obj
 
 

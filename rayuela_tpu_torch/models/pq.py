@@ -10,7 +10,7 @@ import torch
 
 from rayuela_tpu_torch.ops.kmeans import assign, kmeans
 from rayuela_tpu_torch.ops.qerror import qerror
-from rayuela_tpu_torch.utils import cdiv, splitarray
+from rayuela_tpu_torch.utils import Ranks, cdiv, splitarray
 
 
 class PQModel(NamedTuple):
@@ -27,13 +27,23 @@ def _split_subspaces(X: torch.Tensor, m: int) -> list[torch.Tensor]:
 
 
 def train_pq(gen: torch.Generator, X: torch.Tensor, m: int,
-             h: int = 256, iters: int = 25
+             h: int = 256, iters: int = 25, ranks: Ranks | None = None
              ) -> tuple[PQModel, torch.Tensor, torch.Tensor]:
-    """Train PQ → ``(model, codes (n, m) int32, train_error)``."""
-    res = [kmeans(gen, Xs, h, iters=iters) for Xs in _split_subspaces(X, m)]
-    C = torch.stack([r.centers for r in res])
-    B = torch.stack([r.assignments for r in res], dim=1).to(torch.int32)
-    return PQModel(C), B, qerror(X, C, B, pq=True)
+    """Train PQ → ``(model, codes (n, m) int32, train_error)``. With
+    ``ranks`` (`utils.Ranks`), ``X`` is this rank's rows of a
+    data-parallel run: the m subspaces' k-means span all the ranks' rows
+    and run at once, one collective a step for all m (`kmeans.kmeans`);
+    the codes are this rank's."""
+    subs = _split_subspaces(X, m)
+    if ranks is None:
+        res = [kmeans(gen, Xs, h, iters=iters) for Xs in subs]
+        C = torch.stack([r.centers for r in res])
+        B = torch.stack([r.assignments for r in res], dim=1)
+    else:
+        res = kmeans(gen, torch.stack(subs), h, iters=iters, ranks=ranks)
+        C, B = res.centers, res.assignments.T
+    B = B.to(torch.int32)
+    return PQModel(C), B, qerror(X, C, B, pq=True, ranks=ranks)
 
 
 def quantize_pq(model: PQModel, X: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from rayuela_tpu_torch.utils import exact_f32, gather_rows, splitarray
+from rayuela_tpu_torch.utils import (Ranks, exact_f32, gather_rows, row_mean,
+                                     splitarray)
 
 
 def reconstruct(C: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -49,9 +50,10 @@ def veccost_chunked(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor,
 
 
 def qerror(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor, *,
-           pq: bool = False) -> torch.Tensor:
-    """Mean squared reconstruction error — the training objective."""
-    return veccost(X, C, B, pq=pq).mean()
+           pq: bool = False, ranks: Ranks | None = None) -> torch.Tensor:
+    """Mean squared reconstruction error — the training objective (over
+    the rows of all ``ranks`` where ``X`` is one rank's)."""
+    return row_mean(ranks, veccost(X, C, B, pq=pq))
 
 
 def qerror_pq(X: torch.Tensor, C: torch.Tensor, B: torch.Tensor

@@ -18,14 +18,12 @@ The objective is the all-reduced squared error over the n rows.
 
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
 from rayuela_tpu_torch.models.chainq import train_chainq
 from rayuela_tpu_torch.ops.viterbi import viterbi_encode
-from rayuela_tpu_torch.parallel.mesh import (Mesh, _all_reduce, _like,
-                                             _rows, _same_rows, replicate)
+from rayuela_tpu_torch.parallel.mesh import (Mesh, _like, _ranks, _rows,
+                                             _same_rows, replicate)
 
 
 def sharded_viterbi_encode(mesh: Mesh, X, C, *, chunk: int = 2048,
@@ -45,15 +43,15 @@ def train_chainq_sharded(mesh: Mesh, X, B0, R0, *, h: int = 256,
     """`models.chainq.train_chainq` over a mesh, the same loop and return
     contract ``(model, codes (n, m), obj (niter+1,))``: ``X`` and ``B0``
     row-sharded (the codes come back in ``X``'s form), ``R0``
-    replicated. Each rank runs the loop on its rows with the all-reduce
-    as its ``reduce``, so the result differs from the single-device
-    trainer's only by the order in which the all-reduce sums."""
+    replicated. Each rank runs the loop on its rows, its statistics
+    all-reduced over ``data`` (``ranks``), so the result differs from the
+    single-device trainer's only by the order in which the all-reduce
+    sums."""
     rows = _rows(mesh, X, torch.float32)
     brows = _rows(mesh, B0, torch.int32)
     _same_rows(rows, brows)
     model, B, obj = train_chainq(rows.local, brows.local,
                                  replicate(mesh, R0).float(), h=h,
                                  niter=niter, chunk=chunk, impl=impl,
-                                 reduce=partial(_all_reduce, mesh),
-                                 n=rows.n)
+                                 ranks=_ranks(mesh, rows))
     return model, _like(mesh, X, B, rows), obj

@@ -42,13 +42,14 @@ is exact.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-from rayuela_tpu_torch.utils import (as_tensor, cdiv, segment_sum,
-                                     splitarray, topk_lowest_id)
+from rayuela_tpu_torch.utils import (Ranks, as_tensor, cdiv, splitarray,
+                                     topk_lowest_id)
 
 AXES = ("data", "model")
 
@@ -67,10 +68,16 @@ class Mesh:
         self.device = torch.device(device)
         self.coords = dict(coords)
         self.device_mesh = device_mesh
+        self._groups = {}
 
     def group(self, axis: str):
-        return (None if self.device_mesh is None
-                else self.device_mesh.get_group(axis))
+        """The process group of ``axis`` (looked up once: the trainers
+        issue a collective a k-means++ pick)."""
+        if self.device_mesh is None:
+            return None
+        if axis not in self._groups:
+            self._groups[axis] = self.device_mesh.get_group(axis)
+        return self._groups[axis]
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, coords={self.coords}, "
@@ -218,13 +225,34 @@ def _same_rows(a: RowShard, b: RowShard) -> None:
 def _like(mesh: Mesh, x, out: torch.Tensor, rows: RowShard):
     """A per-row result ``out`` of this rank's ``rows`` in the form the
     rows came in: a `RowShard`, or the global array gathered from the
-    ``data`` ranks (their shards padded to one size for the
-    all-gather)."""
+    ``data`` ranks (`_gather_rows`)."""
     if isinstance(x, RowShard):
         return RowShard(out, rows.start, rows.n)
-    sizes = [sz for _, sz in splitarray(rows.n, mesh.shape["data"])]
-    big = max(sizes)
-    pad = out.new_zeros((big - out.shape[0],) + tuple(out.shape[1:]))
+    return _gather_rows(mesh, RowShard(out, rows.start, rows.n),
+                        [sz for _, sz in splitarray(rows.n,
+                                                    mesh.shape["data"])])
+
+
+def _ranks(mesh: Mesh, rows: RowShard) -> Ranks:
+    """The ``data`` ranks over which ``rows`` are spread, as the
+    trainers take them (`utils.Ranks`): the all-reduce and all-gather
+    over ``data``, this rank's place, its first row and the row
+    count."""
+    return Ranks(partial(_all_reduce, mesh), partial(_all_gather, mesh),
+                 mesh.coords["data"], rows.start, rows.n)
+
+
+def _gather_rows(mesh: Mesh, rows: RowShard,
+                 sizes: list[int] | None = None) -> torch.Tensor:
+    """The global array of which every ``data`` rank holds ``rows``, on
+    every rank: the shares, of the ``sizes`` in rank order (all-gathered
+    where None: shares of any size, `launch.host_local_to_global`),
+    padded to one size for the all-gather."""
+    if sizes is None:
+        sizes = [int(s) for s in _all_gather(mesh, torch.tensor(
+            [rows.local.shape[0]], device=mesh.device))]
+    out = rows.local
+    pad = out.new_zeros((max(sizes) - out.shape[0],) + tuple(out.shape[1:]))
     parts = _all_gather(mesh, torch.cat([out, pad]))
     return torch.cat([p[:sz] for p, sz in zip(parts, sizes)])
 
@@ -485,11 +513,12 @@ def pq_lloyd_step_sharded(mesh: Mesh, Xs, centers, h: int):
     (the same on every rank): n splits over ``data``, m over ``model``.
     Each rank assigns its rows of its subspaces; the counts, sums and
     objective are all-reduced over ``data``; an empty cluster takes the
-    most costly points of the whole subspace, as `kmeans.update_centers`
-    does (each rank's costliest h points all-gathered); the subspaces
-    all-gather over ``model``. The mesh comes first here, where the JAX
+    most costly points of the whole subspace (`kmeans.update_centers`
+    over the ``data`` ranks, its subspaces at once: each rank's
+    costliest h points all-gathered, ranked by (cost, global row)); the
+    subspaces all-gather over ``model``. The mesh comes first here, where the JAX
     step reads it from its arguments' shardings."""
-    from rayuela_tpu_torch.ops.kmeans import assign
+    from rayuela_tpu_torch.ops.kmeans import assign, update_centers
 
     Xs = torch.as_tensor(Xs).to(mesh.device)
     centers = torch.as_tensor(centers).to(mesh.device)
@@ -499,37 +528,10 @@ def pq_lloyd_step_sharded(mesh: Mesh, Xs, centers, h: int):
     ns, nsz = splitarray(n, mesh.shape["data"])[mesh.coords["data"]]
     X = Xs[ms:ms + msz, ns:ns + nsz]
     cent = centers[ms:ms + msz]
-    ncand = min(h, n)
-    counts, sums, costs, cand, obj = [], [], [], [], Xs.new_zeros(())
-    for j in range(msz):
-        a, mind2 = assign(X[j], cent[j])
-        counts.append(torch.bincount(a.long(), minlength=h).to(Xs.dtype))
-        sums.append(segment_sum(X[j], a.long(), h))
-        obj = obj + mind2.sum()
-        top = torch.topk(mind2, min(ncand, nsz))
-        pad = ncand - top.values.shape[0]
-        costs.append(torch.cat([top.values, mind2.new_full((pad,),
-                                                           -float("inf"))]))
-        cand.append(torch.cat([X[j].index_select(0, top.indices),
-                               X.new_zeros(pad, ds)]))
-    counts = _all_reduce(mesh, torch.stack(counts) if msz else
-                         Xs.new_zeros(0, h))
-    sums = _all_reduce(mesh, torch.stack(sums) if msz else
-                       Xs.new_zeros(0, h, ds))
-    costs = torch.cat(_all_gather(mesh, torch.stack(costs) if msz else
-                                  Xs.new_zeros(0, ncand)), 1)
-    cand = torch.cat(_all_gather(mesh, torch.stack(cand) if msz else
-                                 Xs.new_zeros(0, ncand, ds)), 1)
-    new = torch.where((counts > 0)[..., None],
-                      sums / counts.clamp_min(1.0)[..., None], cent)
-    empty = counts == 0
-    rank = (torch.cumsum(empty.long(), 1) - 1).clamp(0, ncand - 1)
-    order = torch.topk(costs, ncand, dim=1).indices
-    pick = order.gather(1, rank)
-    new = torch.where(empty[..., None],
-                      cand.gather(1, pick[..., None].expand(-1, -1, ds)),
-                      new)
-    obj = _all_reduce(mesh, _all_reduce(mesh, obj), "model")
+    a, mind2 = assign(X, cent)
+    new = update_centers(X, a, h, cent, costs=mind2,
+                         ranks=_ranks(mesh, RowShard(X, ns, n, 1)))
+    obj = _all_reduce(mesh, _all_reduce(mesh, mind2.sum()), "model")
     big = max(sz for _, sz in msplit)
     padded = torch.cat([new, new.new_zeros(big - msz, h, ds)])
     parts = _all_gather(mesh, padded, "model")

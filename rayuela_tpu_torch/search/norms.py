@@ -8,15 +8,20 @@ import torch
 
 from rayuela_tpu_torch.ops.kmeans import kmeans
 from rayuela_tpu_torch.ops.qerror import reconstruct
+from rayuela_tpu_torch.utils import Ranks
 
 
 def get_norms_codebook(gen: torch.Generator, C: torch.Tensor,
-                       B: torch.Tensor, h: int = 256
+                       B: torch.Tensor, h: int = 256,
+                       ranks: Ranks | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """k-means the decode norms → ``(norms_codes (n,), norms_cbook (h,))``."""
+    """k-means the decode norms → ``(norms_codes (n,), norms_cbook (h,))``.
+    With ``ranks`` (`utils.Ranks`), ``B`` is this rank's rows of a
+    data-parallel run: the k-means spans all the ranks' norms, the codes
+    are this rank's."""
     Xhat = reconstruct(C, B)
     dbnorms = (Xhat * Xhat).sum(-1, keepdim=True)
-    res = kmeans(gen, dbnorms, h, iters=25)
+    res = kmeans(gen, dbnorms, h, iters=25, ranks=ranks)
     return res.assignments, res.centers.reshape(-1)
 
 

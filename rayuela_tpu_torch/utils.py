@@ -8,6 +8,8 @@ one-hot matmul form existed only for the TPU's matrix unit.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -181,6 +183,48 @@ def tiled_topk(nq: int, n: int, tile: int, k: int, score_tile,
     return torch.cat(out_v), torch.cat(out_i)
 
 
+class Ranks(NamedTuple):
+    """The ranks of a data-parallel run over which the rows of a
+    trainer's ``X`` are spread (`parallel` builds it from a mesh):
+    ``reduce`` sums a tensor over them (every rank gets the same bits),
+    ``gather`` lists every rank's tensor of one shape in rank order,
+    this rank is ``rank`` in that order and holds the global rows
+    ``start, start + 1, ...`` of ``n`` in all. A trainer given none
+    holds all the rows."""
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    gather: Callable[[torch.Tensor], list]
+    rank: int
+    start: int
+    n: int
+
+
+def summed(ranks: Ranks | None, t: torch.Tensor) -> torch.Tensor:
+    """``t``, a sum over this rank's rows, summed over the ranks."""
+    return t if ranks is None else ranks.reduce(t)
+
+
+def row_mean(ranks: Ranks | None, v: torch.Tensor) -> torch.Tensor:
+    """The mean of the per-row values ``v (..., rows)`` over all the
+    rows."""
+    return v.mean() if ranks is None else ranks.reduce(v.sum(-1)) / ranks.n
+
+
+def rows_at(ranks: Ranks | None, X: torch.Tensor, idx: torch.Tensor
+            ) -> torch.Tensor:
+    """The rows ``idx`` (global row ids) of the spread ``X`` on every
+    rank: each owner fills its rows of a zero tensor, and one sum over
+    the ranks assembles them."""
+    if ranks is None:
+        return X.index_select(0, idx)
+    loc = idx.to(X.device) - ranks.start
+    mine = (loc >= 0) & (loc < X.shape[0])
+    out = X.new_zeros(idx.shape[0], X.shape[1])
+    if X.shape[0]:
+        out = torch.where(mine[:, None], X.index_select(
+            0, loc.clamp(0, X.shape[0] - 1)), out)
+    return ranks.reduce(out)
+
+
 def cdiv(a: int, b: int) -> int:
     """Ceiling division."""
     return -(-a // b)
@@ -256,7 +300,8 @@ def segment_sum(X: torch.Tensor, idx: torch.Tensor, nseg: int,
     ``index_add_``/``scatter_add_`` would sum through atomics, in an
     order that changes from run to run on the card."""
     exact_f32()
-    idx = idx.long().reshape(idx.shape[0], -1)
+    idx = idx.long()
+    idx = idx[:, None] if idx.dim() == 1 else idx
     out = torch.zeros(nseg, X.shape[1], dtype=X.dtype, device=X.device)
     for s in range(0, X.shape[0], chunk):
         ic = idx[s:s + chunk]

@@ -138,13 +138,18 @@ def test_unported_facade_routes_raise(small_corr):
         tapi.index_base(tm, ds.Xb[:500], mode="lut")
     tidx = tapi.index_base(tm, ds.Xb[:500])      # the default, decoded
     assert tidx.mode == "decoded"
-    # mesh= is ported: on a one-rank mesh PQ trains replicated (the
-    # meshless model) and the search merges one rank's list
+    # mesh= is ported: on a one-rank mesh OPQ trains data-parallel (no
+    # seeding draws: the meshless model to the order of the sums) and the
+    # search merges one rank's list
     from rayuela_tpu_torch.parallel import make_mesh
     mesh = make_mesh(device="cpu")
-    tmm = tapi.train(ds.Xt[:500], method="pq", m=2, h=8, niter=1,
+    tmm = tapi.train(ds.Xt[:500], method="opq", m=2, h=8, niter=1,
                      mesh=mesh)
-    assert torch.equal(tmm.codebooks, tm.codebooks)
+    tmo = tapi.train(ds.Xt[:500], method="opq", m=2, h=8, niter=1,
+                     device="cpu")
+    assert torch.allclose(tmm.codebooks, tmo.codebooks, rtol=1e-5,
+                          atol=1e-5)
+    assert torch.allclose(tmm.R, tmo.R, atol=1e-5)
     d0, i0 = tapi.search(tidx, ds.Xq[:2], k=5)
     d1, i1 = tapi.search(tidx, ds.Xq[:2], k=5, mesh=mesh)
     assert torch.equal(i0, i1) and torch.allclose(d0, d1)

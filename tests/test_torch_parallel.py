@@ -11,8 +11,10 @@ The three spawns (the checks, the two-process bootstrap, the dry run)
 start together when the module does and run while this process computes
 the JAX package's results. They use file stores under temporary
 directories (never a fixed port), a 60 s process-group timeout and a
-120 s join timeout, so a hang fails a test instead of running the
-suite's clock out."""
+join timeout (120 s; 300 s for the checks, whose ranks also train every
+method: ~30 s alone, several times that beside the suite's other
+workers), so a hang fails a test instead of running the suite's clock
+out."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -25,9 +27,12 @@ import torch
 from rayuela_tpu.parallel import chainq_sharded as jcq
 from rayuela_tpu.parallel import lsq_sharded as jlsq
 from rayuela_tpu.parallel import mesh as jmesh
+from rayuela_tpu_torch import api
 from rayuela_tpu_torch import parallel as tpar
 from rayuela_tpu_torch.models.chainq import train_chainq
 from rayuela_tpu_torch.models.lsq import train_lsq
+from rayuela_tpu_torch.models.opq import train_opq
+from rayuela_tpu_torch.models.rvq import train_rvq
 from rayuela_tpu_torch.ops.codebook_update import (_solve_direct,
                                                    codebook_stats)
 from rayuela_tpu_torch.ops.kmeans import assign, update_centers
@@ -117,7 +122,31 @@ def _make_data():
              seg_packed=scan_codes.pack_codes(_t(B)).numpy(),
              segd_Xd=rng.standard_normal((5000, 32)).astype(np.float32),
              segd_Q=rng.standard_normal((6, 32)).astype(np.float32))
+    # the data-parallel trainers: a Lloyd step whose last 4 centres lie
+    # far from every row (their clusters empty), an OPQ step, ERVQ and
+    # CompQ from a port-trained RVQ init, the seeding's weights; the
+    # stochastic trainings take the data of the meshless comparison
+    # (`test_torch_ervq_compq.py::test_train_ervq_from_scratch_matches_jax_error`)
+    X = rng.standard_normal((401, 8)).astype(np.float32)
+    C = np.concatenate([X[rng.choice(401, 8, replace=False)],
+                        50.0 + rng.standard_normal((4, 8))]).astype(
+                            np.float32)
+    g.update(dp_lloyd_X=X, dp_lloyd_C=C,
+             dp_opq_X=rng.standard_normal((400, 16)).astype(np.float32))
+    X = _clustered(rng, 800, 12)
+    model, B, _ = train_rvq(torch.Generator().manual_seed(0), _t(X), 3, 16,
+                            niter=4)
+    g.update(dp_X=X, dp_B0=B.numpy(), dp_C0=model.codebooks.numpy(),
+             dp_w=rng.uniform(0.05, 2.0, 37).astype(np.float32),
+             dp_npicks=2400,
+             dp_st_X=_clustered(np.random.default_rng(0), 2000, 16))
     return g
+
+
+def _clustered(rng, n, d, ncenters=24):
+    cent = rng.standard_normal((ncenters, d)).astype(np.float32) * 2
+    return (cent[rng.integers(0, ncenters, n)]
+            + 0.5 * rng.standard_normal((n, d))).astype(np.float32)
 
 
 def _two_hosts_data():
@@ -141,7 +170,7 @@ def spawned(data):
     pool = ThreadPoolExecutor(3)
     futs = dict(
         checks=pool.submit(dryrun.run_ranks, worker.run_checks, WORLD,
-                           (data,), timeout=120.0, pg_timeout=60.0),
+                           (data,), timeout=300.0, pg_timeout=60.0),
         two_hosts=pool.submit(dryrun.run_ranks, worker.run_two_hosts, 2,
                               (_two_hosts_data(),), timeout=120.0),
         dryrun=pool.submit(dryrun.dryrun_multichip, 4))
@@ -202,7 +231,34 @@ def _jax_refs(data):
         jm, jax.random.PRNGKey(0), data["lsq_X"], data["lsq_B"],
         jnp.eye(12), h=8, niter=3, ilsiter=2, icmiter=2, npert=1,
         method="LSQ", chunk=256)[2]
+    _jax_train_refs(jm, a, ref)
     return jax.tree_util.tree_map(np.asarray, ref)
+
+
+def _jax_train_refs(jm, a, ref):
+    """The JAX package's k-means step and trainers on ``Xt`` sharded over
+    its ``data`` axis (GSPMD places the collectives)."""
+    from rayuela_tpu import api as japi
+    from rayuela_tpu.models import compq as jcompq
+    from rayuela_tpu.models import ervq as jervq
+    from rayuela_tpu.ops import kmeans as jkm
+
+    ref["dp_lloyd"] = jkm._lloyd_step(a["dp_lloyd_X"], a["dp_lloyd_C"])[0]
+    X = jmesh.shard_data(jm, a["dp_X"])
+    ref["dp_ervq"] = jervq.train_ervq(X, a["dp_B0"], a["dp_C0"], niter=3)
+    for update in ("sgd", "lsq"):
+        ref[f"dp_compq_{update}"] = jcompq.train_compq(
+            X, a["dp_C0"], a["dp_B0"], niter=4, H=4, chunk=512,
+            update=update)
+    st = {}
+    for method, m in worker.STOCHASTIC:
+        for seed in worker.SEEDS:
+            mdl = japi.train(a["dp_st_X"], method=method, m=m, h=16, niter=4,
+                             key=jax.random.PRNGKey(seed), mesh=jm,
+                             **({"H": 4} if method == "compq" else {}))
+            st[(method, seed)] = dict(C=mdl.codebooks, B=mdl.train_codes,
+                                      R=mdl.R)
+    ref["dp_stochastic"] = st
 
 
 @pytest.fixture(scope="module")
@@ -580,3 +636,171 @@ def test_drivers_mesh_encode_the_base_on_each_ranks_rows(ranks):
     assert sr["base_error"] <= 1.2 * ref["sr_d"]["base_error"]
     err = float(qerror(Xb, _t(sr["C"]), _t(sr["B_base"])))
     np.testing.assert_allclose(sr["base_error"], err, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training of PQ, OPQ, RVQ, ERVQ, CompQ (and the k-means,
+# the seeding, OPQ's rotation step, the facade and the drivers under it)
+# ---------------------------------------------------------------------------
+
+def _train_error(X, method, C, B, R=None):
+    """Float64 mean squared error of a trained model on ``X``."""
+    X, C = np.asarray(X, np.float64), np.asarray(C, np.float64)
+    B = np.asarray(B)
+    if method in ("pq", "opq"):
+        X = X if R is None else X @ np.asarray(R, np.float64)
+        Xh = np.concatenate([C[j][B[:, j]] for j in range(C.shape[0])], 1)
+    else:
+        Xh = sum(C[j][B[:, j]] for j in range(C.shape[0]))
+    return float(((X - Xh[:, :X.shape[1]]) ** 2).sum(1).mean())
+
+
+def test_sharded_lloyd_step_repicks_like_jax(ranks, data, jref):
+    """One Lloyd step on 4 ranks' rows (401, ragged) with 4 clusters
+    empty: the centres equal the JAX package's `_lloyd_step` to 1e-5,
+    the empty ones take the same rows, which lie on several ranks; to
+    the reduction order, the centres are the meshless step's."""
+    X, C0 = data["dp_lloyd_X"], data["dp_lloyd_C"]
+    got = ranks[0]["dp_lloyd"]
+    ref = np.asarray(jref["dp_lloyd"])
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    a, mind2 = assign(_t(X), _t(C0))
+    meshless = update_centers(_t(X), a, 12, _t(C0), costs=mind2).numpy()
+    np.testing.assert_allclose(got, meshless, rtol=1e-5, atol=1e-5)
+    empty = np.bincount(a.numpy(), minlength=12) == 0
+    assert empty.sum() == 4
+    rows = [int(np.flatnonzero((X == c).all(1))[0]) for c in got[empty]]
+    np.testing.assert_array_equal(got[empty], ref[empty])
+    owners = {r // 101 if r < 101 else 1 + (r - 101) // 100 for r in rows}
+    assert len(owners) >= 2, rows
+    _same_on_every_rank(ranks, lambda r: r["dp_lloyd"])
+
+
+def test_sharded_opq_rotation_step_matches_meshless(ranks, data):
+    """One OPQ iteration on 4 ranks against the meshless port's from the
+    same (X, C, B) (the same seed draws the same init rows): R to
+    1e-5."""
+    got = ranks[0]["dp_opq"]
+    model, _, obj = train_opq(torch.Generator().manual_seed(3),
+                              _t(data["dp_opq_X"]), 4, 8, niter=1)
+    np.testing.assert_allclose(got["R"], model.R.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got["C"], model.codebooks.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got["obj"], obj.numpy(), rtol=1e-5)
+    _same_on_every_rank(ranks, lambda r: [r["dp_opq"]["R"],
+                                          r["dp_opq"]["C"]])
+
+
+def test_train_ervq_sharded_matches_jax(ranks, data, jref):
+    """ERVQ from the same (C0, B0) on 4 ranks against the JAX package's
+    `train_ervq` on X sharded over its mesh: the error within 1e-5
+    relative, >= 99% of codes equal (the meshless tolerances)."""
+    got = ranks[0]["dp_ervq"]
+    _, jB, je = jref["dp_ervq"]
+    assert got["B"].shape == data["dp_B0"].shape
+    assert abs(got["err"] - float(je)) <= 1e-5 * float(je)
+    assert (got["B"] == np.asarray(jB)).mean() >= 0.99
+    _same_on_every_rank(ranks, lambda r: [r["dp_ervq"]["C"],
+                                          r["dp_ervq"]["B"]])
+
+
+@pytest.mark.parametrize("update", ["sgd", "lsq"])
+def test_train_compq_sharded_matches_jax(ranks, data, jref, update):
+    """CompQ from the same (C0, B0) on 4 ranks against the JAX package's
+    `train_compq` on X sharded over its mesh: ``obj`` within 1e-4
+    relative, >= 99% of codes equal."""
+    got = ranks[0][f"dp_compq_{update}"]
+    _, jB, jo = jref[f"dp_compq_{update}"]
+    np.testing.assert_allclose(got["obj"], np.asarray(jo), rtol=1e-4)
+    assert (got["B"] == np.asarray(jB)).mean() >= 0.99
+    _same_on_every_rank(ranks, lambda r: [r[f"dp_compq_{update}"]["C"],
+                                          r[f"dp_compq_{update}"]["B"]])
+
+
+@pytest.mark.parametrize("method,m", worker.STOCHASTIC)
+def test_sharded_training_error_matches_jax(ranks, data, jref, method, m):
+    """The trainers ``api.train(mesh=)`` runs, at its generator of each
+    seed (ERVQ and CompQ from the seed's RVQ, as it trains them), on 4
+    ranks against the JAX package's ``api.train(mesh=)`` on its 8
+    devices and against the port's
+    meshless ``api.train``, seeds 0-11 (threefry against Philox, and the
+    sharded seeding's sampler against `torch.multinomial`) on the data
+    of the meshless comparison with the JAX package: the mean train
+    error within 5% of each mean; every rank holds the same codebooks
+    (and R) and the global train codes."""
+    X = data["dp_st_X"]
+    kw = {"H": 4} if method == "compq" else {}
+    got = [_train_error(X, method, **ranks[0]["dp_stochastic"][(method, s)])
+           for s in worker.SEEDS]
+    ref = [_train_error(X, method, **jref["dp_stochastic"][(method, s)])
+           for s in worker.SEEDS]
+    alone = []
+    for s in worker.SEEDS:
+        mdl = api.train(X, method=method, m=m, h=16, niter=4, seed=s,
+                        device="cpu", **kw)
+        alone.append(_train_error(X, method, mdl.codebooks.numpy(),
+                                  mdl.train_codes.numpy(),
+                                  None if mdl.R is None else mdl.R.numpy()))
+    for other in (ref, alone):
+        assert abs(np.mean(got) - np.mean(other)) <= 0.05 * np.mean(other), (
+            got, ref, alone)
+    for s in worker.SEEDS:
+        assert ranks[0]["dp_stochastic"][(method, s)]["B"].shape == (2000, m)
+        _same_on_every_rank(ranks, lambda r: [
+            v for v in r["dp_stochastic"][(method, s)].values()
+            if v is not None])
+
+
+@pytest.mark.parametrize("layout", ["even", "empty rank"])
+def test_kmeanspp_spread_draws_in_proportion(ranks, data, layout):
+    """The seeding's draw over 4 ranks: 2,400 picks of 37 rows (spread
+    evenly, or as 10 / 0 / 15 / 12) follow the weights (chi-square), the
+    same rows on every rank, and a rank without rows is never picked
+    (no pick comes back empty)."""
+    from scipy.stats import chisquare
+    picks = ranks[0]["dp_picks"][layout]
+    assert picks.shape == (data["dp_npicks"],)
+    assert (picks >= 1).all() and (picks <= 37).all()
+    counts = np.bincount(picks.astype(np.int64) - 1, minlength=37)
+    w = data["dp_w"].astype(np.float64)
+    assert chisquare(counts, w / w.sum() * counts.sum()).pvalue > 1e-3
+    _same_on_every_rank(ranks, lambda r: r["dp_picks"][layout])
+
+
+def test_kmeans_sharded_with_an_empty_rank(ranks):
+    """k-means over 37 rows spread as 10 / 0 / 15 / 12: the rank without
+    rows runs every collective, and every rank ends with the same
+    centres; the assignments come back as each rank's own."""
+    sizes = (10, 0, 15, 12)
+    for r, res in enumerate(ranks):
+        assert res["dp_kmeans_empty_rank"]["a"].shape == (sizes[r],)
+    assert np.isfinite(ranks[0]["dp_kmeans_empty_rank"]["obj"])
+    _same_on_every_rank(ranks, lambda r: r["dp_kmeans_empty_rank"]["C"])
+
+
+@pytest.mark.parametrize("method", ["pq", "opq", "rvq", "ervq", "compq",
+                                    "chainq", "lsq", "sr_c", "sr_d"])
+def test_api_train_on_each_ranks_own_rows(ranks, method):
+    """``api.train(RowShard, mesh=)``: each rank passes only its rows
+    (100 / 0 / 150 / 153 of 403) and gets the same codebooks (and R) and
+    the global (403, 3) train codes."""
+    got = ranks[0]["dp_api"][method]
+    assert got["B"].shape == (403, 3) and got["B"].dtype == np.int32
+    assert (got["R"] is not None) == (method in ("opq", "chainq"))
+    assert np.isfinite(got["C"]).all()
+    _same_on_every_rank(ranks, lambda r: [
+        v for v in r["dp_api"][method].values() if v is not None])
+
+
+@pytest.mark.parametrize("name", ["pq", "opq", "rvq", "ervq", "compq"])
+def test_drivers_mesh_train_encode_and_search_on_each_ranks_rows(
+        ranks, name):
+    """The drivers' PQ, OPQ, RVQ, ERVQ and CompQ under ``mesh=`` on 4
+    ranks: the same base codes on every rank, a finite train error, and
+    recall@1 (the protocol's row) within 0.05 of the meshless run's."""
+    ref = worker.driver_runs()[name]
+    _same_on_every_rank(ranks, lambda o: o["drivers"][name]["B_base"])
+    got = ranks[0]["drivers"][name]
+    assert got["B_base"].shape == ref["B_base"].shape
+    assert np.isfinite(got["train_error"])
+    assert abs(got["recall"][0] - ref["recall"][0]) <= 0.05, (
+        got["recall"], ref["recall"])

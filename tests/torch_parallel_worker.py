@@ -10,10 +10,13 @@ import torch
 from rayuela_tpu_torch import api
 from rayuela_tpu_torch.experiments import drivers
 from rayuela_tpu_torch.experiments.datasets import make_synthetic
+from rayuela_tpu_torch.models.opq import train_opq
+from rayuela_tpu_torch.ops import kmeans as tkm
 from rayuela_tpu_torch.ops.codebook_update import codebook_stats
 from rayuela_tpu_torch.ops.qerror import reconstruct_pq
 from rayuela_tpu_torch.parallel import (global_mesh, host_local_to_global,
-                                        make_mesh, make_sr_train_step,
+                                        kmeans_sharded, make_mesh,
+                                        make_sr_train_step,
                                         pq_lloyd_step_sharded, shard_data,
                                         sharded_encoding_icm,
                                         sharded_scan_topk, sharded_search,
@@ -21,7 +24,11 @@ from rayuela_tpu_torch.parallel import (global_mesh, host_local_to_global,
                                         sharded_search_codes_decode,
                                         sharded_viterbi_encode,
                                         train_chainq_sharded,
-                                        train_lsq_family_sharded)
+                                        train_compq_sharded,
+                                        train_ervq_sharded,
+                                        train_lsq_family_sharded,
+                                        train_opq_sharded, train_pq_sharded,
+                                        train_rvq_sharded)
 from rayuela_tpu_torch.parallel import mesh as pmesh
 from rayuela_tpu_torch.search import scan, scan_codes
 
@@ -92,25 +99,144 @@ def _api_checks(mesh, data, out):
                                  tuple(lsq.train_codes.shape)))
 
 
-DRIVER_DATA = dict(d=8, ntrain=400, nbase=1003, nquery=5, ncenters=4,
+DRIVER_DATA = dict(d=8, ntrain=400, nbase=1003, nquery=200, ncenters=4,
                    seed=0, name="m", device="cpu")
 DRIVER_KW = dict(m=3, h=4, niter=2, knn=10, verbose=False)
 DRIVER_ILS = dict(ilsiter=2, icmiter=1, npert=1, chunk=256)
+# the drivers' experiments and their own keywords (CompQ's beam must not
+# be wider than h)
+DRIVER_RUNS = (("chainq", drivers.experiment_chainq, {}),
+               ("sr_d", drivers.experiment_sr, DRIVER_ILS),
+               ("pq", drivers.experiment_pq, {}),
+               ("opq", drivers.experiment_opq, {}),
+               ("rvq", drivers.experiment_rvq, {}),
+               ("ervq", drivers.experiment_ervq, {}),
+               ("compq", drivers.experiment_compq, dict(H=4)))
 
 
 def driver_runs(mesh=None) -> dict:
-    """The drivers' ChainQ and SR-D on a small base (ragged against 4
-    ranks), with or without ``mesh`` → their codes and errors."""
+    """The drivers' experiments on a small base (ragged against 4
+    ranks), with or without ``mesh`` → their codes, errors and recall
+    curves."""
     ds = make_synthetic(**DRIVER_DATA)
     out = {}
-    for name, fn, extra in (("chainq", drivers.experiment_chainq, {}),
-                            ("sr_d", drivers.experiment_sr, DRIVER_ILS)):
+    for name, fn, extra in DRIVER_RUNS:
         r = fn(torch.Generator().manual_seed(0), ds, mesh=mesh,
                **DRIVER_KW, **extra)
-        out[name] = dict(B_base=_np(r["B_base"]), C=_np(r["C"]),
+        C = r["C"] if "C" in r else r["model"].codebooks
+        out[name] = dict(B_base=_np(r["B_base"]), C=_np(C),
                          train_error=r["train_error"],
-                         base_error=r.get("base_error"))
+                         base_error=r.get("base_error"),
+                         recall=np.asarray(r["recall"]))
     return out
+
+
+# `api.train`'s keywords per method in `_train_checks`: the LSQ family's
+# ILS, CompQ's beam
+API_KW = {"lsq": dict(ilsiter=1, icmiter=1, npert=1, chunk=256),
+          "sr_c": dict(ilsiter=1, icmiter=1, npert=1, chunk=256),
+          "sr_d": dict(ilsiter=1, icmiter=1, npert=1, chunk=256),
+          "compq": dict(H=4)}
+# (method, m) of the stochastic trainings held to the JAX package
+STOCHASTIC = (("pq", 4), ("opq", 4), ("rvq", 3), ("ervq", 3), ("compq", 3))
+# one seed's error moves by ~5% here (k-means++ at h = 16): a mean over 4
+# seeds spreads by ~2.4%, two such means part by 5% about one time in
+# seven; over 12 the gate of 5% stands at ~2.5 deviations
+SEEDS = range(12)
+
+
+def _picks(mesh, X, w, n, gen):
+    """``n`` independent rows drawn by `kmeans.spread_pick` from the
+    spread ``X`` (a `RowShard`) with weights ``w`` (its rows'): n sets
+    of the same rows, one collective."""
+    ranks = pmesh._ranks(mesh, X)
+    nl = X.local.shape[0]
+    u = torch.rand(n, 2, generator=gen, dtype=torch.float64)
+    return tkm.spread_pick(u, X.local[None].expand(n, nl, -1),
+                           w[None].expand(n, nl), ranks)[:, 0]
+
+
+def _train_checks(mesh, rank, data, out):
+    """The data-parallel trainers: a Lloyd step with empty clusters, one
+    OPQ rotation step, ERVQ and CompQ from a fixed init, the seeding's
+    draws on an even and on a ragged layout with an empty rank, the
+    stochastic trainings through the facade, and every method through
+    the facade on each rank's own rows."""
+    X = _t(data["dp_lloyd_X"])
+    rows = shard_data(mesh, X)
+    ranks = pmesh._ranks(mesh, rows)
+    a, mind2 = tkm.assign(rows.local, _t(data["dp_lloyd_C"]))
+    out["dp_lloyd"] = _np(tkm.update_centers(
+        rows.local, a, 12, _t(data["dp_lloyd_C"]), costs=mind2,
+        ranks=ranks))
+    Xo = _t(data["dp_opq_X"])
+    rows = shard_data(mesh, Xo)
+    model, _, obj = train_opq(torch.Generator().manual_seed(3), rows.local,
+                              4, 8, niter=1, ranks=pmesh._ranks(mesh, rows))
+    out["dp_opq"] = dict(R=_np(model.R), C=_np(model.codebooks),
+                         obj=_np(obj))
+    Xe, B0, C0 = (_t(data[k]) for k in ("dp_X", "dp_B0", "dp_C0"))
+    model, B, err = train_ervq_sharded(mesh, Xe, B0, C0, niter=3)
+    out["dp_ervq"] = dict(C=_np(model.codebooks), B=_np(B), err=float(err))
+    for update in ("sgd", "lsq"):
+        model, B, obj = train_compq_sharded(mesh, Xe, C0, B0, niter=4, H=4,
+                                            chunk=512, update=update)
+        out[f"dp_compq_{update}"] = dict(C=_np(model.codebooks), B=_np(B),
+                                         obj=_np(obj))
+    # the seeding's draws: 37 rows (value = global row + 1) with the
+    # weights of `dp_w`, spread evenly and as (10, 0, 15, 12)
+    vals = torch.arange(1, 38, dtype=torch.float32)[:, None]
+    w = _t(data["dp_w"])
+    sizes = (10, 0, 15, 12)
+    st = sum(sizes[:rank])
+    mine = host_local_to_global(mesh, vals[st:st + sizes[rank]])
+    even = shard_data(mesh, vals)
+    out["dp_picks"] = {
+        layout: _np(_picks(mesh, X_, w[X_.start:X_.start
+                                       + X_.local.shape[0]],
+                           data["dp_npicks"],
+                           torch.Generator().manual_seed(5)))
+        for layout, X_ in (("even", even), ("empty rank", mine))}
+    Xk = host_local_to_global(mesh, _t(data["dp_lloyd_X"][:37])[
+        st:st + sizes[rank]])
+    res = kmeans_sharded(mesh, torch.Generator().manual_seed(0), Xk, 4,
+                         iters=3)
+    out["dp_kmeans_empty_rank"] = dict(C=_np(res.centers),
+                                       a=_np(res.assignments),
+                                       obj=float(res.objective))
+    # the stochastic trainings: `api.train(mesh=)`'s trainers at its
+    # generator of each seed; ERVQ and CompQ from the seed's RVQ, which
+    # is the RVQ stage `api.train` would run for them
+    Xs = _t(data["dp_st_X"])
+    st_out = {}
+
+    def keep(method, seed, model, B):
+        st_out[(method, seed)] = dict(C=_np(model.codebooks), B=_np(B),
+                                      R=_np(model.R) if hasattr(model, "R")
+                                      else None)
+    for seed in SEEDS:
+        gen = lambda: torch.Generator().manual_seed(seed)
+        keep("pq", seed, *train_pq_sharded(mesh, gen(), Xs, 4, 16, 4)[:2])
+        keep("opq", seed, *train_opq_sharded(mesh, gen(), Xs, 4, 16, 4)[:2])
+        rvq, B0, _ = train_rvq_sharded(mesh, gen(), Xs, 3, 16, 4)
+        keep("rvq", seed, rvq, B0)
+        keep("ervq", seed,
+             *train_ervq_sharded(mesh, Xs, B0, rvq.codebooks, 4)[:2])
+        keep("compq", seed, *train_compq_sharded(
+            mesh, Xs, rvq.codebooks, B0, niter=4, H=4)[:2])
+    out["dp_stochastic"] = st_out
+    # every method through the facade, each rank passing its own rows
+    Xa = _t(data["api_train_X"][:403])
+    sizes = (100, 0, 150, 153)
+    st = sum(sizes[:rank])
+    own = host_local_to_global(mesh, Xa[st:st + sizes[rank]])
+    out["dp_api"] = {}
+    for method in api.METHODS:
+        mdl = api.train(own, method=method, m=3, h=8, niter=2, mesh=mesh,
+                        **API_KW.get(method, {}))
+        out["dp_api"][method] = dict(
+            C=_np(mdl.codebooks), B=_np(mdl.train_codes),
+            R=None if mdl.R is None else _np(mdl.R))
 
 
 def _segment_checks(mesh, data, out):
@@ -228,6 +354,7 @@ def run_checks(rank: int, world: int, data: dict) -> dict:
         ilsiter=2, icmiter=2, npert=1, chunk=128))
 
     _api_checks(mesh, data, out)
+    _train_checks(mesh, rank, data, out)
     _segment_checks(mesh, data, out)
     out["drivers"] = driver_runs(mesh)
     return out
