@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of `rayuela_tpu_torch` on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phase13]
 
 Builds the CUDA kernels from ``rayuela_tpu_torch/csrc`` and runs the
-phases below; any failure exits non-zero.
+phases below; any failure exits non-zero. ``--phase13`` runs the build,
+phases 3 and 4 (whose models and queries phase 13 serves) and phase 13
+alone, and prints no kernel summary.
 
 1. Kernels against their plain PyTorch versions on the card, at
    n = 1,000,000 codes, d = 128, nq = 1024, for the RVQ layout (7
@@ -349,6 +351,45 @@ the scan-tail probe (K8 alone and the steps after it).
    meshless model of (a) (SR-D: phase 4's; CompQ: the meshless loop
    from the two ranks' RVQ model), the seconds printed. A rank that fails or exits non-zero fails the
    run.
+13. The JAX bench's scale rows (bench.py:34-55), after phase 12, each
+   base released before the next is built, 1,000 of phase 3's queries:
+   (1) the SIFT1B shape, 1e9 random PQ-8 codes on the card (phase 3's
+   codebooks, 8 GB, 120 segments of 2**23 rows), `search_codes` at
+   k = 100 (K1 → K2 → K3 a segment, K4 for a flagged segment); (2) the
+   SIFT100M shape, 1e8 codes of phase 4's SR-D-7+1 (7 random codes, the
+   norms byte the row's decode norm quantized by a norms codebook trained
+   on the base's own decodes: random codes decode to other norms than
+   the data's), decode mode at k = 1000 and 100, LUT mode at k = 100 (K5)
+   and one `api.search` at k = 1000, which must equal `search_codes`;
+   (3) those codes decoded into a bf16 decoded index (`build_index`,
+   25.6 GB), `scan.search` at k = 1000 and 100 (K8 → K2 → K3 a segment);
+   (4) 2e8 random PQ-8 codes in host memory, a numpy array and an
+   `np.memmap` over a file, `search_codes_streamed` in shards of 1e8 at
+   k = 100, and the resident search of the same rows. Each search runs
+   once with the launch counts set to 0 just before it and read just
+   after it (its repairs recorded: the flagged (query, segment) pairs K4
+   re-ran, the queries an exact scan served), then is timed (median of
+   3 calls by the host clock to a synchronize, each kernel launch
+   bracketed by CUDA events: queries/s, the wall, the kernels' sum, the
+   rest). Checks, each a failure: the answer's shape (finite dists, ids
+   in [0, n), distinct, sorted by (dist, id)); rows planted on both sides
+   of the first, second and last segment boundary and the last two rows
+   (at 1e9 the first 8 queries' exact PQ encodings, and 16 copies of the
+   first one's in lane 0 of segment 5, which must flag and come back; at
+   1e8 the first 8 queries replaced by those rows' decodes) at the head of
+   their queries' lists within one truncation step; on the first 32
+   (1e9) or 64 (1e8) queries each search against the exact scan of its
+   own keys (the plain version's scores of each segment's rows at the
+   operand type, cut to the segment's id bits, top k by (score, id),
+   merged by (dist, id)) by phase 8's set rule (>= 99.9% of ids shared,
+   every id not shared within two truncation steps of the k-th by its own
+   score), and at 1e9 also against the uncut f32 LUT oracle by the
+   two-step rule (its share printed); the 1e9 search allocating at most
+   3 GB beyond what was allocated before it; the decoded index's build
+   holding its base once (at most 1 GB beyond it); the streamed result
+   over the memmap equal to that over the array, and equal to the
+   resident search's on every query neither flagged (dists by position,
+   ids within groups of equal dist).
 
 The launch counters are set to 0 just before phase 3 and read right
 after its facade searches, and again for phase 4, for phase 4f, for
@@ -373,7 +414,8 @@ probes, K8, K2, K3, K11 and K13 in phase 11 (its
 K14 and the pair merge: in (a) set to 0 just before each mesh= call and
 read right after it, in (b) each spawned rank's counts, every one of
 these kernels on each rank; the single-device references beside them
-are counted and printed apart.
+are counted and printed apart; in phase 13 K1-K5 and K8, set to 0 just
+before each search and read just after it, summed over its searches.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
@@ -5229,6 +5271,684 @@ def phase12b(seed, card, p):
     return [r["launches"] for r in ranks], dp
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the SIFT100M / SIFT1B scale
+# ---------------------------------------------------------------------------
+
+# the JAX bench's scale rows (bench.py:34-55, :341-460): 1e9 and 1e8 codes
+# resident on the card, 2e8 codes in host memory streamed in shards of 1e8;
+# 1,000 queries each
+N13B, N13M, N13S, SHARD13, NQ13 = (1_000_000_000, 100_000_000, 200_000_000,
+                                   100_000_000, 1000)
+# queries held against the oracles at 1e9 and at each 1e8 search
+ORACLE13B, ORACLE13M = 32, 64
+# the segment of the 1e9 base whose lane 0 holds 16 copies of the first
+# query's code: the (query, segment) pair the certificate must flag
+FLAG13 = 5
+# the most a search over the 1e9 base may allocate beyond what was
+# allocated before it (bytes)
+EXTRA13 = 3_000_000_000
+# the kernels of phase 13's path and their launch entry points
+PATH13 = {"codes_decode_candidates": "K1", "cand_merge": "K2",
+          "tail_merge": "K3", "codes_decode_topk": "K4",
+          "codes_lut_candidates": "K5", "scan_candidates": "K8"}
+ENTRY13 = {"rq_codes_decode_candidates": "K1", "rq_cand_merge": "K2",
+           "rq_tail_merge": "K3", "rq_codes_decode_topk": "K4",
+           "rq_codes_lut_candidates": "K5", "rq_scan_candidates": "K8"}
+
+
+@contextlib.contextmanager
+def launch_events(events):
+    """Within the block every kernel launch of the scans (`scan.launch`,
+    which `scan_codes` imports) is bracketed by two CUDA events on the
+    launching stream, appended to ``events`` as ``(entry point, start,
+    end)``."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    real = tsp.launch
+
+    def timed_launch(name, *a, device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            start.record()
+            real(name, *a, device=device)
+            end.record()
+        events.append((name, start, end))
+    tsp.launch = tsc.launch = timed_launch
+    try:
+        yield events
+    finally:
+        tsp.launch = tsc.launch = real
+
+
+@contextlib.contextmanager
+def flags13(rec, Q):
+    """Within the block the searches' repairs are recorded in ``rec``:
+    ``"pairs"`` the flagged (query, segment) pairs decode mode's rescue
+    took (`scan_codes._rescue`), ``"flagged"`` their queries (indices
+    into ``Q``), ``"exact"`` the queries an exact scan served (the LUT
+    oracle, `exact_rescan`; matched by their rows of ``Q``) and
+    ``"exact_calls"`` those scans' calls."""
+    from rayuela_tpu_torch.search import linscan as tls
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    rescue, lut, ex = tsc._rescue, tsc._lut_scan_tiled, tls.exact_rescan
+    rec.update(pairs=0, flagged=set(), exact=set(), exact_calls=0)
+
+    def served(Qx):
+        rec["exact_calls"] += 1
+        hit = (Qx[:, None, :Q.shape[1]] == Q[None]).all(-1).nonzero()
+        rec["exact"] |= set(hit[:, 1].tolist())
+
+    def spy_rescue(Qx, Cf, nrm, index, s, i, flagged, *a, **kw):
+        rec["pairs"] += int(flagged.sum())
+        rec["flagged"] |= set(flagged.nonzero().flatten().tolist())
+        return rescue(Qx, Cf, nrm, index, s, i, flagged, *a, **kw)
+
+    def spy_lut(index, Qx, *a, **kw):
+        served(Qx)
+        return lut(index, Qx, *a, **kw)
+
+    def spy_ex(Qx, *a, **kw):
+        served(Qx)
+        return ex(Qx, *a, **kw)
+    tsc._rescue, tsc._lut_scan_tiled, tls.exact_rescan = (spy_rescue,
+                                                          spy_lut, spy_ex)
+    try:
+        yield rec
+    finally:
+        tsc._rescue, tsc._lut_scan_tiled, tls.exact_rescan = rescue, lut, ex
+
+
+def search13(tag, fn, Q, card, wrappers, zero, reps=3):
+    """One search of phase 13: ``fn() -> (dists, ids)`` over the queries
+    ``Q`` once with the launch counts set to 0 just before it and read
+    just after it (the main path's run; its repairs recorded by
+    `flags13`, its peak device memory), then ``reps`` more calls, each
+    timed by the host clock to a synchronize and by CUDA events around
+    each kernel launch → ``{"res", "launches", "flags", "peak", "before",
+    "wall", "kernel_ms", "by_kernel", "walls"}`` (the median wall and its
+    call's kernel sums)."""
+    import torch
+    rec = {}
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    with flags13(rec, Q):
+        res = fn()
+        torch.cuda.synchronize()
+    launches = {n: wrappers[n].launches for n in PATH13}
+    peak = torch.cuda.max_memory_allocated()
+    runs = []
+    for _ in range(reps):
+        events = []
+        with launch_events(events):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        by = {}
+        for name, s, e in events:
+            key = ENTRY13.get(name, name)
+            by[key] = by.get(key, 0.0) + s.elapsed_time(e)
+        runs.append((wall, by, len(events)))
+    walls = [w for w, _, _ in runs]
+    wall, by, nev = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+    kms = sum(by.values())
+    print(f"  {tag}: {Q.shape[0] / wall:,.1f} queries/s, wall "
+          f"{wall * 1e3:.1f} ms (median of "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}); "
+          f"kernels {kms:.1f} ms ({nev} launches: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in sorted(by.items()))}), "
+          f"the rest {wall * 1e3 - kms:.1f} ms; flagged (query, segment) "
+          f"pairs {rec['pairs']} of {len(rec['flagged'])} queries, "
+          f"{len(rec['exact'])} queries served by an exact scan in "
+          f"{rec['exact_calls']} calls; launches {launches}; peak "
+          f"{peak / 1e9:.3f} GB allocated ({(peak - before) / 1e9:.3f} "
+          f"beyond the {before / 1e9:.3f} before the call); {card}")
+    return {"res": res, "launches": launches, "flags": rec, "peak": peak,
+            "before": before, "wall": wall, "kernel_ms": kms,
+            "by_kernel": by, "walls": walls}
+
+
+def op13():
+    """The operand type of the codes searches on ``DEV`` (bfloat16 on
+    the card, float32 on the CPU), which their oracles score with."""
+    import torch
+    return torch.bfloat16 if torch.device(DEV).type == "cuda" \
+        else torch.float32
+
+
+def oracle13(n, seg, k, q2, scores_of, views):
+    """The exact top-k of the kernels' own keys over ``n`` rows in
+    segments of ``seg``: per segment the plain version's scores of its
+    rows (``scores_of(start, stop) -> (stop - start, nq)`` f32), for each
+    view ``(first column, last column, tile)`` its columns cut as the
+    segment's packed keys cut them (the id bits of its rows padded to
+    ``tile``; ``tile=0``: uncut, the exact f32 order), the segment's top k
+    by (score, row id), then ``+ q2`` and the merge by (dist, id), as the
+    search merges its segments → a ``(dists (nq, k), ids (nq, k) int32)``
+    a view. No kernel runs: library calls on the card."""
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.utils import sortable_key, topk_lowest_id
+    best = [None] * len(views)
+    for st in range(0, n, seg):
+        stop = min(st + seg, n)
+        S = scores_of(st, stop).T
+        for v, (a, b, tile) in enumerate(views):
+            sv = S[a:b].contiguous()
+            if tile:
+                bits = tsp._pack_idbits(-(-(stop - st) // tile) * tile)
+                sv = tsp._unsortable_key(sortable_key(sv) & -(1 << bits))
+            vals, ids = topk_lowest_id(sv, min(k, stop - st))
+            best[v] = tsp.merge_topk(best[v], (vals + q2, ids.int() + st),
+                                     k)
+        del S, sv
+    return best
+
+
+def hold13(tag, got, ref, q2, step, scores, exact):
+    """A search's ``(dists, ids)`` on the oracle's queries against the
+    oracle's, by phase 8's set rule: >= 99.9% of ids shared and every id
+    one list holds and the other not within two truncation steps
+    (``step``, relative) of the oracle's k-th raw score by its own score
+    (``scores(q, ids)`` in f64, `unshared`). The share counts the queries
+    no exact scan served (``exact``: indices), whose lists hold uncut
+    scores; the two-step rule holds every query."""
+    import torch
+    (gd, gi), (rd, ri) = got, ref
+    gi, ri = gi.long(), ri.long()
+    kth = rd[:, -1] - q2[:, 0]
+    tol = 2 * step * kth.abs() + 1e-5 * q2[:, 0]
+    _, ok = unshared(gi, ri, kth, scores, tol)
+    keep = torch.tensor([q not in exact for q in range(gi.shape[0])],
+                        device=gi.device)
+    hits = shared_ids(gi[keep], ri[keep]) if bool(keep.any()) else 1.0
+    same = float((gi[keep] == ri[keep]).float().mean())
+    dsame = float((gd[keep] == rd[keep]).float().mean())
+    print(f"    {tag}: {gi.shape[0]} queries ({int((~keep).sum())} served "
+          f"by an exact scan): ids shared {hits:.6f}, equal by position "
+          f"{same:.6f}, dists equal by position {dsame:.6f} (nan: every "
+          f"query served so); every id not shared within two steps of the "
+          f"k-th: {ok}")
+    check(hits >= 0.999, f"{tag}: only {hits:.6f} of ids shared")
+    check(ok, f"{tag}: an id not shared lies off the boundary")
+    return hits
+
+
+def shape13(tag, res, nq, k, n):
+    """The answer's shape: finite dists ``(nq, k)``, ids in [0, n),
+    distinct in each row, sorted by (dist, id)."""
+    import torch
+    d, i = res
+    check(d.shape == i.shape == (nq, k), f"{tag}: shape {tuple(d.shape)}")
+    check(bool(torch.isfinite(d).all()), f"{tag}: non-finite dists")
+    check(bool(((i >= 0) & (i < n)).all()), f"{tag}: ids out of range")
+    srt = i.sort(1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()), f"{tag}: an id twice")
+    up = d[:, 1:] - d[:, :-1]
+    check(bool((up >= 0).all()) and bool((i[:, 1:][up == 0]
+                                          > i[:, :-1][up == 0]).all()),
+          f"{tag}: not sorted by (dist, id)")
+
+
+def planted13(tag, res, planted, q2, step):
+    """Each planted row ``(row, query)`` in its query's top k, its dist
+    within one truncation step of the query's first."""
+    d, i = res
+    for p, j in planted:
+        at = (i[j] == p).nonzero().flatten()
+        check(at.numel() == 1, f"{tag}: planted row {p} missing from query "
+              f"{j}'s top k")
+        raw0 = float(d[j, 0] - q2[j, 0])
+        gap = float(d[j, at[0]] - d[j, 0])
+        check(gap <= step * abs(raw0) + 1e-5 * float(q2[j, 0]),
+              f"{tag}: planted row {p} lies {gap:.3g} behind query {j}'s "
+              f"first")
+    print(f"    {tag}: the {len(planted)} planted rows at the head of their "
+          f"queries' lists (rows {sorted({p for p, _ in planted})[:8]}...)")
+
+
+def boundary_rows13(n, seg):
+    """Rows on both sides of the first, second and last segment boundary
+    and the last two rows."""
+    s = n // seg
+    return [seg - 1, seg, 2 * seg - 1, 2 * seg, s * seg - 1, s * seg,
+            n - 2, n - 1]
+
+
+def random_codes13(n, words, gen):
+    """``(n, words)`` int32 of uniform random bytes on the card, filled a
+    chunk at a time into one buffer (at h = 256 a uniform byte is a
+    uniform code): the base's bytes and no more."""
+    import torch
+    buf = torch.empty(n * words * 4, dtype=torch.uint8, device=DEV)
+    step = 1 << 30
+    for a in range(0, buf.numel(), step):
+        buf[a:a + step].random_(0, 256, generator=gen)
+    return buf.view(torch.int32).view(n, words)
+
+
+def pair_decode13(Qm, Cf, nrm, packed, m, has_norms):
+    """``(q, ids) -> `` the decode scan's own scores of single (query,
+    row) pairs in f64 (the plain version's decode, `_decode_x2`)."""
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    def scores(q, ids):
+        X, x2 = tsc._decode_x2(Cf, nrm, packed[ids.long()], m, has_norms)
+        return (X.double() * Qm[q].double()).sum(-1) + x2.double()
+    return scores
+
+
+def pair_lut13(T, packed, mprime):
+    """``(q, ids) ->`` the table sums of single (query, row) pairs in
+    f64 over the tables ``T (m', h, nq)``."""
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    def scores(q, ids):
+        codes = tsc.unpack_codes(packed[ids.long()], mprime).long()
+        return sum(T[j, codes[:, j], q].double() for j in range(mprime))
+    return scores
+
+
+def phase13_1b(seed, card, pq_index, Xq, wrappers, zero):
+    """Step 1: the SIFT1B shape, 1e9 PQ-8 codes resident on the card."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.utils import exact_f32
+
+    seg = tsc._DECODE_SEG
+    C, k = pq_index.C, 100
+    print(f"== phase 13 (1): SIFT1B shape, {N13B:,} PQ-8 codes resident "
+          f"({N13B * 8 / 1e9:.1f} GB), {-(-N13B // seg)} segments, "
+          f"{NQ13} queries, k={k} ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    packed = random_codes13(N13B, 2, gen)
+    Q = Xq[:NQ13].contiguous()
+    # the first 8 queries' exact PQ encodings on both sides of segment
+    # boundaries, and 16 copies of the first one's in lane 0 of a segment
+    sub = Q[:8].reshape(8, 8, -1)
+    d2 = ((sub[:, :, None, :] - C[None]) ** 2).sum(-1)        # (8, m, h)
+    rows = tsc.pack_codes(d2.argmin(-1).to(torch.int32))
+    planted = list(zip(boundary_rows13(N13B, seg), range(8)))
+    copies = [FLAG13 * seg + t * 128 for t in range(16)]
+    packed[torch.tensor([p for p, _ in planted], device=DEV)] = rows
+    packed[torch.tensor(copies, device=DEV)] = rows[0]
+    planted += [(p, 0) for p in copies]
+    index = tsc.CodesIndex(packed, 8, C, pq=True, d=D, norms_cbook=None)
+    torch.cuda.synchronize()
+    print(f"  base built and planted in {time.perf_counter() - t0:.1f} s")
+    rec = search13("decode k=100", lambda: tsc.search_codes(index, Q, k), Q,
+                   card, wrappers, zero)
+    extra = rec["peak"] - rec["before"]
+    check(extra <= EXTRA13, f"1e9 search allocated {extra / 1e9:.3f} GB "
+          f"beyond the base ({EXTRA13 / 1e9:.0f} at most)")
+    check(all(rec["launches"][n] for n in (
+        "codes_decode_candidates", "cand_merge", "tail_merge",
+        "codes_decode_topk")), f"1e9: a kernel of the path never launched: "
+        f"{rec['launches']}")
+    check(0 in rec["flags"]["flagged"], "1e9: the 16 copies in one lane "
+          "did not flag their query")
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    nseg = -(-N13B // seg)
+    k1 = rec["by_kernel"].get("K1", 0.0)
+    print(f"    K1 per segment ({seg:,} rows x {NQ13} queries): "
+          f"{k1 / nseg:.2f} ms over {nseg} segments, "
+          f"{k1 / nseg * 1e10 / (seg * NQ13):.2f} ms per 1e10 "
+          f"row-queries")
+    step = 2.0 ** (tsp._pack_idbits(seg) - 23)
+    dists, ids = rec["res"]
+    shape13("1e9", rec["res"], NQ13, k, N13B)
+    planted13("1e9", rec["res"], planted, q2, step)
+    # the oracle: the kernels' own scores (bf16 -2q and codebooks; a PQ
+    # row is its codewords side by side, so its score is a sum of
+    # tables), then the uncut f32 tables
+    t0 = time.perf_counter()
+    exact_f32()
+    nq = ORACLE13B
+    Cf, nrm = index.decode_operands(D, op13())
+    Qm = tsp._query_operand(Q[:nq], Cf.shape[1], Cf.dtype).float()
+    Cb = Cf.float()
+    own = (Cb @ Qm.T + (Cb * Cb).sum(1, keepdim=True)).reshape(8, -1, nq)
+    T32 = tsc.build_luts(C, Q[:nq], pq=True, d=D)
+    both = torch.cat([own, T32], 2)           # one pass for both oracles
+    ref, ref32 = oracle13(N13B, seg, k, q2[:nq], lambda a, b:
+                          tsc._lut_scores_fn(both, packed[a:b], b - a)(
+                              0, 0, 2 * nq),
+                          [(0, nq, tsc._TILE), (nq, 2 * nq, 0)])
+    got = (dists[:nq], ids[:nq])
+    flags = rec["flags"]
+    hold13("1e9 vs the exact scan of its own keys", got, ref, q2[:nq], step,
+           pair_decode13(Qm, Cf, nrm, packed, 8, False), flags["exact"])
+    hits = shared_ids(ids[:nq], ref32[1])
+    kth = ref32[0][:, -1] - q2[:nq, 0]
+    _, ok = unshared(ids[:nq].long(), ref32[1].long(), kth,
+                     pair_lut13(T32, packed, 8),
+                     2 * step * kth.abs() + 1e-5 * q2[:nq, 0])
+    print(f"    1e9 vs the exact f32 LUT oracle (uncut f32 tables): ids "
+          f"shared {hits:.6f} (ties within a step of 2**-7 of the score "
+          f"break by row id in the keys, by score here); every id not "
+          f"shared within two steps of the k-th: {ok} (oracles "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(ok, "1e9: an id not shared with the f32 LUT oracle lies off the "
+          "boundary")
+    rec["res"] = None
+    return rec
+
+
+def phase13_100m(seed, card, srd_index, Xq, wrappers, zero):
+    """Step 2: the SIFT100M shape, 1e8 SR-D-7+1 codes (the main path's
+    index form) → the searches and the codes for step 3."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.ops.qerror import reconstruct
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.norms import (get_norms_codebook,
+                                                quantize_norms)
+    from rayuela_tpu_torch.utils import exact_f32
+
+    seg = tsc._DECODE_SEG
+    C = srd_index.scan_index.C
+    print(f"== phase 13 (2): SIFT100M shape, {N13M:,} SR-D-7+1 codes "
+          f"resident ({N13M * 8 / 1e9:.1f} GB), {-(-N13M // seg)} segments, "
+          f"{NQ13} queries ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 1)
+    packed = random_codes13(N13M, 2, gen)
+    # 7 random codes a row. Random codes decode to other norms than the
+    # data's (the codebooks' cross terms no longer cancel), so the norms
+    # codebook is trained as `index_base` trains one, on the decodes of
+    # the codes it serves (2**20 of the rows); each row's last byte is
+    # its decode's quantized norm
+    exact_f32()
+    sample = tsc.unpack_codes(packed[:1 << 20], 7)
+    _, ncb = get_norms_codebook(gen, C, sample, h=256)
+    own = (reconstruct(C, sample) ** 2).sum(-1)
+    ncb4 = srd_index.scan_index.norms_cbook
+    qs = own.quantile(torch.tensor([0, .25, .5, .75, 1], device=DEV))
+    print(f"  decode norms of the random rows: quartiles "
+          f"{[round(float(x), 1) for x in qs]}; "
+          f"phase 4's norms codebook (the data's) spans "
+          f"[{float(ncb4.min()):.1f}, {float(ncb4.max()):.1f}], the base's "
+          f"own [{float(ncb.min()):.1f}, {float(ncb.max()):.1f}]")
+    del sample, own
+    for a in range(0, N13M, 1 << 21):
+        w = packed[a:a + (1 << 21)]
+        nco, _ = quantize_norms(C, tsc.unpack_codes(w, 7), ncb)
+        hi = (w[:, 1].long() & 0xFFFFFF) | (nco.long() << 24)
+        w[:, 1] = torch.where(hi >= 1 << 31, hi - (1 << 32), hi).to(
+            torch.int32)
+    planted = list(zip(boundary_rows13(N13M, seg), range(8)))
+    prow = torch.tensor([p for p, _ in planted], device=DEV)
+    Q = Xq[:NQ13].clone()
+    # the first 8 queries: the decodes of 8 rows beside segment boundaries
+    Q[:8] = reconstruct(C, tsc.unpack_codes(packed[prow], 7))
+    index = tsc.CodesIndex(packed, 8, C, pq=False, d=D, norms_cbook=ncb)
+    torch.cuda.synchronize()
+    print(f"  base built (norms bytes from the decodes) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    out = {}
+    for tag, k, kw in (("decode k=1000", 1000, {}),
+                       ("decode k=100", 100, {}),
+                       ("lut k=100", 100, {"mode": "lut"})):
+        rec = search13(tag, lambda: tsc.search_codes(index, Q, k, **kw), Q,
+                       card, wrappers, zero)
+        want = ("codes_lut_candidates",) if kw else (
+            "codes_decode_candidates",)
+        check(all(rec["launches"][n] for n in want + ("cand_merge",
+                                                      "tail_merge")),
+              f"1e8 {tag}: a kernel of the path never launched: "
+              f"{rec['launches']}")
+        shape13(f"1e8 {tag}", rec["res"], NQ13, k, N13M)
+        step = 2.0 ** (tsp._pack_idbits(seg) - 23)
+        planted13(f"1e8 {tag}", rec["res"], planted, q2, step)
+        out[tag] = rec
+    # one `api.search` on the same index: the facade's route to the same
+    # result (the 1e8 rows' codes stay packed in the scan index alone; the
+    # search reads the model and the scan index)
+    zero()
+    big = rq.MCQIndex(srd_index.model, None, index, ncb, None, mode="codes")
+    fd, fi = rq.search(big, Q, k=1000)
+    torch.cuda.synchronize()
+    fl = {n: wrappers[n].launches for n in PATH13}
+    print(f"  api.search k=1000: launches {fl}")
+    check(fl["codes_decode_candidates"] > 0, "api.search never launched K1")
+    d0, i0 = out["decode k=1000"]["res"]
+    check(torch.equal(fd, d0) and torch.equal(fi, i0),
+          "api.search != search_codes at k=1000")
+    out["api"] = {"launches": fl}
+    # the oracles on the first queries: the exact scan of each search's
+    # own keys, one segment at a time
+    t0 = time.perf_counter()
+    nq = ORACLE13M
+    Cf, nrm = index.decode_operands(D, op13())
+    Qm = tsp._query_operand(Q[:nq], Cf.shape[1], Cf.dtype)
+
+    def decode_scores(a, b):
+        X, x2 = tsc._decode_x2(Cf, nrm, packed[a:b], 7, True)
+        return X @ Qm.float().T + x2[:, None]
+    ref = oracle13(N13M, seg, 1000, q2[:nq], decode_scores,
+                   [(0, nq, tsc._TILE)])[0]
+    pair = pair_decode13(Qm, Cf, nrm, packed, 7, True)
+    step = 2.0 ** (tsp._pack_idbits(seg) - 23)
+    for tag, k in (("decode k=1000", 1000), ("decode k=100", 100)):
+        dists, ids = out[tag]["res"]
+        # the first k of the merged top-1000 are the merged top-k
+        hold13(f"1e8 {tag} vs the exact scan of its own keys",
+               (dists[:nq], ids[:nq]), (ref[0][:, :k], ref[1][:, :k]),
+               q2[:nq], step, pair, out[tag]["flags"]["exact"])
+    T = tsc.build_luts(C, Q[:nq], norms_cbook=ncb).to(op13())
+    ref = oracle13(N13M, seg, 100, q2[:nq], lambda a, b:
+                   tsc._lut_scores_fn(T, packed[a:b], b - a)(0, 0, nq),
+                   [(0, nq, tsc._TILE)])[0]
+    dists, ids = out["lut k=100"]["res"]
+    hold13("1e8 lut k=100 vs the exact scan of its own keys",
+           (dists[:nq], ids[:nq]), ref, q2[:nq], step,
+           pair_lut13(T, packed, 8), out["lut k=100"]["flags"]["exact"])
+    print(f"    (oracles {time.perf_counter() - t0:.1f} s)")
+    for rec in out.values():
+        rec.pop("res", None)
+    return out, index, Q, planted
+
+
+def phase13_decoded(card, srd_index, index, Q, planted, wrappers, zero):
+    """Step 3: step 2's codes decoded into a bf16 decoded index (the
+    base's single copy: `decode_base` fills one buffer)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    seg = tsp._SEG_DECODED
+    C, ncb, n = index.C, index.norms_cbook, index.n
+    print(f"== phase 13 (3): step 2's {n:,} codes decoded to a bf16 decoded "
+          f"index ({n * D * 2 / 1e9:.1f} GB), {-(-n // seg)} segments "
+          f"({card})")
+    t0 = time.perf_counter()
+    B = torch.empty((n, 7), dtype=torch.int32, device=DEV)
+    nt = torch.empty(n, dtype=torch.float32, device=DEV)
+    for a in range(0, n, 1 << 22):
+        codes = tsc.unpack_codes(index.packed[a:a + (1 << 22)], 8)
+        B[a:a + (1 << 22)] = codes[:, :7]
+        nt[a:a + (1 << 22)] = ncb[codes[:, 7].long()]
+    del codes
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dindex = tsp.build_index(C, B, pq=False, d=D, norm_term=nt,
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    del B, nt
+    xb = dindex.Xd.numel() * dindex.Xd.element_size()
+    print(f"  build_index: {time.perf_counter() - t0:.1f} s, "
+          f"{extra / 1e9:.3f} GB allocated at its peak for a "
+          f"{xb / 1e9:.3f} GB base")
+    # one copy of the base and a decode chunk's temporaries
+    check(extra <= xb + 1e9, f"build_index held {extra / 1e9:.3f} GB for a "
+          f"{xb / 1e9:.3f} GB base")
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    step = 2.0 ** (tsp._pack_idbits(seg) - 23)
+    out = {}
+    for k in (1000, 100):
+        tag = f"decoded k={k}"
+        rec = search13(tag, lambda: tsp.search(dindex, Q, k), Q, card,
+                       wrappers, zero)
+        check(all(rec["launches"][n] for n in ("scan_candidates",
+                                               "cand_merge", "tail_merge")),
+              f"1e8 {tag}: a kernel of the path never launched: "
+              f"{rec['launches']}")
+        shape13(f"1e8 {tag}", rec["res"], NQ13, k, n)
+        planted13(f"1e8 {tag}", rec["res"], planted, q2, step)
+        out[tag] = rec
+    t0 = time.perf_counter()
+    nq = ORACLE13M
+    Xd, x2 = dindex.Xd, dindex.x2
+    Qm = tsp._query_operand(Q[:nq], Xd.shape[1], Xd.dtype)
+    ref = oracle13(n, seg, 1000, q2[:nq], lambda a, b:
+                   tsp._decoded_scores_fn(Qm, Xd[a:b], x2[a:b], b - a)(
+                       0, 0, nq), [(0, nq, tsp._TILE)])[0]
+    for k in (1000, 100):
+        tag = f"decoded k={k}"
+        dists, ids = out[tag].pop("res")
+        hold13(f"1e8 {tag} vs the exact scan of its own keys",
+               (dists[:nq], ids[:nq]), (ref[0][:, :k], ref[1][:, :k]),
+               q2[:nq], step, row_scores(Qm, Xd, x2),
+               out[tag]["flags"]["exact"])
+    print(f"    (oracle {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def merged_equal13(tag, got, ref, skip):
+    """Two searches of the same rows in other segments and shards: on
+    every query neither flagged (``skip``) the dists equal by position
+    and the ids equal as sets within every group of equal dist but the
+    one at position k (merges by (dist, id) where f32 rounding of
+    ``+ |q|^2`` can tie dists whose raw scores differ)."""
+    import torch
+    (gd, gi), (rd, ri) = got, ref
+    keep = [q for q in range(gd.shape[0]) if q not in skip]
+    gd, gi, rd, ri = (t[keep].cpu() for t in (gd, gi, rd, ri))
+    check(torch.equal(gd, rd), f"{tag}: dists differ on an unflagged query")
+    for q in range(gd.shape[0]):
+        inner = rd[q] != rd[q, -1]
+        check(sorted(gi[q, inner].tolist()) == sorted(ri[q, inner].tolist()),
+              f"{tag}: ids differ on an unflagged query")
+    same = float((gi == ri).float().mean())
+    print(f"    {tag}: {len(keep)} unflagged queries, dists equal, ids "
+          f"equal by position {same:.6f}")
+
+
+def phase13_streamed(seed, card, pq_index, Xq, wrappers, zero):
+    """Step 4: 2e8 PQ-8 codes in host memory, a numpy array and an
+    `np.memmap` over a file, searched in shards of 1e8 rows (each shard
+    itself segmented), against the resident search of the same rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rayuela_tpu_torch.search import scan_codes as tsc
+
+    C, k = pq_index.C, 100
+    Q = Xq[:NQ13].contiguous()
+    print(f"== phase 13 (4): {N13S:,} PQ-8 codes in host memory "
+          f"({N13S * 8 / 1e9:.1f} GB), shards of {SHARD13:,} rows, {NQ13} "
+          f"queries, k={k} ({card})")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 2)
+    host = random_codes13(N13S, 2, gen).cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="rq13_")
+    try:
+        path = os.path.join(tmp, "codes.i32")
+        mm = np.memmap(path, dtype=np.int32, mode="w+", shape=host.shape)
+        mm[:] = host
+        mm.flush()
+        del mm
+        mm = np.memmap(path, dtype=np.int32, mode="r", shape=host.shape)
+        print(f"  codes made and written to a file in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def streamed(B):
+            return lambda: tsc.search_codes_streamed(
+                C, B, Q, k, pq=True, d=D, mprime=8, shard_n=SHARD13)
+        out = {"numpy": search13("streamed, numpy", streamed(host), Q,
+                                 card, wrappers, zero)}
+        # the file was just written: its pages are in the host's cache
+        out["memmap"] = search13("streamed, np.memmap (a warm read)",
+                                 streamed(mm), Q, card, wrappers, zero,
+                                 reps=1)
+        del mm
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for form, rec in out.items():
+        check(all(rec["launches"][n] for n in ("codes_decode_candidates",
+                                               "cand_merge", "tail_merge")),
+              f"streamed {form}: a kernel of the path never launched: "
+              f"{rec['launches']}")
+        shape13(f"streamed {form}", rec["res"], NQ13, k, N13S)
+    check(all(torch.equal(a, b) for a, b in zip(out["numpy"]["res"],
+                                                out["memmap"]["res"])),
+          "the streamed search over the np.memmap != over the array")
+    index = tsc.CodesIndex(torch.from_numpy(host).to(DEV), 8, C, pq=True,
+                           d=D, norms_cbook=None)
+    del host
+    res = search13("resident 2e8", lambda: tsc.search_codes(index, Q, k), Q,
+                   card, wrappers, zero, reps=1)
+    skip = set()
+    for rec in (out["numpy"], res):
+        skip |= rec["flags"]["flagged"] | rec["flags"]["exact"]
+    merged_equal13("streamed vs resident", out["numpy"]["res"], res["res"],
+                   skip)
+    out["resident"] = res
+    for rec in out.values():
+        rec.pop("res", None)
+    return out
+
+
+def phase13(seed, card, p13, wrappers, zero):
+    """Phase 13: the serving path at the JAX bench's scale rows. Each
+    base is released before the next is built → the records of each
+    search and the launches of the phase's path, summed over its runs."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"1e9": phase13_1b(seed, card, p13["pq"].scan_index, p13["Xq"],
+                             wrappers, zero)}
+    torch.cuda.empty_cache()
+    out["1e8"], index, Q, planted = phase13_100m(
+        seed, card, p13["srd"], p13["Xq"], wrappers, zero)
+    out["decoded"] = phase13_decoded(card, p13["srd"], index, Q, planted,
+                                     wrappers, zero)
+    del index
+    torch.cuda.empty_cache()
+    out["streamed"] = phase13_streamed(seed, card, p13["pq"].scan_index,
+                                       p13["Xq"], wrappers, zero)
+    torch.cuda.empty_cache()
+    recs = [out["1e9"], *out["1e8"].values(), *out["decoded"].values(),
+            *out["streamed"].values()]
+    out["launches"] = {n: sum(r["launches"][n] for r in recs)
+                       for n in PATH13}
+    print(f"phase-13 launches of its path (each search's counts set to 0 "
+          f"just before it and read just after it, summed): "
+          f"{ {PATH13[n]: c for n, c in out['launches'].items()} }; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(out["launches"].values()), "a kernel of phase 13's path never "
+          "launched")
+    return out
+
+
 def probes(errs):
     """The counterparts of the JAX package's two probes, at its sizes:
     `rayuela_tpu_torch.demos.fusion_probe` and `.profile_scan_tail`."""
@@ -5270,6 +5990,9 @@ def ptxas_summary(log):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase13", action="store_true",
+                    help="the build, phases 3 and 4 (whose models and "
+                    "queries phase 13 serves) and phase 13 alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5383,17 +6106,19 @@ def main() -> int:
             w.launches_f32 = 0
 
     try:
-        run("phase 1", phase1, rng, errs)
-        run("phase 1c", phase1c, rng, errs)
-        run("phase 1d", phase1d, rng, errs)
-        times = run("kernel times", kernel_times, rng, errs)
-        run("phase 1b", phase1b, rng, errs)
-        times.update(run("encode kernel times", encode_kernel_times, rng,
-                         errs))
-        run("phase 1e", phase1e, rng, errs)
-        run("phase 1f", phase1f, rng, errs)
-        times.update(run("K14 and K12 times", onepass_ils_times, rng, errs))
-        run("phase 2", phase2, rng)
+        if not args.phase13:
+            run("phase 1", phase1, rng, errs)
+            run("phase 1c", phase1c, rng, errs)
+            run("phase 1d", phase1d, rng, errs)
+            times = run("kernel times", kernel_times, rng, errs)
+            run("phase 1b", phase1b, rng, errs)
+            times.update(run("encode kernel times", encode_kernel_times,
+                             rng, errs))
+            run("phase 1e", phase1e, rng, errs)
+            run("phase 1f", phase1f, rng, errs)
+            times.update(run("K14 and K12 times", onepass_ils_times, rng,
+                             errs))
+            run("phase 2", phase2, rng)
         zero()
         served, Xq, ds = run("phase 3", phase3, args.seed, smi)
         launches = {n: w.launches for n, w in search_wrappers.items()}
@@ -5407,6 +6132,19 @@ def main() -> int:
         print(f"phase-4 launches: {launches4}")
         check(all(launches4.values()), "a kernel of the path never launched "
               "in phase 4")
+        # what phase 13 serves: phase 3's PQ-8 and phase 4's SR-D-7+1
+        # indexes (their codebooks) and phase 3's queries
+        p13 = {"pq": served["pq"], "srd": served["sr_d"], "Xq": Xq}
+        if args.phase13:
+            zero()
+            run("phase 13", phase13, args.seed, smi, p13, wrappers, zero)
+            print(f"chip_smoke: phases 3, 4 and 13 passed in "
+                  f"{time.perf_counter() - t_start:.1f} s, the build "
+                  f"included")
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": name,
+                "count": torch.cuda.device_count()}}))
+            return 0
         run("base encode check", base_encode_check, rng, errs,
             served["sr_d"].model, Xb)
         run("C5 check", c5_check, ds, Xq)
@@ -5630,6 +6368,10 @@ def main() -> int:
               "a rank of phase 12 (b) never launched a kernel of its path")
         del res12a
         del p12
+        torch.cuda.empty_cache()
+        zero()
+        run("phase 13", phase13, args.seed, smi, p13, wrappers, zero)
+        del p13
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1154,19 +1154,20 @@ def decode_base(C: torch.Tensor, B: torch.Tensor, *, pq: bool = False,
     ``norm_term`` overrides the exact ``|x_hat|^2`` (quantized norms of
     the additive models, codebook norms of CQ)."""
     from rayuela_tpu_torch.ops.qerror import reconstruct, reconstruct_pq
-    Xs, x2s = [], []
-    for s in range(0, B.shape[0], chunk):
+    n = B.shape[0]
+    width = (C.shape[0] * C.shape[2] if d is None else d) if pq \
+        else C.shape[2]
+    # each chunk goes straight into its rows: the base is held once
+    Xd = torch.empty(n, width, dtype=dtype, device=C.device)
+    x2 = (torch.empty(n, dtype=torch.float32, device=C.device)
+          if norm_term is None else norm_term.to(torch.float32).reshape(-1))
+    for s in range(0, n, chunk):
         Bc = B[s:s + chunk]
         Xc = reconstruct_pq(C, Bc, d) if pq else reconstruct(C, Bc)
-        Xs.append(Xc.to(dtype))
-        x2s.append((Xc * Xc).sum(-1))
-    if not Xs:
-        width = d if pq and d is not None else C.shape[2]
-        return (torch.zeros(0, width, dtype=dtype, device=C.device),
-                torch.zeros(0, dtype=torch.float32, device=C.device))
-    x2 = torch.cat(x2s) if norm_term is None else \
-        norm_term.to(torch.float32).reshape(-1)
-    return torch.cat(Xs), x2
+        Xd[s:s + chunk] = Xc
+        if norm_term is None:
+            x2[s:s + chunk] = (Xc * Xc).sum(-1)
+    return Xd, x2
 
 
 class LinscanIndex:
@@ -1176,8 +1177,10 @@ class LinscanIndex:
 
     def __init__(self, Xd: torch.Tensor, x2: torch.Tensor):
         self.n, self.d = Xd.shape
-        self.Xd = torch.nn.functional.pad(
-            Xd, (0, cdiv(self.d, 8) * 8 - self.d)).contiguous()
+        pad = cdiv(self.d, 8) * 8 - self.d
+        # `pad` copies even when it adds nothing: keep the caller's rows
+        self.Xd = (torch.nn.functional.pad(Xd, (0, pad)) if pad
+                   else Xd).contiguous()
         self.x2 = x2.to(torch.float32).contiguous()
 
 

@@ -1005,20 +1005,22 @@ def _rescue(Q, Cf, nrm, index: CodesIndex, s, i, flagged, k: int, d: int,
 
 def _search_segments(index: CodesIndex, Q, k: int, **kw):
     """A base beyond the packed row-id range: `search_codes` per
-    `_DECODE_SEG`-row segment (each certified and rescued on its own)
-    with an exact merge on the device."""
-    best = None
-    for st in range(0, index.n, _DECODE_SEG):
+    `_DECODE_SEG`-row segment with an exact merge on the device
+    (`scan.segments_topk`). Each segment's call certifies and rescues its
+    own queries, so it hands the loop no flag."""
+    none = torch.zeros(Q.shape[0], dtype=torch.bool, device=Q.device)
+
+    def scan_one(st, stop, kseg):
         sub = index._segments.get(st)
         if sub is None:
-            sub = CodesIndex(index.packed[st:st + _DECODE_SEG],
-                             index.mprime, index.C, pq=index.pq, d=index.d,
+            sub = CodesIndex(index.packed[st:stop], index.mprime, index.C,
+                             pq=index.pq, d=index.d,
                              norms_cbook=index.norms_cbook)
             sub._decode_ops = index._decode_ops     # one operand cache
             index._segments[st] = sub
-        s, i = search_codes(sub, Q, min(k, sub.n), **kw)
-        best = scan.merge_topk(best, (s, i + st), k)
-    return best
+        return (*search_codes(sub, Q, kseg, **kw), none)
+
+    return scan.segments_topk(index.n, _DECODE_SEG, k, scan_one)[:2]
 
 
 def search_codes(index: CodesIndex, Q, k: int, *,

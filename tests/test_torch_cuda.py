@@ -2259,3 +2259,69 @@ def test_world_of_one_over_nccl_searches_as_the_single_device(nccl_mesh,
         ref = tsp.search_flagged(ix.Xd, ix.x2, Qt, k, pack=pack)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["decode", "lut"])
+def test_segmented_codes_search_on_the_card_equals_the_plain_versions(
+        dev, monkeypatch, mode):
+    """A base of 5 segments (`scan_codes._DECODE_SEG` shrunk to 2**16
+    rows: 4 full and a ragged one of 30,000), SR-D's layout (7 codes +
+    the norms byte) on integer data, bf16 operands: the search on the
+    card (K1 or K5 → K2 → K3 per segment, K4 for a flagged segment)
+    equals the same search on the CPU through the plain versions, at
+    the k = 100 and 1000 plans. 16 copies of one code in lane 0 of the
+    third segment flag its first query there; decode mode's rescue
+    launches K4, and every copy comes back."""
+    monkeypatch.setattr(tsc, "_DECODE_SEG", 1 << 16)
+    rng = np.random.default_rng(5)
+    n, m, nq = 4 * (1 << 16) + 30_000, 7, 64
+    C = rng.integers(-2, 3, (m, H, D)).astype(np.float32)
+    ncb = rng.integers(0, 500, H).astype(np.float32)
+    B = rng.integers(0, H, (n, m)).astype(np.int32)
+    nco = rng.integers(0, H, n).astype(np.int32)
+    copies = [2 * (1 << 16) + t * 128 for t in range(16)]
+    B[copies], nco[copies] = B[0], nco[0]
+    Q = rng.integers(-3, 4, (nq, D)).astype(np.float32)
+    Q[0] = C[np.arange(m), B[0]].sum(0)
+    out = []
+    for device in ("cpu", dev):
+        t = lambda a: torch.as_tensor(a, device=device)
+        idx = tsc.build_codes_index(t(C), t(B), d=D, norms_cbook=t(ncb),
+                                    norms_codes=t(nco))
+        res = []
+        for k in (100, 1000):
+            k4 = tsc.codes_decode_topk.launches
+            res.append(tsc.search_codes(idx, t(Q), k, mode=mode,
+                                        op_dtype=torch.bfloat16))
+            assert len(idx._segments) == 5
+            if device != "cpu" and mode == "decode" and k == 100:
+                assert tsc.codes_decode_topk.launches > k4
+        out.append(res)
+    for a, b in zip(*out):
+        _same_up_to_ties(a, b)
+    assert set(copies) <= set(out[1][0][1][0].tolist())
+
+
+def test_decoded_index_holds_its_base_once_on_the_card(dev):
+    """`build_index` over 2e6 codes: `decode_base` writes each chunk into
+    one bf16 buffer, which the index keeps (d = 128 needs no padding),
+    so the build allocates the base once and a chunk's temporaries, not
+    the chunks and their concatenation."""
+    rng = np.random.default_rng(6)
+    n, m = 2_000_000, 7
+    C = torch.as_tensor(rng.standard_normal((m, H, D)).astype(np.float32),
+                        device=dev)
+    B = torch.as_tensor(rng.integers(0, H, (n, m)).astype(np.int32),
+                        device=dev)
+    nt = torch.rand(n, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    idx = tsp.build_index(C, B, d=D, norm_term=nt, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    base = idx.Xd.numel() * idx.Xd.element_size()
+    assert idx.Xd.dtype == torch.bfloat16 and idx.Xd.shape == (n, D)
+    assert extra < 1.5 * base, (extra, base)
+    ref = sum(C[j][B[:200, j].long()] for j in range(m))
+    assert torch.equal(idx.Xd[:200], ref.to(torch.bfloat16))
