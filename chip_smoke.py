@@ -415,7 +415,19 @@ K14 and the pair merge: in (a) set to 0 just before each mesh= call and
 read right after it, in (b) each spawned rank's counts, every one of
 these kernels on each rank; the single-device references beside them
 are counted and printed apart; in phase 13 K1-K5 and K8, set to 0 just
-before each search and read just after it, summed over its searches.
+before each search and read just after it, summed over its searches
+(and in its step 5, the exact-float searches over 2e7 rows, K6, K7,
+K9, K10 and the pair merge, set to 0 before each); in phase 5m (the
+decoded search's key modes over phase 5's bf16 and phase 6's f32 index:
+score16, qbias and every pre-min the plan's tile admits, at k = 100 and
+1000) K8, K2 and K3 set to 0 just before each search and read just after
+it, K8's counter of the mode holding each of its launches (the pre-min's
+in-scan rescue re-runs K8 at premin = 0), then the mode instances
+against the plain version (integer data at d = 128 and dp = 384, bit
+for bit; Gaussian within a step), score16 and qbias against the exact
+top-k of their own scores, the pre-min searches against the default
+search, score16 past 15 row-id bits as the default mode, and each
+instance's time beside the default mode's.
 After that read, K11 is held against its plain version once more at the
 base-encode shape (the whole 1e6 base, the SR-D codebooks, the greedy
 codes, icmiter 4), as in phase 1b on Gaussian data; after phase 7's,
@@ -427,7 +439,8 @@ flag counts and the profiler pass run after those reads. The line before
 the last is a JSON summary of the kernels (launches from the phase
 named beside them, and phase 10's apart; the f32 instances of K1, K14
 and K8 as entries of their own, their launches phase 4f's and the
-packed search's of phase 6);
+packed search's of phase 6; K8's qbias, score16 and pre-min instances
+on both bodies as entries of their own, their launches phase 5m's);
 each entry also carries its launches in phase 11 and in phase 12; the
 last line is the device record.
 """
@@ -703,11 +716,11 @@ class Phase1:
                      f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
 
 
-def plain_topk(outp, r, k, idbits):
+def plain_topk(outp, r, k, idbits, score16=False):
     """The top-k of a key buffer by the plain cross-lane merge, with the
     flags (`profile_scan_tail.plain_topk`)."""
     from rayuela_tpu_torch.demos.profile_scan_tail import plain_topk as pt
-    return pt(outp, r, k, idbits)
+    return pt(outp, r, k, idbits, score16)
 
 
 def row_scores(Qm, X, x2):
@@ -3082,6 +3095,343 @@ def phase6_deep_checks(errs, times, Xq, index, index4, res):
     torch.cuda.empty_cache()
 
 
+# the decoded search's key modes (phase 5m): the pre-min the kernel times
+# take (the JAX package's plan value for its small-k class), the searches
+# timed beside the default mode, and the K8 counters of each mode
+PM_TIMED = 2
+MODES_TIMED = ("default", "score16", "qbias", "premin=1", "premin=2")
+MODE_COUNTERS = ("launches", "launches_f32", "launches_qbias",
+                 "launches_score16", "launches_premin")
+
+
+def admitted_premins(k):
+    """Every pre-min the JAX validation admits at the plan of ``k``:
+    ``(tile / 128) >> p >= keep``."""
+    from rayuela_tpu_torch.search import scan as tsp
+    _, keep, tile = tsp._scan_config(k)
+    return list(range(1, (tile // 128 // keep).bit_length()))
+
+
+def mode_counts(zero=False):
+    """K8's launch counters (each mode's beside the total); ``zero``
+    sets them to 0 first."""
+    from rayuela_tpu_torch.search import scan as tsp
+    if zero:
+        for a in MODE_COUNTERS:
+            setattr(tsp.scan_candidates, a, 0)
+    return {a: getattr(tsp.scan_candidates, a) for a in MODE_COUNTERS}
+
+
+def search_modes(k):
+    """``(name, search keywords)`` of phase 5m at ``k``."""
+    return ([("default", {}), ("score16", {"score16": True}),
+             ("qbias", {"qbias": True})]
+            + [(f"premin={p}", {"premin": p}) for p in admitted_premins(k)])
+
+
+def phase5m(card, Xq, indexes, wrappers, zero):
+    """The decoded search's key modes through the facade over phase 5's
+    bf16 and phase 6's f32 decoded index (``indexes``: body → index), at
+    k = 100 and 1000: score16, qbias and every pre-min the plan's tile
+    admits, each search once with the launch counts set to 0 just before
+    it and read just after it (K8's counter of the mode must count each
+    of its launches: the pre-min's in-scan rescue re-runs K8 at premin =
+    0), then the default mode and the timed modes' queries/s (median of
+    3 warm calls) → ``(results, {body: {counter: launches}})``."""
+    import numpy as np
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+
+    res, by_body = {}, {}
+    for body, index in indexes.items():
+        print(f"== phase 5m: the decoded search's key modes, {body} decoded "
+              f"index, SR-D-7+1, {N} base, {NQ} queries ({card})")
+        tot = dict.fromkeys(MODE_COUNTERS, 0)
+        for k in (100, 1000):
+            for name, kw in search_modes(k):
+                zero()
+                mode_counts(zero=True)
+                out = rq.search(index, Xq, k=k, **kw)
+                torch.cuda.synchronize()
+                path = {n: wrappers[n].launches for n in
+                        ("scan_candidates", "cand_merge", "tail_merge")}
+                mc = mode_counts()
+                check_search(*out, k)
+                check(all(path.values()), f"{body} {name} k={k}: a kernel "
+                      f"of the path never launched: {path}")
+                n8 = mc["launches"]
+                check(mc["launches_f32"] == (n8 if body == "f32" else 0),
+                      f"{body} {name} k={k}: K8 ran on the other body")
+                for mode in ("qbias", "score16"):
+                    want = n8 if mode in kw else 0
+                    check(mc[f"launches_{mode}"] == want and n8 > 0,
+                          f"{body} {name} k={k}: {mc}")
+                check(bool(mc["launches_premin"]) == ("premin" in kw),
+                      f"{body} {name} k={k}: {mc}")
+                for a in MODE_COUNTERS:
+                    tot[a] += mc[a]
+                line = (f"  {name} k={k}: K8 launches {mc}, "
+                        f"K2 {path['cand_merge']}, K3 {path['tail_merge']}")
+                if name in MODES_TIMED:
+                    walls = warm_walls(lambda: rq.search(index, Xq, k=k,
+                                                         **kw))
+                    line += (f"; {NQ / float(np.median(walls)):,.0f} "
+                             f"queries/s (median of "
+                             f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}"
+                             f" ms)")
+                print(line)
+                res[(body, k, name)] = out
+        by_body[body] = tot
+        print(f"  {body} phase-5m K8 launches: {tot}")
+    return res, by_body
+
+
+def mode_scores(Q, si, mode):
+    """The scores a mode's search ranks by, on the first queries ``Q``
+    (f32, the index's width) of a decoded index ``si``, by the plain
+    version's f32 matmul on the kernels' operands → ``(nq, n)``: score16
+    the scores rounded to bfloat16, qbias ``max(s + |q|^2, +0.0)``, else
+    the raw scores (without |q|^2)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    n, nq = si.Xd.shape[0], Q.shape[0]
+    Qm = tsp._query_operand(Q, si.Xd.shape[1], si.Xd.dtype)
+    q2 = (Q * Q).sum(-1) if mode == "qbias" else None
+    S = tsp._decoded_scores_fn(Qm, si.Xd, si.x2, n, q2)(0, 0, nq).T
+    if mode == "score16":
+        S = S.to(torch.bfloat16).float()
+    return S.contiguous()
+
+
+def mode_contract(tag, got, ref, step, atol):
+    """A search's ``(values, ids)`` against the exact top-k of its mode's
+    scores ``(values, ids)`` on the same queries: each value within
+    ``step`` (relative) of the reference's at its position + ``atol``
+    (per query), >= 99% of the ids shared → the share of ids shared."""
+    import torch
+    (gv, gi), (rv, ri) = got, ref
+    tol = step * torch.maximum(gv.abs(), rv.abs()) + atol
+    worst = float(((gv - rv).abs() - tol).max())
+    bs = ri.long().sort(1).values
+    gl = gi.long().contiguous()
+    pos = torch.searchsorted(bs, gl).clamp(max=bs.shape[1] - 1)
+    hits = float((bs.gather(1, pos) == gl).float().mean())
+    print(f"  {tag}: ids shared {hits:.6f}, equal by position "
+          f"{float((gl == ri.long()).float().mean()):.6f}; every value within "
+          f"a step of the exact top-k's: {worst <= 0}")
+    check(worst <= 0, f"{tag}: a value lies {worst:.3g} beyond a step")
+    check(hits >= 0.99, f"{tag}: only {hits:.6f} of ids shared")
+    return hits
+
+
+def modes_kernels_vs_plain(rng, errs):
+    """K8's mode instances against the plain version on both bodies:
+    bit for bit on small-integer data at d = 128 and at dp = 384 (three
+    d-blocks of the bf16 body, six stages of the f32 one); within one
+    truncation step (a bf16 step under score16) on Gaussian data through
+    K2 and K3."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+
+    n, nq, tile, keep, r, k = 100_001, 300, 8192, 2, 16, 100
+    idbits = tsp._pack_idbits(-(-n // tile) * tile)
+    modes = {"qbias": {"qbias": True}, "score16": {"score16": True},
+             "premin": {"premin": PM_TIMED}}
+    for kind, widths in (("int", (128, 384)), ("gauss", (128,))):
+        for d in widths:
+            if kind == "int":
+                X = rng.integers(-3, 4, (n, d)).astype("float32")
+                Q = rng.integers(-3, 4, (nq, d)).astype("float32")
+            else:
+                X = rng.standard_normal((n, d)).astype("float32")
+                Q = rng.standard_normal((nq, d)).astype("float32")
+            Xt = torch.as_tensor(X, device=DEV)
+            Qt = torch.as_tensor(Q, device=DEV)
+            for body, dt in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32)):
+                Xd = Xt.to(dt)
+                x2 = (Xd.float() ** 2).sum(-1)
+                Qm = tsp._query_operand(Qt, d, dt)
+                for mode, mkw in modes.items():
+                    name = "scan_candidates " + mode + (
+                        " f32" if body == "f32" else "")
+                    tag = f"K8 {mode} {body} {kind} d={d}"
+                    kw = dict(tile=tile, keep=keep, idbits=idbits,
+                              premin=mkw.get("premin", 0),
+                              score16=mkw.get("score16", False),
+                              q2=(Qt * Qt).sum(-1) if "qbias" in mkw
+                              else None)
+                    if kind == "int":
+                        got = tsp.scan_candidates(Qm, Xd, x2, **kw)
+                        ref = tsp.scan_candidates_plain(Qm, Xd, x2, **kw)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, ref))
+                        print(f"  {tag}: identical (cand, disc): {same}")
+                        check(same, f"{tag}: kernel != plain")
+                        note(errs, name, int_err(*zip(got, ref)))
+                        continue
+                    got = tsp.scan_topk_packed(Qt, Xd, x2, k=k, r=r,
+                                               tile=tile, keep=keep, **mkw)
+                    o0 = tsp.cand_merge_plain(*tsp.scan_candidates_plain(
+                        Qm, Xd, x2, **kw), r)
+                    v0, i0, f0 = tsp._packed_candidates(
+                        o0, nq, r, k, idbits, "score16" in mkw)
+                    ref = (v0, i0, (o0[r] < f0[None, :]).any(0))
+                    note(errs, name, compare_topk(
+                        tag, got, ref, 16 if "score16" in mkw else idbits,
+                        False))
+            del Xt, Xd
+
+
+def phase5m_checks(rng, errs, times, Xq, indexes, res):
+    """After phase 5m's counts were read: the kernels against their plain
+    versions (`modes_kernels_vs_plain`); on the first `NSUB` queries each
+    mode's search against the exact top-k of its own scores (score16:
+    the bf16-rounded scores, one bf16 step; qbias: the clamped
+    distances, one truncation step of them + 1e-5 of |q|^2); the
+    pre-min searches' ids and dists equal to the default search's on
+    every query no exact scan served, and at k = 100 with premin <= 2
+    their ids on every query, the lossy scan's flags, the rescue's slots
+    and what stayed flagged printed; score16 over a base past 15 row-id
+    bits equal to the default mode with no score16 launch; each mode's
+    K8 at the k = 1000 plan over all `NQ` queries, held through K2 and
+    the plain K3 to its plain version by `compare_topk` (score16 at a
+    bf16 step), and its time beside the default mode's, its plain
+    version's, its bound and the library's scan → ``{name: record}``."""
+    import torch
+
+    import rayuela_tpu_torch.api as rq
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.utils import topk_lowest_id
+
+    print("== phase 5m results: kernels against plain, each mode against "
+          "its exact top-k, pre-min against the default, times")
+    modes_kernels_vs_plain(rng, errs)
+    Q = Xq[:NSUB].contiguous()
+    q2 = (Q * Q).sum(-1, keepdim=True)
+    for body, index in indexes.items():
+        si = index.scan_index
+        for mode in ("score16", "qbias"):
+            S = mode_scores(Q, si, mode)
+            for k in (100, 1000):
+                # the queries `exact_rescan` served hold its f32 scores
+                # (of the f32 queries, not the kernels' operands)
+                ok = ~tsp.search_flagged(si.Xd, si.x2, Q, k,
+                                         **{mode: True})[2]
+                rv, ri = topk_lowest_id(S[ok], k)
+                d, i = res[(body, k, mode)]
+                got = d[:NSUB] - (0 if mode == "qbias" else q2)
+                _, _, tile = tsp._scan_config(k)
+                idb = tsp._pack_idbits(-(-N // tile) * tile)
+                step = 2.0 ** -7 if mode == "score16" else 2.0 ** (idb - 23)
+                mode_contract(f"{body} {mode} k={k} vs the exact top-k of "
+                              f"its scores (the {int(ok.sum())} of {NSUB} "
+                              f"queries it did not flag)",
+                              (got[ok], i[:NSUB][ok]), (rv, ri), step,
+                              1e-5 * (q2[ok] + rv.abs()))
+            del S
+        for k in (100, 1000):
+            r, keep, tile = tsp._scan_config(k)
+            d0, i0 = res[(body, k, "default")]
+            fl0 = tsp.search_flagged(si.Xd, si.x2, Xq, k)[2]
+            for p in admitted_premins(k):
+                d, i = res[(body, k, f"premin={p}")]
+                lossy = tsp.scan_topk_packed(Xq, si.Xd, si.x2, k=k, r=r,
+                                             tile=tile, keep=keep,
+                                             premin=p)[2]
+                flp = tsp.search_flagged(si.Xd, si.x2, Xq, k, premin=p)[2]
+                nfl = int(lossy.sum())
+                ok = ~(fl0 | flp)
+                same = bool(torch.equal(i[ok], i0[ok])) and bool(
+                    torch.equal(d[ok], d0[ok]))
+                eq = float((i == i0).float().mean())
+                print(f"  {body} premin={p} k={k}: {nfl} of {NQ} queries "
+                      f"flagged by the lossy scan, {min(nfl, tsp._PREMIN_NR)}"
+                      f" rescue slots used, {int(flp.sum())} left to "
+                      f"exact_rescan (the default search: {int(fl0.sum())});"
+                      f" on the {int(ok.sum())} queries no exact scan "
+                      f"served the ids and dists equal the default "
+                      f"search's: {same}; ids equal by position on all "
+                      f"{NQ}: {eq:.6f}")
+                check(same, f"{body} premin={p} k={k}: the pre-min search "
+                      "differs from the default search")
+                # the small-k class at the JAX plan's pre-min and below:
+                # every lossy flag finds a rescue slot, so the ids are
+                # the default search's on every query
+                if k == 100 and p <= PM_TIMED:
+                    check(nfl <= tsp._PREMIN_NR and eq == 1.0,
+                          f"{body} premin={p} k={k}: ids differ from the "
+                          f"default search's on {1 - eq:.6f} of queries")
+    # score16 past its id bits: a base of more than 2**22 rows (phase 5's
+    # rows five times over), where `search` takes the default mode
+    si = indexes["bf16"].scan_index
+    big = tsp.LinscanIndex(si.Xd.repeat(5, 1), si.x2.repeat(5))
+    Qb = Xq[:1000].contiguous()
+    mode_counts(zero=True)
+    got = tsp.search(big, Qb, 100, score16=True)
+    mc = mode_counts()
+    ref = tsp.search(big, Qb, 100)
+    same = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+    print(f"  score16 over {big.n:,} rows (row ids past 15 bits): equal to "
+          f"the default mode {same}, K8 launches {mc}")
+    check(same and mc["launches_score16"] == 0 and mc["launches"] > 0,
+          "score16 past its id bits did not run as the default mode")
+    del big, got, ref
+    torch.cuda.empty_cache()
+    # each mode's K8 at the main path's batch, the k = 1000 plan
+    r, keep, tile = tsp._scan_config(1000)
+    idb = tsp._pack_idbits(-(-N // tile) * tile)
+    for body, index in indexes.items():
+        si = index.scan_index
+        f32 = body == "f32"
+        Qm = tsp._query_operand(Xq, si.Xd.shape[1], si.Xd.dtype)
+        # the library's f32 scan of the same rows (kernel_times' form)
+        XT, Qlib = si.Xd.float().T.contiguous(), Qm.float()
+        lib_ms, _ = timed(lambda: library_scan(Qlib, XT, si.x2, 1000), 1)
+        del XT, Qlib
+        base = dict(tile=tile, keep=keep, idbits=idb, premin=0)
+        ms0, _ = timed(lambda: tsp.scan_candidates(Qm, si.Xd, si.x2,
+                                                   **base), 2)
+        print(f"  {body} K8 default mode, k=1000 plan, nq={NQ}: {ms0:.3f} ms")
+        if not f32:      # the pairs each mode's keys take from the chain
+            chain = {m: tsp._chain_pairs(Qm, si.Xd, si.x2, **base, **kw)
+                     for m, kw in (("default", {}),
+                                   ("qbias", {"q2": (Xq * Xq).sum(-1)}),
+                                   ("score16", {"score16": True}))}
+            print(f"  bf16 K8 (row, query) pairs keyed by the fmaf chain, "
+                  f"k=1000 plan, of {N * NQ:.3g}: {chain}")
+        for mode, kw in (("qbias", {"q2": (Xq * Xq).sum(-1)}),
+                         ("score16", {"score16": True}),
+                         ("premin", {"premin": PM_TIMED})):
+            kw = dict(base, **kw)
+            ms, out = timed(lambda: tsp.scan_candidates(Qm, si.Xd, si.x2,
+                                                        **kw), 2)
+            pms, ref = timed(lambda: tsp.scan_candidates_plain(
+                Qm, si.Xd, si.x2, **kw), 1, warm=False)
+            eq = min(float((a == b).float().mean())
+                     for a, b in zip(out, ref))
+            name = f"scan_candidates {mode}" + (" f32" if f32 else "")
+            print(f"  {name}: keys equal to the plain version's {eq:.6f}")
+            # held as f32 K8 is at this shape: through K2 (the pre-min's
+            # cut=False, as `search` merges it) and the plain K3
+            pm, s16 = kw["premin"] > 0, kw.get("score16", False)
+            note(errs, name, compare_topk(
+                f"{body} K8 {mode} k=1000 nq={NQ} (+K2+K3) vs plain",
+                plain_topk(tsp.cand_merge(*out, r, cut=not pm), r, 1000,
+                           idb, s16),
+                plain_topk(tsp.cand_merge_plain(*ref, r), r, 1000, idb, s16),
+                16 if s16 else idb, False))
+            record(times, name, ms, pms, 2.0 * N * NQ * D,
+                   "f32 CUDA-core" if f32 else "bf16 tensor-core",
+                   nbytes(Qm, si.Xd, si.x2, *out), lib_ms)
+            del out, ref
+        torch.cuda.empty_cache()
+    return times
+
+
 def base_encode_check(rng, errs, model, Xb):
     """K11 against its plain version at the base-encode shape the main
     path launches it at: one icmiter=4 sweep over the whole base from the
@@ -5282,6 +5632,8 @@ N13B, N13M, N13S, SHARD13, NQ13 = (1_000_000_000, 100_000_000, 200_000_000,
                                    100_000_000, 1000)
 # queries held against the oracles at 1e9 and at each 1e8 search
 ORACLE13B, ORACLE13M = 32, 64
+# the exact-float searches past 2**23 rows: rows of step 2's base, queries
+N13F, NQ13F = 20_000_000, 1000
 # the segment of the 1e9 base whose lane 0 holds 16 copies of the first
 # query's code: the (query, segment) pair the certificate must flag
 FLAG13 = 5
@@ -5829,6 +6181,115 @@ def phase13_decoded(card, srd_index, index, Q, planted, wrappers, zero):
     return out
 
 
+def phase13_f32(card, index, Q, wrappers, zero):
+    """Step 5: the exact-float scans past 2**23 rows, unsegmented (their
+    ids are 32 bits wide): `search_codes(mode="lut", pack=False)` over
+    the first `N13F` of step 2's codes (f32 tables: K6 → pair merge →
+    K7) and `search(pack=False)` over the same rows decoded into an f32
+    decoded index (K9 → pair merge → K10), `NQ13F` queries, k = 100,
+    each held by (score, id) to its exact scan (`_lut_scan_tiled`,
+    `exact_rescan`): the LUT search's table sums are the oracle's bit
+    for bit, the decoded search's fmaf chains sum in another order than
+    the exact scan's matmul (PERF.md §2's f32 rule); then the decoded
+    rows, overwritten by small integers and searched by integer queries,
+    where every score is exact, equal to `exact_rescan` by (score, id)."""
+    import torch
+
+    from rayuela_tpu_torch.search import scan as tsp
+    from rayuela_tpu_torch.search import scan_codes as tsc
+    from rayuela_tpu_torch.search.linscan import exact_rescan
+
+    n, k = N13F, 100
+    Qf = Q[:NQ13F].contiguous()
+    q2 = (Qf * Qf).sum(-1, keepdim=True)
+    sub = tsc.CodesIndex(index.packed[:n], 8, index.C, pq=False, d=D,
+                         norms_cbook=index.norms_cbook)
+    print(f"== phase 13 (5): pack=False over {n:,} rows (past 2**23, one "
+          f"unsegmented call each), {NQ13F} queries, k={k} ({card})")
+    out = {}
+    path = ("codes_lut_f32_candidates", "pair_merge", "codes_verify_counts")
+    zero()
+    t0 = time.perf_counter()
+    got = tsc.search_codes(sub, Qf, k, mode="lut", pack=False,
+                           op_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {p: wrappers[p].launches for p in path}
+    print(f"  LUT pack=False over {n * 8 / 1e6:.0f} MB of codes: {wall:.2f} s "
+          f"(the first call); launches {launches}")
+    check(all(launches.values()), f"LUT pack=False at {n}: a kernel of the "
+          f"path never launched: {launches}")
+    shape13("LUT pack=False 2e7", got, NQ13F, k, n)
+    t0 = time.perf_counter()
+    rs, ri = tsc._lut_scan_tiled(sub, Qf, k, D, torch.float32)
+    same = bool(torch.equal(got[1], ri.int())) and bool(
+        torch.equal(got[0], rs + q2))
+    print(f"  LUT pack=False == `_lut_scan_tiled` by (score, id) on all "
+          f"{NQ13F} queries: {same} (oracle {time.perf_counter() - t0:.1f}"
+          f" s)")
+    check(same, f"LUT pack=False at {n} rows != its exact scan")
+    out["lut"] = launches
+    del got, rs, ri
+    # the same rows decoded in f32: 10.24 GB
+    t0 = time.perf_counter()
+    ncb = index.norms_cbook
+    B = torch.empty((n, 7), dtype=torch.int32, device=DEV)
+    nt = torch.empty(n, dtype=torch.float32, device=DEV)
+    for a in range(0, n, 1 << 22):
+        codes = tsc.unpack_codes(sub.packed[a:a + (1 << 22)], 8)
+        B[a:a + (1 << 22)] = codes[:, :7]
+        nt[a:a + (1 << 22)] = ncb[codes[:, 7].long()]
+    del codes
+    dindex = tsp.build_index(index.C, B, pq=False, d=D, norm_term=nt,
+                             dtype=torch.float32)
+    del B, nt
+    torch.cuda.synchronize()
+    print(f"  f32 decoded index of {n:,} rows "
+          f"({nbytes(dindex.Xd) / 1e9:.2f} GB) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = ("scan_f32_candidates", "pair_merge", "verify_counts")
+    zero()
+    t0 = time.perf_counter()
+    got = tsp.search(dindex, Qf, k, pack=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {p: wrappers[p].launches for p in path}
+    print(f"  decoded pack=False: {wall:.2f} s (the first call); launches "
+          f"{launches}")
+    check(all(launches.values()), f"decoded pack=False at {n}: a kernel of "
+          f"the path never launched: {launches}")
+    shape13("decoded pack=False 2e7", got, NQ13F, k, n)
+    t0 = time.perf_counter()
+    ref = exact_rescan(Qf, dindex.Xd, dindex.x2, k)
+    Qm = tsp._query_operand(Qf, dindex.Xd.shape[1], torch.float32)
+    zf = torch.zeros(NQ13F, dtype=torch.bool, device=DEV)
+    compare_f32(f"decoded pack=False at {n:,} rows vs exact_rescan "
+                f"(oracle {time.perf_counter() - t0:.1f} s)",
+                (got[0] - q2, got[1], zf), (ref[0] - q2, ref[1], zf),
+                False, row_scores(Qm, dindex.Xd, dindex.x2))
+    # the same 2e7 rows overwritten in place by small integers, with
+    # integer queries: every score exact, so the search is exact_rescan's
+    # by (score, id) on every query
+    del got, ref
+    g = torch.Generator(device=DEV).manual_seed(N13F)
+    dindex.Xd.random_(-3, 4, generator=g)
+    for a in range(0, n, 1 << 22):
+        xa = dindex.Xd[a:a + (1 << 22)]
+        dindex.x2[a:a + (1 << 22)] = (xa * xa).sum(-1)
+    Qi = torch.randint(-3, 4, Qf.shape, generator=g, device=DEV).float()
+    got = tsp.search(dindex, Qi, k, pack=False)
+    ref = exact_rescan(Qi, dindex.Xd, dindex.x2, k)
+    same = bool(torch.equal(got[1].long(), ref[1].long())
+                and torch.equal(got[0], ref[0]))
+    print(f"  decoded pack=False at {n:,} rows of small integers: ids and "
+          f"dists identical to exact_rescan on all {NQ13F} queries: {same}")
+    check(same, f"decoded pack=False at {n} integer rows != exact_rescan")
+    out["decoded"] = launches
+    del dindex, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def merged_equal13(tag, got, ref, skip):
     """Two searches of the same rows in other segments and shards: on
     every query neither flagged (``skip``) the dists equal by position
@@ -5931,6 +6392,8 @@ def phase13(seed, card, p13, wrappers, zero):
         seed, card, p13["srd"], p13["Xq"], wrappers, zero)
     out["decoded"] = phase13_decoded(card, p13["srd"], index, Q, planted,
                                      wrappers, zero)
+    torch.cuda.empty_cache()
+    out["f32"] = phase13_f32(card, index, Q, wrappers, zero)
     del index
     torch.cuda.empty_cache()
     out["streamed"] = phase13_streamed(seed, card, p13["pq"].scan_index,
@@ -6267,7 +6730,13 @@ def main() -> int:
                     served["sr_d"], wrappers, zero)
         run("phase 6 deep checks", phase6_deep_checks, errs, times, Xq,
             index6, served["sr_d"], res6d)
-        del res6, index6, res6d
+        # the key modes over phase 5's bf16 and phase 6's f32 index
+        bodies = {"bf16": index5, "f32": index6}
+        res5m, launches5m = run("phase 5m", phase5m, smi, Xq, bodies,
+                                wrappers, zero)
+        run("phase 5m checks", phase5m_checks, rng, errs, times, Xq, bodies,
+            res5m)
+        del res6, index6, res6d, res5m, bodies
         run("phase 7 checks", phase7_checks, Xq, Xb, served["sr_d"], res7)
         del res7, Xb
         deep += run("plan sweep", deep_merges, plan_sweep, index5,
@@ -6420,7 +6889,17 @@ def main() -> int:
          "launches_phase11": launches11[n],
          "launches_phase12": launches12[n],
          "wide": wide_by.get(n, {})}
-        for n in wrappers] + f32}))
+        for n in wrappers] + f32 + [
+        {"name": f"scan_candidates ({mode}"
+                 f"{', f32 operands' if body == 'f32' else ''})",
+         "route": "cuda", "source": "rayuela_tpu_torch/csrc/decoded_modes.cu",
+         "replaces": REPLACES["scan_candidates"],
+         "launches": launches5m[body][f"launches_{mode}"],
+         "launches_in": "phase 5m", "max_abs_err": errs[key],
+         **times[key]}
+        for body in ("bf16", "f32") for mode in ("qbias", "score16", "premin")
+        for key in [f"scan_candidates {mode}"
+                    + (" f32" if body == "f32" else "")]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -362,6 +362,55 @@ __device__ __forceinline__ void margin_keys(float s, float slack, int rid,
   hi = row_key(pad ? s : s + slack, rid, vmask);
 }
 
+// K8's key modes (scan_pallas.py::_row_key(nonneg=True) under qbias,
+// ::_row_key16 under score16), numbered as scan.py numbers them.
+constexpr int K8_PLAIN = 0, K8_QBIAS = 1, K8_SCORE16 = 2;
+
+// The key of score s (x2 added; +inf for a pad row) of row id rid in mode
+// M: PLAIN `row_key`; QBIAS the score plus the query's |q|^2 (q2), clamped
+// at +0.0, whose bits are then their own sortable form; SCORE16 the score
+// rounded to bf16 (to nearest even), its 16 bits sign-fixed and shifted
+// above the idbits (<= 15) of the row id. Each is a non-decreasing
+// function of s (the rounding of s + q2 and to bf16 are monotone), so the
+// keys of s - slack and s + slack bound the key of every score between
+// them: `margin_keys` holds in every mode (`margin_keys_mode`), only the
+// share of pairs whose bounds differ changes (fewer under SCORE16, whose
+// steps are 2^8 relative; more under QBIAS where s + q2 lies near 0).
+template <int M>
+__device__ __forceinline__ int mode_key(float s, float q2, int rid,
+                                        int idbits, int vmask) {
+  if constexpr (M == K8_QBIAS) {
+    const float v = __fadd_rn(s, q2);
+    return (__float_as_int(v > 0.f ? v : 0.f) & vmask) | rid;
+  } else if constexpr (M == K8_SCORE16) {
+    const int b = (int)(short)__bfloat16_as_ushort(__float2bfloat16_rn(s));
+    return (int)((unsigned)(b >= 0 ? b : b ^ 0x7FFF) << idbits) | rid;
+  } else {
+    return row_key(s, rid, vmask);
+  }
+}
+
+// `margin_keys` in mode M (q2 and idbits as `mode_key` takes them).
+template <int M>
+__device__ __forceinline__ void margin_keys_mode(float s, float slack,
+                                                 float q2, int rid,
+                                                 int idbits, int vmask,
+                                                 int& lo, int& hi) {
+  const bool pad = __float_as_int(s) == 0x7F800000;
+  lo = mode_key<M>(pad ? s : s - slack, q2, rid, idbits, vmask);
+  hi = mode_key<M>(pad ? s : s + slack, q2, rid, idbits, vmask);
+}
+
+// The pre-min of K8 (scan_pallas.py::_premin): key x of a window of
+// consecutive row ids folds into the window's running minimum win
+// (INT_MAX at the window's start), the larger of the two into rest. Over
+// a window that leaves win its minimum and rest the minimum of its other
+// keys, in any order of the keys.
+__device__ __forceinline__ void window_fold(int& win, int& rest, int x) {
+  rest = min(rest, max(win, x));
+  win = min(win, x);
+}
+
 // A warp's requests for the chain: bit p of `need` asks for pair p of the
 // calling thread. Returns the index of the calling thread's first request
 // in the warp's request arrays (its others follow, in the order of p) and

@@ -42,17 +42,17 @@ N, D, M, H, NQ = 1_000_000, 128, 8, 256, 10_000
 SUBSET = 256
 
 
-def plain_topk(outp, r: int, k: int, idbits: int):
+def plain_topk(outp, r: int, k: int, idbits: int, score16: bool = False):
     """The top-k of a (r + 1, 128, nq) key buffer by the plain cross-lane
     merge → (truncated scores, ids, flagged): `scan._finish` with the
-    plain version of K3."""
+    plain version of K3 (``score16``: the keys are `scan._row_key16`'s)."""
     rpad = 1 << max(0, (r - 1).bit_length())
     cap = min(1 << max(0, (k - 1).bit_length()), rpad * scan.LANES)
     keys, lanes = scan.tail_merge_plain(outp[:r].contiguous(), cap)
     sk = keys[:, :k]
     ids = (sk & ((1 << idbits) - 1)) * scan.LANES + lanes[:, :k]
     flagged = (outp[r] < sk[:, k - 1][None, :]).any(0)
-    return scan._decode_packed_vals(sk, idbits), ids, flagged
+    return scan._decode_packed_vals(sk, idbits, score16), ids, flagged
 
 
 def main(argv=None) -> dict:

@@ -23,9 +23,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "codes_scan.cu", "decoded_scan.cu", "lut_scan.cu", "topk_tail.cu",
-    "icm.cu", "viterbi.cu", "fusion_probe.cu"))
-HEADERS = (_PKG / "csrc" / "scan_common.cuh",)   # included by the scans
+    "codes_scan.cu", "decoded_scan.cu", "decoded_modes.cu", "lut_scan.cu",
+    "topk_tail.cu", "icm.cu", "viterbi.cu", "fusion_probe.cu"))
+HEADERS = tuple(_PKG / "csrc" / f for f in (   # included by the scans
+    "scan_common.cuh", "decoded_rows.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -42,7 +43,7 @@ _SIGNATURES = {
     "rq_codes_decode_onepass": [_P] * 7 + [_I] * 14 + [_P],
     "rq_codes_onepass_layout": [_I] * 5 + [_P],
     "rq_codes_candidates_layout": [_I] * 4 + [_P],
-    "rq_scan_candidates": [_P] * 6 + [_I] * 8 + [_P],
+    "rq_scan_candidates": [_P] * 7 + [_I] * 10 + [_P],
     "rq_scan_candidates_layout": [_I] * 2 + [_P],
     "rq_scan_onepass": [_P] * 5 + [_I] * 9 + [_P],
     "rq_scan_onepass_layout": [_I] * 3 + [_P],

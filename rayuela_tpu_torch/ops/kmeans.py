@@ -221,14 +221,25 @@ def update_centers(X: torch.Tensor, a: torch.Tensor, k: int,
 
 
 def kmeans(gen: torch.Generator, X: torch.Tensor, k: int,
-           iters: int = 25, ranks: Ranks | None = None) -> KMeansResult:
-    """kmeans++ seeding, then ``iters`` Lloyd iterations, then a final
+           iters: int = 25, init: str = "kmeanspp",
+           ranks: Ranks | None = None) -> KMeansResult:
+    """``init`` seeding (``"kmeanspp"``, or ``"random"``: k distinct rows
+    drawn uniformly), then ``iters`` Lloyd iterations, then a final
     assignment against the last centers. With ``ranks``, ``X`` is this
     rank's rows (the assignments are theirs), ``gen`` is seeded the same
     on every rank, and ``X (b, nl, d)`` runs b k-means at once, their
-    collectives shared (the result's fields then lead with b)."""
+    collectives shared (the result's fields then lead with b); it seeds
+    by kmeans++ only."""
     exact_f32()
-    if ranks is None:
+    if init not in ("kmeanspp", "random"):
+        raise ValueError(f"unknown init {init!r}")
+    if init == "random":
+        if ranks is not None:
+            raise ValueError("init='random' seeds from one device's rows: "
+                             "with ranks, kmeans++ only")
+        idx = torch.randperm(X.shape[0], generator=gen, device=X.device)[:k]
+        centers = X.index_select(0, idx)
+    elif ranks is None:
         centers = kmeanspp_init(gen, X, k)
     elif X.dim() == 3:
         centers = kmeanspp_spread(gen, X, k, ranks)

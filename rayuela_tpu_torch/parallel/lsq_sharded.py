@@ -39,6 +39,17 @@ def _solve(mesh: Mesh, X, B, h: int, chunk: int = 1 << 14):
                          1e-4)
 
 
+def replicated_solve_matches(X: torch.Tensor, B: torch.Tensor, h: int,
+                             chunk: int = 1 << 14) -> torch.Tensor:
+    """The single-device codebook solve of ``X`` and its codes ``B`` →
+    ``C (m, h, d)``: the statistics and the ridge solve a mesh's ranks
+    all-reduce and run (`_solve`), on one device, for the equivalence
+    tests of the sharded training."""
+    exact_f32()
+    G, F = codebook_stats(X, B, h, chunk=chunk)
+    return _solve_direct(G, F, h, 1e-4)
+
+
 def _sq_error(mesh: Mesh, X, C, B, n: int) -> torch.Tensor:
     res = X - reconstruct(C, B)
     return _all_reduce(mesh, (res * res).sum()) / n

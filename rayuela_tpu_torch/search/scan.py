@@ -18,8 +18,9 @@ consecutive row ids reduce to their minimum key; if ``keep`` and
 ``(r + 1, 128, nq)`` buffer, and row ``r``, the certificate, is the
 minimum of every key that is not among them (INT32_MAX if none). A
 query whose certificate beats its k-th key may have lost a true top-k
-member and is flagged. The pre-min exists in the plain versions only
-(``premin=0`` on the card: it saved no time there).
+member and is flagged. K8 on the card takes the pre-min (and the JAX
+package's key modes, qbias and score16); the search's plan keeps
+``premin=0``: it saved no time there.
 
 The decoded index is the base decoded once (``Xd (n, d)``, bfloat16 on
 the card, and the norm terms ``x2 (n,)``); a search is K8
@@ -105,19 +106,45 @@ def _unsortable_key(k: torch.Tensor) -> torch.Tensor:
     return bits.contiguous().view(torch.float32)
 
 
-def _decode_packed_vals(skeys: torch.Tensor, idbits: int) -> torch.Tensor:
-    """Packed keys → the truncated f32 scores they were selected by."""
+def _decode_packed_vals(skeys: torch.Tensor, idbits: int,
+                        score16: bool = False) -> torch.Tensor:
+    """Packed keys → the truncated f32 scores they were selected by.
+    score16 keys hold the sign-fixed bf16 bits above the row id
+    (`_row_key16`), the others the sortable form's top ``32 - idbits``
+    bits."""
+    if score16:
+        v = (skeys >> idbits).to(torch.int16)
+        v = torch.where(v >= 0, v, v ^ 0x7FFF)
+        return v.contiguous().view(torch.bfloat16).float()
     return _unsortable_key(skeys & -(1 << idbits))
 
 
-def _row_key(s: torch.Tensor, t: int, *, rows: int,
-             idbits: int) -> torch.Tensor:
+def _rids(rows: int, t: int, device) -> torch.Tensor:
+    return (torch.arange(rows, dtype=torch.int32, device=device)
+            + t * rows).view(rows, 1, 1)
+
+
+def _row_key(s: torch.Tensor, t: int, *, rows: int, idbits: int,
+             nonneg: bool = False) -> torch.Tensor:
     """Keys of a ``(rows * 128, nq)`` f32 score block that starts at row
-    id ``t * rows`` → ``(rows, 128, nq)`` int32."""
+    id ``t * rows`` → ``(rows, 128, nq)`` int32. ``nonneg`` states that
+    every score is +0.0 or above (the qbias mode), where the plain
+    bitcast is the sortable form."""
     sv = s.reshape(rows, LANES, -1)
-    rid = (torch.arange(rows, dtype=torch.int32, device=s.device)
-           + t * rows).view(rows, 1, 1)
-    return (_sortable_key(sv) & -(1 << idbits)) | rid
+    key = sv.contiguous().view(torch.int32) if nonneg else _sortable_key(sv)
+    return (key & -(1 << idbits)) | _rids(rows, t, s.device)
+
+
+def _row_key16(s: torch.Tensor, t: int, *, rows: int,
+               idbits: int) -> torch.Tensor:
+    """score16 keys of a ``(rows * 128, nq)`` f32 score block: the score
+    rounded to bfloat16 (to nearest even), its 16 bits sign-fixed to the
+    sortable form, shifted left by ``idbits`` above the row id. Signed
+    order is (bf16 score, row id); needs ``idbits <= 15``."""
+    sv = s.reshape(rows, LANES, -1)
+    b = sv.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    k = torch.where(b >= 0, b, b ^ 0x7FFF)
+    return (k << idbits) | _rids(rows, t, s.device)
 
 
 def _tail_shape(r: int, cap: int) -> int:
@@ -230,24 +257,27 @@ tail_merge.launches = 0
 
 
 def _packed_candidates(outp: torch.Tensor, nq: int, r: int, k: int,
-                       idbits: int
+                       idbits: int, score16: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-lane key buffer ``outp (r, 128, nqp)`` → ``(truncated scores
     (nq, k) f32, gids (nq, k) int32, tau (nq,) int32)``, where tau is
-    the k-th key: the boundary the scan's certificate is held against."""
+    the k-th key: the boundary the scan's certificate is held against.
+    ``score16``: the keys are `_row_key16`'s."""
     rpad = 1 << max(0, (r - 1).bit_length())
     cap = min(1 << max(0, (k - 1).bit_length()), rpad * LANES)
     keys, lanes = tail_merge(outp[:r].contiguous(), cap)
     skeys, slanes = keys[:nq, :k], lanes[:nq, :k]
     ids = (skeys & ((1 << idbits) - 1)) * LANES + slanes
-    return _decode_packed_vals(skeys, idbits), ids, skeys[:, k - 1]
+    return (_decode_packed_vals(skeys, idbits, score16), ids,
+            skeys[:, k - 1])
 
 
-def _finish(outp: torch.Tensor, nq: int, r: int, k: int, idbits: int):
+def _finish(outp: torch.Tensor, nq: int, r: int, k: int, idbits: int,
+            score16: bool = False):
     """Per-lane buffer ``outp (r + 1, 128, nq)`` → ``(truncated scores,
     ids, flagged)``: a query is flagged when some lane's certificate
     beats its k-th key."""
-    vals, ids, tau = _packed_candidates(outp, nq, r, k, idbits)
+    vals, ids, tau = _packed_candidates(outp, nq, r, k, idbits, score16)
     flagged = (outp[r] < tau[None, :]).any(0)
     return vals, ids, flagged
 
@@ -528,10 +558,12 @@ def _check_decoded(Qm, Xd, x2, tile: int, premin: int) -> bool:
     return True
 
 
-def _decoded_scores_fn(Qm, Xd, x2, tile: int):
+def _decoded_scores_fn(Qm, Xd, x2, tile: int, q2=None):
     """Scores of a decoded base by tile: ``scores(t, q0, q1)`` is ``Xd
     Qm^T + x2`` in f32 for tile t and the queries [q0, q1), ``(tile,
-    q1 - q0)``, +inf at and past row n."""
+    q1 - q0)``, +inf at and past row n. With ``q2 (nq,)`` (the qbias
+    mode) each query's |q|^2 is added and the sum clamped at +0.0: true
+    squared distances, which f32 rounding can take below zero."""
     exact_f32()
     n = Xd.shape[0]
     Qf = Qm.float()
@@ -542,105 +574,155 @@ def _decoded_scores_fn(Qm, Xd, x2, tile: int):
                        device=Qm.device)
         nv = max(0, min(tile, n - g0))
         S[:nv] = Xd[g0:g0 + nv].float() @ Qf[q0:q1].T + x2[g0:g0 + nv, None]
+        if q2 is not None:
+            S = S + q2[None, q0:q1]
+            S = torch.where(S > 0, S, 0.0)
         return S
     return scores
 
 
-def _keys_fn(scores, tile: int, idbits: int):
+def _keys_fn(scores, tile: int, idbits: int, *, nonneg: bool = False,
+             score16: bool = False):
     """`keys_fn` of the plain packed selections from a tile score
-    function."""
+    function: `_row_key` (``nonneg``: scores of the qbias mode), or
+    `_row_key16` with ``score16``."""
     rows = tile // LANES
+    if score16:
+        return lambda t, q0, q1: _row_key16(scores(t, q0, q1), t, rows=rows,
+                                            idbits=idbits)
     return lambda t, q0, q1: _row_key(scores(t, q0, q1), t, rows=rows,
-                                      idbits=idbits)
+                                      idbits=idbits, nonneg=nonneg)
 
 
-def _decoded_keys_fn(Qm, Xd, x2, tile: int, idbits: int):
-    return _keys_fn(_decoded_scores_fn(Qm, Xd, x2, tile), tile, idbits)
+def _decoded_keys_fn(Qm, Xd, x2, tile: int, idbits: int, q2=None,
+                     score16: bool = False):
+    return _keys_fn(_decoded_scores_fn(Qm, Xd, x2, tile, q2), tile, idbits,
+                    nonneg=q2 is not None, score16=score16)
+
+
+def _check_modes(q2, score16: bool, nq: int, idbits: int, device) -> None:
+    """The key modes of the packed decoded scan: ``q2`` (qbias: f32
+    ``(nq,)`` on the operands' device) and ``score16`` exclude each
+    other, and score16 keys hold the row id in 15 bits at most."""
+    if q2 is not None:
+        if score16:
+            raise ValueError("score16 and qbias are exclusive")
+        if q2.dtype != torch.float32 or q2.shape != (nq,) \
+                or q2.device != device or not q2.is_contiguous():
+            raise ValueError(f"q2 must be a contiguous ({nq},) float32 on "
+                             f"{device}")
+    if score16 and idbits > 15:
+        raise ValueError(f"score16 needs idbits <= 15 (16 value bits + "
+                         f"{idbits} rid bits > 31); segment the base")
 
 
 def scan_candidates_plain(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
-                          idbits: int):
+                          idbits: int, q2=None, score16: bool = False):
     """Plain version of `scan_candidates` (same signature and outputs)."""
     return _candidates_plain(
-        _decoded_keys_fn(Qm, Xd, x2, tile, idbits), Xd.shape[0], Qm.shape[0],
-        Qm.device, tile=tile, keep=keep, premin=premin)
+        _decoded_keys_fn(Qm, Xd, x2, tile, idbits, q2, score16), Xd.shape[0],
+        Qm.shape[0], Qm.device, tile=tile, keep=keep, premin=premin)
+
+
+# K8's key modes as the kernel numbers them (`mode_key`,
+# csrc/scan_common.cuh)
+_MODE_PLAIN, _MODE_QBIAS, _MODE_SCORE16 = 0, 1, 2
 
 
 def scan_candidates(Qm, Xd, x2, *, tile: int, keep: int, premin: int,
-                    idbits: int):
+                    idbits: int, q2=None, score16: bool = False):
     """Kernel K8, pass 1 of the decoded scan. For each tile of ``tile``
     rows and each (lane, query): windows of ``2**premin`` consecutive
-    row ids reduce to their minimum key, then the ``keep`` smallest keys,
-    ascending, and the smallest of the tile's other keys (INT32_MAX when
-    none).
+    row ids reduce to their minimum key (the others go to the
+    certificate), then the ``keep`` smallest keys, ascending, and the
+    smallest of the tile's other keys (INT32_MAX when none).
 
     ``Qm (nq, dp)`` is ``-2 Q`` at the operand dtype, ``Xd (n, dp)`` the
     decoded base at that dtype (dp a multiple of 8 on the card), ``x2
-    (n,)`` f32. Returns ``cand (ntiles*keep, 128, nq)`` and ``disc
-    (ntiles, 128, nq)`` int32. On f32 rows the kernel is K9's body with
-    a packed-key sink (64 queries x 16 lanes a CTA, rows and queries
-    staged 64 dimensions at a time, `_candidates_layout`): each score one
-    fmaf chain in dimension order plus x2. On bf16 rows it scores on the
-    tensor cores (K1's score function, a CTA of 32 queries over 128-row
-    steps staged 128 dimensions at a time); where a row is one d-block
-    (dp <= 256) its keys are the fmaf chain's, as the f32 body's and the
-    plain version's f32 matmul's on data whose sums round alike, beyond
-    that the tensor-core keys. The kernel is compiled without the
-    pre-min (it saved no time on the card): a CUDA tensor with ``premin
-    != 0`` raises. ``launches_f32`` counts the launches on f32 rows
-    beside ``launches``. Source:
+    (n,)`` f32. The key modes of the JAX package's kernel: ``q2 (nq,)``
+    f32 (qbias) adds each query's |q|^2 to its scores and clamps them at
+    +0.0 before the key (`_row_key` with ``nonneg``); ``score16`` keys
+    the score rounded to bfloat16 (`_row_key16`, idbits <= 15). Returns
+    ``cand (ntiles*keep, 128, nq)`` and ``disc (ntiles, 128, nq)``
+    int32. On f32 rows the kernel is K9's body with a packed-key sink
+    (64 queries x 16 lanes a CTA, rows and queries staged 64 dimensions
+    at a time, `_candidates_layout`): each score one fmaf chain in
+    dimension order plus x2. On bf16 rows it scores on the tensor cores
+    (K1's score function, a CTA of 32 queries over 128-row steps staged
+    128 dimensions at a time); where a row is one d-block (dp <= 256)
+    its keys are the fmaf chain's, as the f32 body's and the plain
+    version's f32 matmul's on data whose sums round alike, beyond that
+    the tensor-core keys. Each mode, and the pre-min, is an instance of
+    both bodies. ``launches_f32`` counts the launches on f32 rows,
+    ``launches_qbias`` / ``launches_score16`` / ``launches_premin`` those
+    of each mode, all beside ``launches``. Source:
     ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
     on_card = _check_decoded(Qm, Xd, x2, tile, premin)
     if keep < 1 or keep > (tile // LANES) >> premin:
         raise ValueError(f"1 <= keep={keep} <= (tile/128) >> premin")
+    _check_modes(q2, score16, Qm.shape[0], idbits, Qm.device)
     if not on_card:
         return scan_candidates_plain(Qm, Xd, x2, tile=tile, keep=keep,
-                                     premin=premin, idbits=idbits)
-    if keep not in _KEEPS or premin:
-        raise ValueError(f"keep={keep}, premin={premin}: the kernel takes "
-                         f"keep in {_KEEPS}, premin=0")
+                                     premin=premin, idbits=idbits, q2=q2,
+                                     score16=score16)
+    if keep not in _KEEPS:
+        raise ValueError(f"keep={keep}: the kernel takes keep in {_KEEPS}")
     (n, dp), nq = Xd.shape, Qm.shape[0]
     ntiles, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
     if nq and n:
-        _launch_candidates(Qm, Xd, x2, cand, disc, 0, tile, keep, idbits)
+        _launch_candidates(Qm, Xd, x2, cand, disc, 0, tile, keep, idbits,
+                           q2=q2, score16=score16, premin=premin)
         scan_candidates.launches += 1
         scan_candidates.launches_f32 += Xd.dtype == torch.float32
+        scan_candidates.launches_qbias += q2 is not None
+        scan_candidates.launches_score16 += score16
+        scan_candidates.launches_premin += premin > 0
     return cand, disc
 
 
 scan_candidates.launches = 0
 scan_candidates.launches_f32 = 0
+scan_candidates.launches_qbias = 0
+scan_candidates.launches_score16 = 0
+scan_candidates.launches_premin = 0
 
 
 def _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile: int, keep: int,
-                       idbits: int) -> None:
+                       idbits: int, *, q2=None, score16: bool = False,
+                       premin: int = 0) -> None:
     """K8's launch on checked CUDA operands; ``stats`` (an int32 tensor,
     or 0) gains the pairs the fmaf chain scored (bf16 rows)."""
     (n, dp), nq = Xd.shape, Qm.shape[0]
     bf16 = int(Xd.dtype == torch.bfloat16)
+    mode = (_MODE_QBIAS if q2 is not None else
+            _MODE_SCORE16 if score16 else _MODE_PLAIN)
     if not bf16:
         Qm = _f32_queries(Qm)
     elif Qm.data_ptr() % 16:             # the kernel copies 16 bytes
         Qm = Qm.clone()
-    launch("rq_scan_candidates", Qm, Xd, x2, cand, disc, stats, n, nq, dp,
-           cdiv(n, tile), tile // LANES, keep, idbits, bf16,
-           device=Qm.device)
+    launch("rq_scan_candidates", Qm, Xd, x2, 0 if q2 is None else q2, cand,
+           disc, stats, n, nq, dp, cdiv(n, tile), tile // LANES, keep,
+           idbits, bf16, mode, premin, device=Qm.device)
 
 
-def _chain_pairs(Qm, Xd, x2, *, tile: int, keep: int, idbits: int) -> int:
+def _chain_pairs(Qm, Xd, x2, *, tile: int, keep: int, idbits: int,
+                 q2=None, score16: bool = False, premin: int = 0) -> int:
     """The (row, query) pairs whose key K8 on bf16 rows takes from the fmaf
     chain (where a row is one d-block: pairs whose tensor-core score lies
-    near a key boundary and could enter their buffer). One more launch of
-    the kernel, not counted in ``scan_candidates.launches``."""
-    if not _check_decoded(Qm, Xd, x2, tile, 0) \
+    near a key boundary and could enter their buffer), in the key mode
+    given. One more launch of the kernel, not counted in
+    ``scan_candidates.launches``."""
+    if not _check_decoded(Qm, Xd, x2, tile, premin) \
             or Xd.dtype != torch.bfloat16 or keep not in _KEEPS:
         raise ValueError("the chain's pairs are counted on bf16 CUDA "
                          f"operands at keep in {_KEEPS}")
+    _check_modes(q2, score16, Qm.shape[0], idbits, Qm.device)
     n, nq = Xd.shape[0], Qm.shape[0]
     _, cand, disc = _alloc_candidates(n, nq, tile, keep, Qm.device)
     stats = torch.zeros(1, dtype=torch.int32, device=Qm.device)
     if nq and n:
-        _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile, keep, idbits)
+        _launch_candidates(Qm, Xd, x2, cand, disc, stats, tile, keep, idbits,
+                           q2=q2, score16=score16, premin=premin)
     return int(stats[0])
 
 
@@ -672,15 +754,15 @@ def _candidates_layout(dp: int, bf16: int) -> tuple[int, int, int, int]:
 
 
 def scan_onepass_plain(Qm, Xd, x2, *, tile: int, r: int, premin: int,
-                       idbits: int):
+                       idbits: int, q2=None, score16: bool = False):
     """Plain version of `scan_onepass` (same signature and outputs)."""
     return _onepass_plain(
-        _decoded_keys_fn(Qm, Xd, x2, tile, idbits), Xd.shape[0], Qm.shape[0],
-        Qm.device, tile=tile, r=r, premin=premin)
+        _decoded_keys_fn(Qm, Xd, x2, tile, idbits, q2, score16), Xd.shape[0],
+        Qm.shape[0], Qm.device, tile=tile, r=r, premin=premin)
 
 
 def scan_onepass(Qm, Xd, x2, *, tile: int, r: int, premin: int,
-                 idbits: int):
+                 idbits: int, q2=None, score16: bool = False):
     """Kernel K8 at ``keep=0``: the one-pass decoded scan. Per (lane,
     query) over the whole base (padded to a multiple of ``tile`` rows):
     the ``r`` smallest keys after the pre-min, ascending, then the
@@ -691,14 +773,20 @@ def scan_onepass(Qm, Xd, x2, *, tile: int, r: int, premin: int,
     `_topk_layout`), reads each row once per query block and keeps each
     (lane, query)'s buffer in a thread's registers; where those CTAs do
     not fill the card the row range is split over more and K2 merges the
-    splits. The kernel is compiled for ``r=48`` without the pre-min.
-    Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
-    if not _check_decoded(Qm, Xd, x2, tile, premin):
+    splits. The kernel is compiled for ``r=48`` in the default key mode
+    without the pre-min; the key modes (``q2``, ``score16``, as in
+    `scan_candidates`) and the pre-min have the plain version only
+    (`scan_topk_packed` takes them to `scan_candidates` wherever a tile
+    keeps its keys). Source: ``rayuela_tpu_torch/csrc/decoded_scan.cu``."""
+    on_card = _check_decoded(Qm, Xd, x2, tile, premin)
+    _check_modes(q2, score16, Qm.shape[0], idbits, Qm.device)
+    if not on_card:
         return scan_onepass_plain(Qm, Xd, x2, tile=tile, r=r, premin=premin,
-                                  idbits=idbits)
-    if r != _ONEPASS_R or premin:
+                                  idbits=idbits, q2=q2, score16=score16)
+    if r != _ONEPASS_R or premin or q2 is not None or score16:
         raise ValueError(f"r={r}, premin={premin}: the kernel takes "
-                         f"r={_ONEPASS_R}, premin=0")
+                         f"r={_ONEPASS_R}, premin=0 and the default key "
+                         "mode")
     (n, dp), nq = Xd.shape, Qm.shape[0]
     dev = Qm.device
     if not nq:
@@ -727,17 +815,24 @@ scan_onepass.launches = 0
 
 
 def scan_topk_packed(Q, Xd, x2, *, k: int, r: int = 32, tile: int = _TILE,
-                     keep: int = 4, premin: int = 0):
+                     keep: int = 4, premin: int = 0, qbias: bool = False,
+                     score16: bool = False):
     """Exact-unless-flagged top-k over a decoded base (K8 → K2 → K3) →
-    ``(truncated scores (nq, k) f32 without +|q|^2, ids (nq, k) int32,
-    flagged (nq,) bool)``.
+    ``(truncated scores (nq, k) f32, ids (nq, k) int32, flagged (nq,)
+    bool)``, the counterpart of the JAX package's
+    ``pallas_scan_topk(pack=True)``. The scores are without +|q|^2,
+    but under ``qbias``, whose keys hold it (`scan_candidates`).
 
     ``Xd (n, d)`` f32 or bf16, ``x2 (n,)`` the norm terms, ``Q (nq, d)``.
     ``keep`` is the per-(lane, tile) pre-reduction (0: none, the
     one-pass kernel); ``premin`` the lossy pre-filter: windows of
-    ``2**premin`` consecutive row ids of a lane keep only their minimum
-    (plain version only: CPU tensors). Every loss is caught by the
-    certificate and flags the query."""
+    ``2**premin`` consecutive row ids of a lane keep only their minimum.
+    Every loss is caught by the certificate and flags the query.
+    ``qbias`` and ``score16`` are the key modes of `scan_candidates`.
+    Where ``keep`` cuts nothing (``keep >= (tile/128) >> premin``) a
+    pre-min or a key mode takes the candidates kernel at that keep (the
+    same function as the one-pass form, which the card runs in the
+    default mode only)."""
     n = Xd.shape[0]
     if k > r * LANES:
         raise ValueError(f"k={k} > r*128={r * LANES}")
@@ -755,16 +850,19 @@ def scan_topk_packed(Q, Xd, x2, *, k: int, r: int = 32, tile: int = _TILE,
     if not idbits:
         raise ValueError(f"n={n} exceeds the packed row-id range "
                          f"({_SEG_DECODED} rows per call); segment the base")
-    Qm = _query_operand(Q.to(torch.float32), Xd.shape[1], Xd.dtype)
+    Q = Q.to(torch.float32)
+    Qm = _query_operand(Q, Xd.shape[1], Xd.dtype)
     x2 = x2.to(torch.float32).contiguous()
-    if keep and keep < rows_eff:
+    q2 = (Q * Q).sum(-1).contiguous() if qbias else None
+    modes = dict(q2=q2, score16=score16)
+    if keep and (keep < rows_eff or premin or qbias or score16):
         cand, disc = scan_candidates(Qm, Xd, x2, tile=tile, keep=keep,
-                                     premin=premin, idbits=idbits)
+                                     premin=premin, idbits=idbits, **modes)
         outp = cand_merge(cand, disc, r, cut=not premin)
     else:
         outp = scan_onepass(Qm, Xd, x2, tile=tile, r=r, premin=premin,
-                            idbits=idbits)
-    return _finish(outp, Q.shape[0], r, min(k, n), idbits)
+                            idbits=idbits, **modes)
+    return _finish(outp, Q.shape[0], r, min(k, n), idbits, score16)
 
 
 # ---------------------------------------------------------------------------
@@ -1265,28 +1363,62 @@ def segments_topk(n: int, seg: int, k: int, scan_one):
     return (*best, flagged)
 
 
-def _scan_segments(Q, Xd, x2, *, k: int, r: int, tile: int, keep: int):
+def _scan_segments(Q, Xd, x2, *, k: int, r: int, tile: int, keep: int,
+                   qbias: bool = False):
     """A base beyond the packed row-id range: the scan per
-    `_SEG_DECODED`-row segment with an exact merge on the device."""
+    `_SEG_DECODED`-row segment with an exact merge on the device
+    (``qbias`` passes into every segment: each is a whole scan)."""
     return segments_topk(
         Xd.shape[0], _SEG_DECODED, k,
         lambda st, stop, kseg: scan_topk_packed(
-            Q, Xd[st:stop], x2[st:stop], k=kseg, r=r, tile=tile, keep=keep))
+            Q, Xd[st:stop], x2[st:stop], k=kseg, r=r, tile=tile, keep=keep,
+            qbias=qbias))
+
+
+# query slots of the pre-min scan's kernel rescue (`_premin_rescue`)
+_PREMIN_NR = 256
+
+
+def _premin_rescue(scan, Q, premin: int, nr: int):
+    """The pre-min scan and its kernel rescue, as the JAX package's
+    ``_scan_premin_inline``: the lossy scan ``scan(Q, premin) -> (scores,
+    ids, flagged)`` runs for every query, then up to ``nr`` flagged
+    queries, the first by index (the slots ``lax.top_k`` takes on the
+    flag vector), run again at premin = 0 with the same plan, and their
+    results replace the lossy ones. The flags returned are those of the
+    queries still unproven: past the slots (the lossy result stays), or
+    flagged by the second scan's certificate."""
+    s, i, fl = scan(Q, premin)
+    qidx = torch.nonzero(fl).flatten()[:nr]
+    if qidx.numel():
+        s2, i2, f2 = scan(Q[qidx], 0)
+        s[qidx], i[qidx], fl[qidx] = s2, i2, f2
+    return s, i, fl
 
 
 def search_flagged(Xd, x2, Q, k: int, *, r: int | None = None,
                    tile: int | None = None, keep: int | None = None,
-                   pack: bool | None = None):
-    """`search`'s plan and kernel scan without its rescue → ``(dists
-    (nq, k) f32 with +|q|^2, ids (nq, k) int32, flagged (nq,) bool)``
-    over ``Xd (n, dp)``, ``x2 (n,)``, ``Q (nq, dp)`` f32 on Xd's device,
-    ``k <= n``. Where the plan serves no kernel scan (k beyond its
-    deepest class, or most of a small base) the result is the exact
-    scan's and nothing is flagged."""
+                   pack: bool | None = None, premin: int | None = None,
+                   qbias: bool | None = None, score16: bool | None = None):
+    """`search`'s plan and kernel scan without its exact rescue →
+    ``(dists (nq, k) f32 with +|q|^2, ids (nq, k) int32, flagged (nq,)
+    bool)`` over ``Xd (n, dp)``, ``x2 (n,)``, ``Q (nq, dp)`` f32 on Xd's
+    device, ``k <= n``. Where the plan serves no kernel scan (k beyond
+    its deepest class, or most of a small base) the result is the exact
+    scan's and nothing is flagged. The key modes resolve as in the JAX
+    package's ``search``: ``qbias`` only with the packed scan;
+    ``score16`` drops under qbias and where the padded base's row ids
+    pass 15 bits; the plan's own pre-min is 0 (an explicit ``premin``
+    runs, with the in-scan kernel rescue of `_premin_rescue`); beyond the
+    packed row-id range the base runs in segments, which take qbias and
+    warn of an explicit premin or score16 and drop them."""
     from rayuela_tpu_torch.search.linscan import exact_rescan
 
     n = Xd.shape[0]
     f32 = pack is not None and not pack
+    premin_arg, score16_arg = bool(premin), score16 is True
+    premin = premin or 0
+    qbias = bool(qbias) and not f32
     if f32:
         ar, akeep, atile, kmax = _f32_config(k, Xd.device)
     else:
@@ -1299,27 +1431,60 @@ def search_flagged(Xd, x2, Q, k: int, *, r: int | None = None,
         s, i = exact_rescan(Q, Xd, x2, k)
         return s, i, torch.zeros(Q.shape[0], dtype=torch.bool,
                                  device=Xd.device)
+    if f32 and premin:
+        raise ValueError("premin pre-filter requires pack=True")
     r = ar if r is None else r
     keep = akeep if keep is None else keep
     tile = atile if tile is None else tile
+    score16 = (bool(score16) and not f32 and not qbias
+               and cdiv(n, tile) * tile // LANES <= 1 << 15)
     q2 = (Q * Q).sum(-1, keepdim=True)
+    kw = dict(k=k, r=r, tile=tile, keep=keep)
     if f32:
-        scan = scan_topk_f32
+        def scan(Qs, p):
+            return scan_topk_f32(Qs, Xd, x2, **kw)
         per_query = _f32_bytes_per_query(n, r, tile, keep)
     else:
-        segmented = cdiv(n, tile) * tile > _SEG_DECODED
-        scan = _scan_segments if segmented else scan_topk_packed
         per_query = (cdiv(min(n, _SEG_DECODED), tile) * max(keep, 1)
                      * LANES * 4)
-    parts = [scan(Q[a:b], Xd, x2, k=k, r=r, tile=tile, keep=keep)
-             for a, b in _query_chunks(Q.shape[0], per_query)]
-    s, i, flagged = (torch.cat(p) for p in zip(*parts))
-    return s + q2, i, flagged
+        if cdiv(n, tile) * tile > _SEG_DECODED:
+            if premin_arg or score16_arg:
+                import warnings
+                asked = "/".join(m for m, v in (("premin", premin_arg),
+                                                ("score16", score16_arg))
+                                 if v)
+                warnings.warn(
+                    "segmented decoded scan (n > 8.4M padded rows): "
+                    f"explicitly requested {asked} cannot run on the "
+                    "segmented path and will be ignored (results remain "
+                    "exact)", stacklevel=3)
+            premin = 0
+
+            def scan(Qs, p):
+                return _scan_segments(Qs, Xd, x2, qbias=qbias, **kw)
+        else:
+            def scan(Qs, p):
+                return scan_topk_packed(Qs, Xd, x2, premin=p, qbias=qbias,
+                                        score16=score16, **kw)
+
+    def scan_chunks(Qs, p):
+        parts = [scan(Qs[a:b], p)
+                 for a, b in _query_chunks(Qs.shape[0], per_query)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+
+    if premin:
+        s, i, flagged = _premin_rescue(scan_chunks, Q, premin, _PREMIN_NR)
+    else:
+        s, i, flagged = scan_chunks(Q, 0)
+    return (s if qbias else s + q2), i, flagged
 
 
 def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
            tile: int | None = None, keep: int | None = None,
-           pack: bool | None = None
+           pack: bool | None = None, premin: int | None = None,
+           qbias: bool | None = None, score16: bool | None = None,
+           bq: int | None = None, vmem_mb: int | None = None,
+           interpret: bool = False
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k search over a decoded index → ``(dists (nq, k) f32
     with +|q|^2, ids (nq, k) int32)``: the kernel scan, then
@@ -1333,6 +1498,16 @@ def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
     for (a bfloat16 one is allowed: the scores accumulate in f32 either
     way).
 
+    The packed scan's modes, as the JAX package's (`search_flagged`
+    resolves them): ``score16`` returns the exact top-k of the scores
+    rounded to bfloat16; ``qbias`` adds |q|^2 in the kernel and clamps
+    at +0.0 before the key, so near-zero distances become 0.0 and rank
+    by row id; ``premin`` is the lossy pre-min of `scan_candidates`
+    with its in-scan kernel rescue (`_premin_rescue`). The plan's own
+    pre-min stays 0 (no saving measured on the card). ``bq``,
+    ``vmem_mb`` and ``interpret`` are the TPU kernel's blocking, memory
+    limit and emulation and have no effect here.
+
     ``r``/``tile``/``keep`` default to the plan of the k class
     (`_scan_config`, `_f32_config`). Beyond the plan's deepest k the
     search is `exact_rescan` alone. A query batch whose candidate array
@@ -1344,7 +1519,8 @@ def search(index: LinscanIndex, Q, k: int, *, r: int | None = None,
     Q = torch.nn.functional.pad(Q, (0, Xd.shape[1] - Q.shape[1]))
     k = min(k, index.n)       # never return padded (inf, fake-id) rows
     s, i, flagged = search_flagged(Xd, x2, Q, k, r=r, tile=tile, keep=keep,
-                                   pack=pack)
+                                   pack=pack, premin=premin, qbias=qbias,
+                                   score16=score16)
     if bool(flagged.any()):
         qidx = torch.nonzero(flagged).flatten()
         s[qidx], i[qidx] = exact_rescan(Q[qidx], Xd, x2, k)

@@ -1029,7 +1029,7 @@ def search_codes(index: CodesIndex, Q, k: int, *,
                  r: int | None = None, keep: int | None = None,
                  tile: int | None = None, bq: int | None = None,
                  stage: int | None = None, qsuper: int | None = None,
-                 vmem_mb: int | None = None
+                 vmem_mb: int | None = None, lut_dtype=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k (for the kernel scores) over a packed-code index →
     ``(dists (nq, k) f32 with +|q|^2, ids (nq, k) int32)``.
@@ -1038,7 +1038,9 @@ def search_codes(index: CodesIndex, Q, k: int, *,
     ``mode="lut"`` by summing per-query table entries (K5); flagged
     queries re-run exactly. ``op_dtype`` is the dtype of the kernels'
     operands (decode) or tables (lut): bfloat16 on the card, float32 on
-    the CPU by default. ``pack=None`` (or True) selects by packed keys,
+    the CPU by default; ``lut_dtype``, the JAX package's name for it,
+    sets it as well (the two must agree where both are given).
+    ``pack=None`` (or True) selects by packed keys,
     the exact top-k of the truncated scores; ``mode="lut", pack=False``
     is the exact-float scan (K6, K7): the exact top-k of the f32 table
     sums by (score, id), with no segments (its ids are 32 bits wide). In
@@ -1062,6 +1064,11 @@ def search_codes(index: CodesIndex, Q, k: int, *,
         raise ValueError(f"mode {mode!r}: 'decode' or 'lut'")
     dev = index.packed.device
     Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
+    if lut_dtype is not None:
+        if op_dtype is not None and op_dtype != lut_dtype:
+            raise ValueError(f"lut_dtype={lut_dtype} and op_dtype={op_dtype}"
+                             " name the one operand dtype")
+        op_dtype = lut_dtype
     if op_dtype is None:
         op_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     k = min(k, index.n)

@@ -981,6 +981,111 @@ def test_lut_search_on_the_card_equals_the_cpu_search(dev):
     _same_up_to_ties(out[0], out[1])
 
 
+_K8_MODES = [dict(qbias=True), dict(score16=True), dict(premin=1),
+             dict(premin=2, qbias=True), dict(premin=3, score16=True)]
+
+
+def _mode_kw(Q, mode):
+    """`scan_candidates`' mode arguments for a `_K8_MODES` entry."""
+    q2 = (Q * Q).sum(-1).contiguous() if mode.get("qbias") else None
+    return dict(q2=q2, score16=mode.get("score16", False),
+                premin=mode.get("premin", 0))
+
+
+def _mode_counts():
+    c = tsp.scan_candidates
+    return (c.launches, c.launches_f32, c.launches_qbias,
+            c.launches_score16, c.launches_premin)
+
+
+@pytest.mark.parametrize("mode", _K8_MODES,
+                         ids=lambda m: "-".join(f"{k}{v}" for k, v in
+                                                m.items()))
+@pytest.mark.parametrize("d", [24, 128, 264, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("keep,tile", [(2, 8192), (4, 2048)])
+def test_decoded_scan_modes_equal_plain_on_integer_data(dev, mode, d, dtype,
+                                                        keep, tile):
+    """K8's key modes and pre-min, in both bodies (f32 rows: K9's body
+    with the mode sink; bf16 rows: the tensor-core body, its fmaf chain at
+    one d-block and the tensor-core keys at several), against the plain
+    version: identical int32 buffers on integer data (every score exact),
+    one launch counted for the mode (and for the pre-min)."""
+    n, nq = 20_001, 37
+    idx, Q, Qm = _decoded_case(dev, "int", dtype, n, d, nq)
+    idbits = tsp._pack_idbits(-(-n // tile) * tile)
+    # the deepest pre-min the tile admits at this keep
+    mode = dict(mode, premin=min(mode.get("premin", 0),
+                                 (tile // 128 // keep).bit_length() - 1))
+    kw = dict(tile=tile, keep=keep, idbits=idbits, **_mode_kw(Q, mode))
+    before = _mode_counts()
+    cand, disc = tsp.scan_candidates(Qm, idx.Xd, idx.x2, **kw)
+    torch.cuda.synchronize()
+    after = _mode_counts()
+    assert after[0] == before[0] + 1
+    assert after[1] == before[1] + (dtype == torch.float32)
+    assert after[2] == before[2] + bool(mode.get("qbias"))
+    assert after[3] == before[3] + bool(mode.get("score16"))
+    assert after[4] == before[4] + bool(mode.get("premin"))
+    cand0, disc0 = tsp.scan_candidates_plain(Qm, idx.Xd, idx.x2, **kw)
+    assert torch.equal(cand, cand0) and torch.equal(disc, disc0)
+
+
+@pytest.mark.parametrize("mode", _K8_MODES[:3],
+                         ids=["qbias", "score16", "premin1"])
+@pytest.mark.parametrize("d", [24, 128])
+def test_decoded_scan_modes_bf16_within_one_step(dev, mode, d):
+    """On Gaussian data K8's modes on bf16 rows take the fmaf chain's keys
+    where the tensor-core score lies near a key boundary: the search's
+    result within one truncation step (a bf16 step under score16) of the
+    plain version's, and (qbias, premin) the chain keyed some pairs."""
+    n, nq, k, r, keep, tile = 50_001, 33, 100, 16, 2, 8192
+    idx, Q, Qm = _decoded_case(dev, "gauss", torch.bfloat16, n, d, nq)
+    idbits = tsp._pack_idbits(-(-n // tile) * tile)
+    flags = dict(qbias=bool(mode.get("qbias")),
+                 score16=bool(mode.get("score16")),
+                 premin=mode.get("premin", 0))
+    s, i, _ = tsp.scan_topk_packed(Q, idx.Xd, idx.x2, k=k, r=r, tile=tile,
+                                   keep=keep, **flags)
+    kw = dict(tile=tile, keep=keep, idbits=idbits, **_mode_kw(Q, mode))
+    o0 = tsp.cand_merge_plain(*tsp.scan_candidates_plain(
+        Qm, idx.Xd, idx.x2, **kw), r)
+    v0, i0, _ = tsp._packed_candidates(o0, nq, r, k, idbits,
+                                       flags["score16"])
+    # a bf16 value's step is 2**-7 of it at most: idbits 16 in `_close`
+    _close((s, i), (v0, i0), 16 if flags["score16"] else idbits, atol=2e-5)
+    if not flags["score16"]:
+        assert tsp._chain_pairs(Qm, idx.Xd, idx.x2, **kw) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoded_search_modes_on_the_card_equal_the_cpu(dev, dtype):
+    """`scan.search` with score16, qbias and every premin the plan's tile
+    admits (k = 50: keep 2 at tile 8192, premin 1 to 5) returns the CPU
+    search's result on integer data, planted same-window collisions
+    included (the in-scan rescue, then `exact_rescan`)."""
+    rng = np.random.default_rng(7)
+    n, d, k = 70_000, 32, 50
+    X = rng.integers(-3, 4, (n, d)).astype(np.float32)
+    Q = rng.integers(-3, 4, (12, d)).astype(np.float32)
+    for q in range(6):
+        X[q * 1024 + 7] = Q[q]
+        X[q * 1024 + 135] = Q[q]
+    modes = [dict(score16=True), dict(qbias=True)] + [
+        dict(premin=p) for p in range(1, 6)] + [
+        dict(premin=2, qbias=True), dict(premin=2, score16=True)]
+    for mode in modes:
+        out = []
+        for device in ("cpu", dev):
+            Xt = torch.as_tensor(X, device=device, dtype=dtype)
+            idx = tsp.LinscanIndex(Xt, (Xt.float() ** 2).sum(-1))
+            n8 = tsp.scan_candidates.launches
+            out.append(tsp.search(idx, torch.as_tensor(Q), k, **mode))
+            if device == dev:
+                assert tsp.scan_candidates.launches > n8
+        _same_up_to_ties(out[0], out[1])
+
+
 def test_new_scans_never_fall_back(dev, tmp_path, monkeypatch):
     """Arguments the kernels do not take raise; and where the kernels
     cannot be built (the build directory cannot be made), a call on CUDA
@@ -990,8 +1095,8 @@ def test_new_scans_never_fall_back(dev, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="keep=8"):
         tsp.scan_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=8, premin=0,
                             idbits=8)
-    with pytest.raises(ValueError, match="premin=1"):
-        tsp.scan_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=2, premin=1,
+    with pytest.raises(ValueError, match="premin=7"):
+        tsp.scan_candidates(Qm, idx.Xd, idx.x2, tile=8192, keep=2, premin=7,
                             idbits=8)
     with pytest.raises(ValueError, match="r=16"):
         tsp.scan_onepass(Qm, idx.Xd, idx.x2, tile=2048, r=16, premin=0,

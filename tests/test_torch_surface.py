@@ -3,10 +3,16 @@
 Every public name of the JAX package's subpackages (their ``__all__``)
 is exported by the port's counterpart, or stands in `NOT_YET` beside the
 ROADMAP queue-A item that brings it; no name of `NOT_YET` is exported.
-Importing the package and its subpackages loads neither jax nor the
-CUDA kernels (they build at their first launch)."""
+Every keyword of every public function of a JAX module is a keyword of
+its twin (the function of that name in the port's module of that name,
+`TWIN_MODULES` naming the Pallas modules' counterparts), or stands in
+`KEYWORD_DIFFS` with its reason; a JAX function with no twin of its
+name stands in `NO_TWIN` with its counterpart and the reason. Importing
+the package and its subpackages loads neither jax nor the CUDA kernels
+(they build at their first launch)."""
 
 import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -63,6 +69,143 @@ def test_names_not_yet_ported_stay_unexported(sub):
         assert name not in port.__all__, name
         if sub:
             assert not hasattr(port, name), name
+
+
+# the JAX package's modules whose public functions are held, by their
+# path under `rayuela_tpu`; the port's twin module has the same path but
+# for the Pallas modules (`TWIN_MODULES`)
+JAX_MODULES = [
+    "api", "cli", "utils", "experiments.datasets", "experiments.drivers",
+    "experiments.hpo", "experiments.store", "experiments.viz", "io.native",
+    "io.xvecs", "models.chainq", "models.compq", "models.cq", "models.ervq",
+    "models.lsq", "models.opq", "models.pq", "models.rvq", "models.sr",
+    "ops.codebook_update", "ops.icm", "ops.icm_pallas", "ops.kmeans",
+    "ops.qerror", "ops.viterbi", "ops.viterbi_pallas",
+    "parallel.chainq_sharded", "parallel.launch", "parallel.lsq_sharded",
+    "parallel.mesh", "search.linscan", "search.norms",
+    "search.scan_codes_pallas", "search.scan_pallas"]
+TWIN_MODULES = {"ops.icm_pallas": "ops.icm",
+                "ops.viterbi_pallas": "ops.viterbi",
+                "search.scan_codes_pallas": "search.scan_codes",
+                "search.scan_pallas": "search.scan"}
+# keywords of the JAX package's functions that a twin does not take, and
+# why (a twin that takes ``**kw`` passes every keyword on)
+KEYWORD_DIFFS = {
+    "key": "a jax.random PRNG key: the port draws from a torch.Generator "
+           "(`gen`) or an integer `seed` in its place",
+    "devices": "a list of JAX devices for the mesh: a torch.distributed "
+               "process drives one `device`",
+    "chunk": "the TPU's batch chunking that bounds a traced step's memory "
+             "(HBM / VMEM); the port's loops pick their own chunks",
+    "precision": "the TPU matmul precision (lax.Precision); the port's "
+                 "matmuls run in exact f32 (`utils.exact_f32`)",
+    "interpret": "runs a Pallas kernel in the TPU emulator; on CPU tensors "
+                 "the port's wrappers take their kernels' plain versions",
+}
+# public JAX functions with no twin of their name: (the port's
+# counterpart, the reason)
+NO_TWIN = {
+    "ops.icm_pallas.icm_sweeps_pallas": (
+        "ops.icm.icm_sweeps",
+        "the Pallas entry point of K11; its Hopper kernel's wrapper"),
+    "ops.icm_pallas.encoding_ils_pallas": (
+        "ops.icm.encoding_ils",
+        "the Pallas entry point of K12; its Hopper kernel's wrapper"),
+    "ops.icm_pallas.pallas_icm_available": (
+        "ops.icm.icm_kernel_takes",
+        "whether Mosaic compiles the TPU kernel; the card's routing asks "
+        "the kernel's layout"),
+    "ops.icm_pallas.pallas_icm_supported": (
+        "ops.icm.icm_kernel_takes",
+        "the TPU kernel's shape limits; the card's routing asks the "
+        "kernel's layout"),
+    "ops.viterbi_pallas.viterbi_encode_pallas": (
+        "ops.viterbi.viterbi_encode",
+        "the Pallas entry point of K13; `viterbi_encode(impl=...)` routes "
+        "to its Hopper kernel"),
+    "search.scan_codes_pallas.pallas_scan_codes_decode_topk": (
+        "search.scan_codes.scan_codes_decode_topk",
+        "the Pallas entry point of K4 / K14 (one-pass decode scan)"),
+    "search.scan_codes_pallas.pallas_scan_codes_decode_topk_2p": (
+        "search.scan_codes.scan_codes_decode_topk_2p",
+        "the Pallas entry point of K1 → K2 (two-pass decode scan)"),
+    "search.scan_codes_pallas.pallas_scan_codes_topk": (
+        "search.scan_codes.scan_codes_topk",
+        "the Pallas entry point of K5 / K6 (the LUT scans)"),
+    "search.scan_codes_pallas.xla_lut_scan": (
+        "search.scan_codes.lut_scan",
+        "the XLA LUT oracle; the port's plain LUT scan"),
+    "search.scan_pallas.pallas_scan_topk": (
+        "search.scan.scan_topk_packed",
+        "the Pallas entry point of K8 (``pack=True``; ``pack=False`` is "
+        "`scan_topk_f32`, K9 / K10)"),
+}
+
+
+def _public_functions(mod):
+    for name, obj in vars(mod).items():
+        if (not name.startswith("_") and callable(obj)
+                and not inspect.isclass(obj)
+                and getattr(obj, "__module__", None) == mod.__name__):
+            yield name, obj
+
+
+def _twin_module(path):
+    return importlib.import_module(
+        "rayuela_tpu_torch." + TWIN_MODULES.get(path, path))
+
+
+def _keyword_gaps(path):
+    """``[(function, keyword)]`` of the JAX module ``path`` that its twin
+    does not take, and ``[function]`` without a twin of its name."""
+    jmod = importlib.import_module(f"rayuela_tpu.{path}")
+    tmod = _twin_module(path)
+    gaps, lone = [], []
+    for name, fn in _public_functions(jmod):
+        twin = getattr(tmod, name, None)
+        if twin is None:
+            lone.append(name)
+            continue
+        tp = inspect.signature(twin).parameters
+        if any(p.kind == p.VAR_KEYWORD for p in tp.values()):
+            continue
+        for kw, p in inspect.signature(fn).parameters.items():
+            if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD) or kw in tp:
+                continue
+            gaps.append((name, kw))
+    return gaps, lone
+
+
+@pytest.mark.parametrize("path", JAX_MODULES)
+def test_every_jax_keyword_is_a_twin_keyword_or_documented(path):
+    """Each public function's keywords are its twin's but for those of
+    `KEYWORD_DIFFS`; a function without a twin stands in `NO_TWIN`, its
+    counterpart a callable of the port."""
+    gaps, lone = _keyword_gaps(path)
+    undocumented = [g for g in gaps if g[1] not in KEYWORD_DIFFS]
+    assert not undocumented, undocumented
+    for name in lone:
+        assert f"{path}.{name}" in NO_TWIN, f"{path}.{name} has no twin"
+        where, reason = NO_TWIN[f"{path}.{name}"]
+        mod, fn = where.rsplit(".", 1)
+        assert callable(getattr(
+            importlib.import_module(f"rayuela_tpu_torch.{mod}"), fn))
+        assert reason
+
+
+def test_keyword_differences_are_current():
+    """Every entry of `KEYWORD_DIFFS` and `NO_TWIN` is one that the sweep
+    still finds, and states its reason: a keyword the port comes to take
+    leaves the table."""
+    used, lone = set(), set()
+    for path in JAX_MODULES:
+        gaps, names = _keyword_gaps(path)
+        used |= {kw for _, kw in gaps}
+        lone |= {f"{path}.{n}" for n in names}
+    assert set(KEYWORD_DIFFS) == used
+    assert set(NO_TWIN) == lone
+    assert all(len(r) > 20 for r in KEYWORD_DIFFS.values())
+    assert all(len(r) > 20 for _, r in NO_TWIN.values())
 
 
 def test_exports_are_the_modules_own_objects():
